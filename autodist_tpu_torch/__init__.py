@@ -1,0 +1,20 @@
+"""autodist_tpu_torch: the PyTorch / CUDA port of ``autodist_tpu``.
+
+The JAX package ``autodist_tpu`` is the reference; this package mirrors its
+module paths and public names, and imports neither JAX nor anything of
+``autodist_tpu``. Plain tensor code is PyTorch over nested dicts of tensors
+with the JAX param trees' keys; every Pallas TPU kernel on a ported path is
+a hand-written Hopper kernel under ``csrc/`` with a plain PyTorch version
+beside it (``ops/``).
+
+Ported so far: the serving path. ``serve.Server`` -> ``ServeEngine`` ->
+capture (``graph_item``) -> strategy (``strategy``, AllReduce) -> transform
+(``kernel``) -> placement (``remapper``) -> depth-N prefetch
+(``data.loader``), over the model zoo's transformer encoders
+(``models``) whose attention runs the flash-attention forward kernel
+(``ops.flash_attention``). ``convert`` carries weights across from the JAX
+package. Training comes next (ROADMAP.md).
+
+Entry points take ``device=`` and default to ``"cuda"``; with no CUDA device
+they raise unless the caller asks for ``"cpu"``.
+"""

@@ -1,0 +1,191 @@
+"""GraphItem: the captured program and its per-variable metadata.
+
+Counterpart of ``autodist_tpu/graph_item.py``. The captured function is an
+``apply_fn(params, batch)`` (or a loss) over nested dicts of tensors; the
+metadata strategy builders read is the same: per-variable name (the
+'/'-joined key path), shape, dtype, ``trainable`` and ``sparse_access``.
+
+Sparse-access detection runs ``apply_fn`` once on ``meta`` tensors (shapes
+only: nothing is computed, no kernel launches) under a
+``TorchDispatchMode`` that records which parameter is the table operand of
+``aten.embedding`` / ``aten.index_select`` / advanced indexing — the
+counterpart of the JAX package's scan for ``gather`` on a parameter.
+
+Not ported yet (ROADMAP.md): ``flops_estimate``, ``op_provenance`` and the
+proto round-trip (``graphitem_pb2``).
+"""
+import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from autodist_tpu_torch.utils import logging
+from autodist_tpu_torch.utils.tree import (flatten_with_path, path_to_name,
+                                           tree_map)
+
+__all__ = ["GraphItem", "ShapeDtypeStruct", "TensorSpec", "VariableItem",
+           "path_to_name"]
+
+_GATHER_OPS = (torch.ops.aten.embedding.default,
+               torch.ops.aten.index_select.default,
+               torch.ops.aten.index.Tensor)
+
+
+def _shape(leaf):
+    return tuple(int(s) for s in (leaf.shape if isinstance(leaf, torch.Tensor)
+                                  else np.shape(leaf)))
+
+
+def _np_dtype(leaf):
+    if isinstance(leaf, torch.Tensor):
+        return torch.empty((), dtype=leaf.dtype).numpy().dtype
+    return np.asarray(leaf).dtype
+
+
+def _torch_dtype(np_dtype):
+    return torch.from_numpy(np.empty(0, dtype=np_dtype)).dtype
+
+
+class ShapeDtypeStruct:
+    """Shape and numpy dtype of one example-batch leaf."""
+
+    def __init__(self, shape, dtype):
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)
+
+    def __repr__(self):
+        return f"ShapeDtypeStruct({self.shape}, {self.dtype})"
+
+
+class TensorSpec:
+    """Shape/dtype spec; dim value ``None`` marks the polymorphic batch dim."""
+
+    def __init__(self, shape, dtype, name=""):
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)
+        self.name = name
+
+    def __repr__(self):
+        return f"TensorSpec({self.name}, {self.shape}, {self.dtype})"
+
+
+class VariableItem:
+    """Per-variable metadata consumed by strategy builders."""
+
+    def __init__(self, name, shape, dtype, trainable=True, sparse_access=False):
+        self.name = name
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = dtype  # torch.dtype
+        self.trainable = trainable
+        self.sparse_access = sparse_access
+
+    @property
+    def num_elements(self):
+        return int(np.prod(self.shape, dtype=np.int64)) if self.shape else 1
+
+    @property
+    def size_bytes(self):
+        return self.num_elements * self.dtype.itemsize
+
+    def __repr__(self):
+        return (f"VariableItem({self.name}, {self.shape}, {self.dtype}, "
+                f"sparse={self.sparse_access})")
+
+
+class _GatherRecorder(TorchDispatchMode):
+    def __init__(self, watched):
+        super().__init__()
+        self.watched = watched  # id(tensor) -> variable index
+        self.hits = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in _GATHER_OPS and args and id(args[0]) in self.watched:
+            self.hits.add(self.watched[id(args[0])])
+        return func(*args, **(kwargs or {}))
+
+
+class GraphItem:
+    """Captured program + metadata. Construct via :meth:`capture`."""
+
+    def __init__(self, loss_fn, params, optimizer=None, batch_spec=None,
+                 variables=None, batch_struct=None):
+        self.loss_fn = loss_fn
+        self.params = params
+        self.optimizer = optimizer
+        self.batch_spec = batch_spec
+        self.batch_struct = batch_struct  # ShapeDtypeStruct tree of the example
+        self.variables = variables or []
+
+    @classmethod
+    def capture(cls, loss_fn, params, optimizer=None, example_batch=None,
+                sparse_params=(), non_trainable=()):
+        """Build a GraphItem from a single-device function
+        ``loss_fn(params, batch)``.
+
+        Args:
+            params: nested dict of tensors.
+            example_batch: example batch tree; dim 0 is the batch dimension.
+            sparse_params: name substrings force-marked as sparse-access.
+            non_trainable: name substrings marked non-trainable.
+        """
+        pairs, _ = flatten_with_path(params)
+        variables = []
+        for path, leaf in pairs:
+            name = path_to_name(path)
+            variables.append(VariableItem(
+                name, _shape(leaf), leaf.dtype,
+                trainable=not any(s in name for s in non_trainable)))
+        batch_spec = batch_struct = None
+        if example_batch is not None:
+            bpairs, _ = flatten_with_path(example_batch)
+            batch_spec = [TensorSpec((None,) + _shape(l)[1:] if _shape(l)
+                                     else (), _np_dtype(l), path_to_name(p))
+                          for p, l in bpairs]
+            batch_struct = tree_map(
+                lambda l: ShapeDtypeStruct(_shape(l), _np_dtype(l)),
+                example_batch)
+        item = cls(loss_fn, params, optimizer, batch_spec=batch_spec,
+                   variables=variables, batch_struct=batch_struct)
+        if example_batch is not None:
+            item._detect_sparse_access()
+        for v in item.variables:
+            if any(s in v.name for s in sparse_params):
+                v.sparse_access = True
+        return item
+
+    def _detect_sparse_access(self):
+        """Mark parameters read through a row gather as sparse-access."""
+        pairs, _ = flatten_with_path(self.params)
+        meta_params = [torch.empty(_shape(l), dtype=l.dtype, device="meta")
+                       for _, l in pairs]
+        watched = {id(t): i for i, t in enumerate(meta_params)}
+        it = iter(meta_params)
+        params = tree_map(lambda _: next(it), self.params)
+        batch = tree_map(lambda s: torch.empty(
+            s.shape, dtype=_torch_dtype(s.dtype), device="meta"),
+            self.batch_struct)
+        recorder = _GatherRecorder(watched)
+        try:
+            with torch.no_grad(), recorder:
+                self.loss_fn(params, batch)
+        except Exception as e:  # noqa: BLE001 - detection is best-effort
+            logging.debug("sparse-access detection skipped: %s", e)
+            return
+        for i in sorted(recorder.hits):
+            self.variables[i].sparse_access = True
+            logging.debug("detected sparse access: %s", self.variables[i].name)
+
+    # -- queries -------------------------------------------------------------
+
+    @property
+    def trainable_variables(self):
+        return [v for v in self.variables if v.trainable]
+
+    def var_by_name(self, name):
+        for v in self.variables:
+            if v.name == name:
+                return v
+        raise KeyError(name)
+
+    @property
+    def total_bytes(self):
+        return sum(v.size_bytes for v in self.variables)
