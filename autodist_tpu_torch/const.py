@@ -1,4 +1,4 @@
-"""Mesh-axis names and the typed environment knobs the serving path reads.
+"""Mesh-axis names and the typed environment knobs the port reads.
 
 Counterpart of ``autodist_tpu/const.py``: the same axis names and, for the
 knobs kept here, the same variable names, types and defaults, so one
@@ -28,7 +28,7 @@ class ENV(enum.Enum):
 
     AUTODIST_MIN_LOG_LEVEL = ("AUTODIST_MIN_LOG_LEVEL", str, "INFO")
     AUTODIST_DUMP_GRAPHS = ("AUTODIST_DUMP_GRAPHS", bool, False)  # dump the strategy at each compile stage
-    AUTODIST_STRATEGY = ("AUTODIST_STRATEGY", str, "")  # serving strategy builder by name ("" => AllReduce)
+    AUTODIST_STRATEGY = ("AUTODIST_STRATEGY", str, "")  # strategy builder by name: "allreduce" ("" => AllReduce when serving; AutoDist needs a builder)
     AUTODIST_PREFETCH_DEPTH = ("AUTODIST_PREFETCH_DEPTH", int, 2)  # DevicePrefetcher in-flight transfers (0 => passthrough)
     AUTODIST_SERVE_BUCKETS = ("AUTODIST_SERVE_BUCKETS", str, "")  # "8,32,128" or "8x128,32x128" for (rows, seq)
     AUTODIST_SERVE_MAX_WAIT_MS = ("AUTODIST_SERVE_MAX_WAIT_MS", int, 5)  # continuous-batching coalesce deadline (ms)

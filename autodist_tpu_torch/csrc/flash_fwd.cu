@@ -29,7 +29,9 @@
 //   them in registers (a row is spread over the 4 threads of a quad:
 //   max/sum by two shuffles), and P, rounded to bf16, is fed straight back
 //   as the A operand of P V (the accumulator layout of two n8 tiles is the
-//   A layout of one k16 step). Q, K, V tiles are read with ldmatrix from
+//   A layout of one k16 step). With an f32 output (the training path, whose
+//   backward takes delta = rowsum(do * o) from it) P enters as a pair of
+//   bf16 operands, hi and the residual lo, so o keeps ~16 bits of P. Q, K, V tiles are read with ldmatrix from
 //   rows padded by 16 bytes, so the 8 rows of each 8x8 matrix hit distinct
 //   banks.
 // * f32 inputs (the tiny test configs): plain f32 FMAs, so the products
@@ -41,25 +43,11 @@
 // works.
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int BQ = 64;    // q rows per block
-constexpr int BK = 64;    // keys per tile
-constexpr int NT = 128;   // threads per block
-constexpr float NEG = -1e30f;
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
 
 struct Params {
   const void* q;
@@ -89,69 +77,7 @@ __device__ __forceinline__ int visible_tiles(const Params& p, int q0,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)));
-}
-
-// c += a . b for one 16x8x16 tile: a row-major (4 regs), b column-major
-// (2 regs), c f32 (4 regs).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Stage a 64 x D bf16 tile (rows past ``rows`` zero) into shared memory
-// with row pitch D + 8. ``vec``: 16-byte loads are aligned.
-template <int D>
-__device__ __forceinline__ void load_tile(uint16_t* dst, const uint16_t* src,
-                                          long long row_stride, int rows,
-                                          bool vec) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int e = threadIdx.x; e < BQ * CPR; e += NT) {
-    const int r = e / CPR, c = (e % CPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) {
-      const uint16_t* s = src + r * row_stride + c;
-      if (vec) {
-        val = *reinterpret_cast<const uint4*>(s);
-      } else {
-        __align__(16) uint16_t tmp[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) tmp[j] = s[j];
-        val = *reinterpret_cast<const uint4*>(tmp);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = val;
-  }
-}
+// bf16: tensor cores (mma.sync m16n8k16; helpers in flash_common.cuh)
 
 template <typename TO, int D>
 __global__ void __launch_bounds__(NT) flash_fwd_mma_kernel(Params p) {
@@ -268,13 +194,16 @@ __global__ void __launch_bounds__(NT) flash_fwd_mma_kernel(Params p) {
     }
 
     // O += P V: P's accumulators of n-tiles 2ks, 2ks + 1 are the A
-    // fragment of key step ks; V comes in transposed by ldmatrix.
+    // fragment of key step ks; V comes in transposed by ldmatrix. For an
+    // f32 output P also enters as its bf16 residual (hi + lo, ~16 bits):
+    // the training path's backward takes delta = rowsum(do * o) from that
+    // output, and one rounding of P would show in it.
+    constexpr bool kSplitP = std::is_same<TO, float>::value;
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks) {
-      const uint32_t a[4] = {pack_bf16(s[2 * ks][0], s[2 * ks][1]),
-                             pack_bf16(s[2 * ks][2], s[2 * ks][3]),
-                             pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]),
-                             pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3])};
+      uint32_t a[4], alo[4];
+      acc_to_a(a, s[2 * ks], s[2 * ks + 1]);
+      if constexpr (kSplitP) acc_to_a_lo(alo, s[2 * ks], s[2 * ks + 1]);
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t b[4];
@@ -283,6 +212,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_mma_kernel(Params p) {
                    dp * 16 + (lane >> 4) * 8);
         mma_bf16(acc[2 * dp], a, b[0], b[1]);
         mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+        if constexpr (kSplitP) {
+          mma_bf16(acc[2 * dp], alo, b[0], b[1]);
+          mma_bf16(acc[2 * dp + 1], alo, b[2], b[3]);
+        }
       }
     }
   }
@@ -458,16 +391,6 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(Params p) {
 
 // ---------------------------------------------------------------------------
 // launch
-
-template <typename Kernel>
-cudaError_t launch_kernel(Kernel kernel, int smem, dim3 grid,
-                          cudaStream_t stream, const Params& p) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, NT, smem, stream>>>(p);
-  return cudaGetLastError();
-}
 
 template <typename TO, int D>
 cudaError_t launch_mma(const Params& p, dim3 grid, cudaStream_t stream) {

@@ -11,8 +11,9 @@ only: nothing is computed, no kernel launches) under a
 ``aten.embedding`` / ``aten.index_select`` / advanced indexing — the
 counterpart of the JAX package's scan for ``gather`` on a parameter.
 
-Not ported yet (ROADMAP.md): ``flops_estimate``, ``op_provenance`` and the
-proto round-trip (``graphitem_pb2``).
+Not ported yet (ROADMAP.md): ``flops_estimate``, ``op_provenance``, the
+bf16 precision wrapper (``precision="bf16"``) and the proto round-trip
+(``graphitem_pb2``).
 """
 import numpy as np
 import torch
@@ -107,26 +108,45 @@ class GraphItem:
     """Captured program + metadata. Construct via :meth:`capture`."""
 
     def __init__(self, loss_fn, params, optimizer=None, batch_spec=None,
-                 variables=None, batch_struct=None):
+                 variables=None, batch_struct=None, aux_output=False):
         self.loss_fn = loss_fn
         self.params = params
+        # A factory: list of trainable tensors -> torch.optim.Optimizer.
         self.optimizer = optimizer
         self.batch_spec = batch_spec
         self.batch_struct = batch_struct  # ShapeDtypeStruct tree of the example
         self.variables = variables or []
+        self.aux_output = aux_output  # loss_fn returns (loss, aux)
 
     @classmethod
     def capture(cls, loss_fn, params, optimizer=None, example_batch=None,
-                sparse_params=(), non_trainable=()):
+                sparse_params=(), non_trainable=(), aux_output=False,
+                precision=None):
         """Build a GraphItem from a single-device function
         ``loss_fn(params, batch)``.
 
         Args:
+            loss_fn: ``(params, batch) -> loss`` (or ``(loss, aux)`` with
+                ``aux_output=True``).
             params: nested dict of tensors.
+            optimizer: a factory taking the list of trainable tensors and
+                returning a ``torch.optim.Optimizer`` (for example
+                ``functools.partial(torch.optim.SGD, lr=0.1)``); None for a
+                forward-only capture (serving).
             example_batch: example batch tree; dim 0 is the batch dimension.
             sparse_params: name substrings force-marked as sparse-access.
             non_trainable: name substrings marked non-trainable.
+            precision: None; the JAX package's ``"bf16"`` mixed-precision
+                wrapper is not ported yet.
         """
+        if precision not in (None, "bf16"):
+            raise ValueError(f"precision must be None or 'bf16', got "
+                             f"{precision!r}")
+        if precision == "bf16":
+            raise NotImplementedError(
+                "precision='bf16' (the mixed-precision loss wrapper) is not "
+                "ported to autodist_tpu_torch yet (ROADMAP.md); cast inside "
+                "loss_fn, as the zoo's bf16 configs do")
         pairs, _ = flatten_with_path(params)
         variables = []
         for path, leaf in pairs:
@@ -144,7 +164,8 @@ class GraphItem:
                 lambda l: ShapeDtypeStruct(_shape(l), _np_dtype(l)),
                 example_batch)
         item = cls(loss_fn, params, optimizer, batch_spec=batch_spec,
-                   variables=variables, batch_struct=batch_struct)
+                   variables=variables, batch_struct=batch_struct,
+                   aux_output=aux_output)
         if example_batch is not None:
             item._detect_sparse_access()
         for v in item.variables:

@@ -1,20 +1,19 @@
 """GraphTransformer: (GraphItem, Strategy, Mesh) -> DistributedProgram.
 
-Counterpart of ``autodist_tpu/kernel/graph_transformer.py``, for the
-serving slice: the program carries each parameter's placement (a
-PartitionSpec from its node config through ``partitioner.py``), the
-padding plan of uneven shards, and the batch's data-axis split — the
-members the serve engine reads. The per-variable ``Synchronizer`` objects
-and the explicit (compressed / stale) gradient path are about gradients
-and come with the training slice (ROADMAP.md).
+Counterpart of ``autodist_tpu/kernel/graph_transformer.py``: the program
+carries one ``Synchronizer`` per trainable variable (its placement specs
+and its gradient reduction), whether any of them needs the explicit
+(compressed / stale) gradient path, each parameter's placement, the
+padding plan of uneven shards, and the batch's data-axis split.
 """
 import math
 import os
 
 from autodist_tpu_torch import const
-from autodist_tpu_torch.kernel.partitioner import (PartitionerConfig,
-                                                   PartitionSpec,
-                                                   param_partition_spec)
+from autodist_tpu_torch.kernel.partitioner import PartitionSpec
+from autodist_tpu_torch.kernel.synchronization.synchronizer import \
+    Synchronizer
+from autodist_tpu_torch.proto import strategy_pb2
 from autodist_tpu_torch.utils import logging
 from autodist_tpu_torch.utils.tree import (path_to_name, tree_map,
                                            tree_map_with_path)
@@ -23,30 +22,34 @@ from autodist_tpu_torch.utils.tree import (path_to_name, tree_map,
 class DistributedProgram:
     """Distribution plan for one captured program on one mesh."""
 
-    def __init__(self, graph_item, strategy, mesh, specs):
+    def __init__(self, graph_item, strategy, mesh, synchronizers,
+                 use_explicit_path):
         self.graph_item = graph_item
         self.strategy = strategy
         self.mesh = mesh
-        self._specs = specs  # {var_name: PartitionSpec}
+        self.synchronizers = synchronizers  # {var_name: Synchronizer}
+        self.use_explicit_path = use_explicit_path
+
+    def _spec_tree(self, spec_of):
+        return tree_map_with_path(
+            lambda path, _: (spec_of(self.synchronizers[n])
+                             if (n := path_to_name(path)) in
+                             self.synchronizers else PartitionSpec()),
+            self.graph_item.params)
 
     def param_specs(self):
         """PartitionSpec tree congruent with the params tree."""
-        return tree_map_with_path(
-            lambda path, _: self._specs.get(path_to_name(path),
-                                            PartitionSpec()),
-            self.graph_item.params)
+        return self._spec_tree(lambda s: s.param_spec())
+
+    def grad_specs(self):
+        """Gradient placement specs, congruent with the params tree."""
+        return self._spec_tree(lambda s: s.grad_spec())
 
     def param_placements(self):
         """``torch.device`` tree congruent with the params tree (the
-        counterpart of ``param_shardings()``). This slice places on a
-        one-device mesh; spanning devices needs the training slice's
-        ``torch.distributed`` world."""
-        if self.mesh.size != 1:
-            raise NotImplementedError(
-                f"placing params over a {self.mesh.size}-device mesh needs "
-                f"torch.distributed, which lands with the training slice; "
-                f"serve with one replica per device (replicas=N)")
-        device = self.mesh.devices.flat[0]
+        counterpart of ``param_shardings()``): every leaf on this process's
+        device of the mesh, whole (the AllReduce strategy replicates)."""
+        device = self.mesh.local_device
         return tree_map(lambda _: device, self.graph_item.params)
 
     def paddings(self):
@@ -54,8 +57,9 @@ class DistributedProgram:
         {var_name: (dim, logical_size, padded_size)}, shards rounded up to
         128 rows where the JAX package does. Empty on a one-device mesh."""
         plan = {}
-        for var in self.graph_item.trainable_variables:
-            for dim, axes in enumerate(self._specs.get(var.name, ())):
+        for name, sync in self.synchronizers.items():
+            var = sync.var
+            for dim, axes in enumerate(sync.param_spec()):
                 if axes is None:
                     continue
                 n = math.prod(self.mesh.shape[a] for a in
@@ -83,6 +87,11 @@ class DistributedProgram:
     def data_axis_size(self):
         return self.mesh.shape.get(const.MESH_AXIS_DATA, 1)
 
+    @property
+    def max_staleness(self):
+        return max((s.staleness for s in self.synchronizers.values()),
+                   default=0)
+
 
 class GraphTransformer:
     """Builds the DistributedProgram (the reference's ``transform()``)."""
@@ -92,41 +101,27 @@ class GraphTransformer:
         self.cluster = cluster
         self.graph_item = graph_item
 
-    def _partition_axis(self, mesh):
-        """Mesh axis carrying parameter shards: 'model' when present and
-        larger than 1, else 'data'."""
-        if mesh.shape.get(const.MESH_AXIS_MODEL, 1) > 1:
-            return const.MESH_AXIS_MODEL
-        return const.MESH_AXIS_DATA
-
     def transform(self):
         mesh = self.cluster.mesh
         nodes = {n.var_name: n for n in self.strategy.node_config}
-        specs = {}
+        synchronizers = {}
         for var in self.graph_item.trainable_variables:
             node = nodes.get(var.name)
-            pconfig = PartitionerConfig.from_string(
-                node.partitioner if node is not None else "")
-            if not pconfig.active:
-                specs[var.name] = PartitionSpec()
-                continue
-            axis = pconfig.mesh_axis or self._partition_axis(mesh)
-            for name in (axis,) + tuple(m for _a, _n, m in pconfig.extras
-                                        if m):
-                if name not in mesh.axis_names:
-                    raise ValueError(
-                        f"strategy partitions {var.name} over mesh axis "
-                        f"'{name}', but the built mesh has axes "
-                        f"{mesh.axis_names}")
-            specs[var.name] = param_partition_spec(
-                var, pconfig, axis, mesh.shape[axis],
-                mesh_sizes=dict(mesh.shape))
+            if node is None:
+                node = strategy_pb2.NodeConfig(var_name=var.name)
+                node.all_reduce_synchronizer.SetInParent()
+            synchronizers[var.name] = Synchronizer.create(var, node, mesh)
+        for sync in synchronizers.values():
+            sync.param_spec()  # a partition over a missing axis raises here
+        use_explicit = any(s.needs_explicit_path
+                           for s in synchronizers.values())
         if const.ENV.AUTODIST_DUMP_GRAPHS.val:
             const.ensure_working_dirs()
             path = os.path.join(const.DEFAULT_GRAPH_DUMP_DIR,
                                 "1-strategy.txt")
             with open(path, "w") as f:
                 f.write(str(self.strategy.proto))
-        logging.info("GraphTransformer: %d vars, mesh=%s", len(specs),
-                     mesh.shape)
-        return DistributedProgram(self.graph_item, self.strategy, mesh, specs)
+        logging.info("GraphTransformer: %d vars, mesh=%s",
+                     len(synchronizers), mesh.shape)
+        return DistributedProgram(self.graph_item, self.strategy, mesh,
+                                  synchronizers, use_explicit)

@@ -5,7 +5,7 @@ Counterpart of ``autodist_tpu/kernel/partitioner.py``:
 ("axis:num_shards[:mesh_axis]", comma-joined for composed plans) and
 ``param_partition_spec`` picks the mesh axis of each parameter dimension.
 The ZeRO-1 state placement (``choose_state_sharding_spec``) comes with the
-training slice.
+PS strategies (ROADMAP.md).
 """
 from autodist_tpu_torch.utils import logging
 

@@ -1,11 +1,11 @@
-"""BERT encoder configurations.
+"""BERT encoder with the masked-LM pretraining loss.
 
-Counterpart of ``autodist_tpu/models/bert.py``. The masked-LM loss
-(``make_loss_fn``) comes with the training slice (ROADMAP.md).
+Counterpart of ``autodist_tpu/models/bert.py``.
 """
 import numpy as np
 import torch
 
+from autodist_tpu_torch.models import layers as L
 from autodist_tpu_torch.models import transformer as T
 
 
@@ -23,6 +23,17 @@ def bert_tiny(vocab=1000, max_len=64, dtype=torch.float32):
 
 def init(cfg, generator=None, device="cuda"):
     return T.init(cfg, generator, device)
+
+
+def make_loss_fn(cfg, attn_fn=None):
+    """Masked-LM loss. batch = (ids, segment_ids, mlm_positions, mlm_labels)."""
+    def loss_fn(params, batch):
+        ids, seg, positions, labels = batch
+        hidden = T.encode(params, cfg, ids, segment_ids=seg, attn_fn=attn_fn)
+        index = positions.long()[..., None].expand(-1, -1, hidden.shape[-1])
+        picked = torch.gather(hidden, 1, index)
+        return L.softmax_xent(T.logits(params, cfg, picked), labels)
+    return loss_fn
 
 
 def synthetic_batch(cfg, batch_size=8, seq_len=None, num_masked=4, seed=0):

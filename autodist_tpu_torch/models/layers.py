@@ -6,8 +6,9 @@ JAX param tree converts leaf by leaf (``convert.params_from_jax``).
 Parameters stay float32 and are cast to the compute ``dtype`` at use.
 
 Ported: the initializers, ``dense``, ``layernorm``, ``embed``, ``mha``,
-``dot_product_attention`` and ``causal_mask``. Conv, batchnorm, lstm, the
-KV-cache decode and the losses are not ported yet (ROADMAP.md).
+``dot_product_attention``, ``causal_mask`` and the losses
+(``softmax_xent``, ``sigmoid_bce``). Conv, batchnorm, lstm and the KV-cache
+decode are not ported yet (ROADMAP.md).
 """
 import math
 
@@ -114,3 +115,17 @@ def dot_product_attention(q, k, v, mask=None):
 def causal_mask(seq_len, device=None):
     return torch.tril(torch.ones((1, 1, seq_len, seq_len), dtype=torch.bool,
                                  device=device))
+
+
+# -- losses ------------------------------------------------------------------
+
+def softmax_xent(logits, labels):
+    """Mean cross-entropy over int labels; f32 softmax."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels.long()[..., None]).mean()
+
+
+def sigmoid_bce(logits, targets):
+    logits = logits.float()
+    return (logits.clamp(min=0) - logits * targets +
+            torch.log1p(torch.exp(-logits.abs()))).mean()

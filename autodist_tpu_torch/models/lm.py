@@ -1,10 +1,11 @@
-"""Decoder-only causal language model configurations.
+"""Decoder-only causal language model with the next-token loss.
 
-Counterpart of ``autodist_tpu/models/lm.py``. The next-token loss and the
-KV-cache decode entry points are not ported yet (ROADMAP.md).
+Counterpart of ``autodist_tpu/models/lm.py``. The KV-cache decode entry
+points are not ported yet (ROADMAP.md).
 """
 import torch
 
+from autodist_tpu_torch.models import layers as L
 from autodist_tpu_torch.models import transformer as T
 
 
@@ -21,3 +22,13 @@ def lm_tiny(vocab=256, dtype=torch.float32, max_len=64):
 
 def init(cfg, generator=None, device="cuda"):
     return T.init(cfg, generator, device)
+
+
+def make_loss_fn(cfg, attn_fn=None):
+    """Next-token loss. batch = (tokens,): inputs tokens[:, :-1], targets
+    tokens[:, 1:]."""
+    def loss_fn(params, batch):
+        (tokens,) = batch if isinstance(batch, (tuple, list)) else (batch,)
+        hidden = T.encode(params, cfg, tokens[:, :-1], attn_fn=attn_fn)
+        return L.softmax_xent(T.logits(params, cfg, hidden), tokens[:, 1:])
+    return loss_fn

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, under the checkout's
 git-ignored ``build/`` directory; the file name carries a hash of the
-source and flags, so an edited kernel rebuilds. The library loads with
+source, of every ``csrc/*.cuh`` header it includes and of the flags, so an
+edited kernel or header rebuilds. The library loads with
 ``ctypes``. :func:`load_all` starts one ``nvcc`` per source at once.
 Nothing here runs at import: this module imports on hosts with no CUDA.
 """
@@ -11,6 +12,7 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,12 +24,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("flash_fwd",)  # every csrc/<name>.cu the port builds
+              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")  # registers and spills of every kernel
+KERNELS = ("flash_fwd", "flash_bwd")  # every csrc/<name>.cu the port builds
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _locks = {name: threading.Lock() for name in KERNELS}
 _libs = {}
 build_seconds = {}  # name -> seconds the nvcc build took in this process
+build_logs = {}  # name -> nvcc's output (ptxas -v) of a build in this process
 
 
 def _nvcc():
@@ -39,10 +44,29 @@ def _nvcc():
     return path
 
 
+def _sources(src):
+    """``src`` and every header it includes from ``csrc/``, transitively,
+    in the order first included."""
+    out, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        with open(path, "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                dep = os.path.join(os.path.dirname(path), inc.decode())
+                if os.path.exists(dep):
+                    todo.append(dep)
+    return out
+
+
 def library_path(name):
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -66,6 +90,7 @@ def load_library(name):
                                    f"{proc.stdout}{proc.stderr}")
             os.replace(tmp, out)
             build_seconds[name] = time.perf_counter() - t0
+            build_logs[name] = proc.stdout + proc.stderr
             logging.info("built %s in %.1fs", out, build_seconds[name])
         lib = ctypes.CDLL(out)
         _libs[name] = lib
@@ -78,3 +103,21 @@ def load_all():
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         futures = {name: pool.submit(load_library, name) for name in KERNELS}
         return {name: f.result() for name, f in futures.items()}
+
+
+def register_report(log):
+    """[(kernel, registers, spill store bytes)] from a ``ptxas -v`` log."""
+    out, kernel, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = m.group(1)
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out.append((kernel, int(m.group(1)), spill))
+            kernel = None
+    return out

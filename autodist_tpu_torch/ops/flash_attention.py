@@ -1,18 +1,20 @@
-"""Flash attention: the hand-written CUDA forward kernel and its plain
-PyTorch version.
+"""Flash attention: the hand-written CUDA kernels and their plain PyTorch
+versions.
 
 Counterpart of ``autodist_tpu/ops/flash_attention.py``. The Pallas
-``_fwd_kernel`` becomes ``csrc/flash_fwd.cu`` (tensor-core ``mma.sync`` for
-bf16 inputs, f32 FMAs for f32 inputs; built by ``ops/build.py`` and called
-through ctypes); :func:`flash_fwd_reference` is the same function in plain
-PyTorch, computed in f32 as the Pallas kernel computes it.
-:func:`flash_fwd` launches the kernel for a CUDA tensor and runs the plain
-version for any other (the CPU tests; shape-only tracing on ``meta``).
-
-The backward pair (``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``) lands with the
-training slice inside the same ``torch.autograd.Function``; ring
-attention's ``block_attn_fwd`` / ``combine_blocks`` wait for sequence
-parallelism (ROADMAP.md).
+``_fwd_kernel`` becomes ``csrc/flash_fwd.cu`` and the backward pair
+``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` becomes ``csrc/flash_bwd.cu``
+(tensor-core ``mma.sync`` for bf16 inputs, f32 FMAs for f32 inputs; built
+by ``ops/build.py`` and called through ctypes).
+:func:`flash_fwd_reference` and :func:`flash_bwd_reference` are the same
+functions in plain PyTorch, computed in f32 as the Pallas kernels compute
+them. :func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`
+launch their kernel for a CUDA tensor and run the plain version for any
+other (the CPU tests; shape-only tracing on ``meta``).
+:func:`flash_attention` is the ``torch.autograd.Function`` over them, the
+counterpart of the JAX package's ``custom_vjp``. Ring attention's
+``block_attn_fwd`` / ``block_attn_bwd`` / ``combine_blocks`` wait for
+sequence parallelism (ROADMAP.md).
 """
 import ctypes
 import math
@@ -134,24 +136,170 @@ def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0, out_dtype=None):
 flash_fwd.launches = 0
 
 
+def flash_bwd_reference(q, k, v, do, lse, delta, causal=False, q_offset=0,
+                        k_offset=0):
+    """Plain PyTorch version of the backward kernels: (dq, dk, dv) in f32.
+
+    The Pallas pair's arithmetic, all in f32 from upcast inputs:
+    p = exp(s - lse) with masked entries exactly 0 (so a row that sees no
+    key contributes nothing; the JAX package's ``_dense_bwd`` does not mask
+    and gives such a row p = 1), dp = do.v^T, ds = p (dp - delta) / sqrt(d).
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    if causal:
+        s = s + causal_bias(q.shape[2], k.shape[2], q_offset, k_offset,
+                            device=q.device)
+    p = torch.where(s > _NEG_INF / 2, torch.exp(s - lse), 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return dq, dk, dv
+
+
+def _bwd_inputs(q, k, v, do, lse, delta):
+    """Check the backward's inputs against what the kernels take; returns
+    ``do``, ``lse`` and ``delta`` in the layout they read."""
+    _check(q, k, v, q.dtype)
+    b, h, sq, d = q.shape
+    if tuple(do.shape) != (b, h, sq, d) or do.dtype != q.dtype:
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (b, h, sq, 1) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 of shape "
+                             f"{(b, h, sq, 1)}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    if not all(t.device == q.device for t in (do, lse, delta)):
+        raise ValueError("do/lse/delta must lie on q's device")
+    # The kernels take q/k/v/do by strides but need the head dimension
+    # contiguous: autograd may hand over an expanded ``do`` (stride 0), which
+    # is copied. lse and delta are read as contiguous rows.
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    return do, lse.contiguous(), delta.contiguous()
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 +
+                 [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4 +
+                 [ctypes.c_void_p])
+
+
+def _bwd_fn(symbol, n_out):
+    from autodist_tpu_torch.ops.build import load_library
+    fn = getattr(load_library("flash_bwd"), symbol)
+    fn.argtypes = (_BWD_ARGTYPES[:6] + [ctypes.c_void_p] * n_out +
+                   _BWD_ARGTYPES[6:])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_bwd(wrapper, symbol, outs, q, k, v, do, lse, delta, causal,
+                q_offset, k_offset):
+    if all(o.numel() == 0 for o in outs):
+        return
+    b, h, sq, d = q.shape
+    fn = _bwd_fn(symbol, len(outs))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 *[o.data_ptr() for o in outs], b, h, sq, k.shape[2], d,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *do.stride()[:3], int(causal), int(q_offset), int(k_offset),
+                 _DTYPE_TAGS[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
+                           f"error {err}")
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, q_offset=0,
+                 k_offset=0):
+    """dq (b, h, sq, d) f32: the ``_bwd_dq_kernel`` counterpart. Launches
+    the kernel on a CUDA tensor (or raises), else the plain version.
+    ``launches`` counts kernel launches."""
+    do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
+    if q.device.type != "cuda":
+        return flash_bwd_reference(q, k, v, do, lse, delta, causal, q_offset,
+                                   k_offset)[0]
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _launch_bwd(flash_bwd_dq, "autodist_flash_bwd_dq", (dq,), q, k, v, do,
+                lse, delta, causal, q_offset, k_offset)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, q_offset=0,
+                  k_offset=0):
+    """(dk, dv) (b, h, sk, d) f32: the ``_bwd_dkv_kernel`` counterpart.
+    Launches the kernel on a CUDA tensor (or raises), else the plain
+    version. ``launches`` counts kernel launches."""
+    do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
+    if q.device.type != "cuda":
+        return flash_bwd_reference(q, k, v, do, lse, delta, causal, q_offset,
+                                   k_offset)[1:]
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    _launch_bwd(flash_bwd_dkv, "autodist_flash_bwd_dkv", (dk, dv), q, k, v,
+                do, lse, delta, causal, q_offset, k_offset)
+    return dk, dv
+
+
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0):
+    """(dq, dk, dv) in f32 from the forward's lse and delta =
+    rowsum(do * o): the two backward kernels on a CUDA tensor, the plain
+    version on any other."""
+    if q.device.type != "cuda":
+        do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
+        return flash_bwd_reference(q, k, v, do, lse, delta, causal, q_offset,
+                                   k_offset)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, q_offset, k_offset)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, q_offset,
+                           k_offset)
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset):
-        o, _ = flash_fwd(q, k, v, causal, q_offset, 0)
-        return o
+        # The f32 output is saved for delta; the caller gets q's dtype.
+        o, lse = flash_fwd(q, k, v, causal, q_offset, 0,
+                           out_dtype=torch.float32)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return o.to(q.dtype)
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "flash-attention backward kernels land with the training slice "
-            "— ROADMAP.md")
+        q, k, v, o, lse = ctx.saved_tensors
+        # delta = rowsum(do * o) outside the kernels, in f32, as the JAX
+        # package's _bwd_rule, but from the f32 output: each row of ds then
+        # sums to 0 to f32 accuracy, which dq and dk need (a bf16 o breaks
+        # that cancellation: ROADMAP.md, Queue C).
+        delta = (do.float() * o).sum(-1, keepdim=True)
+        dq, dk, dv = flash_bwd(q, k, v, do.to(q.dtype), lse, delta,
+                               ctx.causal, ctx.q_offset, 0)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
 def flash_attention(q, k, v, causal=False, q_offset=0):
-    """softmax(qk^T/sqrt(d) [+ causal mask]) v through the flash forward.
+    """softmax(qk^T/sqrt(d) [+ causal mask]) v, fused forward and backward.
     q/k/v: (batch, heads, seq, head_dim); ``q_offset`` shifts q's global
-    positions for causal masking."""
-    return _FlashAttention.apply(q, k, v, causal, q_offset)
+    positions for causal masking. With no gradient to take (inference, or
+    no input requiring one) this is the forward kernel alone, writing q's
+    dtype directly."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, q_offset)
+    return flash_fwd(q, k, v, causal, q_offset, 0)[0]
 
 
 def make_flash_attn_fn(causal=False):

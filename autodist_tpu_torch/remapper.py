@@ -1,10 +1,12 @@
-"""Remapper: host data -> tensors on the program's mesh.
+"""Remapper: host data -> tensors on this process's device of the mesh.
 
-Counterpart of ``autodist_tpu/remapper.py``: ``shard_batch`` splits the
-batch dimension over the data axis (with the same divisibility error) and
-``place_params`` puts a parameter tree on the mesh once. This slice
-places on one device; splitting over several comes with the training
-slice's ``torch.distributed`` world.
+Counterpart of ``autodist_tpu/remapper.py``. ``shard_batch`` follows the
+JAX package's multi-process contract (``remapper.py:152-178``): each
+process passes its own process-local batch, the global batch is local x
+the processes the mesh spans, and it must divide by the data-axis size
+(the same error). One process drives one device, so the local batch goes
+to this process's device whole. ``place_params`` puts a parameter tree on
+that device once.
 """
 import numpy as np
 import torch
@@ -22,21 +24,19 @@ class Remapper:
 
     @property
     def device(self):
-        """The device of a one-device mesh."""
-        if self._mesh.size != 1:
-            raise NotImplementedError(
-                f"feeding a {self._mesh.size}-device mesh needs "
-                f"torch.distributed, which lands with the training slice")
-        return self._mesh.devices.flat[0]
+        """This process's device: its rank's on a rank mesh, the only one
+        of a one-device local mesh."""
+        return self._mesh.local_device
 
     def shard_batch(self, batch, non_blocking=False):
-        """Put a host batch tree on the mesh, dim 0 over the data axis.
+        """Put this process's batch tree on its device; dim 0 is this
+        process's share of the data axis.
 
-        The batch dimension must divide by the data-axis size. A leaf
-        already on the target device is handed back untouched.
-        ``non_blocking=True`` stages CPU leaves in pinned memory and copies
-        asynchronously on the current stream; the caller orders the
-        consumer after it (``DevicePrefetcher`` records an event).
+        The global batch (local rows x processes) must divide by the
+        data-axis size. A leaf already on the target device is handed back
+        untouched. ``non_blocking=True`` stages CPU leaves in pinned memory
+        and copies asynchronously on the current stream; the caller orders
+        the consumer after it (``DevicePrefetcher`` records an event).
         """
         n = self._program.data_axis_size
         leaves, treedef = flatten(batch)
@@ -44,10 +44,11 @@ class Remapper:
         for leaf, spec in zip(leaves, specs):
             shape = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) \
                 else np.shape(leaf)
-            if shape and spec and spec[0] == const.MESH_AXIS_DATA and \
-                    shape[0] % n != 0:
-                raise ValueError(f"global batch {shape[0]} not divisible by "
-                                 f"data-axis size {n}")
+            if shape and spec and spec[0] == const.MESH_AXIS_DATA:
+                total = shape[0] * self._mesh.process_count
+                if total % n != 0:
+                    raise ValueError(f"global batch {total} not divisible "
+                                     f"by data-axis size {n}")
         device = self.device
 
         def put(leaf):
@@ -60,16 +61,19 @@ class Remapper:
             return t.to(device, non_blocking=non_blocking)
         return unflatten(treedef, [put(l) for l in leaves])
 
-    def place_params(self, params, placements=None):
-        """Place a parameter tree once (the serve path's placement: every
-        dispatch reads these tensors, nothing writes them). ``placements``
-        overrides the program's ``param_placements()``."""
+    def place_params(self, params, placements=None, copy=False):
+        """Place a parameter tree once. ``placements`` overrides the
+        program's ``param_placements()``. Serving reads the placed tensors
+        and never writes them; training updates its copy in place, so it
+        asks for ``copy=True`` and leaves the captured tree untouched."""
         if placements is None:
             placements = self._program.param_placements()
         leaves, treedef = flatten(params)
         devices, _ = flatten(placements)
-        return unflatten(treedef, [torch.as_tensor(l, device=d)
-                                   for l, d in zip(leaves, devices)])
+        return unflatten(treedef, [
+            torch.as_tensor(l).detach().to(d, copy=True) if copy
+            else torch.as_tensor(l, device=d)
+            for l, d in zip(leaves, devices)])
 
     def fetch(self, value):
         """Bring a result tree to host memory."""

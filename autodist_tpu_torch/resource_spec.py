@@ -95,6 +95,23 @@ class ResourceSpec:
             spec._devices = [DeviceSpec("process-0", DeviceType.CPU, 0)]
         return spec
 
+    @classmethod
+    def world(cls, device, rank, world_size, mesh_hints=None):
+        """A spec of a ``torch.distributed`` world: one device of
+        ``device``'s kind per rank, process ``r`` on host ``process-r``
+        (this rank's device with its own index, the others' by rank)."""
+        spec = cls()
+        spec._discovered = True
+        kind = DeviceType.GPU if device.type == "cuda" else DeviceType.CPU
+        spec._devices = [
+            DeviceSpec(f"process-{r}", kind,
+                       (device.index or 0) if r == rank else
+                       (r if kind == DeviceType.GPU else 0), r)
+            for r in range(world_size)]
+        spec.num_processes = world_size
+        spec.mesh_hints = dict(mesh_hints or {})
+        return spec
+
     def _discover_live_backend(self):
         import torch
         n = torch.cuda.device_count()

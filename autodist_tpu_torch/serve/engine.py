@@ -20,8 +20,9 @@ forward-only ``apply_fn``), strategy (an explicit builder, else
 
 Multi-replica: ``replicas=R`` carves the spec's devices into R contiguous
 data-only groups, each with its own mesh, program and placed params. A
-replica spans one device in this slice (placement over several needs the
-training slice's ``torch.distributed`` world). Observability spans and
+replica spans one device: the engine is one process, and the port places
+one process on one device (training spans devices with one process per
+device, ``cluster.py``). Observability spans and
 gauges, the bucket memory pre-check, OOM forensics, the tuner and
 replica removal are not ported yet (ROADMAP.md).
 """
@@ -151,8 +152,8 @@ class ReplicaRuntime:
     def __init__(self, index, program, apply_fn):
         if program.paddings():
             raise NotImplementedError(
-                "uneven parameter shards need multi-device placement, "
-                "which comes with the training slice")
+                "uneven parameter shards (padded storage) are not ported "
+                "to autodist_tpu_torch yet (ROADMAP.md)")
         self.index = index
         self.program = program
         self.remapper = Remapper(program)

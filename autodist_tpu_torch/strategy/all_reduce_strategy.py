@@ -2,8 +2,8 @@
 
 Counterpart of ``autodist_tpu/strategy/all_reduce_strategy.py``: every
 trainable variable gets an AllReduceSynchronizer in fusion group
-``i // chunk_size``. The gradient reduction it describes runs with the
-training slice; serving reads its replicated placement.
+``i // chunk_size``. Training reduces each group's gradients as one
+bucket (``runner.py``); serving reads the replicated placement.
 """
 from autodist_tpu_torch.proto import strategy_pb2
 from autodist_tpu_torch.strategy.base import StrategyBuilder

@@ -9,23 +9,39 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
 0. device: requires CUDA, prints the card's name and power limit as
    ``nvidia-smi`` reports them, turns TF32 off for float32 products;
 1. build: compiles every kernel of the port from ``autodist_tpu_torch/csrc``
-   into the git-ignored ``build/`` directory and prints the seconds;
-2. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shape and at the causal / offset / ragged / float32
-   cases later slices rely on; then times the kernel, its plain version,
-   the PyTorch library call that computes the same function (yardstick
-   only, never called by the port) and the card's bound;
-3. the slice: the port's ``serve.Server`` on BERT-base (seeded random
+   (one ``nvcc`` per source, all at once) into the git-ignored ``build/``
+   directory and prints the seconds;
+2. kernels: each kernel against its plain PyTorch version on the card
+   (the flash-attention forward, and the backward pair ``flash_bwd_dq`` /
+   ``flash_bwd_dkv``), at the serving and training paths' shapes and at
+   the causal / offset / ragged / float32 cases; a repeated backward must
+   be bitwise identical and a pair with every row empty must give exactly
+   0; then times each kernel, its plain version, the PyTorch library call
+   that computes the same function (yardstick only, never called by the
+   port) and the card's bound;
+3. serving: the port's ``serve.Server`` on BERT-base (seeded random
    weights, full width, 12 layers, seq 512) answers concurrent requests
    from four client threads; every answer is held against the port's own
    forward with the plain attention, a repeated request must be bitwise
    identical, and the launch counts show every layer of every dispatch ran
-   the kernel;
-4. output: one ``{"kernels": [...]}`` JSON line, then the last line
+   the forward kernel;
+4. training: BERT-base MLM pretraining (full width and depth, batch 32 x
+   seq 128, 20 masked positions, Adam 1e-4, bf16 compute, f32 master
+   weights) takes 20 ``Runner.step``s through ``AutoDist(AllReduce())`` on
+   a one-rank NCCL world. Step 1 is held against the same step with the
+   plain attention; every loss is finite and the last below the first;
+   every param changes in step 1; each of the three kernels launches
+   exactly 12 x 20 times; a repeated attention backward at a layer's own
+   inputs is bitwise identical. Prints the median step time, samples/s and
+   a profiled step;
+5. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
+import copy
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -36,17 +52,44 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# Kernel vs plain version: o in f32 at these (bf16 output rounds at 2^-8
+# Kernel vs plain version: a bf16 o at these (bf16 output rounds at 2^-8
 # relative), lse at an absolute 1e-4 (both sum f32 products of the same
 # inputs, in another order).
 O_ATOL, O_RTOL, LSE_ATOL = 1.6e-2, 1e-2, 1e-4
+# An f32 o (the training path's call) at this absolute error: bf16 inputs
+# carry P into P.V as a bf16 pair (hi + residual, ~16 bits), which read
+# 4.5e-6 on the card; P rounded once to bf16 reads ~1.5e-3 at the training
+# shape, and the phase requires that reading above this limit.
+O_F32_ATOL = 5e-5
 # Served answers vs the port's forward on the request's rows alone with the
 # plain attention: twelve bf16 layers, other matmul shapes (the bucket's
 # padded rows) and another summation order inside attention.
 SERVE_ATOL, SERVE_RTOL = 5e-2, 5e-2
+# Backward kernels vs plain version, relative to the largest |gradient|.
+# bf16 inputs carry ds as a bf16 pair (~2^-17) into ds.k and ds^T.q (dq,
+# dk: read at most 6.6e-6 on the card; ds rounded once reads ~2e-3, which
+# the phase requires above the limit) and round p once to bf16 (2^-9
+# relative) before p^T.do (dv), with f32 accumulation; the plain version
+# keeps everything in f32. f32 inputs differ only in summation order.
+BWD_REL_DQDK_BF16, BWD_REL_DV_BF16, BWD_REL_F32 = 1e-4, 1e-2, 1e-5
+# Training step 1, kernels vs the plain attention (autograd through the
+# plain forward), both in the bf16-compute model: |loss difference| (the
+# loss is ~10.3), the relative difference of the global grad norm, and for
+# each attention q/k/v projection kernel max|grad difference| relative to
+# its max |grad|. The two paths round to bf16 at different places; at this
+# initialization the q/k projection gradients are ~1e-5 against ~1e-3 for
+# the rest, so both bf16 paths sit a few percent (of the max) off the same
+# step in an f32-compute model, which the phase prints. Hence 1e-1 for the
+# two apart, and the kernel path no further from the f32 model than 1.5x
+# the plain path.
+TRAIN_LOSS_ATOL, TRAIN_NORM_RTOL, TRAIN_LEAF_REL = 1e-3, 5e-3, 1e-1
+TRAIN_F32_RATIO = 1.5
 # The H100 SXM's published peaks (NVIDIA data sheet, dense).
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# (b, h, sq, sk, d) of BERT-base's attention at the training run's batch 32
+# x seq 128.
+TRAIN_SHAPE = (32, 12, 128, 128, 64)
 
 
 def check(cond, msg):
@@ -91,6 +134,27 @@ def attention_work(q, k, v, o, lse):
     return flops, nbytes
 
 
+def fwd_p_rounded_once(torch, q, k, v):
+    """The plain forward (f32 o) with P rounded once to bf16 before P.V:
+    what a kernel without P's residual term would give."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = s * q.shape[-1] ** -0.5
+    p =torch.exp(s - s.amax(-1, keepdim=True))
+    return torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(),
+                        v.float()) / p.sum(-1, keepdim=True)
+
+
+def bwd_ds_rounded_once(torch, q, k, v, do, lse, delta):
+    """The plain (dq, dk) with ds rounded once to bf16 before ds.k and
+    ds^T.q: what the kernels without ds's residual term would give."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = (torch.exp(s - lse) * (dp - delta) * scale).bfloat16().float()
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float()),
+            torch.einsum("bhqk,bhqd->bhkd", ds, q.float()))
+
+
 def kernel_phase(torch, fa):
     """Phase 2: flash_fwd vs flash_fwd_reference on the card."""
     dev = torch.device("cuda")
@@ -116,8 +180,11 @@ def kernel_phase(torch, fa):
         err_l = (lse - rl).abs().max().item()
         print(f"  {name}: max|o-o_plain| {err_o:.3e}  "
               f"max|lse-lse_plain| {err_l:.3e}", flush=True)
-        check(torch.allclose(o.float(), ro.float(), atol=O_ATOL, rtol=O_RTOL),
-              f"{name}: o differs from the plain version by {err_o}")
+        atol, rtol = ((O_F32_ATOL, 0.0) if o.dtype == torch.float32
+                      else (O_ATOL, O_RTOL))
+        check(torch.allclose(o.float(), ro.float(), atol=atol, rtol=rtol),
+              f"{name}: o differs from the plain version by {err_o} "
+              f"(atol {atol}, rtol {rtol})")
         check(torch.allclose(lse, rl, atol=LSE_ATOL, rtol=0),
               f"{name}: lse differs from the plain version by {err_l}")
         if all_empty:
@@ -129,7 +196,8 @@ def kernel_phase(torch, fa):
         return o, lse
 
     bf16, f32 = torch.bfloat16, torch.float32
-    print("phase 2: flash_fwd kernel vs its plain version", flush=True)
+    print(f"phase 2: flash_fwd kernel vs its plain version (bf16 o: atol "
+          f"{O_ATOL}, rtol {O_RTOL}; f32 o: atol {O_F32_ATOL})", flush=True)
     shape_a = (8, 12, 512, 512, 64)  # BERT-base at bucket 8
     qa, ka, va = qkv(*shape_a, bf16)
     compare("(a) bert-base b8 h12 s512 d64 bf16", qa, ka, va)
@@ -142,24 +210,46 @@ def kernel_phase(torch, fa):
             causal=True, q_offset=1024, k_offset=512)
     compare("(c) bf16 in, f32 out, causal", q, k, v, causal=True,
             out_dtype=f32)
+    qt, kt, vt = qkv(*TRAIN_SHAPE, bf16)
+    o_t, _ = compare("(t) training b32 h12 s128 d64 bf16 in, f32 out", qt,
+                     kt, vt, out_dtype=f32)
+    ro_t = fa.flash_fwd_reference(qt, kt, vt, out_dtype=f32)[0]
+    once = (fwd_p_rounded_once(torch, qt, kt, vt) - ro_t).abs().max().item()
+    print(f"  (t) with P rounded once to bf16 the plain version reads "
+          f"{once:.3e} (the kernel {(o_t - ro_t).abs().max().item():.3e}, "
+          f"atol {O_F32_ATOL})", flush=True)
+    check(once > O_F32_ATOL, f"the f32-output tolerance {O_F32_ATOL} would "
+          f"pass a kernel rounding P once ({once})")
     for d in (16, 32, 128):
         q, k, v = qkv(2, 3, 200, 200, d, f32)
         compare(f"(d) f32 s200 d{d}", q, k, v)
         compare(f"(d) f32 s200 d{d} causal", q, k, v, causal=True)
 
-    kernel_ms = time_ms(lambda: fa.flash_fwd(qa, ka, va))
-    plain_ms = time_ms(lambda: fa.flash_fwd_reference(qa, ka, va))
-    library_ms = time_ms(lambda: torch.nn.functional
-                         .scaled_dot_product_attention(qa, ka, va))
-    flops, nbytes = attention_work(qa, ka, va, *fa.flash_fwd(qa, ka, va))
-    bound_by = "bytes" if nbytes / PEAK_BYTES >= flops / PEAK_BF16_FLOPS \
-        else "operations"
-    bound_ms = max(nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
-    print(f"  timing at (a), median of 20 after 3 warm-ups: kernel "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
-          f"{nbytes / 1e6:.3f} MB)", flush=True)
+    def timings(q, k, v, label, out_dtype=None):
+        kernel_ms = time_ms(lambda: fa.flash_fwd(q, k, v,
+                                                 out_dtype=out_dtype))
+        plain_ms = time_ms(lambda: fa.flash_fwd_reference(
+            q, k, v, out_dtype=out_dtype))
+        library_ms = time_ms(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(q, k, v))
+        o, lse = fa.flash_fwd(q, k, v, out_dtype=out_dtype)
+        flops, nbytes = attention_work(q, k, v, o, lse)
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"  timing at {label} ({o.dtype} o), median of 20 after 3 "
+              f"warm-ups: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, scaled_dot_product_attention {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.3f} MB)", flush=True)
+        return kernel_ms, plain_ms, library_ms, bound_ms, bound_by, o
+
+    kernel_ms, plain_ms, library_ms, bound_ms, bound_by, _ = timings(
+        qa, ka, va, "(a)")
+    # Training runs the f32-output kernel and casts o to bf16 after it
+    # (``_FlashAttention.forward``).
+    train = timings(qt, kt, vt, "the training shape", out_dtype=f32)
+    cast_ms = time_ms(lambda: train[5].to(bf16))
+    print(f"  the training forward's cast of the f32 o to bf16: {cast_ms:.4f} "
+          f"ms", flush=True)
     return {"name": "flash_fwd", "route": "cuda",
             "source": "autodist_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "autodist_tpu/ops/flash_attention.py:101",
@@ -168,7 +258,148 @@ def kernel_phase(torch, fa):
             "max_abs_err": errs["o"], "max_err_o": errs["o"],
             "max_err_lse": errs["lse"], "ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "train_shape": list(TRAIN_SHAPE[:3]) + [TRAIN_SHAPE[4]],
+            "train_out_dtype": "float32",
+            "train_ms": train[0], "train_plain_ms": train[1],
+            "train_library_ms": train[2], "train_bound_ms": train[3],
+            "train_cast_ms": cast_ms}
+
+
+def bound(flops, nbytes):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    bf16 tensor-core peak vs memory rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def backward_phase(torch, fa):
+    """Phase 2, backward: flash_bwd_dq / flash_bwd_dkv vs
+    flash_bwd_reference on the card; returns their two records."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs = {"dq": 0.0, "dkv": 0.0}
+
+    def inputs(b, h, sq, sk, d, dtype, causal=False, q_offset=0,
+               k_offset=0):
+        q, k, v = [torch.randn((b, h, s, d), generator=gen, device=dev,
+                               dtype=dtype) for s in (sq, sk, sk)]
+        do = torch.randn((b, h, sq, d), generator=gen, device=dev,
+                         dtype=dtype)
+        o, lse = fa.flash_fwd(q, k, v, causal, q_offset, k_offset)
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        return q, k, v, do, lse, delta
+
+    def compare(name, shape, dtype, causal=False, q_offset=0, k_offset=0,
+                all_empty=False):
+        args = inputs(*shape, dtype, causal, q_offset, k_offset)
+        extra = (causal, q_offset, k_offset)
+        dq = fa.flash_bwd_dq(*args, *extra)
+        dk, dv = fa.flash_bwd_dkv(*args, *extra)
+        again = (fa.flash_bwd_dq(*args, *extra),
+                 *fa.flash_bwd_dkv(*args, *extra))
+        torch.cuda.synchronize()
+        ref = fa.flash_bwd_reference(*args, *extra)
+        line = []
+        for label, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            tol = (BWD_REL_F32 if dtype == f32 else BWD_REL_DV_BF16
+                   if label == "dv" else BWD_REL_DQDK_BF16)
+            check(got.dtype == torch.float32 and got.shape == want.shape,
+                  f"{name}: {label} dtype/shape differ")
+            check(bool(torch.isfinite(got).all()), f"{name}: non-finite "
+                  f"{label}")
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            line.append(f"{label} {err:.3e} (max {scale:.3e})")
+            check(err <= tol * scale, f"{name}: {label} differs from the "
+                  f"plain version by {err} (> {tol} x {scale})")
+            key = "dq" if label == "dq" else "dkv"
+            errs[key] = max(errs[key], err)
+        check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+              f"{name}: a repeated backward is not bitwise identical")
+        if all_empty:
+            check(all(bool((g == 0).all()) for g in (dq, dk, dv)),
+                  f"{name}: rows with no visible key must give exactly 0")
+            line.append("all exactly 0")
+        print(f"  {name}: max|kernel-plain| " + ", ".join(line), flush=True)
+        return args
+
+    print("phase 2: flash_bwd_dq / flash_bwd_dkv kernels vs their plain "
+          f"version (relative to max |grad|: bf16 dq, dk {BWD_REL_DQDK_BF16},"
+          f" dv {BWD_REL_DV_BF16}; f32 {BWD_REL_F32}; repeats bitwise)",
+          flush=True)
+    shape_a = (8, 12, 512, 512, 64)
+    a = compare("(a) bert-base b8 h12 s512 d64 bf16", shape_a, bf16)
+    t = compare("(t) training b32 h12 s128 d64 bf16", TRAIN_SHAPE, bf16)
+    ref_t = fa.flash_bwd_reference(*t)
+    once = [((a - r).abs().max() / r.abs().max()).item()
+            for a, r in zip(bwd_ds_rounded_once(torch, *t), ref_t)]
+    print(f"  (t) with ds rounded once to bf16 the plain version reads dq "
+          f"{once[0]:.3e}, dk {once[1]:.3e} of the max (limit "
+          f"{BWD_REL_DQDK_BF16})", flush=True)
+    check(min(once) > BWD_REL_DQDK_BF16, f"the dq/dk tolerance "
+          f"{BWD_REL_DQDK_BF16} would pass kernels rounding ds once ({once})")
+    del ref_t
+    compare("(b) lm1b b4 h16 s1024 d64 bf16 causal", (4, 16, 1024, 1024, 64),
+            bf16, causal=True)
+    compare("(c) offsets (512, 1024) causal: every row empty",
+            (2, 12, 512, 512, 64), bf16, True, 512, 1024, all_empty=True)
+    compare("(c) offsets (1024, 512) causal: every key visible",
+            (2, 12, 512, 512, 64), bf16, True, 1024, 512)
+    compare("(c) offsets (0, 200) causal f32: every row empty",
+            (1, 2, 100, 70, 32), f32, True, 0, 200, all_empty=True)
+    for d in (16, 32, 128):
+        compare(f"(d) f32 s200 d{d}", (2, 3, 200, 200, d), f32)
+        compare(f"(d) f32 s200 d{d} causal", (2, 3, 200, 200, d), f32,
+                causal=True)
+        compare(f"(d) bf16 s200 d{d} causal", (2, 3, 200, 200, d), bf16,
+                causal=True)
+
+    def timings(args, label):
+        q, k, v, do, lse, delta = args
+        dq_ms = time_ms(lambda: fa.flash_bwd_dq(*args))
+        dkv_ms = time_ms(lambda: fa.flash_bwd_dkv(*args))
+        plain_ms = time_ms(lambda: fa.flash_bwd_reference(*args))
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True))
+        b, h, sq, d = q.shape
+        pairs = float(b * h * sq * k.shape[2] * d)
+        ins = sum(x.numel() * x.element_size()
+                  for x in (q, k, v, do, lse, delta))
+        dq_bound = bound(6 * pairs, ins + q.numel() * 4)
+        dkv_bound = bound(8 * pairs, ins + 2 * k.numel() * 4)
+        print(f"  timing at {label}, median of 20 after 3 warm-ups: dq "
+              f"kernel {dq_ms:.4f} ms (bound {dq_bound[0]:.4f} ms, "
+              f"{dq_bound[1]}), dkv kernel {dkv_ms:.4f} ms (bound "
+              f"{dkv_bound[0]:.4f} ms, {dkv_bound[1]}), plain backward "
+              f"{plain_ms:.4f} ms, scaled_dot_product_attention backward "
+              f"(dq, dk, dv together) {library_ms:.4f} ms", flush=True)
+        return dq_ms, dkv_ms, plain_ms, library_ms, dq_bound, dkv_bound
+
+    at_a = timings(a, "(a)")
+    at_t = timings(t, "the training shape (t)")
+    records = []
+    for i, (name, tpu, line) in enumerate((
+            ("flash_bwd_dq", "_bwd_dq_kernel", 219),
+            ("flash_bwd_dkv", "_bwd_dkv_kernel", 258))):
+        key = "dq" if i == 0 else "dkv"
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "autodist_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"autodist_tpu/ops/flash_attention.py:{line}",
+            "tpu_kernel": tpu,
+            "shape": list(TRAIN_SHAPE[:3]) + [TRAIN_SHAPE[4]],
+            "max_abs_err": errs[key], "ms": at_t[i],
+            "plain_ms": at_t[2], "library_ms": at_t[3],
+            "library_covers": "dq, dk and dv together",
+            "bound_ms": at_t[4 + i][0], "bound_by": at_t[4 + i][1],
+            "shape_a_ms": at_a[i], "shape_a_plain_ms": at_a[2],
+            "shape_a_library_ms": at_a[3], "shape_a_bound_ms": at_a[4 + i][0]})
+    return records
 
 
 def _device_us(event):
@@ -309,6 +540,186 @@ def serve_phase(torch, fa, card, cfg, device):
     return launches
 
 
+def _profile_step(torch, step, n=1):
+    """Device time by kernel over ``n`` calls of ``step`` under
+    ``torch.profiler``: (wall us, device-busy us, [(us, count, name)])."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    return wall_us, sum(_device_us(e) for e in events), sorted(
+        ((_device_us(e), e.count, e.key) for e in events), reverse=True)
+
+
+def train_phase(torch, fa, card, cfg, device, steps=20, batch_size=32,
+                seq=128, num_masked=20):
+    """Phase 4: BERT MLM pretraining through AutoDist -> Runner.step on a
+    one-rank world; returns {kernel name: launches on the main path}."""
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
+    from autodist_tpu_torch.utils.tree import flatten_with_path, path_to_name
+
+    print(f"phase 4: training a {cfg.num_layers}-layer, width {cfg.dim} BERT "
+          f"(MLM, batch {batch_size} x seq {seq}, {num_masked} masked, Adam "
+          f"1e-4) for {steps} Runner.steps through AutoDist(AllReduce())",
+          flush=True)
+    t0 = time.perf_counter()
+    params = bert.init(cfg, torch.Generator().manual_seed(0), device=device)
+    batch = bert.synthetic_batch(cfg, batch_size, seq, num_masked, seed=0)
+    ad = AutoDist(strategy_builder=AllReduce(), device=device)
+    try:
+        item = ad.capture(bert.make_loss_fn(cfg), params,
+                          functools.partial(torch.optim.Adam, lr=1e-4),
+                          example_batch=batch)
+        runner = ad.create_distributed_session(item)
+        state = runner.create_state()
+        backend = torch.distributed.get_backend()
+        mesh = dict(runner.program.mesh.shape)
+        print(f"  set-up (init, capture, world, strategy, transform, state) "
+              f"{time.perf_counter() - t0:.1f}s: {backend} world of "
+              f"{torch.distributed.get_world_size()}, mesh {mesh}, "
+              f"{len(runner.bucket_plan())} gradient bucket(s)", flush=True)
+        if device == "cuda":
+            check(backend == "nccl", f"the world's backend is {backend}")
+        dbatch = runner.remapper.shard_batch(batch)
+        named = [(path_to_name(p), t)
+                 for p, t in flatten_with_path(state.params)[0]]
+        leaves = [t for _, t in named]
+
+        def grads_at(attn_fn, c=cfg):
+            loss = bert.make_loss_fn(c, attn_fn=attn_fn)(state.params, dbatch)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+        def plain_attn(q, k, v, mask=None):
+            return fa.flash_fwd_reference(q, k, v, cfg.causal)[0]
+
+        # Step 1 against the plain attention, before the run, and both
+        # against the same model computing in f32.
+        loss_k, grads_k = grads_at(None)
+        loss_p, grads_p = grads_at(plain_attn)
+        cfg32 = copy.copy(cfg)
+        cfg32.dtype = torch.float32
+        _, grads_t = grads_at(plain_attn, cfg32)
+        norm_k = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads_k])).item()
+        norm_p = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads_p])).item()
+        dloss = abs(loss_k.item() - loss_p.item())
+        proj = [i for i, (n, _) in enumerate(named)
+                if "/attn/" in n and n.endswith(("query/kernel", "key/kernel",
+                                                 "value/kernel"))]
+
+        def worst(a, b):  # max over the projections, relative to b's max
+            return max(((a[i] - b[i]).abs().max() / b[i].abs().max()).item()
+                       for i in proj)
+        apart, k_f32, p_f32 = (worst(grads_k, grads_p),
+                               worst(grads_k, grads_t),
+                               worst(grads_p, grads_t))
+        print(f"  step 1 vs plain attention: loss {loss_k.item():.6f} vs "
+              f"{loss_p.item():.6f} (|diff| {dloss:.3e}, atol "
+              f"{TRAIN_LOSS_ATOL}); grad norm {norm_k:.6f} vs {norm_p:.6f} "
+              f"(rel {abs(norm_k - norm_p) / norm_p:.3e}, rtol "
+              f"{TRAIN_NORM_RTOL}); attention q/k/v kernels' grads, max "
+              f"|diff| / max |grad|: kernels vs plain {apart:.3e} (tol "
+              f"{TRAIN_LEAF_REL}), vs the f32 model: kernels {k_f32:.3e}, "
+              f"plain {p_f32:.3e} (kernels within {TRAIN_F32_RATIO}x plain)",
+              flush=True)
+        check(dloss <= TRAIN_LOSS_ATOL, f"step-1 loss differs by {dloss}")
+        check(abs(norm_k - norm_p) <= TRAIN_NORM_RTOL * norm_p,
+              f"step-1 grad norm {norm_k} vs {norm_p}")
+        check(apart <= TRAIN_LEAF_REL, f"attention projection grads differ "
+              f"by {apart} of their max")
+        check(k_f32 <= TRAIN_F32_RATIO * p_f32, f"attention projection "
+              f"grads are {k_f32} off the f32 model, the plain path {p_f32}")
+        del grads_k, grads_p, grads_t
+
+        # A repeated attention backward at layer 0's own inputs: bitwise.
+        seen = {}
+
+        def recording_attn(q, k, v, mask=None):
+            seen.setdefault("qkv", (q.detach(), k.detach(), v.detach()))
+            return fa.flash_attention(q, k, v, cfg.causal)
+        with torch.no_grad():
+            bert.make_loss_fn(cfg, attn_fn=recording_attn)(state.params,
+                                                           dbatch)
+        qkv = [t.clone().requires_grad_() for t in seen["qkv"]]
+        out = fa.flash_attention(*qkv, cfg.causal)
+        do = torch.randn(out.shape, generator=torch.Generator(
+            device=device).manual_seed(2), device=device, dtype=out.dtype)
+        first = torch.autograd.grad(out, qkv, do, retain_graph=True)
+        second = torch.autograd.grad(out, qkv, do)
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              "a repeated attention backward is not bitwise identical")
+        print(f"  repeated attention backward at layer 0's inputs "
+              f"{tuple(out.shape)}: bitwise identical", flush=True)
+
+        before = [t.detach().clone() for t in leaves]
+        kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+        for k in kernels:  # the main path: 20 steps
+            k.launches = 0
+        sync = torch.cuda.synchronize if device == "cuda" else (
+            lambda: None)
+        losses, times = [], []
+        for i in range(steps):
+            t = time.perf_counter()
+            state, metrics = runner.step(state, batch)
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(metrics["loss"])
+            if i == 0:
+                unchanged = [n for (n, _), b, (_, now) in zip(
+                    named, before, flatten_with_path(state.params)[0])
+                    if torch.equal(b, now.detach())]
+        launches = {k.__name__: k.launches for k in kernels}
+        losses = [float(x) for x in losses]
+        print(f"  losses: {losses[0]:.6f} (step 1) ... {losses[-1]:.6f} "
+              f"(step {steps}); all: " +
+              ", ".join(f"{x:.4f}" for x in losses), flush=True)
+        check(all(np.isfinite(losses)), "a loss is not finite")
+        check(losses[-1] < losses[0], "the loss did not fall")
+        check(not unchanged, f"step 1 left params unchanged: {unchanged}")
+        print(f"  launches over {steps} steps: {launches}", flush=True)
+        for name, n in launches.items():
+            check(n == cfg.num_layers * steps,
+                  f"{name} launched {n} times, expected {cfg.num_layers} x "
+                  f"{steps}: some attention did not run the kernel")
+        steady = times[4:]
+        med = float(np.median(steady))
+        print(f"  step time, median of steps 5-{steps}: {med:.3f} ms "
+              f"(min {min(steady):.3f}, max {max(steady):.3f}; step 1 "
+              f"{times[0]:.3f} ms), {batch_size / med * 1e3:.1f} samples/s "
+              f"on {card}", flush=True)
+
+        if device != "cuda":
+            return launches
+
+        def one_step():
+            nonlocal state
+            state, _ = runner.step(state, batch)
+        wall, busy, rows = _profile_step(torch, one_step)
+        flash = sum(us for us, _, name in rows if "flash_" in name)
+        print(f"  profiled step: wall {wall / 1e3:.3f} ms, device busy "
+              f"{busy / 1e3:.3f} ms ({100 * busy / wall:.1f}% of wall), "
+              f"flash kernels {flash / 1e3:.3f} ms ({100 * flash / busy:.1f}%"
+              f" of device time) on {card}", flush=True)
+        for us, count, name in rows[:8]:
+            print(f"    {us / 1e3:8.3f} ms  x{count:<4d} {name[:90]}",
+                  flush=True)
+    finally:
+        autodist_mod._reset_default()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -331,13 +742,33 @@ def main():
     print(f"phase 1: built {', '.join(build.KERNELS)} in "
           f"{time.perf_counter() - t0:.1f}s "
           f"(nvcc: {json.dumps(build.build_seconds)})", flush=True)
+    for name, log in build.build_logs.items():
+        for kernel, regs, spill in build.register_report(log):
+            m = re.search(r"(flash_[a-z_]+_kernel)I(.*)EEv", kernel)
+            short = kernel if m is None else (
+                m.group(1) + "<" + ("bf16 out, " if "bfloat16" in m.group(2)
+                                    else "f32 out, " if m.group(2)[:1] == "f"
+                                    else "") +
+                "d=" + ",".join(re.findall(r"Li(\d+)E", m.group(2) + "E")) +
+                ">")
+            print(f"  {name}: {short} {regs} registers, {spill} bytes "
+                  f"spilled", flush=True)
 
-    record = kernel_phase(torch, fa)
+    fwd = kernel_phase(torch, fa)
+    bwd = backward_phase(torch, fa)
     from autodist_tpu_torch.models import bert
-    record["launches"] = serve_phase(torch, fa, card,
-                                     bert.bert_base(max_len=512), "cuda")
+    served = serve_phase(torch, fa, card, bert.bert_base(max_len=512), "cuda")
+    trained = train_phase(torch, fa, card, bert.bert_base(max_len=128),
+                          "cuda")
+    fwd["launches"] = served + trained["flash_fwd"]
+    fwd["launches_by_path"] = {"serve": served,
+                               "train": trained["flash_fwd"]}
+    for record in bwd:
+        record["launches"] = trained[record["name"]]
+        record["launches_by_path"] = {"serve": 0,
+                                      "train": trained[record["name"]]}
     print(card, flush=True)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": [fwd] + bwd}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

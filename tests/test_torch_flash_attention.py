@@ -143,14 +143,6 @@ def test_attn_fn_with_mask_is_dot_product_attention():
             *map(jnp.asarray, xs), jnp.asarray(mask))), atol=1e-5, rtol=1e-5)
 
 
-def test_backward_raises_until_the_training_slice():
-    q, k, v = [torch.from_numpy(x).requires_grad_()
-               for x in _inputs((1, 2, 16, 16))]
-    out = fa.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
-
-
 @pytest.mark.parametrize("bad, match", [
     (dict(d=24), "head_dim 24"),
     (dict(kdtype=torch.float16), "one dtype"),

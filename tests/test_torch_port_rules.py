@@ -54,6 +54,8 @@ def test_port_imports_with_jax_made_unimportable():
             "import autodist_tpu_torch.models.bert\n"
             "import autodist_tpu_torch.ops.flash_attention\n"
             "import autodist_tpu_torch.convert, autodist_tpu_torch.strategy\n"
+            "import autodist_tpu_torch.autodist, autodist_tpu_torch.runner\n"
+            "import autodist_tpu_torch.models.lm, autodist_tpu_torch.models.mlp\n"
             "import chip_smoke\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -87,6 +89,55 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         serve.Server(apply, params, example, buckets=(8,))
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.ServeEngine(apply, params, example, (8,))
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_it():
+    _no_cuda()
+    import types
+
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.cluster import Mesh
+    from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
+    from autodist_tpu_torch.models import mlp
+    from autodist_tpu_torch.runner import Runner
+    from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
+    params = mlp.linreg_init("cpu")
+    batch = (np.zeros(8, np.float32), np.zeros(8, np.float32))
+    opt = lambda ts: torch.optim.SGD(ts, lr=0.1)  # noqa: E731
+    try:
+        ad = AutoDist(strategy_builder=AllReduce())
+        item = ad.capture(mlp.linreg_loss, params, opt, example_batch=batch)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ad.create_distributed_session(item)
+        assert not torch.distributed.is_initialized()
+    finally:
+        autodist_mod._reset_default()
+    # A program placed on the default device: create_state refuses.
+    mesh = Mesh(np.array([torch.device("cuda")], dtype=object), ("data",))
+    program = GraphTransformer(AllReduce().build(item, ad.resource_spec),
+                               types.SimpleNamespace(mesh=mesh),
+                               item).transform()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Runner(program).create_state()
+
+
+def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
+    from autodist_tpu_torch.ops import build
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    (tmp_path / "k.cu").write_text('#include <cmath>\n#include "common.cuh"\n')
+    (tmp_path / "other.cu").write_text("// no headers\n")
+    first, other = build.library_path("k")[1], build.library_path("other")[1]
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert build.library_path("k")[1] != first
+    assert build.library_path("other")[1] == other
+    # The real kernels: both include the shared header.
+    monkeypatch.undo()
+    for name in build.KERNELS:
+        srcs = build._sources(os.path.join(build.CSRC, name + ".cu"))
+        assert [os.path.basename(p) for p in srcs] == [name + ".cu",
+                                                       "flash_common.cuh"]
 
 
 def test_chip_smoke_fails_without_a_card_and_prints_no_result():
