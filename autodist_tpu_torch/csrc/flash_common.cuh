@@ -18,6 +18,9 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
+#include <set>
+#include <utility>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,6 +39,14 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);
+}
+
+// 2^x in one MUFU.EX2 (exp2f adds range fix-ups around it); subnormal
+// results flush to 0, and 2^-inf is +0.
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
@@ -173,13 +184,44 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
   }
 }
 
-template <typename Kernel, typename P>
-cudaError_t launch_kernel(Kernel kernel, int smem, dim3 grid,
-                          cudaStream_t stream, const P& p) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// Raises a kernel's dynamic shared-memory limit to ``smem`` once per
+// (kernel, device), not on every launch.
+__host__ inline cudaError_t allow_smem(const void* kernel, int smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, NT, smem, stream>>>(p);
+  static std::mutex mu;
+  static std::set<std::pair<const void*, int>> done;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count({kernel, dev})) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) done.insert({kernel, dev});
+  return err;
+}
+
+// The current device's SM count (a persistent grid's size), read once per
+// device.
+__host__ inline cudaError_t sm_count(int* n) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static int counts[64] = {};
+  if (dev < 64 && counts[dev] > 0) {
+    *n = counts[dev];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < 64) counts[dev] = *n;
+  return err;
+}
+
+template <typename P>
+cudaError_t launch_kernel(void (*kernel)(P), int smem, dim3 grid,
+                          cudaStream_t stream, const P& p, int threads = NT) {
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -2,10 +2,11 @@
 versions.
 
 Counterpart of ``autodist_tpu/ops/flash_attention.py``. The Pallas
-``_fwd_kernel`` becomes ``csrc/flash_fwd.cu`` and the backward pair
-``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` becomes ``csrc/flash_bwd.cu``
-(tensor-core ``mma.sync`` for bf16 inputs, f32 FMAs for f32 inputs; built
-by ``ops/build.py`` and called through ctypes).
+``_fwd_kernel`` becomes ``csrc/flash_fwd.cu`` (bf16 at d = 64 / 128: a TMA
+producer and ``wgmma`` consumer warpgroups; bf16 at d = 16 / 32:
+``mma.sync``; f32: FMAs) and the backward pair ``_bwd_dq_kernel`` /
+``_bwd_dkv_kernel`` becomes ``csrc/flash_bwd.cu`` (``mma.sync`` for bf16,
+FMAs for f32); built by ``ops/build.py`` and called through ctypes.
 :func:`flash_fwd_reference` and :func:`flash_bwd_reference` are the same
 functions in plain PyTorch, computed in f32 as the Pallas kernels compute
 them. :func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`
@@ -36,8 +37,9 @@ def causal_bias(sq, sk, q_offset=0, k_offset=0, device=None):
 
 
 def flash_fwd_reference(q, k, v, causal=False, q_offset=0, k_offset=0,
-                        out_dtype=None):
-    """Plain PyTorch version of the kernel: (o, lse (b, h, sq, 1) f32).
+                        out_dtype=None, with_lowp=False):
+    """Plain PyTorch version of the kernel: (o, lse (b, h, sq, 1) f32), and
+    with ``with_lowp`` a third output, o rounded to q's dtype.
 
     Scores, softmax and p.v all in f32 from upcast inputs (the Pallas
     kernel's ``preferred_element_type=f32`` arithmetic). A row with no
@@ -58,7 +60,10 @@ def flash_fwd_reference(q, k, v, causal=False, q_offset=0, k_offset=0,
         empty = lse <= _NEG_INF / 2
         o = torch.where(empty, 0.0, o)
         lse = torch.where(empty, _NEG_INF, lse)
-    return o.to(out_dtype), lse
+    o = o.to(out_dtype)
+    if with_lowp:
+        return o, lse, o.to(q.dtype)
+    return o, lse
 
 
 def _check(q, k, v, out_dtype):
@@ -87,40 +92,82 @@ def _check(q, k, v, out_dtype):
 
 
 _count_lock = threading.Lock()  # replicas launch from their own threads
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 +
-             [ctypes.c_longlong] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_fns = {}  # symbol -> ctypes function with its argtypes set
 
 
-def _launch(q, k, v, causal, q_offset, k_offset, out_dtype):
-    from autodist_tpu_torch.ops.build import load_library
-    fn = load_library("flash_fwd").autodist_flash_fwd
-    # Without argtypes ctypes passes every Python int as a 32-bit int,
-    # which cuts pointers and strides.
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+def _kernel_fn(library, symbol, argtypes):
+    """The library's C function, its argtypes set once. Without argtypes
+    ctypes passes every Python int as a 32-bit int, which cuts pointers and
+    strides."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        from autodist_tpu_torch.ops.build import load_library
+        fn = getattr(load_library(library), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    return fn
+
+
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 +
+                 [ctypes.c_longlong] * 12 + [ctypes.c_int] * 5 +
+                 [ctypes.c_void_p])
+_TMA_HEAD_DIMS = (64, 128)  # bf16 head dims of the TMA / wgmma route
+
+
+def _tma_ready(t):
+    """``t`` itself when TMA can read it (16-byte aligned base, (b, h, s)
+    strides positive multiples of 8 elements), else a fresh contiguous
+    copy: an explicit copy, not another kernel."""
+    if t.data_ptr() % 16 == 0 and all(st > 0 and st % 8 == 0
+                                      for st in t.stride()[:3]):
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+
+
+def _call(fn, device, *args):
+    """``fn(*args, stream)`` with ``device``'s current stream, entering the
+    device's context only when it is not the current one already."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
+def _launch(q, k, v, causal, q_offset, k_offset, out_dtype, with_lowp):
+    fn = _kernel_fn("flash_fwd", "autodist_flash_fwd", _FWD_ARGTYPES)
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    if q.dtype == torch.bfloat16 and d in _TMA_HEAD_DIMS:
+        q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
     o = torch.empty((b, h, sq, d), dtype=out_dtype, device=q.device)
     lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
+    # The kernel writes o rounded to q's dtype too when that differs from o's.
+    lowp = (torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+            if with_lowp and q.dtype != out_dtype else None)
+    outs = (o, lse) + ((o if lowp is None else lowp,) if with_lowp else ())
     if o.numel() == 0:
-        return o, lse
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), b, h, sq, sk, d,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *o.stride()[:3], int(causal), int(q_offset), int(k_offset),
-                 _DTYPE_TAGS[q.dtype], _DTYPE_TAGS[out_dtype], stream)
+        return outs
+    err = _call(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                o.data_ptr(), None if lowp is None else lowp.data_ptr(),
+                lse.data_ptr(), b, h, sq, sk, d, *q.stride()[:3],
+                *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                int(causal), int(q_offset), int(k_offset),
+                _DTYPE_TAGS[q.dtype], _DTYPE_TAGS[out_dtype])
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
                            f"{err}")
     with _count_lock:
         flash_fwd.launches += 1
-    return o, lse
+    return outs
 
 
-def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0, out_dtype=None):
-    """(o (b, h, sq, d) out_dtype, lse (b, h, sq, 1) f32).
+def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0, out_dtype=None,
+              with_lowp=False):
+    """(o (b, h, sq, d) out_dtype, lse (b, h, sq, 1) f32), and with
+    ``with_lowp`` a third output: o rounded to q's dtype, bitwise equal to
+    ``o.to(q.dtype)`` and written by the same kernel (training saves the
+    f32 o for the backward and hands the bf16 one to the model).
 
     On a CUDA tensor this launches the hand-written kernel (or raises); on
     any other tensor it runs :func:`flash_fwd_reference`. ``launches``
@@ -129,8 +176,10 @@ def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0, out_dtype=None):
     out_dtype = out_dtype or q.dtype
     _check(q, k, v, out_dtype)
     if q.device.type == "cuda":
-        return _launch(q, k, v, causal, q_offset, k_offset, out_dtype)
-    return flash_fwd_reference(q, k, v, causal, q_offset, k_offset, out_dtype)
+        return _launch(q, k, v, causal, q_offset, k_offset, out_dtype,
+                       with_lowp)
+    return flash_fwd_reference(q, k, v, causal, q_offset, k_offset, out_dtype,
+                               with_lowp)
 
 
 flash_fwd.launches = 0
@@ -188,29 +237,20 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 +
                  [ctypes.c_void_p])
 
 
-def _bwd_fn(symbol, n_out):
-    from autodist_tpu_torch.ops.build import load_library
-    fn = getattr(load_library("flash_bwd"), symbol)
-    fn.argtypes = (_BWD_ARGTYPES[:6] + [ctypes.c_void_p] * n_out +
-                   _BWD_ARGTYPES[6:])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch_bwd(wrapper, symbol, outs, q, k, v, do, lse, delta, causal,
                 q_offset, k_offset):
     if all(o.numel() == 0 for o in outs):
         return
     b, h, sq, d = q.shape
-    fn = _bwd_fn(symbol, len(outs))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(),
-                 *[o.data_ptr() for o in outs], b, h, sq, k.shape[2], d,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *do.stride()[:3], int(causal), int(q_offset), int(k_offset),
-                 _DTYPE_TAGS[q.dtype], stream)
+    fn = _kernel_fn("flash_bwd", symbol,
+                    _BWD_ARGTYPES[:6] + [ctypes.c_void_p] * len(outs) +
+                    _BWD_ARGTYPES[6:])
+    err = _call(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                *[o.data_ptr() for o in outs], b, h, sq, k.shape[2], d,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *do.stride()[:3], int(causal), int(q_offset), int(k_offset),
+                _DTYPE_TAGS[q.dtype])
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
                            f"error {err}")
@@ -270,12 +310,13 @@ def flash_bwd(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0):
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset):
-        # The f32 output is saved for delta; the caller gets q's dtype.
-        o, lse = flash_fwd(q, k, v, causal, q_offset, 0,
-                           out_dtype=torch.float32)
+        # The f32 output is saved for delta; the caller gets q's dtype,
+        # written by the same kernel launch (no cast afterwards).
+        o, lse, out = flash_fwd(q, k, v, causal, q_offset, 0,
+                                out_dtype=torch.float32, with_lowp=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.q_offset = causal, q_offset
-        return o.to(q.dtype)
+        return out
 
     @staticmethod
     def backward(ctx, do):

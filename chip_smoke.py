@@ -10,15 +10,21 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    ``nvidia-smi`` reports them, turns TF32 off for float32 products;
 1. build: compiles every kernel of the port from ``autodist_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) into the git-ignored ``build/``
-   directory and prints the seconds;
+   directory, prints the seconds and each kernel's registers and spills
+   (``ptxas -v``), and checks with ``cuobjdump -sass`` that the d = 64 and
+   d = 128 TMA / wgmma forward kernels hold HGMMA and UTMALDG instructions;
 2. kernels: each kernel against its plain PyTorch version on the card
    (the flash-attention forward, and the backward pair ``flash_bwd_dq`` /
    ``flash_bwd_dkv``), at the serving and training paths' shapes and at
-   the causal / offset / ragged / float32 cases; a repeated backward must
-   be bitwise identical and a pair with every row empty must give exactly
-   0; then times each kernel, its plain version, the PyTorch library call
-   that computes the same function (yardstick only, never called by the
-   port) and the card's bound;
+   the causal / offset / ragged / float32 / d = 128 / strided cases; every
+   call repeated must be bitwise identical, the training variant's bf16 o
+   must be its own f32 o cast to bf16, bitwise, and rows with no visible
+   key give exactly 0; then times each kernel, its plain version, the
+   PyTorch library call that computes the same function (yardstick only,
+   never called by the port; its kernels are printed) and the card's
+   bound. Times are device time per call from ``torch.profiler`` over 20
+   back-to-back calls, with the host-inclusive time per call (CUDA events
+   around 20 calls) beside them;
 3. serving: the port's ``serve.Server`` on BERT-base (seeded random
    weights, full width, 12 layers, seq 512) answers concurrent requests
    from four client threads; every answer is held against the port's own
@@ -32,8 +38,9 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    plain attention; every loss is finite and the last below the first;
    every param changes in step 1; each of the three kernels launches
    exactly 12 x 20 times; a repeated attention backward at a layer's own
-   inputs is bitwise identical. Prints the median step time, samples/s and
-   a profiled step;
+   inputs is bitwise identical; one training attention forward launches
+   one kernel and nothing else (no cast of o). Prints the median step
+   time, samples/s and a profiled step (12 flash_fwd launches in it);
 5. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -42,6 +49,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -88,8 +96,11 @@ TRAIN_F32_RATIO = 1.5
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # (b, h, sq, sk, d) of BERT-base's attention at the training run's batch 32
-# x seq 128.
+# x seq 128, and at serving's bucket 8 x seq 512.
 TRAIN_SHAPE = (32, 12, 128, 128, 64)
+SERVE_SHAPE = (8, 12, 512, 512, 64)
+# Back-to-back calls per timing (profiler and events alike).
+TIMED_CALLS = 20
 
 
 def check(cond, msg):
@@ -107,30 +118,66 @@ def card_line():
     return lines[0]
 
 
-def time_ms(fn, warmup=3, iters=20):
-    """Median of ``iters`` CUDA-event timings of one call, after warm-up."""
-    import torch
+def _device_us(event):
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return float(getattr(event, name))
+    return 0.0
+
+
+def timed(torch, fn, n=TIMED_CALLS, warmup=3):
+    """Times one call of ``fn`` on the card, after ``warmup`` calls.
+
+    ``ms``: device time, from ``torch.profiler`` over ``n`` back-to-back
+    calls: for every kernel the calls launched, its mean device time per
+    launch times its launches per call, summed (``kernels``: {kernel name:
+    launches recorded per call}; a profile can drop events, which shows as
+    a fraction there and leaves the per-launch mean intact). A run whose
+    profile holds no device time fails: there is no fallback to host
+    clocks. ``host_ms``: CUDA events around another ``n`` back-to-back
+    calls, over ``n``; it includes what the call does on the host before
+    its kernels reach the stream, and is the call's cost where the host
+    cannot run ahead of the card.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    total = sum(_device_us(e) / e.count * max(1, round(e.count / n))
+                for e in events)
+    check(total > 0, "torch.profiler recorded no device time: the kernels "
+          "cannot be timed on the device")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    end.record()
+    end.synchronize()
+    return {"ms": total / 1e3, "host_ms": start.elapsed_time(end) / n,
+            "kernels": {e.key: e.count / n for e in events}}
 
 
-def attention_work(q, k, v, o, lse):
+def kernel_names(t):
+    return ", ".join(f"{name[:70]} x{count:g}"
+                     for name, count in t["kernels"].items())
+
+
+def attention_work(q, k, v, *outs):
     """(operations, bytes) of one non-causal call: 4 flops per (q, k) pair
-    and head-dim element; each input read once, each output written once."""
+    and head-dim element; each input read once, each output (o, lse and
+    any second o) written once."""
     b, h, sq, d = q.shape
     flops = 4.0 * b * h * sq * k.shape[2] * d
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o, lse))
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, *outs))
     return flops, nbytes
 
 
@@ -156,7 +203,8 @@ def bwd_ds_rounded_once(torch, q, k, v, do, lse, delta):
 
 
 def kernel_phase(torch, fa):
-    """Phase 2: flash_fwd vs flash_fwd_reference on the card."""
+    """Phase 2: flash_fwd vs flash_fwd_reference on the card, then its
+    times beside the plain version's, SDPA's and the bound."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -167,9 +215,13 @@ def kernel_phase(torch, fa):
     errs = {"o": 0.0, "lse": 0.0}
 
     def compare(name, q, k, v, causal=False, q_offset=0, k_offset=0,
-                out_dtype=None, all_empty=False):
-        o, lse = fa.flash_fwd(q, k, v, causal, q_offset, k_offset, out_dtype)
+                out_dtype=None, all_empty=False, with_lowp=False):
+        got = fa.flash_fwd(q, k, v, causal, q_offset, k_offset, out_dtype,
+                           with_lowp)
+        again = fa.flash_fwd(q, k, v, causal, q_offset, k_offset, out_dtype,
+                             with_lowp)
         torch.cuda.synchronize()
+        o, lse = got[:2]
         ro, rl = fa.flash_fwd_reference(q, k, v, causal, q_offset, k_offset,
                                         out_dtype)
         check(o.dtype == ro.dtype and o.shape == ro.shape and
@@ -178,8 +230,8 @@ def kernel_phase(torch, fa):
               f"{name}: non-finite output")
         err_o = (o.float() - ro.float()).abs().max().item()
         err_l = (lse - rl).abs().max().item()
-        print(f"  {name}: max|o-o_plain| {err_o:.3e}  "
-              f"max|lse-lse_plain| {err_l:.3e}", flush=True)
+        line = (f"  {name}: max|o-o_plain| {err_o:.3e}  max|lse-lse_plain| "
+                f"{err_l:.3e}, repeat bitwise")
         atol, rtol = ((O_F32_ATOL, 0.0) if o.dtype == torch.float32
                       else (O_ATOL, O_RTOL))
         check(torch.allclose(o.float(), ro.float(), atol=atol, rtol=rtol),
@@ -187,19 +239,27 @@ def kernel_phase(torch, fa):
               f"(atol {atol}, rtol {rtol})")
         check(torch.allclose(lse, rl, atol=LSE_ATOL, rtol=0),
               f"{name}: lse differs from the plain version by {err_l}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{name}: a repeated call is not bitwise identical")
+        if with_lowp:
+            check(got[2].dtype == q.dtype and
+                  torch.equal(got[2], o.to(q.dtype)),
+                  f"{name}: the kernel's {q.dtype} o is not its f32 o cast")
+            line += f"; its {str(q.dtype)[6:]} o == its f32 o cast, bitwise"
         if all_empty:
             check(bool((o == 0).all()) and bool((lse == -1e30).all()),
                   f"{name}: rows with no visible key must give o == 0 and "
                   f"lse == -1e30")
+        print(line, flush=True)
         errs["o"] = max(errs["o"], err_o)
         errs["lse"] = max(errs["lse"], err_l)
         return o, lse
 
     bf16, f32 = torch.bfloat16, torch.float32
     print(f"phase 2: flash_fwd kernel vs its plain version (bf16 o: atol "
-          f"{O_ATOL}, rtol {O_RTOL}; f32 o: atol {O_F32_ATOL})", flush=True)
-    shape_a = (8, 12, 512, 512, 64)  # BERT-base at bucket 8
-    qa, ka, va = qkv(*shape_a, bf16)
+          f"{O_ATOL}, rtol {O_RTOL}; f32 o: atol {O_F32_ATOL}; every call "
+          f"repeated)", flush=True)
+    qa, ka, va = qkv(*SERVE_SHAPE, bf16)
     compare("(a) bert-base b8 h12 s512 d64 bf16", qa, ka, va)
     q, k, v = qkv(4, 16, 1024, 1024, 64, bf16)
     compare("(b) lm1b b4 h16 s1024 d64 bf16 causal", q, k, v, causal=True)
@@ -211,8 +271,8 @@ def kernel_phase(torch, fa):
     compare("(c) bf16 in, f32 out, causal", q, k, v, causal=True,
             out_dtype=f32)
     qt, kt, vt = qkv(*TRAIN_SHAPE, bf16)
-    o_t, _ = compare("(t) training b32 h12 s128 d64 bf16 in, f32 out", qt,
-                     kt, vt, out_dtype=f32)
+    o_t, _ = compare("(t) training b32 h12 s128 d64 bf16 in, f32 + bf16 "
+                     "out", qt, kt, vt, out_dtype=f32, with_lowp=True)
     ro_t = fa.flash_fwd_reference(qt, kt, vt, out_dtype=f32)[0]
     once = (fwd_p_rounded_once(torch, qt, kt, vt) - ro_t).abs().max().item()
     print(f"  (t) with P rounded once to bf16 the plain version reads "
@@ -220,50 +280,92 @@ def kernel_phase(torch, fa):
           f"atol {O_F32_ATOL})", flush=True)
     check(once > O_F32_ATOL, f"the f32-output tolerance {O_F32_ATOL} would "
           f"pass a kernel rounding P once ({once})")
+    del ro_t
     for d in (16, 32, 128):
         q, k, v = qkv(2, 3, 200, 200, d, f32)
         compare(f"(d) f32 s200 d{d}", q, k, v)
         compare(f"(d) f32 s200 d{d} causal", q, k, v, causal=True)
+    q, k, v = qkv(2, 3, 200, 200, 128, bf16)
+    compare("(e) bf16 d128 s200 causal (ragged)", q, k, v, causal=True)
+    q, k, v = qkv(2, 3, 200, 333, 128, bf16)
+    compare("(e) bf16 d128 sq200 sk333 causal q_offset 100", q, k, v,
+            causal=True, q_offset=100)
+    q, k, v = qkv(2, 4, 300, 300, 128, bf16)
+    compare("(e) bf16 d128 s300 f32 + bf16 out", q, k, v, out_dtype=f32,
+            with_lowp=True)
+    for d in (16, 32):
+        q, k, v = qkv(2, 3, 200, 200, d, bf16)
+        compare(f"(e) bf16 d{d} s200 causal f32 + bf16 out (mma.sync)", q, k,
+                v, causal=True, out_dtype=f32, with_lowp=True)
+    x = torch.randn((4, 256, 3 * 768), generator=gen, device=dev, dtype=bf16)
+    q, k, v = [t.reshape(4, 256, 12, 64).transpose(1, 2)
+               for t in x.split(768, -1)]
+    compare("(f) the model's layout: (b, h, s, d) views of (b, s, h, d) "
+            "memory, causal", q, k, v, causal=True)
+    buf = torch.randn((2, 3, 100, 65), generator=gen, device=dev, dtype=bf16)
+    compare("(f) rows 65 elements apart (copied for TMA)", buf[..., 1:],
+            buf[..., 1:], buf[..., 1:])
 
-    def timings(q, k, v, label, out_dtype=None):
-        kernel_ms = time_ms(lambda: fa.flash_fwd(q, k, v,
-                                                 out_dtype=out_dtype))
-        plain_ms = time_ms(lambda: fa.flash_fwd_reference(
-            q, k, v, out_dtype=out_dtype))
-        library_ms = time_ms(lambda: torch.nn.functional
-                             .scaled_dot_product_attention(q, k, v))
-        o, lse = fa.flash_fwd(q, k, v, out_dtype=out_dtype)
-        flops, nbytes = attention_work(q, k, v, o, lse)
+    def timings(q, k, v, label, **kw):
+        out = fa.flash_fwd(q, k, v, **kw)
+        flops, nbytes = attention_work(q, k, v, *out)
         bound_ms, bound_by = bound(flops, nbytes)
-        print(f"  timing at {label} ({o.dtype} o), median of 20 after 3 "
-              f"warm-ups: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, scaled_dot_product_attention {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.3f} MB)", flush=True)
-        return kernel_ms, plain_ms, library_ms, bound_ms, bound_by, o
+        kern = timed(torch, lambda: fa.flash_fwd(q, k, v, **kw))
+        plain = timed(torch, lambda: fa.flash_fwd_reference(q, k, v, **kw))
+        lib = timed(torch, lambda: torch.nn.functional
+                    .scaled_dot_product_attention(q, k, v))
+        lib2 = timed(torch, lambda: torch.nn.functional
+                     .scaled_dot_product_attention(q, k, v))
+        check(all("flash_fwd" in name for name in kern["kernels"]),
+              f"flash_fwd at {label} launched {kernel_names(kern)}")
+        kinds = " + ".join(str(t.dtype)[6:] for t in (out[0], *out[2:]))
+        print(f"  timing at {label} ({kinds} o), device ms per call (profiler, {TIMED_CALLS} calls) / host-"
+              f"inclusive ms per call (events around {TIMED_CALLS} calls): "
+              f"kernel {kern['ms']:.4f} / {kern['host_ms']:.4f}, plain "
+              f"{plain['ms']:.4f} / {plain['host_ms']:.4f}, SDPA "
+              f"{lib['ms']:.4f} / {lib['host_ms']:.4f} (again: "
+              f"{lib2['ms']:.4f} / {lib2['host_ms']:.4f}); bound "
+              f"{bound_ms:.4f} ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.3f} MB); kernel / SDPA device "
+              f"{kern['ms'] / lib['ms']:.2f}x, bound / kernel "
+              f"{bound_ms / kern['ms']:.3f}", flush=True)
+        print(f"    launches recorded per call: {kernel_names(kern)}; SDPA's: "
+              f"{kernel_names(lib)}", flush=True)
+        return {"ms": kern["ms"], "host_ms": kern["host_ms"],
+                "plain_ms": plain["ms"], "plain_host_ms": plain["host_ms"],
+                "library_ms": lib["ms"], "library_host_ms": lib["host_ms"],
+                "library_ms_again": lib2["ms"],
+                "library_kernels": list(lib["kernels"]),
+                "bound_ms": bound_ms, "bound_by": bound_by}, out
 
-    kernel_ms, plain_ms, library_ms, bound_ms, bound_by, _ = timings(
-        qa, ka, va, "(a)")
-    # Training runs the f32-output kernel and casts o to bf16 after it
-    # (``_FlashAttention.forward``).
-    train = timings(qt, kt, vt, "the training shape", out_dtype=f32)
-    cast_ms = time_ms(lambda: train[5].to(bf16))
-    print(f"  the training forward's cast of the f32 o to bf16: {cast_ms:.4f} "
-          f"ms", flush=True)
-    return {"name": "flash_fwd", "route": "cuda",
-            "source": "autodist_tpu_torch/csrc/flash_fwd.cu",
-            "replaces": "autodist_tpu/ops/flash_attention.py:101",
-            "tpu_kernel": "_fwd_kernel",
-            "shape": list(shape_a[:3]) + [shape_a[4]],
-            "max_abs_err": errs["o"], "max_err_o": errs["o"],
-            "max_err_lse": errs["lse"], "ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "train_shape": list(TRAIN_SHAPE[:3]) + [TRAIN_SHAPE[4]],
-            "train_out_dtype": "float32",
-            "train_ms": train[0], "train_plain_ms": train[1],
-            "train_library_ms": train[2], "train_bound_ms": train[3],
-            "train_cast_ms": cast_ms}
+    at_a, _ = timings(qa, ka, va, "(a)")
+    # Training's call: f32 o (saved for the backward) and the model's bf16 o
+    # from one launch. The cast it replaced is timed once for the record.
+    at_t, out_t = timings(qt, kt, vt, "the training shape (t)",
+                          out_dtype=f32, with_lowp=True)
+    cast = timed(torch, lambda: out_t[0].to(bf16))
+    print(f"  a separate cast of the f32 o at (t) to bf16 (no longer run): "
+          f"device {cast['ms']:.4f} ms, host-inclusive {cast['host_ms']:.4f}"
+          f" ms; {kernel_names(cast)}", flush=True)
+    record = {"name": "flash_fwd", "route": "cuda",
+              "source": "autodist_tpu_torch/csrc/flash_fwd.cu",
+              "replaces": "autodist_tpu/ops/flash_attention.py:101",
+              "tpu_kernel": "_fwd_kernel",
+              "design": "bf16 d64/128: persistent, TMA producer warp + two "
+                        "wgmma consumer warpgroups, 2-stage K/V ring",
+              "shape": list(SERVE_SHAPE[:3]) + [SERVE_SHAPE[4]],
+              "max_abs_err": errs["o"], "max_err_o": errs["o"],
+              "max_err_lse": errs["lse"],
+              "timing": f"ms: device time per call (torch.profiler, "
+                        f"{TIMED_CALLS} back-to-back calls after 3 warm-ups)"
+                        f"; host_ms: CUDA events around {TIMED_CALLS} "
+                        f"calls, over {TIMED_CALLS}",
+              "train_shape": list(TRAIN_SHAPE[:3]) + [TRAIN_SHAPE[4]],
+              "train_outputs": "float32 o + bfloat16 o",
+              "train_cast_ms": cast["ms"]}
+    record.update(at_a)
+    record.update({"train_" + key: val for key, val in at_t.items()})
+    return record
 
 
 def bound(flops, nbytes):
@@ -330,8 +432,7 @@ def backward_phase(torch, fa):
           f"version (relative to max |grad|: bf16 dq, dk {BWD_REL_DQDK_BF16},"
           f" dv {BWD_REL_DV_BF16}; f32 {BWD_REL_F32}; repeats bitwise)",
           flush=True)
-    shape_a = (8, 12, 512, 512, 64)
-    a = compare("(a) bert-base b8 h12 s512 d64 bf16", shape_a, bf16)
+    a = compare("(a) bert-base b8 h12 s512 d64 bf16", SERVE_SHAPE, bf16)
     t = compare("(t) training b32 h12 s128 d64 bf16", TRAIN_SHAPE, bf16)
     ref_t = fa.flash_bwd_reference(*t)
     once = [((a - r).abs().max() / r.abs().max()).item()
@@ -359,26 +460,46 @@ def backward_phase(torch, fa):
 
     def timings(args, label):
         q, k, v, do, lse, delta = args
-        dq_ms = time_ms(lambda: fa.flash_bwd_dq(*args))
-        dkv_ms = time_ms(lambda: fa.flash_bwd_dkv(*args))
-        plain_ms = time_ms(lambda: fa.flash_bwd_reference(*args))
+        dq = timed(torch, lambda: fa.flash_bwd_dq(*args))
+        dkv = timed(torch, lambda: fa.flash_bwd_dkv(*args))
+        plain = timed(torch, lambda: fa.flash_bwd_reference(*args))
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
         out = torch.nn.functional.scaled_dot_product_attention(*leaves)
-        library_ms = time_ms(lambda: torch.autograd.grad(
-            out, leaves, do, retain_graph=True))
+        lib, lib2 = [timed(torch, lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True)) for _ in range(2)]
+        check(all("flash_bwd_dq" in n for n in dq["kernels"]) and
+              all("flash_bwd_dkv" in n for n in dkv["kernels"]),
+              f"the backward kernels at {label} launched "
+              f"{kernel_names(dq)}; {kernel_names(dkv)}")
         b, h, sq, d = q.shape
         pairs = float(b * h * sq * k.shape[2] * d)
         ins = sum(x.numel() * x.element_size()
                   for x in (q, k, v, do, lse, delta))
         dq_bound = bound(6 * pairs, ins + q.numel() * 4)
         dkv_bound = bound(8 * pairs, ins + 2 * k.numel() * 4)
-        print(f"  timing at {label}, median of 20 after 3 warm-ups: dq "
-              f"kernel {dq_ms:.4f} ms (bound {dq_bound[0]:.4f} ms, "
-              f"{dq_bound[1]}), dkv kernel {dkv_ms:.4f} ms (bound "
-              f"{dkv_bound[0]:.4f} ms, {dkv_bound[1]}), plain backward "
-              f"{plain_ms:.4f} ms, scaled_dot_product_attention backward "
-              f"(dq, dk, dv together) {library_ms:.4f} ms", flush=True)
-        return dq_ms, dkv_ms, plain_ms, library_ms, dq_bound, dkv_bound
+        print(f"  timing at {label}, device ms per call (profiler, "
+              f"{TIMED_CALLS} calls) / host-inclusive ms per call (events "
+              f"around {TIMED_CALLS} calls): dq kernel {dq['ms']:.4f} / "
+              f"{dq['host_ms']:.4f} (bound {dq_bound[0]:.4f}, "
+              f"{dq_bound[1]}), dkv kernel {dkv['ms']:.4f} / "
+              f"{dkv['host_ms']:.4f} (bound {dkv_bound[0]:.4f}, "
+              f"{dkv_bound[1]}), plain backward {plain['ms']:.4f} / "
+              f"{plain['host_ms']:.4f}, SDPA backward (dq, dk, dv together)"
+              f" {lib['ms']:.4f} / {lib['host_ms']:.4f} (again: "
+              f"{lib2['ms']:.4f} / {lib2['host_ms']:.4f}); the pair / SDPA "
+              f"backward device {(dq['ms'] + dkv['ms']) / lib['ms']:.2f}x",
+              flush=True)
+        print(f"    launches recorded per call: {kernel_names(dq)}; "
+              f"{kernel_names(dkv)}; SDPA backward's: {kernel_names(lib)}",
+              flush=True)
+        return [
+            {"ms": t["ms"], "host_ms": t["host_ms"],
+             "plain_ms": plain["ms"], "plain_host_ms": plain["host_ms"],
+             "library_ms": lib["ms"], "library_host_ms": lib["host_ms"],
+             "library_ms_again": lib2["ms"],
+             "library_kernels": list(lib["kernels"]),
+             "bound_ms": bnd[0], "bound_by": bnd[1]}
+            for t, bnd in ((dq, dq_bound), (dkv, dkv_bound))]
 
     at_a = timings(a, "(a)")
     at_t = timings(t, "the training shape (t)")
@@ -387,26 +508,19 @@ def backward_phase(torch, fa):
             ("flash_bwd_dq", "_bwd_dq_kernel", 219),
             ("flash_bwd_dkv", "_bwd_dkv_kernel", 258))):
         key = "dq" if i == 0 else "dkv"
-        records.append({
+        record = {
             "name": name, "route": "cuda",
             "source": "autodist_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"autodist_tpu/ops/flash_attention.py:{line}",
             "tpu_kernel": tpu,
+            "design": "mma.sync, 4 warps of 16 rows, no pipelining",
             "shape": list(TRAIN_SHAPE[:3]) + [TRAIN_SHAPE[4]],
-            "max_abs_err": errs[key], "ms": at_t[i],
-            "plain_ms": at_t[2], "library_ms": at_t[3],
-            "library_covers": "dq, dk and dv together",
-            "bound_ms": at_t[4 + i][0], "bound_by": at_t[4 + i][1],
-            "shape_a_ms": at_a[i], "shape_a_plain_ms": at_a[2],
-            "shape_a_library_ms": at_a[3], "shape_a_bound_ms": at_a[4 + i][0]})
+            "max_abs_err": errs[key],
+            "library_covers": "dq, dk and dv together"}
+        record.update(at_t[i])
+        record.update({"shape_a_" + k: v for k, v in at_a[i].items()})
+        records.append(record)
     return records
-
-
-def _device_us(event):
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(event, name):
-            return float(getattr(event, name))
-    return 0.0
 
 
 def profile_dispatches(torch, srv, batch, n=6):
@@ -662,6 +776,19 @@ def train_phase(torch, fa, card, cfg, device, steps=20, batch_size=32,
               "a repeated attention backward is not bitwise identical")
         print(f"  repeated attention backward at layer 0's inputs "
               f"{tuple(out.shape)}: bitwise identical", flush=True)
+        if device == "cuda":
+            # The training forward of one attention: one kernel writes the
+            # saved f32 o and the model's bf16 o; no cast follows it.
+            fwd = timed(torch, lambda: fa.flash_attention(*qkv, cfg.causal),
+                        n=5, warmup=1)
+            check(len(fwd["kernels"]) == 1 and
+                  all("flash_fwd" in n and 0 < c <= 1
+                      for n, c in fwd["kernels"].items()),
+                  f"one training attention forward launched "
+                  f"{kernel_names(fwd)}, not one flash_fwd kernel")
+            print(f"  one training attention forward (_FlashAttention."
+                  f"forward) launches {kernel_names(fwd)} and nothing else",
+                  flush=True)
 
         before = [t.detach().clone() for t in leaves]
         kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
@@ -708,16 +835,60 @@ def train_phase(torch, fa, card, cfg, device, steps=20, batch_size=32,
             state, _ = runner.step(state, batch)
         wall, busy, rows = _profile_step(torch, one_step)
         flash = sum(us for us, _, name in rows if "flash_" in name)
+        fwd_launches = sum(n for _, n, name in rows if "flash_fwd" in name)
+        check(fwd_launches == cfg.num_layers, f"the profiled step launched "
+              f"flash_fwd {fwd_launches} times, not {cfg.num_layers}")
         print(f"  profiled step: wall {wall / 1e3:.3f} ms, device busy "
               f"{busy / 1e3:.3f} ms ({100 * busy / wall:.1f}% of wall), "
               f"flash kernels {flash / 1e3:.3f} ms ({100 * flash / busy:.1f}%"
-              f" of device time) on {card}", flush=True)
+              f" of device time; flash_fwd launched {fwd_launches} times) on "
+              f"{card}", flush=True)
         for us, count, name in rows[:8]:
             print(f"    {us / 1e3:8.3f} ms  x{count:<4d} {name[:90]}",
                   flush=True)
     finally:
         autodist_mod._reset_default()
     return launches
+
+
+def short_kernel(mangled):
+    """``flash_fwd_wgmma_kernel<d=64, f32 + bf16 out>`` from a mangled
+    kernel name."""
+    m = re.search(r"(flash_[a-z_]+_kernel)I(.*)EEv", mangled)
+    if m is None:
+        return mangled
+    args = m.group(2)
+    out = ("bf16 out, " if "bfloat16" in args or "Lb0E" in args
+           else "f32 + bf16 out, " if "Lb1E" in args
+           else "f32 out, " if args[:1] == "f" else "")
+    dims = ",".join(re.findall(r"Li(\d+)E", args + "E"))
+    return f"{m.group(1)}<{out}d={dims}>"
+
+
+def sass_check(build):
+    """Phase 1: every instantiation of the TMA / wgmma forward kernel (d = 64
+    and 128, bf16 and f32 + bf16 output) holds wgmma (HGMMA) and TMA load
+    (UTMALDG) instructions in its SASS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", build.library_path("flash_fwd")[1]],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    found = {}
+    for body in sass.split("Function : ")[1:]:
+        m = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELb([01])E",
+                      body.split("\n", 1)[0])
+        if m:
+            found[(int(m.group(1)), m.group(2) == "1")] = (
+                body.count("HGMMA"), body.count("UTMALDG"))
+    for d in (64, 128):
+        for f32_out in (False, True):
+            hgmma, utmaldg = found.get((d, f32_out), (0, 0))
+            check(hgmma > 0 and utmaldg > 0,
+                  f"flash_fwd_wgmma_kernel<d={d}, f32 out {f32_out}> has "
+                  f"{hgmma} HGMMA and {utmaldg} UTMALDG instructions")
+    print("  SASS (cuobjdump -sass): " + ", ".join(
+        f"d={d}{' f32+bf16 out' if f else ''}: {h} HGMMA, {u} UTMALDG"
+        for (d, f), (h, u) in sorted(found.items())), flush=True)
 
 
 def main():
@@ -744,15 +915,12 @@ def main():
           f"(nvcc: {json.dumps(build.build_seconds)})", flush=True)
     for name, log in build.build_logs.items():
         for kernel, regs, spill in build.register_report(log):
-            m = re.search(r"(flash_[a-z_]+_kernel)I(.*)EEv", kernel)
-            short = kernel if m is None else (
-                m.group(1) + "<" + ("bf16 out, " if "bfloat16" in m.group(2)
-                                    else "f32 out, " if m.group(2)[:1] == "f"
-                                    else "") +
-                "d=" + ",".join(re.findall(r"Li(\d+)E", m.group(2) + "E")) +
-                ">")
-            print(f"  {name}: {short} {regs} registers, {spill} bytes "
-                  f"spilled", flush=True)
+            print(f"  {name}: {short_kernel(kernel)} {regs} registers, "
+                  f"{spill} bytes spilled", flush=True)
+        for line in log.splitlines():
+            if "warning" in line.lower():
+                print(f"  {name}: {line.strip()}", flush=True)
+    sass_check(build)
 
     fwd = kernel_phase(torch, fa)
     bwd = backward_phase(torch, fa)

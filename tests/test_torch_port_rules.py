@@ -132,12 +132,16 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     (tmp_path / "common.cuh").write_text("// v2\n")
     assert build.library_path("k")[1] != first
     assert build.library_path("other")[1] == other
-    # The real kernels: both include the shared header.
+    # The real kernels: both include the shared header, the forward also
+    # the TMA / wgmma one.
     monkeypatch.undo()
+    headers = {"flash_fwd": ["flash_common.cuh", "hopper.cuh"],
+               "flash_bwd": ["flash_common.cuh"]}
+    assert set(build.KERNELS) == set(headers)
     for name in build.KERNELS:
         srcs = build._sources(os.path.join(build.CSRC, name + ".cu"))
         assert [os.path.basename(p) for p in srcs] == [name + ".cu",
-                                                       "flash_common.cuh"]
+                                                       *headers[name]]
 
 
 def test_chip_smoke_fails_without_a_card_and_prints_no_result():
