@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the flash-attention kernels: mbarrier
-// rings, TMA tensor loads, shared-memory matrix descriptors and warpgroup
-// matrix products (wgmma), written as inline PTX. Host side: 4-D tensor maps
+// rings, TMA tensor loads, cp.async copies that arrive on an mbarrier,
+// shared-memory matrix descriptors and warpgroup matrix products (wgmma),
+// written as inline PTX. Host side: 4-D tensor maps
 // over (d, s, h, b) built with cuTensorMapEncodeTiled, found through
 // cudaGetDriverEntryPoint so nothing links against libcuda.
 //
@@ -111,6 +112,29 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// cp.async (per-thread copies, for short rows that TMA cannot address: a
+// row of ``n`` f32 starting at an arbitrary element is neither 16-byte
+// aligned nor, at a ragged edge, inside the tensor)
+
+// 4 bytes from global ``src`` into shared ``dst``; with ``bytes`` = 0
+// nothing is read and ``dst`` gets zeros.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// One arrival on ``bar`` once every cp.async this thread issued so far has
+// landed. The arrival is not added to the barrier's expected count
+// (.noinc): its init count must include it.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
 }
 
 // ---------------------------------------------------------------------------

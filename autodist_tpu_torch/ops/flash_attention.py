@@ -5,8 +5,10 @@ Counterpart of ``autodist_tpu/ops/flash_attention.py``. The Pallas
 ``_fwd_kernel`` becomes ``csrc/flash_fwd.cu`` (bf16 at d = 64 / 128: a TMA
 producer and ``wgmma`` consumer warpgroups; bf16 at d = 16 / 32:
 ``mma.sync``; f32: FMAs) and the backward pair ``_bwd_dq_kernel`` /
-``_bwd_dkv_kernel`` becomes ``csrc/flash_bwd.cu`` (``mma.sync`` for bf16,
-FMAs for f32); built by ``ops/build.py`` and called through ctypes.
+``_bwd_dkv_kernel`` becomes ``csrc/flash_bwd.cu`` (bf16 at d = 64, and dq
+at d = 128: TMA producer and ``wgmma`` consumer warpgroups, writing f32 or
+bf16 gradients; bf16 at d = 16 / 32 and dk/dv at d = 128: ``mma.sync``;
+f32: FMAs); built by ``ops/build.py`` and called through ctypes.
 :func:`flash_fwd_reference` and :func:`flash_bwd_reference` are the same
 functions in plain PyTorch, computed in f32 as the Pallas kernels compute
 them. :func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`
@@ -209,7 +211,7 @@ def flash_bwd_reference(q, k, v, do, lse, delta, causal=False, q_offset=0,
     return dq, dk, dv
 
 
-def _bwd_inputs(q, k, v, do, lse, delta):
+def _bwd_inputs(q, k, v, do, lse, delta, out_dtype):
     """Check the backward's inputs against what the kernels take; returns
     ``do``, ``lse`` and ``delta`` in the layout they read."""
     _check(q, k, v, q.dtype)
@@ -222,6 +224,9 @@ def _bwd_inputs(q, k, v, do, lse, delta):
             raise ValueError(f"{name} must be float32 of shape "
                              f"{(b, h, sq, 1)}, got {tuple(t.shape)} "
                              f"{t.dtype}")
+    if out_dtype not in (torch.float32, q.dtype):
+        raise ValueError(f"out_dtype must be float32 or q's dtype {q.dtype}, "
+                         f"got {out_dtype}")
     if not all(t.device == q.device for t in (do, lse, delta)):
         raise ValueError("do/lse/delta must lie on q's device")
     # The kernels take q/k/v/do by strides but need the head dimension
@@ -232,25 +237,36 @@ def _bwd_inputs(q, k, v, do, lse, delta):
     return do, lse.contiguous(), delta.contiguous()
 
 
+def _bwd_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset,
+               out_dtype):
+    """The plain version's (dq, dk, dv), in ``out_dtype``."""
+    return tuple(g.to(out_dtype) for g in flash_bwd_reference(
+        q, k, v, do, lse, delta, causal, q_offset, k_offset))
+
+
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 +
-                 [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4 +
+                 [ctypes.c_longlong] * 12 + [ctypes.c_int] * 5 +
                  [ctypes.c_void_p])
 
 
 def _launch_bwd(wrapper, symbol, outs, q, k, v, do, lse, delta, causal,
                 q_offset, k_offset):
-    if all(o.numel() == 0 for o in outs):
-        return
     b, h, sq, d = q.shape
+    if b * h * sq * k.shape[2] == 0:  # nothing to read: the outputs are 0
+        for o in outs:
+            o.zero_()
+        return
     fn = _kernel_fn("flash_bwd", symbol,
                     _BWD_ARGTYPES[:6] + [ctypes.c_void_p] * len(outs) +
                     _BWD_ARGTYPES[6:])
+    if q.dtype == torch.bfloat16 and d in _TMA_HEAD_DIMS:
+        q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
     err = _call(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 *[o.data_ptr() for o in outs], b, h, sq, k.shape[2], d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *do.stride()[:3], int(causal), int(q_offset), int(k_offset),
-                _DTYPE_TAGS[q.dtype])
+                _DTYPE_TAGS[q.dtype], _DTYPE_TAGS[outs[0].dtype])
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
                            f"error {err}")
@@ -259,31 +275,34 @@ def _launch_bwd(wrapper, symbol, outs, q, k, v, do, lse, delta, causal,
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, q_offset=0,
-                 k_offset=0):
-    """dq (b, h, sq, d) f32: the ``_bwd_dq_kernel`` counterpart. Launches
-    the kernel on a CUDA tensor (or raises), else the plain version.
-    ``launches`` counts kernel launches."""
-    do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
+                 k_offset=0, out_dtype=torch.float32):
+    """dq (b, h, sq, d) in ``out_dtype`` (float32, the ``_flash_bwd``
+    contract, or q's dtype: the f32 sums rounded once to nearest even,
+    bitwise the f32 result cast): the ``_bwd_dq_kernel`` counterpart.
+    Launches the kernel on a CUDA tensor (or raises), else the plain
+    version. ``launches`` counts kernel launches."""
+    do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta, out_dtype)
     if q.device.type != "cuda":
-        return flash_bwd_reference(q, k, v, do, lse, delta, causal, q_offset,
-                                   k_offset)[0]
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        return _bwd_plain(q, k, v, do, lse, delta, causal, q_offset,
+                          k_offset, out_dtype)[0]
+    dq = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     _launch_bwd(flash_bwd_dq, "autodist_flash_bwd_dq", (dq,), q, k, v, do,
                 lse, delta, causal, q_offset, k_offset)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, q_offset=0,
-                  k_offset=0):
-    """(dk, dv) (b, h, sk, d) f32: the ``_bwd_dkv_kernel`` counterpart.
-    Launches the kernel on a CUDA tensor (or raises), else the plain
-    version. ``launches`` counts kernel launches."""
-    do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
+                  k_offset=0, out_dtype=torch.float32):
+    """(dk, dv) (b, h, sk, d) in ``out_dtype`` (as :func:`flash_bwd_dq`):
+    the ``_bwd_dkv_kernel`` counterpart. Launches the kernel on a CUDA
+    tensor (or raises), else the plain version. ``launches`` counts kernel
+    launches."""
+    do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta, out_dtype)
     if q.device.type != "cuda":
-        return flash_bwd_reference(q, k, v, do, lse, delta, causal, q_offset,
-                                   k_offset)[1:]
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+        return _bwd_plain(q, k, v, do, lse, delta, causal, q_offset,
+                          k_offset, out_dtype)[1:]
+    dk = torch.empty(k.shape, dtype=out_dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=out_dtype, device=q.device)
     _launch_bwd(flash_bwd_dkv, "autodist_flash_bwd_dkv", (dk, dv), q, k, v,
                 do, lse, delta, causal, q_offset, k_offset)
     return dk, dv
@@ -293,17 +312,19 @@ flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 
 
-def flash_bwd(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0):
-    """(dq, dk, dv) in f32 from the forward's lse and delta =
-    rowsum(do * o): the two backward kernels on a CUDA tensor, the plain
-    version on any other."""
+def flash_bwd(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0,
+              out_dtype=torch.float32):
+    """(dq, dk, dv) in ``out_dtype`` (float32 or q's dtype) from the
+    forward's lse and delta = rowsum(do * o): the two backward kernels on a
+    CUDA tensor, the plain version on any other."""
     if q.device.type != "cuda":
-        do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
-        return flash_bwd_reference(q, k, v, do, lse, delta, causal, q_offset,
-                                   k_offset)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, q_offset, k_offset)
+        do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta, out_dtype)
+        return _bwd_plain(q, k, v, do, lse, delta, causal, q_offset,
+                          k_offset, out_dtype)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, q_offset, k_offset,
+                      out_dtype)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, q_offset,
-                           k_offset)
+                           k_offset, out_dtype)
     return dq, dk, dv
 
 
@@ -325,10 +346,14 @@ class _FlashAttention(torch.autograd.Function):
         # package's _bwd_rule, but from the f32 output: each row of ds then
         # sums to 0 to f32 accuracy, which dq and dk need (a bf16 o breaks
         # that cancellation: ROADMAP.md, Queue C).
-        delta = (do.float() * o).sum(-1, keepdim=True)
-        dq, dk, dv = flash_bwd(q, k, v, do.to(q.dtype), lse, delta,
-                               ctx.causal, ctx.q_offset, 0)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+        # do * o computes in f32 (do upcast inside the one kernel). The
+        # kernels write the gradients in q's dtype (q, k and v share it):
+        # no cast runs after them.
+        do = do.to(q.dtype)
+        delta = (do * o).sum(-1, keepdim=True)
+        dq, dk, dv = flash_bwd(q, k, v, do, lse, delta, ctx.causal,
+                               ctx.q_offset, 0, out_dtype=q.dtype)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, causal=False, q_offset=0):

@@ -11,15 +11,20 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
 1. build: compiles every kernel of the port from ``autodist_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) into the git-ignored ``build/``
    directory, prints the seconds and each kernel's registers and spills
-   (``ptxas -v``), and checks with ``cuobjdump -sass`` that the d = 64 and
-   d = 128 TMA / wgmma forward kernels hold HGMMA and UTMALDG instructions;
+   (``ptxas -v``; a TMA / wgmma kernel must spill nothing), and checks with
+   ``cuobjdump -sass`` that every TMA / wgmma instantiation (the forward at
+   d = 64 and 128; the backward's dq at d = 64 and 128 and dk/dv at d = 64,
+   each with f32 and bf16 outputs) holds HGMMA and UTMALDG instructions;
 2. kernels: each kernel against its plain PyTorch version on the card
    (the flash-attention forward, and the backward pair ``flash_bwd_dq`` /
    ``flash_bwd_dkv``), at the serving and training paths' shapes and at
    the causal / offset / ragged / float32 / d = 128 / strided cases; every
    call repeated must be bitwise identical, the training variant's bf16 o
-   must be its own f32 o cast to bf16, bitwise, and rows with no visible
-   key give exactly 0; then times each kernel, its plain version, the
+   must be its own f32 o cast to bf16, bitwise, every backward case also
+   runs with gradients in q's dtype, which must be its f32 gradients cast,
+   bitwise, and rows with no visible key give exactly 0; then times each
+   kernel (the backward with f32 and with bf16 outputs, each against its
+   own bound), its plain version, the
    PyTorch library call that computes the same function (yardstick only,
    never called by the port; its kernels are printed) and the card's
    bound. Times are device time per call from ``torch.profiler`` over 20
@@ -39,8 +44,10 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    every param changes in step 1; each of the three kernels launches
    exactly 12 x 20 times; a repeated attention backward at a layer's own
    inputs is bitwise identical; one training attention forward launches
-   one kernel and nothing else (no cast of o). Prints the median step
-   time, samples/s and a profiled step (12 flash_fwd launches in it);
+   one kernel and nothing else (no cast of o), and its backward each
+   backward kernel once and no cast (the kernels write the bf16
+   gradients). Prints the median step time, samples/s and a profiled step
+   (12 launches of each flash kernel in it; its f32 -> bf16 cast count);
 5. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -101,6 +108,8 @@ TRAIN_SHAPE = (32, 12, 128, 128, 64)
 SERVE_SHAPE = (8, 12, 512, 512, 64)
 # Back-to-back calls per timing (profiler and events alike).
 TIMED_CALLS = 20
+# PyTorch's f32 -> bf16 cast kernel, as the profiler names it.
+CAST_KERNEL = "bfloat16_copy_kernel"
 
 
 def check(cond, msg):
@@ -378,7 +387,8 @@ def bound(flops, nbytes):
 
 def backward_phase(torch, fa):
     """Phase 2, backward: flash_bwd_dq / flash_bwd_dkv vs
-    flash_bwd_reference on the card; returns their two records."""
+    flash_bwd_reference on the card, with f32 and q-dtype outputs; returns
+    their two records."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -394,35 +404,42 @@ def backward_phase(torch, fa):
         delta = (do.float() * o.float()).sum(-1, keepdim=True)
         return q, k, v, do, lse, delta
 
+    def grads(args, extra, out_dtype):
+        return (fa.flash_bwd_dq(*args, *extra, out_dtype=out_dtype),
+                *fa.flash_bwd_dkv(*args, *extra, out_dtype=out_dtype))
+
     def compare(name, shape, dtype, causal=False, q_offset=0, k_offset=0,
                 all_empty=False):
         args = inputs(*shape, dtype, causal, q_offset, k_offset)
         extra = (causal, q_offset, k_offset)
-        dq = fa.flash_bwd_dq(*args, *extra)
-        dk, dv = fa.flash_bwd_dkv(*args, *extra)
-        again = (fa.flash_bwd_dq(*args, *extra),
-                 *fa.flash_bwd_dkv(*args, *extra))
+        got, again = grads(args, extra, f32), grads(args, extra, f32)
+        low, low_again = grads(args, extra, dtype), grads(args, extra, dtype)
         torch.cuda.synchronize()
         ref = fa.flash_bwd_reference(*args, *extra)
         line = []
-        for label, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        for label, g, want in zip(("dq", "dk", "dv"), got, ref):
             tol = (BWD_REL_F32 if dtype == f32 else BWD_REL_DV_BF16
                    if label == "dv" else BWD_REL_DQDK_BF16)
-            check(got.dtype == torch.float32 and got.shape == want.shape,
+            check(g.dtype == torch.float32 and g.shape == want.shape,
                   f"{name}: {label} dtype/shape differ")
-            check(bool(torch.isfinite(got).all()), f"{name}: non-finite "
+            check(bool(torch.isfinite(g).all()), f"{name}: non-finite "
                   f"{label}")
-            err = (got - want).abs().max().item()
+            err = (g - want).abs().max().item()
             scale = want.abs().max().item()
             line.append(f"{label} {err:.3e} (max {scale:.3e})")
             check(err <= tol * scale, f"{name}: {label} differs from the "
                   f"plain version by {err} (> {tol} x {scale})")
             key = "dq" if label == "dq" else "dkv"
             errs[key] = max(errs[key], err)
-        check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+        check(all(torch.equal(a, b) for a, b in zip(got, again)) and
+              all(torch.equal(a, b) for a, b in zip(low, low_again)),
               f"{name}: a repeated backward is not bitwise identical")
+        check(all(lo.dtype == dtype and torch.equal(lo, g.to(dtype))
+                  for lo, g in zip(low, got)),
+              f"{name}: the {dtype} gradients are not the f32 ones cast")
+        line.append(f"{str(dtype)[6:]} outputs == f32 outputs cast, bitwise")
         if all_empty:
-            check(all(bool((g == 0).all()) for g in (dq, dk, dv)),
+            check(all(bool((g == 0).all()) for g in (*got, *low)),
                   f"{name}: rows with no visible key must give exactly 0")
             line.append("all exactly 0")
         print(f"  {name}: max|kernel-plain| " + ", ".join(line), flush=True)
@@ -430,8 +447,9 @@ def backward_phase(torch, fa):
 
     print("phase 2: flash_bwd_dq / flash_bwd_dkv kernels vs their plain "
           f"version (relative to max |grad|: bf16 dq, dk {BWD_REL_DQDK_BF16},"
-          f" dv {BWD_REL_DV_BF16}; f32 {BWD_REL_F32}; repeats bitwise)",
-          flush=True)
+          f" dv {BWD_REL_DV_BF16}; f32 {BWD_REL_F32}; every case also with "
+          f"outputs in q's dtype, which must be the f32 outputs cast; "
+          f"repeats bitwise)", flush=True)
     a = compare("(a) bert-base b8 h12 s512 d64 bf16", SERVE_SHAPE, bf16)
     t = compare("(t) training b32 h12 s128 d64 bf16", TRAIN_SHAPE, bf16)
     ref_t = fa.flash_bwd_reference(*t)
@@ -451,59 +469,83 @@ def backward_phase(torch, fa):
             (2, 12, 512, 512, 64), bf16, True, 1024, 512)
     compare("(c) offsets (0, 200) causal f32: every row empty",
             (1, 2, 100, 70, 32), f32, True, 0, 200, all_empty=True)
+    compare("(c) sq 200 sk 333 causal q_offset 150, ragged, d64 bf16",
+            (2, 3, 200, 333, 64), bf16, True, 150, 0)
     for d in (16, 32, 128):
         compare(f"(d) f32 s200 d{d}", (2, 3, 200, 200, d), f32)
         compare(f"(d) f32 s200 d{d} causal", (2, 3, 200, 200, d), f32,
                 causal=True)
         compare(f"(d) bf16 s200 d{d} causal", (2, 3, 200, 200, d), bf16,
                 causal=True)
+    compare("(d) bf16 sq333 sk200 d128 (dq on the TMA route, ragged)",
+            (2, 3, 333, 200, 128), bf16)
 
     def timings(args, label):
         q, k, v, do, lse, delta = args
-        dq = timed(torch, lambda: fa.flash_bwd_dq(*args))
-        dkv = timed(torch, lambda: fa.flash_bwd_dkv(*args))
-        plain = timed(torch, lambda: fa.flash_bwd_reference(*args))
-        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-        out = torch.nn.functional.scaled_dot_product_attention(*leaves)
-        lib, lib2 = [timed(torch, lambda: torch.autograd.grad(
-            out, leaves, do, retain_graph=True)) for _ in range(2)]
-        check(all("flash_bwd_dq" in n for n in dq["kernels"]) and
-              all("flash_bwd_dkv" in n for n in dkv["kernels"]),
-              f"the backward kernels at {label} launched "
-              f"{kernel_names(dq)}; {kernel_names(dkv)}")
         b, h, sq, d = q.shape
         pairs = float(b * h * sq * k.shape[2] * d)
         ins = sum(x.numel() * x.element_size()
                   for x in (q, k, v, do, lse, delta))
-        dq_bound = bound(6 * pairs, ins + q.numel() * 4)
-        dkv_bound = bound(8 * pairs, ins + 2 * k.numel() * 4)
-        print(f"  timing at {label}, device ms per call (profiler, "
-              f"{TIMED_CALLS} calls) / host-inclusive ms per call (events "
-              f"around {TIMED_CALLS} calls): dq kernel {dq['ms']:.4f} / "
-              f"{dq['host_ms']:.4f} (bound {dq_bound[0]:.4f}, "
-              f"{dq_bound[1]}), dkv kernel {dkv['ms']:.4f} / "
-              f"{dkv['host_ms']:.4f} (bound {dkv_bound[0]:.4f}, "
-              f"{dkv_bound[1]}), plain backward {plain['ms']:.4f} / "
-              f"{plain['host_ms']:.4f}, SDPA backward (dq, dk, dv together)"
-              f" {lib['ms']:.4f} / {lib['host_ms']:.4f} (again: "
-              f"{lib2['ms']:.4f} / {lib2['host_ms']:.4f}); the pair / SDPA "
-              f"backward device {(dq['ms'] + dkv['ms']) / lib['ms']:.2f}x",
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+        lib, lib2 = [timed(torch, lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True)) for _ in range(2)]
+        rows = {}
+        for dtype in (f32, q.dtype):
+            size = torch.tensor([], dtype=dtype).element_size()
+            dq = timed(torch, lambda: fa.flash_bwd_dq(*args, out_dtype=dtype))
+            dkv = timed(torch, lambda: fa.flash_bwd_dkv(*args,
+                                                        out_dtype=dtype))
+            plain = timed(torch, lambda: [g.to(dtype) for g in
+                                          fa.flash_bwd_reference(*args)])
+            check(all("flash_bwd_dq_wgmma" in n for n in dq["kernels"]) and
+                  all("flash_bwd_dkv_wgmma" in n for n in dkv["kernels"]),
+                  f"the backward kernels at {label} launched "
+                  f"{kernel_names(dq)}; {kernel_names(dkv)}")
+            dq_bound = bound(6 * pairs, ins + q.numel() * size)
+            dkv_bound = bound(8 * pairs, ins + 2 * k.numel() * size)
+            kind = str(dtype)[6:]
+            print(f"  timing at {label}, {kind} outputs, device ms per call "
+                  f"(profiler, {TIMED_CALLS} calls) / host-inclusive ms per "
+                  f"call (events around {TIMED_CALLS} calls): dq kernel "
+                  f"{dq['ms']:.4f} / {dq['host_ms']:.4f} (bound "
+                  f"{dq_bound[0]:.4f}, {dq_bound[1]}; bound / kernel "
+                  f"{dq_bound[0] / dq['ms']:.3f}), dkv kernel "
+                  f"{dkv['ms']:.4f} / {dkv['host_ms']:.4f} (bound "
+                  f"{dkv_bound[0]:.4f}, {dkv_bound[1]}; bound / kernel "
+                  f"{dkv_bound[0] / dkv['ms']:.3f}), plain backward "
+                  f"{plain['ms']:.4f} / {plain['host_ms']:.4f}, SDPA "
+                  f"backward (dq, dk, dv together, bf16) {lib['ms']:.4f} / "
+                  f"{lib['host_ms']:.4f} (again: {lib2['ms']:.4f} / "
+                  f"{lib2['host_ms']:.4f}); the pair / SDPA backward device "
+                  f"{(dq['ms'] + dkv['ms']) / lib['ms']:.2f}x", flush=True)
+            print(f"    launches recorded per call: {kernel_names(dq)}; "
+                  f"{kernel_names(dkv)}", flush=True)
+            rows[kind] = [
+                {"ms": r["ms"], "host_ms": r["host_ms"],
+                 "plain_ms": plain["ms"], "plain_host_ms": plain["host_ms"],
+                 "library_ms": lib["ms"], "library_host_ms": lib["host_ms"],
+                 "library_ms_again": lib2["ms"],
+                 "bound_ms": bnd[0], "bound_by": bnd[1]}
+                for r, bnd in ((dq, dq_bound), (dkv, dkv_bound))]
+        print(f"    SDPA backward's launches: {kernel_names(lib)}",
               flush=True)
-        print(f"    launches recorded per call: {kernel_names(dq)}; "
-              f"{kernel_names(dkv)}; SDPA backward's: {kernel_names(lib)}",
-              flush=True)
-        return [
-            {"ms": t["ms"], "host_ms": t["host_ms"],
-             "plain_ms": plain["ms"], "plain_host_ms": plain["host_ms"],
-             "library_ms": lib["ms"], "library_host_ms": lib["host_ms"],
-             "library_ms_again": lib2["ms"],
-             "library_kernels": list(lib["kernels"]),
-             "bound_ms": bnd[0], "bound_by": bnd[1]}
-            for t, bnd in ((dq, dq_bound), (dkv, dkv_bound))]
+        for row in rows.values():
+            for r in row:
+                r["library_kernels"] = list(lib["kernels"])
+        return rows
 
     at_a = timings(a, "(a)")
     at_t = timings(t, "the training shape (t)")
     records = []
+    designs = (
+        "bf16 d64/128: persistent, TMA producer warp, 2-stage K/V ring; "
+        "items of 128 q rows, 2 wgmma consumer warpgroups x 64 rows: SS "
+        "wgmma S and dP, RS wgmma dS.K (hi + lo); f32 or bf16 dq",
+        "bf16 d64: persistent, items of 128 keys; TMA producer warp (K/V "
+        "double-buffered, Q/dO 2-stage ring, lse/delta by cp.async); 2 "
+        "wgmma consumer warpgroups x 64 keys: SS wgmma S^T and dP^T, RS "
+        "wgmma P^T.dO and dS^T.Q (hi + lo); f32 or bf16 dk/dv")
     for i, (name, tpu, line) in enumerate((
             ("flash_bwd_dq", "_bwd_dq_kernel", 219),
             ("flash_bwd_dkv", "_bwd_dkv_kernel", 258))):
@@ -512,13 +554,19 @@ def backward_phase(torch, fa):
             "name": name, "route": "cuda",
             "source": "autodist_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"autodist_tpu/ops/flash_attention.py:{line}",
-            "tpu_kernel": tpu,
-            "design": "mma.sync, 4 warps of 16 rows, no pipelining",
+            "tpu_kernel": tpu, "design": designs[i],
             "shape": list(TRAIN_SHAPE[:3]) + [TRAIN_SHAPE[4]],
+            "outputs": "bfloat16 (the training path's); f32_out_* fields: "
+                       "float32 outputs",
             "max_abs_err": errs[key],
             "library_covers": "dq, dk and dv together"}
-        record.update(at_t[i])
-        record.update({"shape_a_" + k: v for k, v in at_a[i].items()})
+        record.update(at_t["bfloat16"][i])
+        record.update({"f32_out_" + k: v
+                       for k, v in at_t["float32"][i].items()})
+        record.update({"shape_a_" + k: v
+                       for k, v in at_a["bfloat16"][i].items()})
+        record.update({"shape_a_f32_out_" + k: v
+                       for k, v in at_a["float32"][i].items()})
         records.append(record)
     return records
 
@@ -771,7 +819,7 @@ def train_phase(torch, fa, card, cfg, device, steps=20, batch_size=32,
         do = torch.randn(out.shape, generator=torch.Generator(
             device=device).manual_seed(2), device=device, dtype=out.dtype)
         first = torch.autograd.grad(out, qkv, do, retain_graph=True)
-        second = torch.autograd.grad(out, qkv, do)
+        second = torch.autograd.grad(out, qkv, do, retain_graph=True)
         check(all(torch.equal(a, b) for a, b in zip(first, second)),
               "a repeated attention backward is not bitwise identical")
         print(f"  repeated attention backward at layer 0's inputs "
@@ -789,6 +837,21 @@ def train_phase(torch, fa, card, cfg, device, steps=20, batch_size=32,
             print(f"  one training attention forward (_FlashAttention."
                   f"forward) launches {kernel_names(fwd)} and nothing else",
                   flush=True)
+            # Its backward: delta = rowsum(do * o) (PyTorch), then each
+            # backward kernel once, writing the bf16 gradients: no cast.
+            bwd = timed(torch, lambda: torch.autograd.grad(
+                out, qkv, do, retain_graph=True), n=5, warmup=1)
+            for kernel in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"):
+                hits = [c for n, c in bwd["kernels"].items() if kernel in n]
+                check(len(hits) == 1 and 0 < hits[0] <= 1,
+                      f"one training attention backward launched "
+                      f"{kernel_names(bwd)}: not one {kernel}")
+            check(not any(CAST_KERNEL in n for n in bwd["kernels"]),
+                  f"one training attention backward casts: "
+                  f"{kernel_names(bwd)}")
+            print(f"  one training attention backward (_FlashAttention."
+                  f"backward under torch.autograd.grad) launches "
+                  f"{kernel_names(bwd)}", flush=True)
 
         before = [t.detach().clone() for t in leaves]
         kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
@@ -835,14 +898,23 @@ def train_phase(torch, fa, card, cfg, device, steps=20, batch_size=32,
             state, _ = runner.step(state, batch)
         wall, busy, rows = _profile_step(torch, one_step)
         flash = sum(us for us, _, name in rows if "flash_" in name)
-        fwd_launches = sum(n for _, n, name in rows if "flash_fwd" in name)
-        check(fwd_launches == cfg.num_layers, f"the profiled step launched "
-              f"flash_fwd {fwd_launches} times, not {cfg.num_layers}")
+        by_kernel = {k: (sum(us for us, _, name in rows if k in name),
+                         sum(n for _, n, name in rows if k in name))
+                     for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        for k, (_, n) in by_kernel.items():
+            check(n == cfg.num_layers, f"the profiled step launched {k} {n} "
+                  f"times, not {cfg.num_layers}")
+        casts = sum(n for _, n, name in rows if CAST_KERNEL in name)
         print(f"  profiled step: wall {wall / 1e3:.3f} ms, device busy "
               f"{busy / 1e3:.3f} ms ({100 * busy / wall:.1f}% of wall), "
               f"flash kernels {flash / 1e3:.3f} ms ({100 * flash / busy:.1f}%"
-              f" of device time; flash_fwd launched {fwd_launches} times) on "
-              f"{card}", flush=True)
+              f" of device time: " + ", ".join(
+                  f"{k} {us / 1e3:.3f} ms x{n}"
+                  for k, (us, n) in by_kernel.items()) +
+              f") on {card}", flush=True)
+        print(f"  f32 -> bf16 cast kernels ({CAST_KERNEL}) in the step: "
+              f"{casts}; a backward writing f32 gradients adds one per "
+              f"gradient and layer, {3 * cfg.num_layers}", flush=True)
         for us, count, name in rows[:8]:
             print(f"    {us / 1e3:8.3f} ms  x{count:<4d} {name[:90]}",
                   flush=True)
@@ -865,30 +937,58 @@ def short_kernel(mangled):
     return f"{m.group(1)}<{out}d={dims}>"
 
 
+# Every TMA / wgmma instantiation, by library: {kernel: [(d, output)]}.
+# The forward's template is <d, f32 out>, the backward's <output type, d>.
+WGMMA_KERNELS = {
+    "flash_fwd": {"flash_fwd_wgmma_kernel": [
+        (d, out) for d in (64, 128) for out in ("bf16", "f32 + bf16")]},
+    "flash_bwd": {
+        "flash_bwd_dq_wgmma_kernel": [
+            (d, out) for d in (64, 128) for out in ("f32", "bf16")],
+        "flash_bwd_dkv_wgmma_kernel": [(64, "f32"), (64, "bf16")]},
+}
+
+
+def _wgmma_instance(name):
+    """(kernel, d, output) of a TMA / wgmma kernel's mangled name, or None."""
+    m = re.search(r"(flash_fwd_wgmma_kernel)ILi(\d+)ELb([01])E", name)
+    if m:
+        return (m.group(1), int(m.group(2)),
+                "f32 + bf16" if m.group(3) == "1" else "bf16")
+    m = re.search(r"(flash_bwd_d(?:q|kv)_wgmma_kernel)I(f|13__nv_bfloat16)"
+                  r"Li(\d+)E", name)
+    if m:
+        return (m.group(1), int(m.group(3)),
+                "f32" if m.group(2) == "f" else "bf16")
+    return None
+
+
 def sass_check(build):
-    """Phase 1: every instantiation of the TMA / wgmma forward kernel (d = 64
-    and 128, bf16 and f32 + bf16 output) holds wgmma (HGMMA) and TMA load
+    """Phase 1: every TMA / wgmma instantiation (the forward at d = 64 and
+    128, bf16 and f32 + bf16 output; the backward's dq at d = 64 and 128 and
+    dk/dv at d = 64, f32 and bf16 output) holds wgmma (HGMMA) and TMA load
     (UTMALDG) instructions in its SASS."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", build.library_path("flash_fwd")[1]],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
     found = {}
-    for body in sass.split("Function : ")[1:]:
-        m = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELb([01])E",
-                      body.split("\n", 1)[0])
-        if m:
-            found[(int(m.group(1)), m.group(2) == "1")] = (
-                body.count("HGMMA"), body.count("UTMALDG"))
-    for d in (64, 128):
-        for f32_out in (False, True):
-            hgmma, utmaldg = found.get((d, f32_out), (0, 0))
-            check(hgmma > 0 and utmaldg > 0,
-                  f"flash_fwd_wgmma_kernel<d={d}, f32 out {f32_out}> has "
-                  f"{hgmma} HGMMA and {utmaldg} UTMALDG instructions")
+    for lib in WGMMA_KERNELS:
+        sass = subprocess.run([tool, "-sass", build.library_path(lib)[1]],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        for body in sass.split("Function : ")[1:]:
+            key = _wgmma_instance(body.split("\n", 1)[0])
+            if key:
+                found[key] = (body.count("HGMMA"), body.count("UTMALDG"))
+    for kernels in WGMMA_KERNELS.values():
+        for kernel, variants in kernels.items():
+            for d, out in variants:
+                hgmma, utmaldg = found.get((kernel, d, out), (0, 0))
+                check(hgmma > 0 and utmaldg > 0,
+                      f"{kernel}<d={d}, {out} out> has {hgmma} HGMMA and "
+                      f"{utmaldg} UTMALDG instructions")
     print("  SASS (cuobjdump -sass): " + ", ".join(
-        f"d={d}{' f32+bf16 out' if f else ''}: {h} HGMMA, {u} UTMALDG"
-        for (d, f), (h, u) in sorted(found.items())), flush=True)
+        f"{k.replace('_wgmma_kernel', '')} d={d} {out} out: {h} HGMMA, "
+        f"{u} UTMALDG"
+        for (k, d, out), (h, u) in sorted(found.items())), flush=True)
 
 
 def main():
@@ -917,6 +1017,8 @@ def main():
         for kernel, regs, spill in build.register_report(log):
             print(f"  {name}: {short_kernel(kernel)} {regs} registers, "
                   f"{spill} bytes spilled", flush=True)
+            check(spill == 0 or _wgmma_instance(kernel) is None,
+                  f"{short_kernel(kernel)} spills {spill} bytes")
         for line in log.splitlines():
             if "warning" in line.lower():
                 print(f"  {name}: {line.strip()}", flush=True)

@@ -192,9 +192,94 @@ def test_backward_wrapper_rejects_what_the_kernels_do_not_take(bad, match):
         fa.flash_bwd_dq(q, k, v, do, lse, torch.zeros(1, 2, 8, 1))
 
 
+WRAPPERS = {"dq": lambda *a, **kw: (fa.flash_bwd_dq(*a, **kw),),
+            "dkv": fa.flash_bwd_dkv, "bwd": fa.flash_bwd}
+
+
+def _bwd_args(shape, dtype, causal, qo, ko, seed):
+    xs = [_t(x).to(dtype) for x in _inputs(shape, seed=seed)]
+    o, lse = fa.flash_fwd(*xs[:3], causal, qo, ko, out_dtype=torch.float32)
+    delta = (xs[3].float() * o).sum(-1, keepdim=True)
+    return (*xs, lse, delta, causal, qo, ko)
+
+
+@pytest.mark.parametrize("wrapper", sorted(WRAPPERS))
+@pytest.mark.parametrize("case", CASES,
+                         ids=_ids)
+def test_bf16_out_dtype_is_the_f32_result_cast_bitwise(case, wrapper):
+    """``out_dtype=q.dtype`` rounds the f32 gradients once, to nearest even:
+    bitwise what ``Tensor.to`` gives (the kernels' contract as well)."""
+    shape, _, causal, (qo, ko) = case
+    args = _bwd_args(shape, torch.bfloat16, causal, qo, ko, seed=9)
+    f32 = WRAPPERS[wrapper](*args)
+    bf16 = WRAPPERS[wrapper](*args, out_dtype=torch.bfloat16)
+    assert len(f32) == len(bf16)
+    for a, b in zip(f32, bf16):
+        assert a.dtype == torch.float32 and b.dtype == torch.bfloat16
+        assert torch.equal(b, a.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("wrapper", sorted(WRAPPERS))
+@pytest.mark.parametrize("dtype, bad", [
+    (torch.bfloat16, torch.float16), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float16)], ids=["bf16-f16", "f32-bf16", "f32-f16"])
+def test_backward_wrappers_reject_other_out_dtypes(wrapper, dtype, bad):
+    args = _bwd_args((1, 2, 8, 16), dtype, False, 0, 0, seed=10)
+    with pytest.raises(ValueError, match="out_dtype"):
+        WRAPPERS[wrapper](*args, out_dtype=bad)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_autograd_backward_takes_the_kernels_gradients_uncast(dtype,
+                                                              monkeypatch):
+    """``_FlashAttention.backward`` asks ``flash_bwd`` for q's dtype and
+    hands those very tensors to autograd: no cast runs after the kernels."""
+    calls = []
+    real = fa.flash_bwd
+
+    def counting(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((kw.get("out_dtype"), out))
+        return out
+    monkeypatch.setattr(fa, "flash_bwd", counting)
+    q, k, v = [_t(x).to(dtype).requires_grad_()
+               for x in _inputs((1, 2, 16, 16), seed=11)[:3]]
+    out = fa.flash_attention(q, k, v, causal=True)
+    got = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    assert len(calls) == 1
+    out_dtype, returned = calls[0]
+    assert out_dtype == dtype
+    assert all(g is r for g, r in zip(got, returned))
+    assert all(g.dtype == dtype for g in got)
+
+
+@pytest.mark.parametrize("case", CASES,
+                         ids=_ids)
+def test_bf16_out_matches_interpret_kernels_cast(case):
+    """The bf16-output backward against the Pallas pair in interpret mode
+    with its f32 result cast as ``_bwd_rule`` casts it: the two f32 results
+    agree at atol 1e-4 (as above), so after rounding they differ by at most
+    one bf16 step (2^-8 relative) or that 1e-4."""
+    shape, blk, causal, (qo, ko) = case
+    xs = [jnp.asarray(x, jnp.bfloat16) for x in _inputs(shape, seed=12)]
+    lse, delta = _jax_residuals(*xs, causal, blk, qo, ko)
+    want = jfa._flash_bwd(*xs, lse, delta, causal, blk, blk, qo, ko, True)
+    tx = [_t(x.astype(jnp.float32)).bfloat16() for x in xs]
+    got = fa.flash_bwd(*tx, _t(lse), _t(delta), causal, qo, ko,
+                       out_dtype=torch.bfloat16)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(
+            g.float().numpy(),
+            np.asarray(w.astype(jnp.bfloat16).astype(jnp.float32)),
+            atol=1e-4, rtol=2 ** -8)
+
+
 def test_kernels_match_plain_on_card():
     """Runs where a card is present (``chip_smoke.py`` runs the full set of
-    shapes); skips on a host without CUDA."""
+    shapes); skips on a host without CUDA. Covers the bf16 d = 64 TMA /
+    wgmma route with f32 and bf16 outputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -204,12 +289,17 @@ def test_kernels_match_plain_on_card():
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
     before = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
     got = fa.flash_bwd(q, k, v, do, lse, delta, True)
+    low = fa.flash_bwd(q, k, v, do, lse, delta, True,
+                       out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == \
-        (before[0] + 1, before[1] + 1)
+        (before[0] + 2, before[1] + 2)
     ref = fa.flash_bwd_reference(q, k, v, do, lse, delta, True)
     # ds enters ds.k and ds^T.q as a bf16 pair (~2^-17 relative), so dq and
     # dk sit within 1e-4 of the max (ds rounded once reads ~2e-3); p rounds
     # once to bf16 (2^-9) before p^T.do, so dv sits within 1e-2.
     for g, r, tol in zip(got, ref, (1e-4, 1e-4, 1e-2)):
         assert (g - r).abs().max() <= tol * r.abs().max()
+    for g, lo in zip(got, low):
+        assert lo.dtype == torch.bfloat16
+        assert torch.equal(lo, g.to(torch.bfloat16))

@@ -132,11 +132,11 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     (tmp_path / "common.cuh").write_text("// v2\n")
     assert build.library_path("k")[1] != first
     assert build.library_path("other")[1] == other
-    # The real kernels: both include the shared header, the forward also
-    # the TMA / wgmma one.
+    # The real kernels: both include the shared header and the TMA / wgmma
+    # one.
     monkeypatch.undo()
     headers = {"flash_fwd": ["flash_common.cuh", "hopper.cuh"],
-               "flash_bwd": ["flash_common.cuh"]}
+               "flash_bwd": ["flash_common.cuh", "hopper.cuh"]}
     assert set(build.KERNELS) == set(headers)
     for name in build.KERNELS:
         srcs = build._sources(os.path.join(build.CSRC, name + ".cu"))
