@@ -186,13 +186,20 @@ class Runner:
             batch = self._remapper.shard_batch(batch)
         return self._step(state, batch)
 
-    def make_callable(self, example_batch, shard_inputs=False):
+    def make_callable(self, example_batch, shard_inputs=False, aot=False):
         """The bare step for hot loops: ``new_state, metrics = fn(state,
         batch)``, without the per-step liveness check; the caller always
         passes the state the previous call returned. ``shard_inputs=True``
-        places each batch through the remapper first. (PyTorch runs eagerly:
-        the JAX package's ``aot`` executable has no counterpart.) The
-        example batch is checked against the data axis."""
+        places each batch through the remapper first. The example batch is
+        checked against the data axis. ``aot=True`` (the JAX package's
+        ahead-of-time compiled step) raises ``NotImplementedError``: its
+        counterpart, a captured CUDA graph of the step, is not ported yet."""
+        if aot:
+            raise NotImplementedError(
+                "make_callable(aot=True): the ahead-of-time step (a CUDA "
+                "graph of the step here) is not ported to autodist_tpu_torch "
+                "yet (ROADMAP.md, Queue A); call make_callable(batch) for "
+                "the eager step")
         self._remapper.shard_batch(example_batch)
         if not shard_inputs:
             return self._step

@@ -56,6 +56,7 @@ def test_port_imports_with_jax_made_unimportable():
             "import autodist_tpu_torch.convert, autodist_tpu_torch.strategy\n"
             "import autodist_tpu_torch.autodist, autodist_tpu_torch.runner\n"
             "import autodist_tpu_torch.models.lm, autodist_tpu_torch.models.mlp\n"
+            "from autodist_tpu_torch.models import ZOO, bilstm, ncf, resnet\n"
             "import chip_smoke\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -89,6 +90,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         serve.Server(apply, params, example, buckets=(8,))
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.ServeEngine(apply, params, example, (8,))
+
+
+@pytest.mark.parametrize("model", ["resnet", "bilstm", "ncf"])
+def test_zoo_init_defaults_to_cuda_and_raises_without_it(model):
+    _no_cuda()
+    from autodist_tpu_torch.models import bilstm, ncf, resnet
+    from autodist_tpu_torch.utils.tree import leaves
+    mod, cfg = {"resnet": (resnet, resnet.cifar_resnet(depth=8)),
+                "bilstm": (bilstm, bilstm.BiLSTMConfig(vocab=50)),
+                "ncf": (ncf, ncf.NCFConfig(num_users=20,
+                                           num_items=10))}[model]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.init(cfg)
+    params = mod.init(cfg, device="cpu")
+    assert all(t.device.type == "cpu" for t in leaves(params))
 
 
 def test_training_entry_points_default_to_cuda_and_raise_without_it():

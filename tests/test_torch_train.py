@@ -5,8 +5,9 @@ package's Runner on its 8-device CPU mesh.
   feeding its quarter of every 32-row batch): the port of
   ``tests/test_e2e_linreg.py::test_strategy_trains_and_matches_single_device``
   for ``all_reduce``, at that test's tolerance (rtol 1e-5, atol 1e-6).
-* The tiny BERT, LM and MLP zoo fixtures on a one-rank gloo world, SGD and
-  Adam: per-step losses and final params at rtol 1e-4 / atol 1e-5. The
+* The tiny BERT, LM, MLP, ResNet, BiLSTM and NCF zoo fixtures on a
+  one-rank gloo world, SGD and Adam: per-step losses and final params at
+  rtol 1e-4 / atol 1e-5. The
   JAX side's attention off the TPU is its dense reference in f32, the
   port's the flash kernels' plain versions: the same f32 arithmetic in
   another order, compounded over three steps. Adam runs with eps 1e-6 on
@@ -15,6 +16,8 @@ package's Runner on its 8-device CPU mesh.
   bias: the softmax ignores it) or within f32 rounding of 0 moves by up to
   lr in a direction the rounding noise picks, and the noise differs
   between the two libraries and between runs.
+* ``precision="bf16"`` training against the JAX package's
+  ``capture(precision="bf16")`` (tolerance at the test).
 * The probes of the verify skill that the port supports.
 """
 import functools
@@ -32,12 +35,15 @@ import torch
 
 from autodist_tpu import AutoDist as JAutoDist
 from autodist_tpu.models import bert as jbert
+from autodist_tpu.models import bilstm as jbilstm
 from autodist_tpu.models import lm as jlm
 from autodist_tpu.models import mlp as jmlp
+from autodist_tpu.models import ncf as jncf
+from autodist_tpu.models import resnet as jresnet
 from autodist_tpu.strategy import AllReduce as JAllReduce
 from autodist_tpu_torch import AutoDist, convert
 from autodist_tpu_torch import autodist as autodist_mod
-from autodist_tpu_torch.models import bert, lm, mlp
+from autodist_tpu_torch.models import bert, bilstm, lm, mlp, ncf, resnet
 from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
 from autodist_tpu_torch.utils.tree import flatten_with_path, path_to_name
 
@@ -182,7 +188,14 @@ def test_linreg_all_reduce_on_four_gloo_ranks_matches_jax(tmp_path):
 ZOO = {"bert_tiny": (jbert, lambda: bert.make_loss_fn(bert.bert_tiny())),
        "lm_tiny": (jlm, lambda: lm.make_loss_fn(lm.lm_tiny())),
        "mlp_tiny": (jmlp, lambda: mlp.make_loss_fn(
-           mlp.MLPConfig(in_dim=16, hidden=(32,), num_classes=4)))}
+           mlp.MLPConfig(in_dim=16, hidden=(32,), num_classes=4))),
+       "resnet_tiny": (jresnet, lambda: resnet.make_loss_fn(
+           resnet.cifar_resnet(depth=8, num_classes=10,
+                               dtype=torch.float32))),
+       "bilstm_tiny": (jbilstm, lambda: bilstm.make_loss_fn(
+           bilstm.BiLSTMConfig(vocab=500, embed_dim=32, hidden=32))),
+       "ncf_tiny": (jncf, lambda: ncf.make_loss_fn(ncf.NCFConfig(
+           num_users=200, num_items=100, gmf_dim=16, mlp_dims=(32, 16, 8))))}
 OPTIMIZERS = {"sgd": (lambda: optax.sgd(0.1),
                       functools.partial(torch.optim.SGD, lr=0.1)),
               "adam": (lambda: optax.adam(1e-3, eps=1e-6),
@@ -190,19 +203,20 @@ OPTIMIZERS = {"sgd": (lambda: optax.sgd(0.1),
                                          eps=1e-6))}
 
 
-@pytest.mark.parametrize("opt", sorted(OPTIMIZERS))
-@pytest.mark.parametrize("model", sorted(ZOO))
-def test_zoo_training_matches_jax_runner(model, opt):
+def _train_both(model, jopt, topt, precision=None, steps=3):
+    """Three steps of the tiny fixture through the JAX Runner and the
+    port's: (JAX losses, JAX params, port losses, port params), params by
+    name as numpy."""
     jmod, make_loss = ZOO[model]
-    jopt, topt = OPTIMIZERS[opt]
     jparams, jloss_fn, batch = jmod.tiny_fixture(seed=0)
     jparams = jax.device_get(jparams)
     ad = JAutoDist(strategy_builder=JAllReduce())
     runner = ad.create_distributed_session(
-        ad.capture(jloss_fn, jparams, jopt(), example_batch=batch))
+        ad.capture(jloss_fn, jparams, jopt, example_batch=batch,
+                   precision=precision))
     state = runner.create_state()
     want_losses = []
-    for _ in range(3):
+    for _ in range(steps):
         state, metrics = runner.step(state, batch)
         want_losses.append(float(metrics["loss"]))
     want = _named(jax.device_get(state.params))
@@ -210,20 +224,48 @@ def test_zoo_training_matches_jax_runner(model, opt):
     tad = AutoDist(strategy_builder=AllReduce(), device="cpu")
     trunner = tad.create_distributed_session(tad.capture(
         make_loss(), convert.params_from_jax(jparams, "cpu"), topt,
-        example_batch=batch))
+        example_batch=batch, precision=precision))
     tstate = trunner.create_state()
     losses = []
-    for _ in range(3):
+    for _ in range(steps):
         tstate, metrics = trunner.step(tstate, batch)
         assert metrics["loss"].dim() == 0 and not bool(metrics["notfinite"])
+        assert metrics["loss"].dtype == torch.float32
         losses.append(float(metrics["loss"]))
-    np.testing.assert_allclose(losses, want_losses, rtol=1e-4, atol=1e-5)
-    assert losses[-1] < losses[0]
     got = _named(tstate.params)
     assert sorted(got) == sorted(want)
+    return want_losses, want, losses, got
+
+
+@pytest.mark.parametrize("opt", sorted(OPTIMIZERS))
+@pytest.mark.parametrize("model", sorted(ZOO))
+def test_zoo_training_matches_jax_runner(model, opt):
+    jopt, topt = OPTIMIZERS[opt]
+    want_losses, want, losses, got = _train_both(model, jopt(), topt)
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-4, atol=1e-5)
+    assert losses[-1] < losses[0]
     for name in want:
         np.testing.assert_allclose(got[name], want[name], rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("model", ["resnet_tiny", "mlp_tiny"])
+def test_bf16_precision_training_matches_jax(model):
+    """``capture(precision="bf16")`` on both sides, SGD 0.1, three steps.
+    Both round the same f32 params and inputs to bf16 and compute from
+    them; the sums differ in order, which moves a result by a bf16 ulp
+    (2^-8 relative) where it lands near a rounding boundary. Losses at
+    rtol 1e-2; params (f32 master weights) at atol 1e-3: lr x a gradient
+    difference of a few bf16 ulps. The params stay float32."""
+    want_losses, want, losses, got = _train_both(
+        model, optax.sgd(0.1), functools.partial(torch.optim.SGD, lr=0.1),
+        precision="bf16")
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-2)
+    assert losses[-1] < losses[0]
+    for name in want:
+        assert got[name].dtype == np.float32, name
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-2,
+                                   atol=1e-3, err_msg=name)
 
 
 # -- probes -------------------------------------------------------------------
@@ -339,6 +381,8 @@ def test_aux_output_and_make_callable_and_run(tmp_path):
                                 trace_dir=str(tmp_path / "trace"))
     assert int(state.step) == 4
     assert os.listdir(tmp_path / "trace") == ["trace-rank0.json"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        runner.make_callable(batch, aot=True)  # bench.py's call
     with pytest.raises(NotImplementedError, match="unroll"):
         runner.run(state, iter([batch] * 2), 2, unroll=2)
     with pytest.raises(NotImplementedError, match="step_guard"):
