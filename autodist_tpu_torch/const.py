@@ -29,6 +29,7 @@ class ENV(enum.Enum):
     AUTODIST_MIN_LOG_LEVEL = ("AUTODIST_MIN_LOG_LEVEL", str, "INFO")
     AUTODIST_DUMP_GRAPHS = ("AUTODIST_DUMP_GRAPHS", bool, False)  # dump the strategy at each compile stage
     AUTODIST_STRATEGY = ("AUTODIST_STRATEGY", str, "")  # strategy builder by name: "allreduce" ("" => AllReduce when serving; AutoDist needs a builder)
+    AUTODIST_UNROLL = ("AUTODIST_UNROLL", int, 1)  # fused steps per dispatch (megastep: one CUDA graph of K steps; 1 => one step per dispatch)
     AUTODIST_PREFETCH_DEPTH = ("AUTODIST_PREFETCH_DEPTH", int, 2)  # DevicePrefetcher in-flight transfers (0 => passthrough)
     AUTODIST_SERVE_BUCKETS = ("AUTODIST_SERVE_BUCKETS", str, "")  # "8,32,128" or "8x128,32x128" for (rows, seq)
     AUTODIST_SERVE_MAX_WAIT_MS = ("AUTODIST_SERVE_MAX_WAIT_MS", int, 5)  # continuous-batching coalesce deadline (ms)

@@ -21,9 +21,10 @@ sequence parallelism (ROADMAP.md).
 """
 import ctypes
 import math
-import threading
 
 import torch
+
+from autodist_tpu_torch.utils import cuda_graph
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -91,7 +92,6 @@ def _check(q, k, v, out_dtype):
                          "in q/k/v")
 
 
-_count_lock = threading.Lock()  # replicas launch from their own threads
 _fns = {}  # symbol -> ctypes function with its argtypes set
 
 
@@ -157,8 +157,7 @@ def _launch(q, k, v, causal, q_offset, k_offset, out_dtype, with_lowp):
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
                            f"{err}")
-    with _count_lock:
-        flash_fwd.launches += 1
+    cuda_graph.count_launch(flash_fwd)
     return outs
 
 
@@ -171,7 +170,8 @@ def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0, out_dtype=None,
 
     On a CUDA tensor this launches the hand-written kernel (or raises); on
     any other tensor it runs :func:`flash_fwd_reference`. ``launches``
-    counts kernel launches.
+    counts kernel launches (a launch captured in a CUDA graph counts at
+    each replay: ``utils/cuda_graph.py``).
     """
     out_dtype = out_dtype or q.dtype
     _check(q, k, v, out_dtype)
@@ -268,8 +268,7 @@ def _launch_bwd(wrapper, symbol, outs, q, k, v, do, lse, delta, causal,
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
                            f"error {err}")
-    with _count_lock:
-        wrapper.launches += 1
+    cuda_graph.count_launch(wrapper)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, q_offset=0,

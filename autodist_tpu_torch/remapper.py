@@ -4,10 +4,14 @@ Counterpart of ``autodist_tpu/remapper.py``. ``shard_batch`` follows the
 JAX package's multi-process contract (``remapper.py:152-178``): each
 process passes its own process-local batch, the global batch is local x
 the processes the mesh spans, and it must divide by the data-axis size
-(the same error). One process drives one device, so the local batch goes
-to this process's device whole. ``place_params`` puts a parameter tree on
-that device once.
+(the same error); ``shard_block`` does the same for the K-stacked blocks
+of the fused multi-step dispatch. One process drives one device, so the
+local batch goes to this process's device whole. ``place_params`` puts a
+parameter tree on that device once; ``fetch`` brings results back through
+pinned host memory.
 """
+import types
+
 import numpy as np
 import torch
 
@@ -38,18 +42,40 @@ class Remapper:
         and copies asynchronously on the current stream; the caller orders
         the consumer after it (``DevicePrefetcher`` records an event).
         """
+        self._check_rows(batch, batch)
+        return self._put(batch, non_blocking)
+
+    def shard_block(self, block, non_blocking=False):
+        """Put a K-stacked batch block (leaf shapes ``(K,) + batch``) on
+        this process's device: the input of the Runner's fused K-step
+        dispatch (``megastep``). The leading dim is the step; dim 1 carries
+        each step's batch rows, whose global count (local rows x processes)
+        must divide by the data-axis size, as in :meth:`shard_batch`."""
+        flat, treedef = flatten(block)
+        steps = unflatten(treedef, [types.SimpleNamespace(shape=_shape(l)[1:])
+                                    for l in flat])  # what batch_specs reads
+        self._check_rows(block, steps, dim=1)
+        return self._put(block, non_blocking)
+
+    def _check_rows(self, tree, step_tree, dim=0):
+        """Each leaf whose per-step spec (from ``step_tree``, the per-step
+        view of ``tree``) puts the data axis first carries batch rows at
+        ``dim``; their global count must divide by the data-axis size."""
         n = self._program.data_axis_size
-        leaves, treedef = flatten(batch)
-        specs, _ = flatten(self._program.batch_specs(batch))
+        leaves, _ = flatten(tree)
+        specs, _ = flatten(self._program.batch_specs(step_tree))
         for leaf, spec in zip(leaves, specs):
-            shape = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) \
-                else np.shape(leaf)
-            if shape and spec and spec[0] == const.MESH_AXIS_DATA:
-                total = shape[0] * self._mesh.process_count
+            shape = _shape(leaf)
+            if len(shape) > dim and spec and \
+                    spec[0] == const.MESH_AXIS_DATA:
+                total = shape[dim] * self._mesh.process_count
                 if total % n != 0:
                     raise ValueError(f"global batch {total} not divisible "
                                      f"by data-axis size {n}")
+
+    def _put(self, tree, non_blocking):
         device = self.device
+        leaves, treedef = flatten(tree)
 
         def put(leaf):
             t = torch.as_tensor(leaf)
@@ -76,8 +102,29 @@ class Remapper:
             for l, d in zip(leaves, devices)])
 
     def fetch(self, value):
-        """Bring a result tree to host memory."""
+        """Bring a result tree to host memory. Each device leaf is copied,
+        without blocking, into a pinned host tensor of its own, then one
+        event per device is waited on: the caller owns every answer, and
+        no later fetch writes it. CPU leaves pass through unchanged."""
         leaves, treedef = flatten(value)
-        return unflatten(treedef, [l.detach().cpu()
-                                   if isinstance(l, torch.Tensor) else l
-                                   for l in leaves])
+        out, streams = [], {}
+        for leaf in leaves:
+            if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+                host = torch.empty(leaf.shape, dtype=leaf.dtype,
+                                   pin_memory=True)
+                host.copy_(leaf.detach(), non_blocking=True)
+                streams.setdefault(leaf.device,
+                                   torch.cuda.current_stream(leaf.device))
+                out.append(host)
+            else:
+                out.append(leaf)
+        for stream in streams.values():
+            done = torch.cuda.Event()
+            done.record(stream)
+            done.synchronize()
+        return unflatten(treedef, out)
+
+
+def _shape(leaf):
+    return tuple(leaf.shape) if isinstance(leaf, torch.Tensor) \
+        else np.shape(leaf)

@@ -49,7 +49,7 @@ from autodist_tpu_torch.serve.engine import (ReplicaRuntime,
                                              _resolve_serve_builder,
                                              build_replica_programs,
                                              serve_spec)
-from autodist_tpu_torch.utils import logging
+from autodist_tpu_torch.utils import cuda_graph, logging
 from autodist_tpu_torch.utils.device import resolve_device
 from autodist_tpu_torch.utils.tree import leaves
 
@@ -105,9 +105,9 @@ class _Lane:
     cache, static input buffers and the slot table.
 
     On a CUDA device the step (``decode_fn``, then the greedy argmax) is
-    captured once as a CUDA graph; ``logits`` and ``ids`` are its static
-    outputs, and only ``ids`` is copied to the host. On the CPU ``_run``
-    calls the step eagerly."""
+    captured once as a CUDA graph (``utils/cuda_graph.py``); ``logits`` and
+    ``ids`` are its static outputs, and only ``ids`` is copied to the host.
+    On the CPU ``_run`` calls the step eagerly."""
 
     def __init__(self, replica, slots, cache_len, decode_fn, cache):
         self.replica = replica
@@ -124,10 +124,17 @@ class _Lane:
         self.pos = torch.zeros_like(self.tokens)
         self._host = [torch.zeros(self.slots, dtype=torch.long,
                                   pin_memory=cuda) for _ in range(3)]
+        self._step_graph = cuda_graph.Graph(self._compute, self.device)
         self.graph = None
         self.logits = self.ids = None
         if cuda:
-            self._capture()
+            # The warm-up, then the capture (utils/cuda_graph.py); the
+            # warm-up's cache write is zeroed.
+            self._step_graph()
+            for t in leaves(self.cache):
+                t.zero_()
+            torch.cuda.synchronize(self.device)
+            self.graph = self._step_graph.graph
 
     def _compute(self):
         """The step on the static buffers: (logits (slots, vocab) f32,
@@ -139,25 +146,6 @@ class _Lane:
                                 self.pos)
             return logits, logits.argmax(-1)
 
-    def _capture(self):
-        """Warm the step up on a side stream (library handles, workspaces,
-        allocator), then capture it as one CUDA graph. Capture errors are
-        thread-local: another replica's thread or a one-shot server may be
-        running in this process. The warm-up's cache write is zeroed."""
-        with torch.cuda.device(self.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self._compute()
-            torch.cuda.current_stream().wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph,
-                                  capture_error_mode="thread_local"):
-                self.logits, self.ids = self._compute()
-            for t in leaves(self.cache):
-                t.zero_()
-            torch.cuda.current_stream().synchronize()
-
     def _run(self, tok, pos):
         """One step at host ``tok`` / ``pos`` (slots,); returns the greedy
         ids as a host numpy array."""
@@ -167,13 +155,13 @@ class _Lane:
         if self.graph is None:
             self.tokens.copy_(tok_h)
             self.pos.copy_(pos_h)
-            self.logits, self.ids = self._compute()
+            self.logits, self.ids = self._step_graph()
             return self.ids.numpy()
         with torch.cuda.device(self.device):
             # Pinned buffers, reused only after the synchronize below.
             self.tokens.copy_(tok_h, non_blocking=True)
             self.pos.copy_(pos_h, non_blocking=True)
-            self.graph.replay()
+            self.logits, self.ids = self._step_graph()
             ids_h.copy_(self.ids, non_blocking=True)
             torch.cuda.current_stream().synchronize()
         return ids_h.numpy()
@@ -204,6 +192,7 @@ class _Lane:
     def release(self):
         """Drop the graph (and its memory pool), the outputs and the
         cache."""
+        self._step_graph.release()
         self.graph = None
         self.logits = self.ids = None
         self.cache = None

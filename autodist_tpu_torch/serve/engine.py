@@ -9,11 +9,15 @@ forward-only ``apply_fn``), strategy (an explicit builder, else
 * places the parameters ONCE per replica (``Remapper.place_params``) and
   never writes them: every dispatch reads the same tensors, so two
   identical requests get bitwise-identical answers;
-* runs one warm-up forward at every padded batch *bucket*
-  (``serve/buckets.py``) when the engine is built, in place of the JAX
-  package's AOT ``compile_bucket``: the CUDA kernels are built and loaded,
-  and PyTorch's allocator has seen every bucket's shapes, before the first
-  request;
+* captures the forward at every padded batch *bucket*
+  (``serve/buckets.py``) as one CUDA graph when the engine is built, the
+  counterpart of the JAX package's AOT ``compile_bucket``
+  (``utils/cuda_graph.py``: one eager warm-up forward, then the capture,
+  over a static input buffer per bucket). A dispatch copies its placed
+  batch into its bucket's buffer, replays the graph and fetches the static
+  output into pinned host memory (``Remapper.fetch``): each answer is the
+  caller's own, whatever later dispatches write. On the CPU the same
+  static-buffer code calls the forward directly;
 * feeds each replica's executor thread through the depth-N
   :class:`DevicePrefetcher` (lazy top-up), so the host->device copy of the
   next bucket overlaps the current forward.
@@ -43,10 +47,11 @@ from autodist_tpu_torch.remapper import Remapper
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.serve.buckets import normalize_buckets
 from autodist_tpu_torch.strategy.base import StrategyCompiler
-from autodist_tpu_torch.utils import logging
+from autodist_tpu_torch.utils import cuda_graph, logging
 from autodist_tpu_torch.utils.device import resolve_device
+from autodist_tpu_torch.utils.tree import flatten
 from autodist_tpu_torch.utils.tree import leaves as tree_leaves
-from autodist_tpu_torch.utils.tree import tree_map
+from autodist_tpu_torch.utils.tree import tree_map, unflatten
 
 
 def build_replica_programs(item, strategy, spec, replicas, one_device=False):
@@ -163,7 +168,7 @@ class _WorkQueue:
 
 class ReplicaRuntime:
     """One model replica: a mesh slice, resident (never-written) params,
-    and the buckets it has warmed up."""
+    and the buckets it has warmed up (one captured forward each)."""
 
     def __init__(self, index, program, apply_fn):
         if program.paddings():
@@ -174,7 +179,8 @@ class ReplicaRuntime:
         self.program = program
         self.remapper = Remapper(program)
         self._apply = apply_fn
-        self._buckets = set()
+        self._graphs = {}   # bucket -> (static input leaves, Graph)
+        self._bucket_rank = None
         self._source = None
         self._prefetch = None
         self._thread = None
@@ -191,14 +197,16 @@ class ReplicaRuntime:
             return self._apply(self.params, batch)
 
     def warm_bucket(self, bucket, batch_struct):
-        """One forward at a padded bucket on zeros, synchronised: the
-        counterpart of the JAX package's AOT ``compile_bucket``. ``bucket``
-        is an int (batch rows) or a tuple of leading dims — ``(rows, seq)``
-        buckets pad both the batch and the sequence dimension of every
-        leaf."""
+        """Capture the forward at one padded bucket: the counterpart of the
+        JAX package's AOT ``compile_bucket``. A static input buffer of the
+        bucket's shape (zeros) on the replica's device, and the forward over
+        it as a CUDA graph, after one eager warm-up forward (on the CPU:
+        the forward, called per dispatch). ``bucket`` is an int (batch
+        rows) or a tuple of leading dims — ``(rows, seq)`` buckets pad both
+        the batch and the sequence dimension of every leaf."""
         bucket = (int(bucket),) if not isinstance(bucket, (tuple, list)) \
             else tuple(int(x) for x in bucket)
-        if bucket in self._buckets:
+        if bucket in self._graphs:
             return
         _check_bucket_rows(bucket, self.program)
         rank = len(bucket)
@@ -211,11 +219,39 @@ class ReplicaRuntime:
                     f"model")
         zeros = tree_map(lambda s: np.zeros(bucket + tuple(s.shape)[rank:],
                                             s.dtype), batch_struct)
+        static, treedef = flatten(self.remapper.shard_batch(zeros))
+        graph = cuda_graph.Graph(
+            lambda: self._forward(unflatten(treedef, static)),
+            self.remapper.device)
         t0 = time.perf_counter()
-        self.remapper.fetch(self._forward(self.remapper.shard_batch(zeros)))
-        logging.info("serve: replica %d warmed bucket %s (%.0fms)",
-                     self.index, bucket, (time.perf_counter() - t0) * 1e3)
-        self._buckets.add(bucket)
+        self.remapper.fetch(graph())
+        logging.info("serve: replica %d warmed bucket %s (%s, %.0fms)",
+                     self.index, bucket,
+                     "CUDA graph" if graph.captured else "eager",
+                     (time.perf_counter() - t0) * 1e3)
+        self._bucket_rank = rank
+        self._graphs[bucket] = (static, graph)
+
+    @property
+    def graphs(self):
+        """{bucket: the bucket's :class:`~autodist_tpu_torch.utils.
+        cuda_graph.Graph`}."""
+        return {b: g for b, (_, g) in self._graphs.items()}
+
+    def run_bucket(self, batch):
+        """One dispatch of a placed, bucket-shaped batch: copied into its
+        bucket's static input, the bucket's graph replayed (or, on the CPU,
+        the forward called), and the output fetched to pinned host
+        memory."""
+        flat, _ = flatten(batch)
+        bucket = tuple(flat[0].shape[:self._bucket_rank])
+        if bucket not in self._graphs:
+            raise ValueError(f"batch of leading dims {bucket} matches no "
+                             f"warmed bucket {sorted(self._graphs)}")
+        static, graph = self._graphs[bucket]
+        for buf, leaf in zip(static, flat):
+            buf.copy_(leaf, non_blocking=True)
+        return self.remapper.fetch(graph())
 
     # -- dispatch loop -------------------------------------------------------
 
@@ -260,7 +296,7 @@ class ReplicaRuntime:
                 continue
             t0 = time.perf_counter()
             try:
-                host = self.remapper.fetch(self._forward(db))
+                host = self.run_bucket(db)
             except Exception as e:  # noqa: BLE001 - per-batch failure
                 for r in group:
                     if not r.future.done():

@@ -37,8 +37,8 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    weights, full width, 12 layers, seq 512) answers concurrent requests
    from four client threads; every answer is held against the port's own
    forward with the plain attention, a repeated request must be bitwise
-   identical, and the launch counts show every layer of every dispatch ran
-   the forward kernel;
+   identical, every dispatch replays its bucket's CUDA graph, and the
+   launch counts show every layer of every dispatch ran the forward kernel;
 4. training: BERT-base MLM pretraining (full width and depth, batch 32 x
    seq 128, 20 masked positions, Adam 1e-4, bf16 compute, f32 master
    weights) takes 20 ``Runner.step``s through ``AutoDist(AllReduce())`` on
@@ -77,7 +77,26 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    and the device-busy share of a window of steps. (The flash kernels at
    batch x heads past 65535, which BERT-base serving reaches at buckets
    over 5461 rows, are phase 2's case (g), on every route.);
-7. output: one ``{"kernels": [...]}`` JSON line, then the last line
+7. the host-side step as CUDA graphs: BERT-base MLM (batch 32 x 128, Adam
+   1e-4, ``AllReduce()``) from one initial state 20 steps eagerly, 20
+   through ``make_callable(batch, aot=True)`` and 20 through
+   ``run(..., 20, unroll=4)``; ResNet-50 (batch 64 x 224^2, SGD 1e-3,
+   ``AllReduce(chunk_size=128)``) eagerly and through ``aot=True``, with
+   the model's bf16 compute and under ``precision="bf16"``. Each graph
+   path: step 1's loss bitwise the eager step's, every loss within 1e-2
+   relative of the eager path's, its graph captured and replayed once per
+   later call (dispatch), and a replay's loss bitwise an eager step's from
+   the same state; flash launches 12 x 20 per BERT path (the eager
+   warm-up's plus the replays'), 0 for ResNet. Prints the median step
+   time, samples (images) / s, model FLOP/s, and the device-busy share of
+   5 unprofiled steps, eager and graph. Then serving BERT-base at seq 512,
+   buckets (4, 8), phase 3's traffic on bucket graphs: every dispatch's
+   answer bitwise the eager forward of its padded batch, every answer
+   unchanged after later dispatches, replays == dispatches, flash launches
+   12 x (replays + warm-ups); client p50 / p99, and the wall, device time
+   and ``Memcpy DtoH`` of a full-bucket request before (eager forward,
+   pageable copy) and after (graph replay, pinned fetch);
+8. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 import copy
@@ -176,6 +195,15 @@ CAST_KERNEL = "bfloat16_copy_kernel"
 DECODE_BUCKETS = ((8, 256), (32, 1024))
 DECODE_REQUESTS, DECODE_CLIENTS, DECODE_CHECKED = 64, 4, 4
 DECODE_LOGIT_RTOL = 5e-2
+# Phase 7, the training step as CUDA graphs: each graph path's per-step
+# losses against the eager path's, relative. The paths start from the same
+# state, but not every gradient is bitwise between runs (the MLM gather's
+# backward and the embedding lookup's scatter-add atomics), so the
+# trajectories part after step 1. The unrolled path fuses this many steps
+# per graph, and the busy share is read over this many unprofiled steps.
+GRAPH_LOSS_RTOL = 1e-2
+GRAPH_UNROLL = 4
+BUSY_WINDOW = 5
 
 
 def check(cond, msg):
@@ -829,6 +857,7 @@ def serve_phase(torch, fa, card, cfg, device):
         repeat = [srv.infer(requests[0], timeout=300) for _ in range(2)]
         stats = srv.stats()
         launches = fa.flash_fwd.launches
+        replays = sum(g.replays for g in srv.engine.replicas[0].graphs.values())
         if device == "cuda":
             profile_dispatches(torch, srv, (ids, seg))
     finally:
@@ -838,6 +867,9 @@ def serve_phase(torch, fa, card, cfg, device):
           f"{dispatches} dispatches + {warmups} warm-ups; flash_fwd "
           f"launches {launches}", flush=True)
     check(stats["completed"] == len(requests) + 2, "requests lost")
+    if device == "cuda":
+        check(replays == dispatches, f"{dispatches} dispatches but "
+              f"{replays} bucket graph replays")
     check(launches == cfg.num_layers * (dispatches + warmups),
           f"flash_fwd launched {launches} times, expected "
           f"{cfg.num_layers} x ({dispatches} dispatches + {warmups} "
@@ -1154,11 +1186,6 @@ def resnet_run(torch, fa, card, cfg, batch, device, precision, steps):
                       example_batch=batch, precision=precision)
     runner = ad.create_distributed_session(item)
     state = runner.create_state()
-    try:
-        runner.make_callable(batch, aot=True)  # bench.py's call
-        check(False, "make_callable(aot=True) did not raise")
-    except NotImplementedError:
-        pass
     step_fn = runner.make_callable(batch)
     dbatch = runner.remapper.shard_batch(batch)  # placed once
     if device == "cuda":
@@ -1579,6 +1606,392 @@ def decode_lane_timing(torch, card, cfg, lane, n_params):
               f"{name[:90]}", flush=True)
 
 
+def _state_tensors(torch, state):
+    """Every tensor a step updates in place: the params and the
+    optimizer's state."""
+    from autodist_tpu_torch.utils.tree import leaves
+    out = list(leaves(state.params))
+    for st in state.opt_state.state.values():
+        out += [v for v in st.values() if isinstance(v, torch.Tensor)]
+    return out
+
+
+def _busy_window(torch, step, n=BUSY_WINDOW):
+    """(unprofiled wall ms per step, device-busy ms per step) over ``n``
+    calls of ``step``: the wall with no profiler (a profiler's own cost on
+    a replayed graph distorts it), the busy time from a profiled window."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    _, busy, rows = _profile_step(torch, step, n=n)
+    return wall, busy / 1e3 / n, rows
+
+
+def _drive(torch, fa, step_fn, state, batch, steps, device, first=None):
+    """``steps`` calls of ``step_fn`` from ``state``: (state, losses, host
+    ms per step, flash launches counted over the calls, the params after
+    step 1 as clones). ``first`` (the eager path's params after step 1)
+    is compared, and only then are this path's kept."""
+    from autodist_tpu_torch.utils.tree import leaves
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    _flash_counts(fa, reset=True)  # this path's run
+    losses, times, after1 = [], [], None
+    for i in range(steps):
+        t = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(metrics["loss"])
+        if i == 0:
+            now = [t.detach() for t in leaves(state.params)]
+            after1 = (max((a - b).abs().max().item()
+                          for a, b in zip(now, first)) if first is not None
+                      else [t.clone() for t in now])
+    launches = _flash_counts(fa)
+    return state, [float(x) for x in losses], times, launches, after1
+
+
+def graph_train_run(torch, fa, card, label, runner, batch, steps, device,
+                    per_step, flops=None, unroll=None):
+    """Phase 7 for one model: the same initial state stepped ``steps``
+    times eagerly (``make_callable(batch)``), through
+    ``make_callable(batch, aot=True)`` and, with ``unroll``, through
+    ``run(..., steps, unroll=unroll)``. Checks the graph paths against the
+    eager one and that they replayed their graphs; returns {path: flash
+    launches}."""
+    dbatch = runner.remapper.shard_batch(batch)  # placed once
+    out = {}
+    state, eager, times_e, out["eager"], first = _drive(
+        torch, fa, runner.make_callable(batch), runner.create_state(),
+        dbatch, steps, device)
+    check(all(np.isfinite(eager)) and eager[-1] < eager[0],
+          f"{label}: eager losses {eager}")
+    del state
+    aot = runner.make_callable(batch, aot=True)
+    state, graphed, times_g, out["aot"], diff1 = _drive(
+        torch, fa, aot, runner.create_state(), dbatch, steps, device,
+        first=first)
+    del first
+    rel = [abs(g - e) / abs(e) for g, e in zip(graphed, eager)]
+    print(f"  {label}: losses eager {eager[0]:.6f} ... {eager[-1]:.6f}, "
+          f"make_callable(aot=True) {graphed[0]:.6f} ... {graphed[-1]:.6f}; "
+          f"step 1 loss bitwise equal: {graphed[0] == eager[0]}; max |param "
+          f"difference| after step 1 {diff1:.3e}; per-step loss rel. diff "
+          f"max {max(rel):.3e} (tol {GRAPH_LOSS_RTOL})", flush=True)
+    check(graphed[0] == eager[0], f"{label}: step-1 loss {graphed[0]} vs "
+          f"the eager step's {eager[0]}")
+    check(max(rel) <= GRAPH_LOSS_RTOL, f"{label}: the aot losses {graphed} "
+          f"are off the eager ones {eager}")
+    if device == "cuda":
+        check(aot.graph.captured and aot.graph.replays == steps - 1,
+              f"{label}: make_callable(aot=True) replayed its graph "
+              f"{aot.graph.replays} times in {steps} calls")
+
+    # A replay and an eager step from the same state: the loss (computed
+    # before the update) bitwise; the params' difference printed.
+    tensors = _state_tensors(torch, state)
+    snap = [t.detach().clone() for t in tensors]
+    state, m_g = aot(state, dbatch)
+    after_g = [t.detach().clone() for t in tensors]
+    with torch.no_grad():
+        for t, v in zip(tensors, snap):
+            t.copy_(v)
+    state, m_e = runner.make_callable(batch)(state, dbatch)
+    pdiff = max((a - t).abs().max().item() for a, t in zip(after_g, tensors))
+    print(f"  {label}: one graph replay vs one eager step from the same "
+          f"state: loss {float(m_g['loss']):.6f} vs {float(m_e['loss']):.6f}"
+          f" (bitwise equal: {bool(torch.equal(m_g['loss'], m_e['loss']))})"
+          f", max |state difference| after it {pdiff:.3e}", flush=True)
+    check(torch.equal(m_g["loss"], m_e["loss"]), f"{label}: a replay's loss "
+          f"is not bitwise the eager step's from the same state")
+    del snap, after_g, tensors
+
+    def rate(times):
+        steady = times[4:] if len(times) > 4 else times
+        med = float(np.median(steady))
+        return med, per_step / med * 1e3
+    for name, times in (("eager", times_e), ("aot", times_g)):
+        med, r = rate(times)
+        extra = ""
+        if flops:
+            tf = 3 * flops / (med / 1e3)
+            extra = (f", model FLOP/s {tf / 1e12:.2f} TFLOP/s = "
+                     f"{100 * tf / PEAK_BF16_FLOPS:.2f}% of the dense bf16 "
+                     f"peak")
+        print(f"  {label} {name}: step time, median of steps 5-{steps}: "
+              f"{med:.3f} ms (min {min(times[4:]):.3f}, max "
+              f"{max(times[4:]):.3f}; step 1 {times[0]:.3f} ms), {r:.1f} "
+              f"{'images' if flops else 'samples'}/s{extra} on {card}",
+              flush=True)
+    if device == "cuda":
+        fns = {"eager": runner.make_callable(batch), "aot": aot}
+        for name, fn in fns.items():
+            def one_step(fn=fn):
+                nonlocal state
+                state, _ = fn(state, dbatch)
+            wall, busy, rows = _busy_window(torch, one_step)
+            print(f"  {label} {name}: {BUSY_WINDOW} steps unprofiled "
+                  f"{wall:.3f} ms/step, device busy {busy:.3f} ms/step "
+                  f"({100 * busy / wall:.1f}% of the unprofiled wall); "
+                  f"kernels per step {sum(c for _, c, _ in rows) / BUSY_WINDOW:.0f}"
+                  f" on {card}", flush=True)
+            for us, count, kname in rows[:5]:
+                print(f"    {us / 1e3 / BUSY_WINDOW:8.3f} ms/step  "
+                      f"x{count / BUSY_WINDOW:<5.1f} {kname[:90]}",
+                      flush=True)
+    del state
+
+    if unroll:
+        state = runner.create_state()
+        _flash_counts(fa, reset=True)  # this path's run
+        t = time.perf_counter()
+        state, m = runner.run(state, iter([dbatch] * steps), steps,
+                              unroll=unroll)
+        losses = [float(x) for x in m["loss"]]
+        out[f"unroll{unroll}"] = _flash_counts(fa)
+        first_ms = (time.perf_counter() - t) * 1e3
+        graph = next(iter(runner._graphs.values())).graph
+        rel = [abs(g - e) / abs(e) for g, e in zip(losses,
+                                                   eager[-unroll:])]
+        check(int(state.step) == steps and tuple(m["loss"].shape) ==
+              (unroll,) and not bool(m["notfinite"]),
+              f"{label}: run(unroll={unroll}) ended at step "
+              f"{int(state.step)} with metrics {m}")
+        check(max(rel) <= GRAPH_LOSS_RTOL, f"{label}: run(unroll={unroll})'s "
+              f"last losses {losses} are off the eager ones "
+              f"{eager[-unroll:]}")
+        if device == "cuda":
+            check(graph.captured and graph.replays == steps // unroll - 1,
+                  f"{label}: run(unroll={unroll}) replayed its graph "
+                  f"{graph.replays} times in {steps // unroll} dispatches")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, _ = runner.run(state, iter([dbatch] * steps), steps,
+                              unroll=unroll)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / steps
+        print(f"  {label} run({steps} steps, unroll={unroll}): last losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)} (eager steps "
+              f"{steps - unroll + 1}-{steps} rel. diff max {max(rel):.3e}); "
+              f"{first_ms:.1f} ms with its capture; again, all graphs: "
+              f"{ms:.3f} ms/step, {per_step / ms * 1e3:.1f} "
+              f"{'images' if flops else 'samples'}/s on {card}", flush=True)
+        del state
+    return out
+
+
+def graph_phase(torch, fa, card, bert_cfg, resnet_cfg, device, image=224,
+                bert_batch=32, seq=128, num_masked=20, resnet_batch=64,
+                steps=20, unroll=GRAPH_UNROLL):
+    """Phase 7: the training step as CUDA graphs: BERT MLM (Adam 1e-4,
+    ``AllReduce()``) eager / ``make_callable(aot=True)`` / ``run(unroll)``,
+    then ResNet (SGD 1e-3, ``AllReduce(chunk_size=128)``) eager / aot with
+    the model's bf16 compute and under ``precision="bf16"``; returns
+    {path: flash launches}."""
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.models import bert, resnet
+    from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
+    print(f"phase 7: the step as CUDA graphs; a {bert_cfg.num_layers}-layer "
+          f"BERT (MLM, batch {bert_batch} x {seq}, Adam 1e-4) and ResNet "
+          f"(stages {resnet_cfg.stage_sizes}, batch {resnet_batch} x {image}"
+          f"^2, SGD 1e-3), {steps} steps a path", flush=True)
+    paths = {}
+    try:
+        autodist_mod._reset_default()
+        t0 = time.perf_counter()
+        params = bert.init(bert_cfg, torch.Generator().manual_seed(0),
+                           device=device)
+        batch = bert.synthetic_batch(bert_cfg, bert_batch, seq, num_masked,
+                                     seed=0)
+        ad = AutoDist(strategy_builder=AllReduce(), device=device)
+        runner = ad.create_distributed_session(ad.capture(
+            bert.make_loss_fn(bert_cfg), params,
+            functools.partial(torch.optim.Adam, lr=1e-4),
+            example_batch=batch))
+        del params
+        if device == "cuda":
+            check(torch.distributed.get_backend() == "nccl",
+                  "not an NCCL world")
+        print(f"  BERT set-up {time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        got = graph_train_run(torch, fa, card, "BERT", runner, batch, steps,
+                              device, bert_batch, unroll=unroll)
+        print(f"  BERT paths {time.perf_counter() - t0:.1f}s", flush=True)
+        for path, counts in got.items():
+            for name, n in counts.items():
+                check(n == bert_cfg.num_layers * steps,
+                      f"BERT {path}: {name} launched {n} times, expected "
+                      f"{bert_cfg.num_layers} x {steps}")
+            paths["graph_bert_" + path] = counts
+        print(f"  BERT flash launches by path (eager warm-up + replays on "
+              f"the graph paths): {got}", flush=True)
+        del runner
+        for precision in (None, "bf16"):
+            ad = _zoo_world(torch, device)
+            rbatch = resnet.synthetic_batch(resnet_batch, image,
+                                            resnet_cfg.num_classes)
+            item = ad.capture(resnet.make_loss_fn(resnet_cfg),
+                              resnet.init(resnet_cfg,
+                                          torch.Generator().manual_seed(0),
+                                          device=device),
+                              functools.partial(torch.optim.SGD, lr=1e-3),
+                              example_batch=rbatch, precision=precision)
+            runner = ad.create_distributed_session(item)
+            label = f"ResNet precision={precision!r}"
+            t0 = time.perf_counter()
+            got = graph_train_run(torch, fa, card, label, runner, rbatch,
+                                  steps, device, resnet_batch,
+                                  flops=item.flops_estimate())
+            print(f"  {label} paths {time.perf_counter() - t0:.1f}s",
+                  flush=True)
+            for path, counts in got.items():
+                check(not any(counts.values()), f"{label} {path}: flash "
+                      f"kernels launched in a model without attention: "
+                      f"{counts}")
+                paths[f"graph_resnet{'_bf16' if precision else ''}_"
+                      f"{path}"] = counts
+            del runner, item
+    finally:
+        autodist_mod._reset_default()
+    return paths
+
+
+def graph_serve_phase(torch, fa, card, cfg, device, requests=16, clients=4):
+    """Phase 7, serving: phase 3's traffic on the port's Server, whose
+    warmed buckets (4, 8) are CUDA graphs; returns the flash launches."""
+    from autodist_tpu_torch import serve
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.models import transformer as T
+
+    seq = cfg.max_len
+    print(f"phase 7: serve.Server on a {cfg.num_layers}-layer BERT at seq "
+          f"{seq}, buckets (4, 8), one CUDA graph each", flush=True)
+    params = bert.init(cfg, torch.Generator().manual_seed(0), device=device)
+
+    def apply_fn(p, batch):
+        ids, seg = batch
+        return T.encode(p, cfg, ids, segment_ids=seg).float()
+
+    ids, seg, _, _ = bert.synthetic_batch(cfg, 8, seq, seed=0)
+    rng = np.random.RandomState(1)  # phase 3's requests
+    work = []
+    for _ in range(requests):
+        rows = int(rng.randint(1, 9))
+        work.append((rng.randint(0, cfg.vocab, (rows, seq)).astype(np.int32),
+                     rng.randint(0, 2, (rows, seq)).astype(np.int32)))
+    answers, kept, latencies = ([None] * requests for _ in range(3))
+    fa.flash_fwd.launches = 0  # main path: engine build + traffic
+    srv = serve.Server(apply_fn, params, (ids, seg), buckets=(4, 8),
+                       max_wait_ms=5, device=device)
+    try:
+        replica = srv.engine.replicas[0]
+        graphs = replica.graphs
+        warmups = len(graphs)
+        if device == "cuda":
+            check(all(g.captured for g in graphs.values()),
+                  f"a warmed bucket has no CUDA graph: {graphs}")
+        dispatched = []
+        run_bucket = replica.run_bucket
+
+        def recording(batch):
+            host = run_bucket(batch)
+            dispatched.append(([t.clone() for t in batch], host))
+            return host
+        replica.run_bucket = recording
+
+        def client(c):
+            for i in range(c, requests, clients):
+                t = time.perf_counter()
+                answers[i] = srv.submit(work[i]).result(timeout=300)
+                latencies[i] = (time.perf_counter() - t) * 1e3
+                kept[i] = answers[i].clone()
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in threads), "clients hung")
+        check(all(a is not None for a in answers), "a request got no answer")
+        replica.run_bucket = run_bucket
+        launches = fa.flash_fwd.launches
+        replays = sum(g.replays for g in graphs.values())
+        stats = srv.stats()
+        dispatches = sum(r["dispatches"] for r in stats["replicas"])
+        print(f"  {stats['completed']} requests in {dispatches} dispatches, "
+              f"{replays} graph replays + {warmups} warm-ups; flash_fwd "
+              f"launches {launches}", flush=True)
+        check(stats["completed"] == requests, "requests lost")
+        if device == "cuda":
+            check(replays == dispatches == len(dispatched),
+                  f"{dispatches} dispatches but {replays} graph replays")
+        check(launches == cfg.num_layers * (dispatches + warmups),
+              f"flash_fwd launched {launches} times, expected "
+              f"{cfg.num_layers} x ({dispatches} replays + {warmups} "
+              f"warm-ups)")
+        with torch.inference_mode():
+            for batch, host in dispatched:
+                eager = replica._forward(batch).cpu()
+                check(torch.equal(host, eager), "a bucket graph's answer is "
+                      "not bitwise the eager forward of the same padded "
+                      "batch")
+        check(all(torch.equal(a, k) for a, k in zip(answers, kept)),
+              "an answer changed after later dispatches")
+        p50, p99 = np.percentile(latencies, 50), np.percentile(latencies, 99)
+        print(f"  every dispatch's answer bitwise the eager forward of its "
+              f"padded batch ({len(dispatched)} dispatches); every answer "
+              f"unchanged after later dispatches; client p50 {p50:.3f} ms, "
+              f"p99 {p99:.3f} ms (4 threads, rows 1-8) on {card}",
+              flush=True)
+        if device == "cuda":
+            _dtoh_before_after(torch, card, srv, replica, (ids, seg))
+    finally:
+        srv.close()
+    return launches
+
+
+def _dtoh_before_after(torch, card, srv, replica, batch, n=6):
+    """Wall and device time per full-bucket request, and its ``Memcpy
+    DtoH``: the eager forward with a pageable ``.cpu()`` (before) against
+    the Server's graph replay and pinned fetch (after)."""
+    from torch.profiler import ProfilerActivity, profile
+    placed = replica.remapper.shard_batch(batch)
+
+    def before():
+        with torch.inference_mode():
+            replica._forward(placed).cpu()
+
+    def after():
+        srv.infer(batch, timeout=300)
+    for label, fn in (("before: eager forward, pageable .cpu()", before),
+                      ("after: Server, graph replay, pinned fetch", after)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+        events = _device_events(prof)
+        busy = sum(_device_us(e) for e in events) / 1e3 / n
+        dtoh = sum(_device_us(e) for e in events
+                   if "Memcpy DtoH" in e.key) / 1e3 / n
+        kinds = sorted({e.key for e in events if "Memcpy DtoH" in e.key})
+        print(f"  {label}, 8 x {batch[0].shape[1]}: wall {wall:.3f} "
+              f"ms/request (profiled), device {busy:.3f} ms/request, "
+              f"Memcpy DtoH {dtoh:.3f} ms/request ({', '.join(kinds)}) on "
+              f"{card}", flush=True)
+
+
 def short_kernel(mangled):
     """``flash_fwd_wgmma_kernel<d=64, f32 + bf16 out>`` from a mangled
     kernel name."""
@@ -1656,6 +2069,7 @@ def main():
     from autodist_tpu_torch.ops import build
     from autodist_tpu_torch.ops import flash_attention as fa
 
+    start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1688,19 +2102,27 @@ def main():
     trained = train_phase(torch, fa, card, bert.bert_base(max_len=128),
                           "cuda")
     zoo = zoo_phase(torch, fa, card, "cuda")
-    from autodist_tpu_torch.models import lm
+    from autodist_tpu_torch.models import lm, resnet
     zoo["decode"] = decode_phase(torch, fa, card, lm.lm1b(), "cuda")
+    zoo.update(graph_phase(torch, fa, card, bert.bert_base(max_len=128),
+                           resnet.resnet50(), "cuda"))
+    served_graph = graph_serve_phase(torch, fa, card,
+                                     bert.bert_base(max_len=512), "cuda")
     fwd["launches"] = served + trained["flash_fwd"]
     fwd["launches_by_path"] = {"serve": served,
-                               "train": trained["flash_fwd"]}
+                               "train": trained["flash_fwd"],
+                               "graph_serve": served_graph}
     for record in bwd:
         record["launches"] = trained[record["name"]]
         record["launches_by_path"] = {"serve": 0,
-                                      "train": trained[record["name"]]}
+                                      "train": trained[record["name"]],
+                                      "graph_serve": 0}
     for record in [fwd] + bwd:
         record["launches_by_path"].update(
             {path: counts[record["name"]] for path, counts in zoo.items()})
         record["other_routes"] = routes[record["name"]]
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - start:.1f}s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [fwd] + bwd}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -381,10 +381,25 @@ def test_aux_output_and_make_callable_and_run(tmp_path):
                                 trace_dir=str(tmp_path / "trace"))
     assert int(state.step) == 4
     assert os.listdir(tmp_path / "trace") == ["trace-rank0.json"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.make_callable(batch, aot=True)  # bench.py's call
-    with pytest.raises(NotImplementedError, match="unroll"):
-        runner.run(state, iter([batch] * 2), 2, unroll=2)
+    # The ahead-of-time step (bench.py's call) and run(unroll=2) take the
+    # eager step's trajectory, bitwise on the CPU.
+    eager, graphed = runner.create_state(), runner.create_state()
+    aot = runner.make_callable(batch, aot=True)
+    for _ in range(2):
+        eager, want = runner.step(eager, batch)
+        graphed, got = aot(graphed, runner.remapper.shard_batch(batch))
+        assert float(got["loss"]) == float(want["loss"])
+        assert float(got["aux"]["double"]) == float(want["aux"]["double"])
+    graphed, got = runner.run(graphed, iter([batch] * 2), 2, unroll=2)
+    losses = []
+    for _ in range(2):
+        eager, want = runner.step(eager, batch)
+        losses.append(float(want["loss"]))
+    assert got["loss"].tolist() == losses
+    assert got["aux"]["double"].shape == (2,)
+    assert int(graphed.step) == int(eager.step) == 4
+    for name, want in _named(eager.params).items():
+        np.testing.assert_array_equal(_named(graphed.params)[name], want)
     with pytest.raises(NotImplementedError, match="step_guard"):
         runner.run(state, iter([batch]), 1, step_guard=object())
 
