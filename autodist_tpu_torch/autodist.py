@@ -21,16 +21,23 @@ or the one-liner::
     metrics = train_step(params, batch)   # first call builds; state kept inside
 
 The optimizer is a factory ``trainable_tensors -> torch.optim.Optimizer``
-(optax, which the JAX package takes, has no PyTorch twin). ``build`` starts
-the ``torch.distributed`` world (``Cluster.start``: torchrun's environment,
-else a one-rank world) on ``device`` (default ``"cuda"``, which raises
-without CUDA). Every rank builds the same deterministic strategy locally;
-shipping the chief's strategy to the workers is not ported yet, and neither
-is the JAX package's default builder, ``PS()`` (ROADMAP.md).
+(optax, which the JAX package takes, has no PyTorch twin). The builder is
+the one given, else the one ``AUTODIST_STRATEGY`` names, else ``PS()``, as
+in the JAX package. ``build`` starts the ``torch.distributed`` world
+(``Cluster.start``: torchrun's environment, else a one-rank world) on
+``device`` (default ``"cuda"``, which raises without CUDA). On a world of
+several ranks the chief (rank 0) builds the strategy once and ships it to
+the workers through the process group's c10d store
+(:meth:`AutoDist._ship_or_fetch_strategy`), so every rank runs the chief's
+program even when the builder is not deterministic.
 """
 import contextlib
+import datetime
+import hashlib
+import itertools
 
 import torch
+import torch.distributed as dist
 
 from autodist_tpu_torch import const
 from autodist_tpu_torch.cluster import Cluster
@@ -38,11 +45,16 @@ from autodist_tpu_torch.graph_item import GraphItem
 from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runner import Runner
-from autodist_tpu_torch.strategy.base import StrategyCompiler
+from autodist_tpu_torch.proto import strategy_pb2
+from autodist_tpu_torch.strategy.base import Strategy, StrategyCompiler
 from autodist_tpu_torch.utils import logging
 from autodist_tpu_torch.utils.device import resolve_device
 
 _default_autodist = None
+# Ship keys are numbered per process: the store outlives AutoDist instances
+# (a world the caller started), and every rank runs the same sequence of
+# builds.
+_ship_counter = itertools.count()
 
 
 def _reset_default():
@@ -76,26 +88,21 @@ class AutoDist:
 
     @staticmethod
     def _resolve_builder(builder):
-        """An explicit builder wins; else ``AUTODIST_STRATEGY=allreduce``.
-        The JAX package's default (``PS()``), its other builder names and
-        its tuner are not ported yet."""
+        """An explicit builder wins; else the ``AUTODIST_STRATEGY`` env knob
+        names a ported builder (its default configuration); else ``PS()``,
+        the JAX package's default. ``auto`` (the tuner) is not ported."""
         if builder is not None:
             return builder
-        name = str(const.ENV.AUTODIST_STRATEGY.val).strip().lower()
-        if name == "allreduce":
-            from autodist_tpu_torch.strategy.all_reduce_strategy import \
-                AllReduce
-            logging.info("AUTODIST_STRATEGY=%s -> AllReduce", name)
-            return AllReduce()
+        name = const.ENV.AUTODIST_STRATEGY.val
         if name:
-            raise NotImplementedError(
-                f"AUTODIST_STRATEGY={name!r}: autodist_tpu_torch builds "
-                f"AllReduce only; the other builders and the tuner are not "
-                f"ported yet (ROADMAP.md, Queue A)")
-        raise NotImplementedError(
-            "no strategy_builder: the JAX package's default, PS(), is not "
-            "ported to autodist_tpu_torch yet (ROADMAP.md, Queue A); pass "
-            "strategy_builder=AllReduce() or set AUTODIST_STRATEGY=allreduce")
+            from autodist_tpu_torch.strategy.registry import \
+                builder_from_name
+            resolved = builder_from_name(name)
+            logging.info("AUTODIST_STRATEGY=%s -> %s", name,
+                         type(resolved).__name__)
+            return resolved
+        from autodist_tpu_torch.strategy.ps_strategy import PS
+        return PS()
 
     @property
     def resource_spec(self):
@@ -118,13 +125,112 @@ class AutoDist:
         return GraphItem.capture(loss_fn, params, optimizer,
                                  example_batch=example_batch, **kwargs)
 
+    # -- the strategy: built, loaded or shipped ------------------------------
+
+    def _build_or_load_strategy(self, graph_item):
+        """``AUTODIST_STRATEGY_ID`` loads a serialized artifact; on a world
+        of several ranks the chief builds and ships; else build here."""
+        sid = const.ENV.AUTODIST_STRATEGY_ID.val
+        if sid:
+            strategy = Strategy.deserialize(sid)
+            logging.info("loaded strategy %s", sid)
+            return strategy
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            return self._ship_or_fetch_strategy(graph_item)
+        return self._build_local(graph_item)
+
+    def _build_local(self, graph_item):
+        """Build with this process's builder and serialize the artifact (an
+        inspection aid: a read-only working directory is tolerated)."""
+        strategy = self._strategy_builder.build(graph_item,
+                                                self._cluster.resource_spec)
+        try:
+            strategy.serialize()
+        except OSError as e:
+            logging.warning("could not serialize strategy %s: %s",
+                            strategy.id, e)
+        logging.info("built strategy %s with %s", strategy.id,
+                     type(self._strategy_builder).__name__)
+        return strategy
+
+    def _ship_fingerprint(self, graph_item):
+        """Fingerprint of (graph item, resource spec): what the shipped
+        strategy was built for. Ranks whose build sequences diverged wait
+        under different keys, which turns a silent divergence of the SPMD
+        programs into a timeout."""
+        h = hashlib.sha256()
+        for v in graph_item.variables:
+            h.update(f"{v.name}|{tuple(v.shape)}|{v.dtype}|"
+                     f"{v.trainable}\n".encode())
+        spec = self._cluster.resource_spec
+        h.update(f"np={spec.num_processes}|"
+                 f"mesh={sorted(spec.mesh_hints.items())}|"
+                 f"builder={type(self._strategy_builder).__name__}\n"
+                 .encode())
+        return h.hexdigest()[:16]
+
+    def _ship_or_fetch_strategy(self, graph_item):
+        """The chief (rank 0) builds once and sets the serialized proto
+        under ``autodist/strategy/<seq>/<fingerprint>`` in the c10d store of
+        the world ``Cluster.start`` joined, and its id under ``.../id``;
+        every worker waits for both (``AUTODIST_STRATEGY_SHIP_TIMEOUT_MS``),
+        parses the proto and checks the id echo. The counterpart of the
+        JAX package's coordination-service shipping
+        (``autodist_tpu/autodist.py:198-297``);
+        its retry and chaos hooks wait for ``resilience/`` (ROADMAP.md,
+        Queue A item 9)."""
+        try:
+            store = dist.distributed_c10d._get_default_store()
+        except (AttributeError, RuntimeError, ValueError) as e:
+            logging.warning("no c10d store to ship the strategy through "
+                            "(%s); every rank builds it (determinism "
+                            "required)", e)
+            return self._build_local(graph_item)
+        key = (f"autodist/strategy/{next(_ship_counter)}/"
+               f"{self._ship_fingerprint(graph_item)}")
+        if dist.get_rank() == 0:
+            strategy = self._build_local(graph_item)
+            blob = strategy.proto.SerializeToString()
+            store.set(key, blob)
+            store.set(key + "/id", strategy.id)
+            logging.info("shipped strategy %s (%d bytes) as %s",
+                         strategy.id, len(blob), key)
+            return strategy
+        timeout_ms = const.strategy_ship_timeout_ms()
+        try:
+            store.wait([key, key + "/id"],
+                       datetime.timedelta(milliseconds=timeout_ms))
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"autodist_tpu_torch: no strategy was shipped under {key} "
+                f"within {timeout_ms} ms (AUTODIST_STRATEGY_SHIP_TIMEOUT_MS)"
+                f": the chief built none for this rank's program (another "
+                f"capture or build sequence: the fingerprint differs), or "
+                f"it is slower than the timeout") from e
+        proto = strategy_pb2.Strategy()
+        proto.ParseFromString(store.get(key))
+        strategy = Strategy(proto)
+        want_id = store.get(key + "/id").decode("utf-8", "replace")
+        if strategy.id != want_id:
+            raise RuntimeError(
+                f"autodist_tpu_torch: strategy ship mismatch under {key}: "
+                f"fetched proto id {strategy.id!r} != published id "
+                f"{want_id!r}")
+        unknown = ({n.var_name for n in strategy.node_config} -
+                   {v.name for v in graph_item.trainable_variables})
+        if unknown:
+            raise RuntimeError(
+                f"autodist_tpu_torch: shipped strategy {strategy.id} "
+                f"configures variables this rank never captured "
+                f"({sorted(unknown)[:5]})")
+        logging.info("fetched strategy %s (%s)", strategy.id, key)
+        return strategy
+
     def build(self, graph_item):
         """World -> strategy -> compile -> transform -> Runner."""
         device = self._cluster.start(resolve_device(self._device))
-        strategy = self._strategy_builder.build(graph_item,
-                                                self._cluster.resource_spec)
-        logging.info("built strategy %s with %s on %s", strategy.id,
-                     type(self._strategy_builder).__name__, device)
+        strategy = self._build_or_load_strategy(graph_item)
+        logging.info("strategy %s on %s", strategy.id, device)
         mesh_axes = self._mesh_axes
         if mesh_axes is None and strategy.graph_config.mesh_axes:
             mesh_axes = dict(strategy.graph_config.mesh_axes)

@@ -79,6 +79,20 @@ class Mesh:
                 f"(replicas=N)")
         return self.devices.flat[0]
 
+    def axis_index(self, axis=const.MESH_AXIS_DATA):
+        """This process's coordinate on ``axis``: its rank in the axis's
+        group on a rank mesh, 0 on a one-device local mesh or an axis the
+        mesh lacks."""
+        if axis not in self.axis_names:
+            return 0
+        if self.device_mesh is None:
+            if self.size != 1:
+                raise NotImplementedError(
+                    f"no process of this {self.size}-device local mesh has "
+                    f"a place on '{axis}'")
+            return 0
+        return self.device_mesh.get_local_rank(mesh_dim=axis)
+
     def group(self, axis=const.MESH_AXIS_DATA):
         """The process group of ``axis`` on a rank mesh (None on a local
         mesh)."""

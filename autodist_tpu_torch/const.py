@@ -12,6 +12,12 @@ DEFAULT_WORKING_DIR = os.environ.get(
     "AUTODIST_WORKING_DIR", os.path.join(tempfile.gettempdir(), "autodist_tpu"))
 DEFAULT_LOG_DIR = os.path.join(DEFAULT_WORKING_DIR, "logs")
 DEFAULT_GRAPH_DUMP_DIR = os.path.join(DEFAULT_WORKING_DIR, "graphs")
+DEFAULT_SERIALIZATION_DIR = os.path.join(DEFAULT_WORKING_DIR, "strategies")
+
+# How long a worker waits for the chief to publish the serialized strategy
+# on the process group's store (the chief's capture and build can trail the
+# worker's arrival); AUTODIST_STRATEGY_SHIP_TIMEOUT_MS overrides it.
+STRATEGY_SHIP_TIMEOUT_MS = 120_000
 
 # Canonical mesh axis names.
 MESH_AXIS_DATA = "data"        # data parallel / gradient reduction axis
@@ -28,7 +34,9 @@ class ENV(enum.Enum):
 
     AUTODIST_MIN_LOG_LEVEL = ("AUTODIST_MIN_LOG_LEVEL", str, "INFO")
     AUTODIST_DUMP_GRAPHS = ("AUTODIST_DUMP_GRAPHS", bool, False)  # dump the strategy at each compile stage
-    AUTODIST_STRATEGY = ("AUTODIST_STRATEGY", str, "")  # strategy builder by name: "allreduce" ("" => AllReduce when serving; AutoDist needs a builder)
+    AUTODIST_STRATEGY = ("AUTODIST_STRATEGY", str, "")  # strategy builder by name ("ps", "parallax", "allreduce", ...; "" => PS() in AutoDist, AllReduce when serving)
+    AUTODIST_STRATEGY_ID = ("AUTODIST_STRATEGY_ID", str, "")  # strategy artifact id to load (from DEFAULT_SERIALIZATION_DIR) instead of building
+    AUTODIST_STRATEGY_SHIP_TIMEOUT_MS = ("AUTODIST_STRATEGY_SHIP_TIMEOUT_MS", int, 0)  # 0 => STRATEGY_SHIP_TIMEOUT_MS
     AUTODIST_UNROLL = ("AUTODIST_UNROLL", int, 1)  # fused steps per dispatch (megastep: one CUDA graph of K steps; 1 => one step per dispatch)
     AUTODIST_PREFETCH_DEPTH = ("AUTODIST_PREFETCH_DEPTH", int, 2)  # DevicePrefetcher in-flight transfers (0 => passthrough)
     AUTODIST_SERVE_BUCKETS = ("AUTODIST_SERVE_BUCKETS", str, "")  # "8,32,128" or "8x128,32x128" for (rows, seq)
@@ -51,6 +59,13 @@ class ENV(enum.Enum):
         return self.var_type(raw)
 
 
+def strategy_ship_timeout_ms():
+    """Effective ship timeout: the typed ENV override, else the default."""
+    return ENV.AUTODIST_STRATEGY_SHIP_TIMEOUT_MS.val or \
+        STRATEGY_SHIP_TIMEOUT_MS
+
+
 def ensure_working_dirs():
-    for d in (DEFAULT_WORKING_DIR, DEFAULT_LOG_DIR, DEFAULT_GRAPH_DUMP_DIR):
+    for d in (DEFAULT_WORKING_DIR, DEFAULT_SERIALIZATION_DIR,
+              DEFAULT_LOG_DIR, DEFAULT_GRAPH_DUMP_DIR):
         os.makedirs(d, exist_ok=True)

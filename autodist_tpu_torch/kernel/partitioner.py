@@ -3,10 +3,11 @@
 Counterpart of ``autodist_tpu/kernel/partitioner.py``:
 ``PartitionerConfig`` parses and formats the strategy's partition string
 ("axis:num_shards[:mesh_axis]", comma-joined for composed plans) and
-``param_partition_spec`` picks the mesh axis of each parameter dimension.
-The ZeRO-1 state placement (``choose_state_sharding_spec``) comes with the
-PS strategies (ROADMAP.md).
+``param_partition_spec`` picks the mesh axis of each parameter dimension,
+and ``choose_state_sharding_spec`` the dimension of a PS variable's
+optimizer state (ZeRO-1) that carries the data axis.
 """
+from autodist_tpu_torch import const
 from autodist_tpu_torch.utils import logging
 
 
@@ -18,6 +19,15 @@ class PartitionSpec(tuple):
 
     def __repr__(self):
         return f"PartitionSpec{tuple(self)!r}"
+
+
+def data_dim(spec):
+    """Index of the dimension ``spec`` places on the data axis, or None."""
+    for i, entry in enumerate(spec):
+        if entry == const.MESH_AXIS_DATA or (
+                isinstance(entry, tuple) and const.MESH_AXIS_DATA in entry):
+            return i
+    return None
 
 
 class PartitionerConfig:
@@ -97,4 +107,28 @@ def param_partition_spec(var, pconfig, mesh_axis, axis_size=None,
         if size is not None and var.shape[axis] < size:
             continue
         spec[axis] = extra_axis
+    return PartitionSpec(*spec)
+
+
+def choose_state_sharding_spec(var, mesh_axis, axis_size):
+    """Sharding of a variable's optimizer state under PS (ZeRO-1) sync.
+
+    The largest dimension the axis divides carries ``mesh_axis``, even if
+    it is not dim 0; with none, the largest dimension, padded to a multiple
+    (``DistributedProgram.paddings``); with no dimension at least
+    ``axis_size``, the state replicates (sharding it would be pure
+    overhead).
+    """
+    if not var.shape:
+        return PartitionSpec()
+    dims = sorted(range(len(var.shape)), key=lambda i: var.shape[i],
+                  reverse=True)
+    best = next((i for i in dims if var.shape[i] >= axis_size and
+                 var.shape[i] % axis_size == 0), None)
+    if best is None:
+        if var.shape[dims[0]] < axis_size:
+            return PartitionSpec()
+        best = dims[0]
+    spec = [None] * len(var.shape)
+    spec[best] = mesh_axis
     return PartitionSpec(*spec)

@@ -11,7 +11,7 @@ from abc import ABC
 
 from autodist_tpu_torch import const
 from autodist_tpu_torch.kernel.partitioner import (PartitionerConfig,
-                                                   PartitionSpec,
+                                                   PartitionSpec, data_dim,
                                                    param_partition_spec)
 from autodist_tpu_torch.kernel.synchronization.compressor import \
     all_reduce_mean_
@@ -30,12 +30,11 @@ class Synchronizer(ABC):
     def create(cls, var, node, mesh):
         from autodist_tpu_torch.kernel.synchronization.\
             all_reduce_synchronizer import AllReduceSynchronizer
+        from autodist_tpu_torch.kernel.synchronization.ps_synchronizer \
+            import PSSynchronizer
         which = node.WhichOneof("synchronizer")
         if which == "ps_synchronizer":
-            raise NotImplementedError(
-                f"{var.name}: the PS synchronizer is not ported to "
-                f"autodist_tpu_torch yet (ROADMAP.md, Queue A); use the "
-                f"AllReduce strategy")
+            return PSSynchronizer(var, node, mesh)
         if which == "all_reduce_synchronizer" or which is None:
             return AllReduceSynchronizer(var, node, mesh)
         raise ValueError(f"unknown synchronizer for {var.name}")
@@ -74,6 +73,17 @@ class Synchronizer(ABC):
     @property
     def needs_explicit_path(self):
         return False
+
+    def kind(self, n):
+        """(kind, dim): how the Runner lowers this variable on a data axis
+        of ``n`` devices (``DistributedProgram.var_kinds``): ``stale``
+        with staleness, ``fsdp`` along the dim its parameter spec splits
+        over the data axis, else ``ar``."""
+        if self.staleness > 0:
+            return ("stale", None)
+        if n > 1 and (dim := data_dim(self.param_spec())) is not None:
+            return ("fsdp", dim)
+        return ("ar", None)
 
     @property
     def staleness(self):

@@ -7,8 +7,10 @@ the processes the mesh spans, and it must divide by the data-axis size
 (the same error); ``shard_block`` does the same for the K-stacked blocks
 of the fused multi-step dispatch. One process drives one device, so the
 local batch goes to this process's device whole. ``place_params`` puts a
-parameter tree on that device once; ``fetch`` brings results back through
-pinned host memory.
+parameter tree on that device once, at its stored layout (uneven dims
+padded, and a parameter split over the data axis cut to this process's
+piece; ``autodist_tpu/remapper.py:290``); ``fetch`` brings results back
+through pinned host memory.
 """
 import types
 
@@ -88,18 +90,19 @@ class Remapper:
         return unflatten(treedef, [put(l) for l in leaves])
 
     def place_params(self, params, placements=None, copy=False):
-        """Place a parameter tree once. ``placements`` overrides the
-        program's ``param_placements()``. Serving reads the placed tensors
-        and never writes them; training updates its copy in place, so it
-        asks for ``copy=True`` and leaves the captured tree untouched."""
+        """Place a parameter tree once, at its stored layout: each leaf
+        padded where its placement pads it (zeros) and cut to this
+        process's piece where it is split over the data axis.
+        ``placements`` overrides the program's ``param_placements()``.
+        Serving reads the placed tensors and never writes them; training
+        updates its copy in place, so it asks for ``copy=True`` and leaves
+        the captured tree untouched."""
         if placements is None:
             placements = self._program.param_placements()
         leaves, treedef = flatten(params)
-        devices, _ = flatten(placements)
-        return unflatten(treedef, [
-            torch.as_tensor(l).detach().to(d, copy=True) if copy
-            else torch.as_tensor(l, device=d)
-            for l, d in zip(leaves, devices)])
+        places, _ = flatten(placements)  # a Placement is a leaf
+        return unflatten(treedef, [_place(torch.as_tensor(l), p, copy)
+                                   for l, p in zip(leaves, places)])
 
     def fetch(self, value):
         """Bring a result tree to host memory. Each device leaf is copied,
@@ -123,6 +126,29 @@ class Remapper:
             done.record(stream)
             done.synchronize()
         return unflatten(treedef, out)
+
+
+def _place(t, placement, copy):
+    """One leaf at its stored layout on the placement's device."""
+    device = placement.device
+    if device is None:
+        raise NotImplementedError(
+            "one process drives one device: a local mesh of several "
+            "devices has no device of this process to place on. Train with "
+            "one process per device (a torch.distributed world, e.g. "
+            "torchrun), or serve with one replica per device (replicas=N)")
+    if placement.padding is not None:
+        dim, logical, padded = placement.padding
+        widths = [0, 0] * t.dim()
+        widths[2 * (t.dim() - 1 - dim) + 1] = padded - logical
+        t = torch.nn.functional.pad(t.detach(), widths)
+    if placement.dim is not None:
+        size = t.shape[placement.dim] // placement.shards
+        t = t.narrow(placement.dim, placement.index * size, size)
+        return t.detach().to(device, copy=True).contiguous()
+    if copy:
+        return t.detach().to(device, copy=True)
+    return t.to(device)
 
 
 def _shape(leaf):

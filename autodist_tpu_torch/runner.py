@@ -1,19 +1,40 @@
 """Runner: the distributed train step and the step loop.
 
 Counterpart of ``autodist_tpu/runner.py``: ``TrainState``, ``create_state``,
-``step``, ``make_callable`` and a plain ``run`` loop. One step, on every
-rank:
+``step``, ``make_callable``, ``megastep``, ``run`` and ``logical_params``.
+One step, on every rank:
 
-1. the loss on this rank's local batch (PyTorch runs eagerly: nothing to
-   compile);
-2. gradients by ``torch.autograd.grad`` over the trainable leaves;
-3. the reduction each variable's synchronizer prescribes over the data
-   axis's process group: same-group fusable gradients as one flat bucket
-   per (group, dtype) through ``torch.distributed.all_reduce``, then divided
-   by the group's size (the strategy's groups decide the buckets, not
-   ``DistributedDataParallel``);
-4. the optimizer step;
+1. the loss on this rank's local batch, over each parameter's compute view
+   (PyTorch runs eagerly: nothing to compile);
+2. gradients by ``torch.autograd.grad`` over the stored trainable leaves;
+3. the reduction each variable's kind prescribes (the program's
+   ``var_kinds()``; the JAX Runner's explicit path,
+   ``autodist_tpu/runner.py:700-1040``) over the data axis's process
+   group:
+
+   * ``ar``: same-group fusable gradients as one flat bucket per (group,
+     dtype) through ``torch.distributed.all_reduce``, divided by the
+     group's size (the strategy's groups decide the buckets, not
+     ``DistributedDataParallel``);
+   * ``zero1`` (a PS variable, its optimizer state split): the gradient
+     ``reduce_scatter_tensor``-ed onto this rank's state shard, divided by
+     the group's size; the optimizer holds the shard tensors;
+   * ``fsdp`` (the parameter split): the rank stores only its (padded)
+     piece; :class:`_GatherShards` all-gathers it for the forward and its
+     backward reduce-scatters the gradient, as the VJP of JAX's tiled
+     ``all_gather`` does;
+   * ``stale``: no reduction; each rank updates its own copy;
+
+4. the optimizer step (shard-local for ``zero1`` / ``fsdp``, which assumes
+   an optimizer that works element by element, as the JAX Runner does;
+   others are refused), then ``all_gather_into_tensor`` of each ``zero1``
+   shard into the whole parameter, and after every step ``t`` with
+   ``t % (s + 1) == s`` the mean of each stale parameter over the group;
 5. the loss's mean over the data group.
+
+Uneven dims are stored padded (``DistributedProgram.paddings``): the
+compute view cuts the logical rows out and the padded rows take zero
+gradients; :meth:`Runner.logical_params` gives the logical tree.
 
 Metrics are 0-dim tensors on the device (``loss``, ``notfinite``, and
 ``aux`` with ``aux_output``), read without a host sync per step.
@@ -32,17 +53,24 @@ steps over a K-stacked block (``lax.scan`` in one dispatch there), and
 batch buffers and the state's own tensors: each call copies its batch in
 and replays; the step counter and the stale marking stay on the host. The
 first call runs the real step (or K steps) eagerly on a side stream, as
-the capture's warm-up, then captures: after N calls the state has taken
-N steps. The optimizer must be capturable (``capturable=True`` is turned
-on where it exists; SGD needs none; others are refused). On the CPU the
-same static-buffer code runs directly.
+the capture's warm-up (it also issues every collective the step uses, so
+the communicator exists before capture), then captures: after N calls the
+state has taken N steps. A graph cannot branch on the host's step count,
+so with stale variables there is one graph per phase of the staleness
+period (the JAX step branches with ``lax.cond``). The optimizer must be
+capturable (``capturable=True`` is turned on where it exists; SGD needs
+none; others are refused). On the CPU the same static-buffer code runs
+directly.
 
 Not ported yet (ROADMAP.md): ``step_guard`` (resilience), the native
 loader's ``BlockStacker`` wiring (``_wire_loader``), the overlap
-scheduler, ZeRO-1 / uneven-shard storage and the observability hooks.
+scheduler and the observability hooks.
 """
 import contextlib
+import functools
+import math
 import os
+import weakref
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -58,15 +86,64 @@ from autodist_tpu_torch.remapper import Remapper
 from autodist_tpu_torch.utils import cuda_graph, logging
 from autodist_tpu_torch.utils.device import resolve_device
 from autodist_tpu_torch.utils.tree import (flatten, flatten_with_path, leaves,
-                                           path_to_name, tree_map, unflatten)
+                                           path_to_name, tree_map,
+                                           tree_map_with_path, unflatten)
 
 
 class TrainState(NamedTuple):
     """Distributed training state; each step updates it in place and hands
     back a new handle."""
     step: Any        # 0-dim int64 tensor on the host
-    params: Any      # nested dict of tensors on this rank's device
-    opt_state: Any   # the torch.optim.Optimizer over the trainable leaves
+    params: Any      # nested dict of tensors at their stored layout
+    opt_state: Any   # the torch.optim.Optimizer over the update tensors
+
+
+# Optimizers whose step treats every element of a parameter on its own
+# (the shard-local update of zero1 / fsdp variables gives the same values
+# as the whole update): torch's standard ones.
+ELEMENTWISE_OPTIMIZERS = (
+    torch.optim.SGD, torch.optim.Adam, torch.optim.AdamW, torch.optim.Adamax,
+    torch.optim.NAdam, torch.optim.RAdam, torch.optim.RMSprop,
+    torch.optim.Adagrad, torch.optim.Adadelta, torch.optim.ASGD,
+    torch.optim.Rprop)
+
+
+class _GatherShards(torch.autograd.Function):
+    """A split (``fsdp``) parameter's pieces all-gathered along ``dim``
+    over ``group``; the backward reduce-scatters the gradient (the sum
+    over the group lands on this rank's piece), as the VJP of JAX's tiled
+    ``all_gather`` (``autodist_tpu/runner.py:839-846``)."""
+
+    @staticmethod
+    def forward(ctx, piece, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(piece, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter(grad, ctx.dim, ctx.group), None, None
+
+
+def _all_gather(piece, dim, group):
+    """The group's pieces concatenated along ``dim`` (rank order), as a new
+    tensor (``all_gather_into_tensor`` gathers along dim 0: a piece split
+    along another dim is moved to the front, and the result moved back)."""
+    moved = piece.detach().movedim(dim, 0).contiguous()
+    n = dist.get_world_size(group)
+    out = moved.new_empty((moved.shape[0] * n,) + tuple(moved.shape[1:]))
+    dist.all_gather_into_tensor(out, moved, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(whole, dim, group):
+    """This rank's piece along ``dim`` of the sum of ``whole`` over the
+    group (``reduce_scatter_tensor`` along dim 0, moved as in
+    :func:`_all_gather`)."""
+    moved = whole.movedim(dim, 0).contiguous()
+    n = dist.get_world_size(group)
+    out = moved.new_empty((moved.shape[0] // n,) + tuple(moved.shape[1:]))
+    dist.reduce_scatter_tensor(out, moved, group=group)
+    return out.movedim(0, dim).contiguous()
 
 
 class Runner:
@@ -82,13 +159,20 @@ class Runner:
                 "GraphItem has no optimizer; capture with a factory "
                 "trainable_tensors -> torch.optim.Optimizer, e.g. "
                 "functools.partial(torch.optim.SGD, lr=0.1)")
-        if program.paddings():
-            raise NotImplementedError(
-                "uneven parameter shards (padded storage) are not ported to "
-                "autodist_tpu_torch yet (ROADMAP.md)")
         self._trainable = self._mask_non_trainable(self._item)
+        self._kinds = program.var_kinds()
+        placements = program.param_placements()
+        self._placements = {path_to_name(p): pl for p, pl in
+                            flatten_with_path(placements)[0]}
         self._buckets = self.bucket_plan()
-        self._graphs = {}  # megastep graphs by block structure
+        # Stale variables by period (s + 1); the step's phase is the step
+        # count modulo their lcm.
+        self._periods = {name: s.staleness + 1 for name, s in
+                         program.synchronizers.items() if s.staleness > 0}
+        self._period = math.lcm(*self._periods.values()) \
+            if self._periods else 1
+        self._shards = weakref.WeakKeyDictionary()  # optimizer -> zero1
+        self._graphs = {}  # megastep graphs by block structure and phase
 
     @staticmethod
     def _mask_non_trainable(item):
@@ -105,12 +189,21 @@ class Runner:
     def program(self):
         return self._program
 
+    @property
+    def var_kinds(self):
+        """{var_name: (kind, dim)}: ``stale``, ``fsdp``, ``zero1`` or
+        ``ar`` (``DistributedProgram.var_kinds``)."""
+        return self._kinds
+
     def bucket_plan(self):
-        """The gradient reductions of one step, in order: lists of variable
-        names. Fusable synchronizers of one fusion group and dtype share a
-        bucket (one collective); the others reduce alone."""
+        """The all-reduces of one step's ``ar`` gradients, in order: lists
+        of variable names. Fusable synchronizers of one fusion group and
+        dtype share a bucket (one collective); the others reduce alone.
+        ``zero1`` / ``fsdp`` / ``stale`` variables take no all-reduce."""
         buckets, keyed = [], {}
         for name, sync in self._program.synchronizers.items():
+            if self._kinds[name][0] != "ar":
+                continue
             if getattr(sync, "fusable", False):
                 key = (sync.group, sync.var.dtype)
                 if key not in keyed:
@@ -126,17 +219,70 @@ class Runner:
         named = [(path_to_name(p), t) for p, t in pairs]
         return [(n, t) for n, t in named if n in self._trainable]
 
+    def _kind(self, name):
+        return self._kinds.get(name, ("ar", None))
+
     # -- state ---------------------------------------------------------------
 
     def create_state(self):
-        """Copy the captured params onto this rank's device and build the
-        optimizer over the trainable ones. The captured tree is untouched."""
+        """Place the captured params on this rank's device at their stored
+        layout (padded; an ``fsdp`` variable's piece only) and build the
+        optimizer over the update tensors: the stored trainable leaves,
+        except that a ``zero1`` variable's is this rank's shard of it (a
+        tensor of its own, ``1/n`` of the variable, so its optimizer state
+        is too). The captured tree is untouched."""
         resolve_device(self._remapper.device)
         params = self._remapper.place_params(self._item.params, copy=True)
-        leaves = [t.requires_grad_(True)
-                  for _, t in self._trainable_leaves(params)]
-        opt = self._item.optimizer(leaves)
+        update, shards = [], {}
+        for name, t in self._trainable_leaves(params):
+            t.requires_grad_(True)
+            kind, dim = self._kind(name)
+            if kind == "zero1":
+                n = self._program.data_axis_size
+                size = t.shape[dim] // n
+                index = self._placements[name].index
+                shards[name] = t.detach().narrow(
+                    dim, index * size, size).clone()
+                update.append(shards[name])
+            else:
+                update.append(t)
+        opt = self._item.optimizer(update)
+        if any(k in ("zero1", "fsdp") for k, _ in self._kinds.values()) and \
+                not isinstance(opt, ELEMENTWISE_OPTIMIZERS):
+            raise ValueError(
+                f"autodist_tpu_torch: {type(opt).__name__} cannot update a "
+                f"variable shard by shard: the PS / partitioned lowering "
+                f"runs the optimizer on each rank's shard, which gives the "
+                f"whole update only for an optimizer that treats each "
+                f"element on its own "
+                f"({', '.join(c.__name__ for c in ELEMENTWISE_OPTIMIZERS)}). "
+                f"Build the strategy with gspmd_update=True (PS family), "
+                f"or use AllReduce()")
+        self._shards[opt] = shards
         return TrainState(torch.zeros((), dtype=torch.int64), params, opt)
+
+    def logical_params(self, state):
+        """The params at their logical shapes, detached: padding cut off,
+        an ``fsdp`` variable's pieces all-gathered (a collective: every
+        rank of the data group calls it), a stale variable this rank's
+        copy (the JAX Runner's stored array holds every device's copy)."""
+        group = self._mesh.group()
+
+        def logical(path, t):
+            name = path_to_name(path)
+            kind, dim = self._kind(name)
+            t = t.detach()
+            if kind == "fsdp":
+                t = _all_gather(t, dim, group)
+            return self._cut_padding(name, t)
+        return tree_map_with_path(logical, state.params)
+
+    def _cut_padding(self, name, t):
+        placement = self._placements.get(name)
+        if placement is None or placement.padding is None:
+            return t
+        dim, logical, _ = placement.padding
+        return t.narrow(dim, 0, logical)
 
     _STALE_STATE_HINT = (
         "The state argument is donated each step: always continue from "
@@ -153,9 +299,25 @@ class Runner:
 
     # -- the step ------------------------------------------------------------
 
+    def _compute_view(self, params):
+        """The params the loss sees: ``fsdp`` pieces all-gathered (through
+        :class:`_GatherShards`, so their gradients reduce-scatter), padding
+        cut off."""
+        group = self._mesh.group()
+
+        def view(path, t):
+            name = path_to_name(path)
+            kind, dim = self._kind(name)
+            if kind == "fsdp":
+                t = _GatherShards.apply(t, dim, group)
+            return self._cut_padding(name, t)
+        return tree_map_with_path(view, params)
+
     def _sync_gradients(self, grads):
-        """Reduce ``grads`` ({name: tensor}) in place, bucket by bucket. A
-        one-device local mesh (no process group) has nothing to reduce."""
+        """Reduce ``grads`` ({name: gradient of the stored leaf}) over the
+        data group, by kind; a ``zero1`` gradient is replaced by this
+        rank's shard of the mean. A one-device local mesh (no process
+        group) has nothing to reduce."""
         group = self._mesh.group()
         if group is None:
             return
@@ -165,13 +327,37 @@ class Runner:
                 reduce_bucket([grads[n] for n in bucket], group)
             else:
                 syncs[bucket[0]].sync_gradient(grads[bucket[0]], group)
+        n = self._program.data_axis_size
+        for name, (kind, dim) in self._kinds.items():
+            if kind == "zero1":
+                grads[name] = _reduce_scatter(grads[name], dim, group).div_(n)
+            elif kind == "fsdp":  # born reduce-scattered (the sum)
+                grads[name].div_(n)
 
-    def _core(self, params, opt, batch):
+    def _finish_update(self, params, shards, step):
+        """After the optimizer: each ``zero1`` shard all-gathered into its
+        whole parameter, and the stale parameters whose period ends at
+        ``step`` averaged over the group."""
+        group = self._mesh.group()
+        if group is None:
+            return
+        named = dict(self._trainable_leaves(params))
+        with torch.no_grad():
+            for name, shard in shards.items():
+                dim = self._kinds[name][1]
+                named[name].copy_(_all_gather(shard, dim, group))
+            for name, period in self._periods.items():
+                if step % period == period - 1:
+                    all_reduce_mean_(named[name], group)
+
+    def _core(self, params, opt, batch, step=0):
         """The part of a step a CUDA graph can capture: the loss, the
-        gradients, their reduction, the optimizer's in-place update and the
-        metrics tensors. No host bookkeeping."""
+        gradients, their reduction, the optimizer's in-place update, the
+        gathers and stale averages, and the metrics tensors. ``step`` is
+        the step's count (only its phase in the staleness period
+        matters). No host bookkeeping."""
         item = self._item
-        out = item.loss_fn(params, batch)
+        out = item.loss_fn(self._compute_view(params), batch)
         loss, aux = out if item.aux_output else (out, None)
         named = self._trainable_leaves(params)
         grads = torch.autograd.grad(loss, [t for _, t in named],
@@ -181,10 +367,12 @@ class Runner:
         grads = {n: (torch.zeros_like(t) if g is None else g.contiguous())
                  for (n, t), g in zip(named, grads)}
         self._sync_gradients(grads)
+        shards = self._shards.get(opt, {})
         for n, t in named:
-            t.grad = grads[n]
+            shards.get(n, t).grad = grads[n]
         opt.step()
         opt.zero_grad(set_to_none=True)
+        self._finish_update(params, shards, step)
         loss = loss.detach().float().clone()
         if self._mesh.group() is not None:
             all_reduce_mean_(loss, self._mesh.group())
@@ -203,7 +391,8 @@ class Runner:
         return TrainState(state.step + k, state.params, state.opt_state)
 
     def _step(self, state, batch):
-        metrics = self._core(state.params, state.opt_state, batch)
+        metrics = self._core(state.params, state.opt_state, batch,
+                             int(state.step))
         return self._advance(state, 1), metrics
 
     def step(self, state, batch, shard_inputs=True):
@@ -377,7 +566,10 @@ class _GraphStep:
     the state of the first call (:class:`~autodist_tpu_torch.utils.
     cuda_graph.Graph`; on the CPU it runs directly). Each call checks the
     state and the batch, copies the batch in, replays, and hands back
-    copies of the metrics: the next replay overwrites the graph's own."""
+    copies of the metrics: the next replay overwrites the graph's own.
+    With stale variables the step's collectives depend on its phase in the
+    staleness period, so there is one graph per phase (of the first step),
+    each captured at its first call."""
 
     _NOT_BOUND_HINT = (
         "The graph is bound to the tensors of the state its first call was "
@@ -393,7 +585,19 @@ class _GraphStep:
         self._static = [torch.empty(shape, dtype=dtype, device=self._device)
                         for shape, dtype in self._specs]
         self._params = self._opt = self._leaves = None
-        self.graph = cuda_graph.Graph(self._compute, self._device)
+        self.graphs = {}  # phase -> Graph
+
+    def _graph(self, phase):
+        graph = self.graphs.get(phase)
+        if graph is None:
+            graph = self.graphs[phase] = cuda_graph.Graph(
+                functools.partial(self._compute, phase), self._device)
+        return graph
+
+    @property
+    def graph(self):
+        """The graph of phase 0: the only one without stale variables."""
+        return self._graph(0)
 
     def bound_to(self, state):
         return self._opt is None or (
@@ -405,14 +609,14 @@ class _GraphStep:
         self._params, self._opt = state.params, state.opt_state
         self._leaves = leaves(state.params)
 
-    def _compute(self):
+    def _compute(self, phase):
         batch = unflatten(self._treedef, self._static)
         core = self._runner._core
         if self.k is None:
-            return core(self._params, self._opt, batch)
+            return core(self._params, self._opt, batch, phase)
         return _stack_metrics([
-            core(self._params, self._opt, tree_map(lambda t: t[i], batch))
-            for i in range(self.k)])
+            core(self._params, self._opt, tree_map(lambda t: t[i], batch),
+                 phase + i) for i in range(self.k)])
 
     def _copy_in(self, batch):
         flat, treedef = flatten(batch)
@@ -442,6 +646,7 @@ class _GraphStep:
                 "the step's CUDA graph was captured over. " +
                 self._NOT_BOUND_HINT)
         self._copy_in(batch)
+        graph = self._graph(int(state.step) % self._runner._period)
         metrics = tree_map(lambda t: t.clone() if isinstance(
-            t, torch.Tensor) else t, self.graph())
+            t, torch.Tensor) else t, graph())
         return self._runner._advance(state, self.k or 1), metrics

@@ -93,18 +93,17 @@ def build_replica_programs(item, strategy, spec, replicas, one_device=False):
 
 
 def _resolve_serve_builder(builder):
-    """Serving strategy policy: an explicit builder wins; else AllReduce
-    (fully replicated params, the canonical serving layout), which is also
-    what ``AUTODIST_STRATEGY=allreduce`` names. The tuner and the other
-    builders are not ported yet."""
+    """Serving strategy policy: an explicit builder wins; else the builder
+    ``AUTODIST_STRATEGY`` names (the names ``AutoDist`` takes; ``auto``,
+    the tuner, is not ported); else AllReduce (fully replicated params,
+    the canonical serving layout). A replica spans one device, so every
+    builder's parameters are whole there."""
     if builder is not None:
         return builder
-    name = str(const.ENV.AUTODIST_STRATEGY.val).strip().lower()
-    if name and name != "allreduce":
-        raise NotImplementedError(
-            f"AUTODIST_STRATEGY={name!r}: the port serves with AllReduce "
-            f"only; the other builders and the tuner are ported after "
-            f"slice 2, data-parallel training (ROADMAP.md, Queue A)")
+    name = const.ENV.AUTODIST_STRATEGY.val
+    if name:
+        from autodist_tpu_torch.strategy.registry import builder_from_name
+        return builder_from_name(name)
     from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
     return AllReduce()
 

@@ -48,6 +48,30 @@ class Strategy:
                 return n
         return None
 
+    @property
+    def path(self):
+        return self._proto.path or os.path.join(
+            const.DEFAULT_SERIALIZATION_DIR, self.id)
+
+    def serialize(self, path=None):
+        """Write the proto to ``path`` (default: the serialization dir,
+        under the id); returns the path."""
+        path = path or self.path
+        const.ensure_working_dirs()
+        self._proto.path = path
+        with open(path, "wb") as f:
+            f.write(self._proto.SerializeToString())
+        return path
+
+    @classmethod
+    def deserialize(cls, strategy_id=None, path=None):
+        path = path or os.path.join(const.DEFAULT_SERIALIZATION_DIR,
+                                    strategy_id)
+        proto = strategy_pb2.Strategy()
+        with open(path, "rb") as f:
+            proto.ParseFromString(f.read())
+        return cls(proto)
+
     def copy(self):
         new = strategy_pb2.Strategy()
         new.CopyFrom(self._proto)

@@ -96,7 +96,28 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    12 x (replays + warm-ups); client p50 / p99, and the wall, device time
    and ``Memcpy DtoH`` of a full-bucket request before (eager forward,
    pageable copy) and after (graph replay, pinned fetch);
-8. output: one ``{"kernels": [...]}`` JSON line, then the last line
+8. the strategy builders: BERT-base MLM (batch 32 x 128, Adam 1e-4) on a
+   one-rank NCCL world from one seeded init, 4 eager steps each under
+   ``AutoDist()`` (its default builder, ``PS()``), ``PSLoadBalancing()``,
+   ``PartitionedPS()``, ``UnevenPartitionedPS()``, ``PartitionedAR()``,
+   ``RandomAxisPartitionAR()`` and ``PS(staleness=2)``, each held to
+   ``AllReduce()``'s 4 eager steps (step 1 bitwise, then within
+   ``STRATEGY_LOSS_RTOL``), and 20 steps of ``Parallax()`` (BASELINE's
+   BERT configuration) through ``make_callable(aot=True)``, held to
+   ``AllReduce()``'s aot steps; every run lowers as the JAX package does
+   on one device (each variable the replicated update, a stale one the
+   local update), with finite falling losses, every param changed, and
+   12 launches of each flash kernel a step; each loss tolerance must lie
+   between ``AllReduce()`` read again from the same init and at twice the
+   learning rate (a planted fault). Prints the Parallax and AllReduce aot
+   step times (host-inclusive and device busy). Then the two-rank
+   sub-phase: a 2-layer BERT-base-width model (SGD 0.1) under
+   ``Parallax()``, ``PartitionedPS()`` and ``PS()`` on two gloo ranks on
+   the one card (the split-parameter and ZeRO-1 lowerings beside the
+   kernels), losses and each param's update held to one rank's
+   ``AllReduce()`` steps (a doubled gradient must read above the update
+   tolerance), the ranks' params bitwise equal;
+9. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 import copy
@@ -109,6 +130,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 
@@ -204,6 +226,25 @@ DECODE_LOGIT_RTOL = 5e-2
 GRAPH_LOSS_RTOL = 1e-2
 GRAPH_UNROLL = 4
 BUSY_WINDOW = 5
+# Phase 8, the strategy builders on one rank: every builder lowers to the
+# replicated update there (a stale one to the local update, whose average
+# over one rank is the identity), so each computes AllReduce's step. Step
+# 1's loss (before any update) is bitwise AllReduce's; later ones part only
+# through gradients that are not bitwise between runs (the MLM gather's and
+# the embedding lookup's scatter-add atomics), which four steps of Adam
+# carry into the loss far below this relative tolerance. Parallax's 20
+# aot steps are held to AllReduce's aot steps (the same capturable Adam)
+# at STRATEGY_GRAPH_RTOL. Each tolerance is checked to lie between two
+# readings of the same run: AllReduce() again from the same init (the
+# floor the atomics leave) and AllReduce() at twice the learning rate (a
+# planted fault, the update doubled), which the check must see. Read on
+# an H100: eager floor 1.8e-5 and 3.1e-5, fault 2.5e-2; aot floor 8.7e-4
+# and 1.4e-3 (Parallax, which computes AllReduce's step on one rank, read
+# up to 2.5e-3 from it), fault 5.8e-2.
+STRATEGY_STEPS = 4
+STRATEGY_GRAPH_STEPS = 20
+STRATEGY_LOSS_RTOL = 1e-3
+STRATEGY_GRAPH_RTOL = 1e-2
 
 
 def check(cond, msg):
@@ -1862,6 +1903,204 @@ def graph_phase(torch, fa, card, bert_cfg, resnet_cfg, device, image=224,
     return paths
 
 
+def strategy_run(torch, fa, cfg, device, label, builder, batch, steps,
+                 aot=False, kinds=("ar",), backend="nccl", optimizer="Adam",
+                 lr=1e-4):
+    """``steps`` steps of BERT under one builder, eagerly or through
+    ``make_callable(aot=True)``: checks the lowering (the set of variable
+    kinds: on one rank every variable takes the replicated update, a stale
+    one the local update), finite falling losses, every param changed and
+    a launch of each flash kernel per layer and step; returns the losses,
+    flash launches, host ms per step, runner, state, step function, and
+    the initial and final logical params by name. The world is a fresh
+    one-rank world unless the caller started one; BERT MLM (``optimizer``
+    of ``torch.optim`` at ``lr``) from the seeded init; ``builder`` None
+    is ``AutoDist()``'s default."""
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.models import bert
+    autodist_mod._reset_default()
+    params = bert.init(cfg, torch.Generator().manual_seed(0), device=device)
+    ad = AutoDist(strategy_builder=builder, device=device)
+    runner = ad.create_distributed_session(ad.capture(
+        bert.make_loss_fn(cfg), params,
+        functools.partial(getattr(torch.optim, optimizer), lr=lr),
+        example_batch=batch))
+    if device == "cuda":
+        world = torch.distributed.get_backend()
+        check(world == backend, f"{label}: a {world} world, not {backend}")
+    init = flatten_params(params)
+    del params
+    got = {k for k, _ in runner.var_kinds.values()}
+    check(got == set(kinds), f"{label}: variable kinds {got}, expected "
+          f"{set(kinds)}")
+    if runner.program.data_axis_size == 1:
+        check(not runner.program.paddings(), f"{label}: padded storage on "
+              f"a one-rank world")
+    dbatch = runner.remapper.shard_batch(batch)
+    step_fn = runner.make_callable(batch, aot=aot)
+    state, losses, times, launches, _ = _drive(
+        torch, fa, step_fn, runner.create_state(), dbatch, steps, device)
+    after = flatten_params(runner.logical_params(state))
+    unchanged = [n for n, t in init.items() if torch.equal(t, after[n])]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{label}: losses {losses}")
+    check(not unchanged, f"{label}: params unchanged: {unchanged}")
+    for name, n in launches.items():
+        check(n == cfg.num_layers * steps, f"{label}: {name} launched {n} "
+              f"times, expected {cfg.num_layers} x {steps}")
+    if aot and device == "cuda":
+        check(step_fn.graph.captured and step_fn.graph.replays == steps - 1,
+              f"{label}: the aot step replayed {step_fn.graph.replays} "
+              f"times in {steps} calls")
+    return types.SimpleNamespace(
+        losses=losses, launches=launches, times=times, runner=runner,
+        state=state, step_fn=step_fn, init=init, params=after)
+
+
+def update_error(torch, got, ref, init):
+    """The relative L2 error of a run's whole update, ||got - ref|| /
+    ||ref - init|| over all params (by name) together. Unlike the loss
+    under Adam, it sees a gradient off by a constant factor under SGD.
+    Not per param: some gradients are zero but for roundings (the
+    attention key bias shifts each score row by a constant, which the
+    softmax cancels), and their updates are all noise."""
+    diff = sum(float((got[n].float() - ref[n].float()).square().sum())
+               for n in ref)
+    step = sum(float((ref[n].float() - init[n].float()).square().sum())
+               for n in ref)
+    return (diff / step) ** 0.5
+
+
+def strategy_phase(torch, fa, card, cfg, device, batch_size=32, seq=128,
+                   num_masked=20, steps=STRATEGY_STEPS,
+                   graph_steps=STRATEGY_GRAPH_STEPS):
+    """Phase 8: BERT MLM under every ported strategy builder on a one-rank
+    world, each run from the seeded init on the same batch: eagerly under
+    ``AutoDist()`` (PS) and the other builders, held to ``AllReduce()``'s
+    eager steps; ``Parallax()`` (BASELINE's BERT configuration) through
+    ``make_callable(aot=True)``, held to ``AllReduce()``'s aot steps, and
+    both timed. Returns {path: flash launches}."""
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.models import bert
+    print(f"phase 8: strategy builders; a {cfg.num_layers}-layer, width "
+          f"{cfg.dim} BERT (MLM, batch {batch_size} x {seq}, Adam 1e-4) on "
+          f"a one-rank world, {steps} eager steps a builder, {graph_steps} "
+          f"aot steps for AllReduce and Parallax", flush=True)
+    batch = bert.synthetic_batch(cfg, batch_size, seq, num_masked, seed=0)
+    env = os.environ.pop("AUTODIST_STRATEGY", None)  # AutoDist() -> PS()
+    paths = {}
+
+    def rel_diff(losses, ref):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+
+    def held(label, losses, ref, rtol):
+        rel = rel_diff(losses, ref)
+        print(f"  {label}: losses {', '.join(f'{x:.6f}' for x in losses)}; "
+              f"step 1 bitwise AllReduce's: {losses[0] == ref[0]}, max rel. "
+              f"diff {rel:.3e} (tol {rtol})", flush=True)
+        check(losses[0] == ref[0], f"{label}: step-1 loss {losses[0]} vs "
+              f"AllReduce's {ref[0]}")
+        check(rel <= rtol, f"{label}: losses {losses} vs AllReduce's {ref}")
+
+    def bracket(label, ref, aot, rtol):
+        """AllReduce() again (the floor: two runs of one program) and at
+        twice the learning rate (a planted fault: the update doubled),
+        both against ``ref``: the tolerance must lie between them."""
+        runs = [strategy_run(torch, fa, cfg, device, f"AllReduce() {label}"
+                             f"{tag}", S.AllReduce(), batch,
+                             len(ref), aot=aot, lr=lr).losses
+                for tag, lr in (("", 1e-4), (" at lr 2e-4", 2e-4))]
+        floor, fault = (rel_diff(r, ref) for r in runs)
+        print(f"  AllReduce() {label}: again from the same init max rel. "
+              f"diff {floor:.3e}, at lr 2e-4 (the update doubled) "
+              f"{fault:.3e}; tol {rtol}", flush=True)
+        check(floor <= rtol < fault, f"AllReduce() {label}: the tolerance "
+              f"{rtol} does not lie between the floor {floor} and the "
+              f"planted fault {fault}")
+    try:
+        t0 = time.perf_counter()
+        run = strategy_run(torch, fa, cfg, device, "AllReduce()",
+                           S.AllReduce(), batch, steps)
+        ref, paths["strategy_allreduce"] = run.losses, run.launches
+        del run
+        print(f"  AllReduce(): losses {', '.join(f'{x:.6f}' for x in ref)}"
+              f" ({time.perf_counter() - t0:.1f}s with set-up)", flush=True)
+        bracket("eager", ref, False, STRATEGY_LOSS_RTOL)
+        for key, label, builder, kinds in (
+                ("ps", "AutoDist() = PS()", None, ("ar",)),
+                ("ps_lb", "PSLoadBalancing()", S.PSLoadBalancing(), ("ar",)),
+                ("partitioned_ps", "PartitionedPS()", S.PartitionedPS(),
+                 ("ar",)),
+                ("uneven_ps", "UnevenPartitionedPS()",
+                 S.UnevenPartitionedPS(), ("ar",)),
+                ("partitioned_ar", "PartitionedAR()", S.PartitionedAR(),
+                 ("ar",)),
+                ("random_axis_ar", "RandomAxisPartitionAR()",
+                 S.RandomAxisPartitionAR(), ("ar",)),
+                ("ps_stale2", "PS(staleness=2)", S.PS(staleness=2),
+                 ("stale",))):
+            run = strategy_run(torch, fa, cfg, device, label, builder, batch,
+                               steps, kinds=kinds)
+            if builder is None:
+                check(all(n.WhichOneof("synchronizer") == "ps_synchronizer"
+                          for n in run.runner.program.strategy.node_config),
+                      "AutoDist() did not build PS()")
+            held(label, run.losses, ref, STRATEGY_LOSS_RTOL)
+            paths["strategy_" + key] = run.launches
+            del run
+        timings = {}
+        for key, label, builder in (("allreduce", "AllReduce()",
+                                     S.AllReduce()),
+                                    ("parallax", "Parallax()",
+                                     S.Parallax())):
+            run = strategy_run(torch, fa, cfg, device, label + " aot",
+                               builder, batch, graph_steps, aot=True)
+            if label == "AllReduce()":
+                graph_ref = run.losses
+                bracket("aot", graph_ref, True, STRATEGY_GRAPH_RTOL)
+            else:
+                node = run.runner.program.strategy.node_by_name(
+                    "embed/embedding")
+                check(node.WhichOneof("synchronizer") == "ps_synchronizer",
+                      "Parallax() did not send the embedding table to PS")
+                held("Parallax() aot vs AllReduce() aot", run.losses,
+                     graph_ref, STRATEGY_GRAPH_RTOL)
+            paths[f"strategy_{key}_aot"] = run.launches
+            med = float(np.median(run.times[4:]))
+            line = (f"  {label} make_callable(aot=True): median host step "
+                    f"(steps 5-{graph_steps}) {med:.3f} ms")
+            if device == "cuda":
+                dbatch = run.runner.remapper.shard_batch(batch)
+                state = run.state
+
+                def one_step(fn=run.step_fn):
+                    nonlocal state
+                    state, _ = fn(state, dbatch)
+                wall, busy, rows = _busy_window(torch, one_step)
+                timings[label] = (wall, busy)
+                line += (f"; {BUSY_WINDOW} steps unprofiled {wall:.3f} "
+                         f"ms/step (host-inclusive), device busy {busy:.3f} "
+                         f"ms/step ({100 * busy / wall:.1f}%), "
+                         f"{batch_size / wall * 1e3:.1f} samples/s")
+                del state
+            print(line + f" on {card}", flush=True)
+            del run
+        if timings:
+            (w_ar, b_ar), (w_px, b_px) = (timings["AllReduce()"],
+                                          timings["Parallax()"])
+            print(f"  Parallax() / AllReduce() aot step: host-inclusive "
+                  f"{w_px:.3f} / {w_ar:.3f} ms ({w_px / w_ar:.3f}x), device "
+                  f"{b_px:.3f} / {b_ar:.3f} ms ({b_px / b_ar:.3f}x) on {card}",
+                  flush=True)
+    finally:
+        autodist_mod._reset_default()
+        if env is not None:
+            os.environ["AUTODIST_STRATEGY"] = env
+    return paths
+
+
 def graph_serve_phase(torch, fa, card, cfg, device, requests=16, clients=4):
     """Phase 7, serving: phase 3's traffic on the port's Server, whose
     warmed buckets (4, 8) are CUDA graphs; returns the flash launches."""
@@ -2060,8 +2299,199 @@ def sass_check(build):
         for (k, d, out), (h, u) in sorted(found.items())), flush=True)
 
 
+# Phase 8's two-rank sub-phase: gloo ranks on the one card (NCCL refuses
+# two ranks on one device; gloo takes CUDA tensors for all_reduce,
+# reduce_scatter_tensor and all_gather_into_tensor, PERF.md) train BERT at
+# BERT-base width and bert_tiny's depth under builders that split
+# variables over the data axis, each rank on its half of the batch, held
+# to one rank's AllReduce steps on the whole batch. SGD, not Adam: Adam's
+# update does not see a gradient off by a constant factor (a missing / n
+# in the reduce-scatter), SGD's does. Both the losses and the params'
+# update are held: the update's relative L2 error (``update_error``) at
+# GLOO_UPDATE_RTOL, which one rank's AllReduce at twice the learning rate
+# (the gradient doubled, a missing / 2) must exceed. The model computes in
+# bf16: each rank's weight gradients are rounded to bf16 over its half of
+# the tokens before the f32 mean, where one rank rounds once over all of
+# them, so the runs part by bf16 roundings. Read on an H100: losses within
+# 5.7e-5, update errors 3.9e-3 to 4.8e-3; the doubled gradient 2.2e-2 and
+# 0.94.
+GLOO_WORLD, GLOO_LAYERS, GLOO_LR = 2, 2, 0.1
+GLOO_UPDATE_RTOL = 5e-2
+GLOO_BUILDERS = (("parallax", "Parallax", ("ar", "fsdp")),
+                 ("partitioned_ps", "PartitionedPS", ("fsdp",)),
+                 ("ps", "PS", ("zero1",)))
+
+
+def _gloo_cfg(cfg):
+    small = copy.copy(cfg)
+    small.num_layers = GLOO_LAYERS
+    return small
+
+
+def gloo_train_rank(rank, world, port, spec):
+    """One rank of :func:`gloo_strategy_phase`: a gloo world over
+    ``localhost`` on device 0 (``spec``: device, config, batch, steps and
+    the one-rank reference's final params' file as JSON); for each builder
+    of ``GLOO_BUILDERS`` ``steps`` eager SGD steps on this rank's rows.
+    Prints {builder: losses, launches, mesh, the update's error against the
+    reference, a digest of the logical params}."""
+    import datetime
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.ops import build
+    from autodist_tpu_torch.ops import flash_attention as fa
+    spec = json.loads(spec)
+    device = spec["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build.load_all()  # built by the parent: the same sources and flags
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    fields = dict(spec["config"], dtype=getattr(torch, spec["dtype"]))
+    cfg = T.TransformerConfig(**fields)
+    batch = bert.synthetic_batch(cfg, spec["batch"], spec["seq"],
+                                 spec["masked"], seed=0)
+    ref = torch.load(spec["ref"], map_location=device)
+    local = spec["batch"] // world
+    mine = tuple(a[rank * local:(rank + 1) * local] for a in batch)
+    out = {"rank": rank}
+    for key, builder, kinds in GLOO_BUILDERS:
+        run = strategy_run(torch, fa, cfg, device, f"rank {rank} {builder}()",
+                           getattr(S, builder)(), mine, spec["steps"],
+                           kinds=kinds, backend="gloo", optimizer="SGD",
+                           lr=GLOO_LR)
+        digest = hashlib.sha256()
+        for name, t in sorted(run.params.items()):
+            digest.update(t.detach().float().cpu().numpy().tobytes())
+        err = update_error(torch, run.params, ref, run.init)
+        out[key] = {"losses": run.losses, "launches": run.launches,
+                    "mesh": dict(run.runner.program.mesh.shape),
+                    "update_error": err,
+                    "digest": digest.hexdigest()}
+        del run
+    autodist_mod._reset_default()
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def gloo_strategy_phase(torch, fa, card, cfg, device, batch_size=32,
+                        seq=128, num_masked=20, steps=STRATEGY_STEPS):
+    """Phase 8, two ranks: ``GLOO_WORLD`` gloo ranks (processes of this
+    script) on the one card train ``cfg`` at ``GLOO_LAYERS`` layers under
+    ``GLOO_BUILDERS``, so the ZeRO-1 and split-parameter lowerings run
+    beside the kernels on the device; each builder's losses and updates
+    are held to one rank's ``AllReduce()`` run on the whole batch, the
+    ranks' params must agree bitwise, and each rank's flash kernels launch
+    once per layer and step. Returns {path: flash launches, summed over
+    the ranks}."""
+    import socket
+    import tempfile
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.ops import build
+    small = _gloo_cfg(cfg)
+    print(f"phase 8, {GLOO_WORLD} gloo ranks on one device: a "
+          f"{small.num_layers}-layer, width {small.dim} BERT (batch "
+          f"{batch_size} x {seq}, {batch_size // GLOO_WORLD} rows a rank, "
+          f"SGD {GLOO_LR}), {steps} eager steps under " +
+          ", ".join(f"{b}()" for _, b, _ in GLOO_BUILDERS), flush=True)
+    batch = bert.synthetic_batch(small, batch_size, seq, num_masked, seed=0)
+    try:
+        ref = strategy_run(torch, fa, small, device, "one rank AllReduce()",
+                           S.AllReduce(), batch, steps, optimizer="SGD",
+                           lr=GLOO_LR)
+        fault = strategy_run(torch, fa, small, device,
+                             "one rank AllReduce() at twice the lr",
+                             S.AllReduce(), batch, steps, optimizer="SGD",
+                             lr=2 * GLOO_LR)
+    finally:
+        autodist_mod._reset_default()
+    fault_err = update_error(torch, fault.params, ref.params, ref.init)
+    fault_rel = max(abs(a - b) / abs(b)
+                    for a, b in zip(fault.losses, ref.losses))
+    print(f"  one rank AllReduce() at lr {2 * GLOO_LR} (the gradient "
+          f"doubled) vs at {GLOO_LR}: max rel. loss diff {fault_rel:.3e}, "
+          f"update error {fault_err:.3e} (tol {GLOO_UPDATE_RTOL})",
+          flush=True)
+    check(fault_err > GLOO_UPDATE_RTOL and fault_rel > STRATEGY_LOSS_RTOL,
+          f"a doubled gradient reads within the tolerances: update error "
+          f"{fault_err}, loss {fault_rel}")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
+    ref_path = os.path.join(tmp.name, "ref.pt")
+    torch.save({n: t.detach().cpu() for n, t in ref.params.items()},
+               ref_path)
+    ref_losses = ref.losses
+    del ref, fault
+    fields = {k: v for k, v in vars(small).items() if k != "dtype"}
+    spec = json.dumps({"device": device, "config": fields,
+                       "dtype": str(small.dtype).split(".")[-1], "seq": seq,
+                       "batch": batch_size, "masked": num_masked,
+                       "steps": steps, "ref": ref_path})
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gloo-train", str(r),
+         str(GLOO_WORLD), str(port), spec], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(GLOO_WORLD)]
+    ranks = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            check(p.returncode == 0, f"a gloo rank exited with "
+                  f"{p.returncode}: {err[-3000:]}")
+            ranks.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        tmp.cleanup()
+    paths = {}
+    for key, builder, kinds in GLOO_BUILDERS:
+        expr = f"{builder}()"
+        got = [r[key] for r in ranks]
+        losses = got[0]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        print(f"  {expr} on {GLOO_WORLD} ranks (mesh {got[0]['mesh']}, kinds "
+              f"{'/'.join(kinds)}): losses "
+              f"{', '.join(f'{x:.6f}' for x in losses)}; one rank "
+              f"AllReduce() {', '.join(f'{x:.6f}' for x in ref_losses)}; max "
+              f"rel. diff {rel:.3e} (tol {STRATEGY_LOSS_RTOL}); update error "
+              f"{got[0]['update_error']:.3e} (tol {GLOO_UPDATE_RTOL}); params "
+              f"equal on every rank: "
+              f"{len({g['digest'] for g in got}) == 1}; flash launches per "
+              f"rank {got[0]['launches']}", flush=True)
+        check(all(g["losses"] == losses for g in got),
+              f"{expr}: the ranks' losses differ: {got}")
+        check(rel <= STRATEGY_LOSS_RTOL, f"{expr}: losses {losses} vs "
+              f"one rank's {ref_losses}")
+        check(got[0]["update_error"] <= GLOO_UPDATE_RTOL,
+              f"{expr}: update error {got[0]['update_error']}")
+        check(len({g["digest"] for g in got}) == 1,
+              f"{expr}: the ranks' params differ")
+        check(all(g["mesh"] == {"data": GLOO_WORLD} for g in got),
+              f"{expr}: mesh {got[0]['mesh']}")
+        paths[f"strategy_gloo{GLOO_WORLD}_{key}"] = {
+            k: sum(g["launches"][k] for g in got) for k in got[0]["launches"]}
+    return paths
+
+
 def main():
     import torch
+    if len(sys.argv) > 1 and sys.argv[1] == "--gloo-train":
+        return gloo_train_rank(*(int(a) for a in sys.argv[2:5]),
+                               sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA card", file=sys.stderr)
@@ -2108,6 +2538,10 @@ def main():
                            resnet.resnet50(), "cuda"))
     served_graph = graph_serve_phase(torch, fa, card,
                                      bert.bert_base(max_len=512), "cuda")
+    zoo.update(strategy_phase(torch, fa, card, bert.bert_base(max_len=128),
+                              "cuda"))
+    zoo.update(gloo_strategy_phase(torch, fa, card,
+                                   bert.bert_base(max_len=128), "cuda"))
     fwd["launches"] = served + trained["flash_fwd"]
     fwd["launches_by_path"] = {"serve": served,
                                "train": trained["flash_fwd"],

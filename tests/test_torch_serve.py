@@ -266,11 +266,21 @@ def test_multi_replica_least_loaded_dispatch(tmp_path, servers):
 
 
 def test_strategy_env_other_than_allreduce_is_not_ported(monkeypatch):
+    """``auto`` (the tuner) is not ported; a builder name is, and a
+    replica spans one device, so its params are whole."""
     cfg, _, _, apply, params = _bert()
     monkeypatch.setenv("AUTODIST_STRATEGY", "auto")
-    with pytest.raises(NotImplementedError, match="after slice 2"):
+    with pytest.raises(NotImplementedError, match="Queue A item 12"):
         serve.Server(apply, params, _request(np.random.RandomState(6), cfg,
                                              8), buckets=(8,), device="cpu")
+    monkeypatch.setenv("AUTODIST_STRATEGY", "parallax")
+    request = _request(np.random.RandomState(6), cfg, 8)
+    with serve.Server(apply, params, request, buckets=(8,),
+                      device="cpu") as srv:
+        node = srv.engine.strategy.node_by_name("embed/embedding")
+        assert node.WhichOneof("synchronizer") == "ps_synchronizer"
+        assert srv.engine.replicas[0].params["embed"]["embedding"].shape == \
+            params["embed"]["embedding"].shape
 
 
 class _RecordingRemapper:

@@ -29,6 +29,8 @@ from autodist_tpu_torch.remapper import Remapper
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.serve.engine import build_replica_programs
 from autodist_tpu_torch.strategy import AllReduce, StrategyCompiler
+from autodist_tpu_torch.utils.tree import (flatten_with_path, path_to_name,
+                                           tree_map)
 
 SPEC_8_GPUS = """
 nodes:
@@ -230,8 +232,25 @@ def test_transform_partition_specs_match_jax(tmp_path):
     assert prog.data_axis_size == jprog.data_axis_size == 8
     # 30522 does not arise here; bert_tiny's 1000-row table divides by 8.
     assert prog.paddings() == jprog.paddings()
+    # The partitioned leaves are split in 8 pieces along dim 0, the rest
+    # whole; no process of this one-process 8-device mesh holds a piece.
+    placements = {path_to_name(p): pl for p, pl in
+                  flatten_with_path(prog.param_placements())[0]}
+    emb = placements["embed/embedding"]
+    assert (emb.device, emb.dim, emb.index, emb.shards, emb.padding) == \
+        (None, 0, None, 8, None)
+    placed = Remapper(prog).place_params(
+        item.params, placements=tree_map(
+            lambda p: p._replace(device=torch.device("cpu"), index=3),
+            prog.param_placements()))
+    assert tuple(placed["embed"]["embedding"].shape) == (125, 64)
+    assert torch.equal(placed["embed"]["embedding"],
+                       item.params["embed"]["embedding"][375:500])
+    assert placements["layer0/mlp/up/kernel"].shards == 8
+    assert placements["layer0/ln1/bias"].dim is None
+    assert placements["layer0/ln1/bias"].shards == 1
     with pytest.raises(NotImplementedError, match="torch.distributed"):
-        prog.param_placements()
+        Remapper(prog).place_params(item.params)
 
 
 def test_one_device_program_places_and_feeds(tmp_path):

@@ -300,9 +300,22 @@ def test_second_autodist_raises():
 
 
 def test_no_builder_and_other_compressors_are_not_ported(monkeypatch):
+    """No builder builds ``PS()``, the JAX package's default (a one-rank
+    world lowers it to the replicated update); the other compressors are
+    still refused."""
+    from autodist_tpu_torch.strategy.ps_strategy import PS
     monkeypatch.delenv("AUTODIST_STRATEGY", raising=False)
-    with pytest.raises(NotImplementedError, match="PS"):
-        AutoDist(device="cpu")
+    ad = AutoDist(device="cpu")
+    assert isinstance(ad._strategy_builder, PS)
+    item = ad.capture(mlp.linreg_loss, mlp.linreg_init("cpu"),
+                      functools.partial(torch.optim.SGD, lr=0.1),
+                      example_batch=(np.zeros(8, np.float32),
+                                     np.zeros(8, np.float32)))
+    runner = ad.create_distributed_session(item)
+    assert all(n.WhichOneof("synchronizer") == "ps_synchronizer"
+               for n in runner.program.strategy.node_config)
+    assert set(runner.var_kinds.values()) == {("ar", None)}
+    autodist_mod._reset_default()
     monkeypatch.setenv("AUTODIST_STRATEGY", "allreduce")
     ad = AutoDist(device="cpu")
     assert isinstance(ad._strategy_builder, AllReduce)
