@@ -57,6 +57,14 @@ _default_autodist = None
 _ship_counter = itertools.count()
 
 
+def _store_flake(exc):
+    """A store fault worth retrying: transient (``resilience.retry``), and
+    not a wait that ran out its own timeout (``DistStoreError``)."""
+    from autodist_tpu_torch.resilience import retry
+    return retry.transient_runtime_error(exc) and not isinstance(
+        exc, getattr(dist, "DistStoreError", ()))
+
+
 def _reset_default():
     """Clear the per-process singleton and destroy the process group its
     cluster started (test harness hook: one AutoDist after another)."""
@@ -176,9 +184,12 @@ class AutoDist:
         every worker waits for both (``AUTODIST_STRATEGY_SHIP_TIMEOUT_MS``),
         parses the proto and checks the id echo. The counterpart of the
         JAX package's coordination-service shipping
-        (``autodist_tpu/autodist.py:198-297``);
-        its retry and chaos hooks wait for ``resilience/`` (ROADMAP.md,
-        Queue A item 9)."""
+        (``autodist_tpu/autodist.py:198-297``): transient store faults
+        retry with backoff (``resilience.retry``), and ``AUTODIST_CHAOS``'s
+        ``kv_delay_ms`` delays the fetch. A wait that runs out its timeout
+        is the answer, not a flake, and is not retried: the timeout bounds
+        the whole wait."""
+        from autodist_tpu_torch.resilience import chaos, retry
         try:
             store = dist.distributed_c10d._get_default_store()
         except (AttributeError, RuntimeError, ValueError) as e:
@@ -191,15 +202,20 @@ class AutoDist:
         if dist.get_rank() == 0:
             strategy = self._build_local(graph_item)
             blob = strategy.proto.SerializeToString()
-            store.set(key, blob)
-            store.set(key + "/id", strategy.id)
+            retry.retry_call(store.set, key, blob,
+                             describe="strategy KV publish")
+            retry.retry_call(store.set, key + "/id", strategy.id,
+                             describe="strategy id publish")
             logging.info("shipped strategy %s (%d bytes) as %s",
                          strategy.id, len(blob), key)
             return strategy
+        chaos.maybe_delay_kv_fetch()
         timeout_ms = const.strategy_ship_timeout_ms()
         try:
-            store.wait([key, key + "/id"],
-                       datetime.timedelta(milliseconds=timeout_ms))
+            retry.retry_call(store.wait, [key, key + "/id"],
+                             datetime.timedelta(milliseconds=timeout_ms),
+                             is_retryable=_store_flake,
+                             describe="strategy KV fetch")
         except RuntimeError as e:
             raise RuntimeError(
                 f"autodist_tpu_torch: no strategy was shipped under {key} "
@@ -208,9 +224,12 @@ class AutoDist:
                 f"capture or build sequence: the fingerprint differs), or "
                 f"it is slower than the timeout") from e
         proto = strategy_pb2.Strategy()
-        proto.ParseFromString(store.get(key))
+        proto.ParseFromString(retry.retry_call(
+            store.get, key, describe="strategy KV fetch"))
         strategy = Strategy(proto)
-        want_id = store.get(key + "/id").decode("utf-8", "replace")
+        want_id = retry.retry_call(
+            store.get, key + "/id", describe="strategy id fetch").decode(
+                "utf-8", "replace")
         if strategy.id != want_id:
             raise RuntimeError(
                 f"autodist_tpu_torch: strategy ship mismatch under {key}: "

@@ -1,0 +1,524 @@
+"""Saver and CheckpointManager: logical-name-keyed, layout-free checkpoints.
+
+Counterpart of ``autodist_tpu/checkpoint/saver.py``. A checkpoint stores
+the *logical* state (:meth:`Runner.to_logical`): whole, unpadded params
+and optimizer state keyed by '/'-joined tree paths, identical however the
+ranks stored them, so it restores onto any world (N -> M ranks, another
+builder) and any reader can open it.
+
+**Format** (the port's own; the JAX package's orbax format is not read).
+A checkpoint is a directory holding
+
+* ``arrays.bin``: every leaf's bytes, C order, little-endian, each at a
+  64-byte-aligned offset;
+* ``index.json``: ``{"format", "version", "nbytes", "leaves": [{"path",
+  "dtype", "shape", "offset", "nbytes"}]}``, written after the data.
+
+numpy and the standard library read it (``np.frombuffer`` at each offset).
+A bfloat16 leaf is stored as its 16-bit pattern with ``"dtype":
+"bfloat16"`` in the index (numpy has no bfloat16); the port's readers give
+back ``torch.bfloat16`` tensors. No pickle, no ``torch.load``. A
+checkpoint is written into a temporary sibling directory (data and index
+flushed to disk) and renamed into place, so a torn write is never
+mistaken for a checkpoint; the index is its seal. Reads give CPU tensors
+(torch's host arrays; the JAX package's give numpy arrays).
+
+Multi-rank: converting to the logical form is a collective every rank
+calls; only the chief (rank 0) writes, then every rank waits at a barrier.
+Paths must be on a filesystem every rank sees.
+"""
+import json
+import os
+import shutil
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from autodist_tpu_torch import const
+from autodist_tpu_torch.checkpoint import manifest as manifest_mod
+from autodist_tpu_torch.checkpoint.manifest import ManifestMismatchError
+from autodist_tpu_torch.resilience.retry import (retry_call,
+                                                 transient_runtime_error)
+from autodist_tpu_torch.runner import TrainState
+from autodist_tpu_torch.utils import logging
+from autodist_tpu_torch.utils.tree import flatten_with_path, path_to_name
+
+FORMAT = "autodist_tpu_torch-checkpoint"
+FORMAT_VERSION = 1
+INDEX = "index.json"
+ARRAYS = "arrays.bin"
+_ALIGN = 64
+
+# numpy dtype of each stored torch dtype (bfloat16 as its bits).
+_NUMPY = {torch.float64: np.float64, torch.float32: np.float32,
+          torch.float16: np.float16, torch.bfloat16: np.uint16,
+          torch.int64: np.int64, torch.int32: np.int32,
+          torch.int16: np.int16, torch.int8: np.int8, torch.uint8: np.uint8,
+          torch.bool: np.bool_}
+_TORCH = {manifest_mod.dtype_name(t): t for t in _NUMPY}
+
+
+def _host_bytes(t):
+    """A leaf as a contiguous little-endian numpy array (bf16 as bits)."""
+    t = torch.as_tensor(t).detach().cpu().contiguous()
+    if t.dtype not in _NUMPY:
+        raise TypeError(f"autodist_tpu_torch: cannot checkpoint a "
+                        f"{t.dtype} tensor")
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _fsync(path):
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def write_tree(path, tree, force=True):
+    """Write ``tree`` (nested dicts / lists of tensors) as a checkpoint
+    directory at ``path``, atomically; returns the data bytes. An
+    existing checkpoint there is replaced only with ``force``."""
+    path = os.path.abspath(str(path))
+    if os.path.exists(path) and not force:
+        raise FileExistsError(f"checkpoint {path} exists (force=False)")
+    parent = os.path.dirname(path)
+    os.makedirs(parent, exist_ok=True)
+    tmp = f"{path}.tmp-{os.getpid()}-{time.monotonic_ns()}"
+    os.makedirs(tmp)
+    try:
+        entries, offset = [], 0
+        with open(os.path.join(tmp, ARRAYS), "wb") as f:
+            for p, leaf in flatten_with_path(tree)[0]:
+                arr = _host_bytes(leaf)
+                pad = -offset % _ALIGN
+                f.write(b"\0" * pad)
+                offset += pad
+                f.write(memoryview(arr.reshape(-1)).cast("B"))
+                entries.append({
+                    "path": path_to_name(p),
+                    "dtype": manifest_mod.dtype_name(torch.as_tensor(
+                        leaf).dtype),
+                    "shape": [int(s) for s in arr.shape],
+                    "offset": offset, "nbytes": int(arr.nbytes)})
+                offset += arr.nbytes
+            f.flush()
+            os.fsync(f.fileno())
+        with open(os.path.join(tmp, INDEX), "w") as f:
+            json.dump({"format": FORMAT, "version": FORMAT_VERSION,
+                       "nbytes": offset, "leaves": entries}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(path):
+            old = f"{tmp}.old"
+            os.replace(path, old)
+            os.replace(tmp, path)
+            shutil.rmtree(old, ignore_errors=True)
+        else:
+            os.replace(tmp, path)
+        _fsync(parent)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return offset
+
+
+def read_tree(path):
+    """Read a checkpoint directory: nested dicts of CPU tensors by path
+    (sequence indices become string keys). Raises on a missing index
+    (an unsealed or torn checkpoint), a foreign format, or data shorter
+    than the index says."""
+    path = os.path.abspath(str(path))
+    with open(os.path.join(path, INDEX)) as f:
+        index = json.load(f)
+    if index.get("format") != FORMAT or \
+            int(index.get("version", 0)) > FORMAT_VERSION:
+        raise ValueError(f"{path}: not a {FORMAT} v{FORMAT_VERSION} "
+                         f"checkpoint")
+    buf = np.fromfile(os.path.join(path, ARRAYS), dtype=np.uint8)
+    if buf.size < int(index["nbytes"]):
+        raise ValueError(f"{path}: {ARRAYS} holds {buf.size} bytes, the "
+                         f"index says {index['nbytes']} (truncated)")
+    tree = {}
+    for e in index["leaves"]:
+        dtype = _TORCH[e["dtype"]]
+        count = int(np.prod(e["shape"], dtype=np.int64))
+        arr = np.frombuffer(buf, dtype=_NUMPY[dtype], count=count,
+                            offset=int(e["offset"])).reshape(e["shape"])
+        t = torch.from_numpy(arr)
+        if dtype == torch.bfloat16:
+            t = t.view(torch.int16).view(torch.bfloat16)
+        node, parts = tree, e["path"].split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = t
+    return tree
+
+
+def _barrier():
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def _logical_tree(runner, state):
+    """(tree to write, logical state or None): a TrainState's checkpoint
+    form through ``runner``, or a bare tree as it is."""
+    if isinstance(state, TrainState):
+        if runner is None:
+            raise ValueError("saving a TrainState needs a Runner (its "
+                             "optimizer state has no layout-free form "
+                             "without one); save a bare params tree with "
+                             "Saver()")
+        logical = runner.to_logical(state)
+        return manifest_mod.state_tree(logical), logical
+    return state, None
+
+
+def _as_logical(raw):
+    """A raw read of a training checkpoint as a logical TrainState."""
+    return TrainState(raw["step"], raw["params"], raw.get("opt_state", {}))
+
+
+def reshard_state(runner, raw, into=None):
+    """Rebuild a live state on the *current* world from a raw (host) read
+    of a checkpoint written under another one (its manifest already
+    validated against the live model): the cross-shape half of the
+    elastic contract. Params and optimizer state carry logical shapes and
+    transfer value-exact, placed (padded, sharded) by
+    ``Runner.from_logical``. A stale variable's checkpoint form is one
+    copy (the chief's), so it needs no collapse."""
+    return runner.from_logical(_as_logical(raw), into=into)
+
+
+def _reshard_restore(runner, manifest, raw, where="", into=None):
+    """One cross-shape restore: rebuild on the current world and record
+    the reshard as an event."""
+    from autodist_tpu_torch import resilience
+    world = manifest.get("world", {})
+    t0 = time.perf_counter()
+    state = reshard_state(runner, raw, into=into)
+    dt_ms = (time.perf_counter() - t0) * 1e3
+    live = manifest_mod.live_world(runner)
+    detail = (f"step {int(state.step)}: world {world.get('devices')}d/"
+              f"{world.get('processes')}p -> {live['devices']}d/"
+              f"{live['processes']}p in {dt_ms:.0f}ms")
+    resilience.record_event("reshard", detail)
+    logging.info("cross-shape restore (%s): %s", where, detail)
+    return state
+
+
+def _params_subtree(tree):
+    """Params subtree of a raw read: a training checkpoint reads as
+    ``{step, params, opt_state}``; a params-only one is the params tree."""
+    if isinstance(tree, dict) and "params" in tree and "step" in tree:
+        return tree["params"]
+    return tree
+
+
+def _read(path, what):
+    return retry_call(read_tree, path, is_retryable=transient_runtime_error,
+                      describe=what)
+
+
+def _restore(runner, raw, manifest, where, into):
+    if manifest is not None and manifest_mod.world_changed(manifest, runner):
+        return _reshard_restore(runner, manifest, raw, where=where,
+                                into=into)
+    return runner.from_logical(_as_logical(raw), into=into)
+
+
+class Saver:
+    """Save/restore the full training state (params + optimizer + step).
+
+    A Saver bound to a Runner saves its states and restores onto its
+    world; ``Saver()`` reads any checkpoint and saves bare trees."""
+
+    def __init__(self, runner=None):
+        self._runner = runner
+
+    def save(self, state, path, force=True):
+        """Write ``state`` (TrainState, or a bare params tree) to ``path``.
+        Transient filesystem faults retry with backoff. TrainState saves
+        get a manifest sidecar (``<path>.manifest.json``)."""
+        path = os.path.abspath(str(path))
+        tree, logical = _logical_tree(self._runner, state)
+        if manifest_mod.is_chief():
+            retry_call(write_tree, path, tree, force=force,
+                       is_retryable=transient_runtime_error,
+                       describe="checkpoint save")
+            if logical is not None:
+                manifest_mod.write_manifest(
+                    self._runner, int(logical.step),
+                    manifest_mod.sidecar_path(path), logical)
+        _barrier()
+        logging.info("saved checkpoint %s", path)
+        return path
+
+    def restore(self, path, into=None):
+        """Restore onto the bound runner's world (any world: a change since
+        save time goes through the cross-shape path). ``into``: a live
+        state to copy the values into (``Runner.from_logical``). A
+        manifest whose params do not match the live model raises
+        :class:`ManifestMismatchError`."""
+        if self._runner is None:
+            raise ValueError("restore() needs a Runner; use restore_raw() "
+                             "for framework-free reads")
+        path = os.path.abspath(str(path))
+        man = manifest_mod.read_manifest(manifest_mod.sidecar_path(path))
+        if man is not None:
+            manifest_mod.validate_manifest(man, self._runner, where=path)
+        state = _restore(self._runner, _read(path, "checkpoint restore"),
+                         man, path, into)
+        logging.info("restored checkpoint %s", path)
+        return state
+
+    def restore_raw(self, path):
+        """Framework-free read: the checkpoint as nested dicts of CPU
+        tensors (readable from any world size)."""
+        return read_tree(path)
+
+    def restore_params(self, path):
+        """Params-only restore: the model parameters as a tree of CPU
+        tensors, with NO optimizer required or reconstructed. Works on
+        training checkpoints and params-only saves alike; the result feeds
+        ``serve.Server``, which places it. Needs no Runner."""
+        params = _params_subtree(self.restore_raw(path))
+        logging.info("restored params-only checkpoint %s", path)
+        return params
+
+
+class CheckpointManager:
+    """Periodic checkpointing + resume (preemption tolerance).
+
+    Step ``s`` lives in ``<directory>/<s>/`` with its manifest beside it
+    (``manifest-<s>.json``). Which steps are written and kept follows
+    orbax's ``CheckpointManager`` as the JAX package configures it: a step
+    is saved when no checkpoint exists yet or when it is a multiple of
+    ``save_interval_steps``, never when it is not past the latest saved
+    step, and only the newest ``max_to_keep`` steps are kept (None: all).
+    A forced save of an existing step writes nothing (returns False).
+    Saves are synchronous (``wait_until_finished`` returns at once).
+    """
+
+    def __init__(self, runner, directory=None, save_interval_steps=100,
+                 max_to_keep=3):
+        self._runner = runner
+        self._dir = os.path.abspath(str(directory or
+                                        const.DEFAULT_CHECKPOINT_DIR))
+        self._interval = save_interval_steps
+        self._max_to_keep = max_to_keep
+        os.makedirs(self._dir, exist_ok=True)
+        # Every rank keeps the list (as orbax keeps its checkpoints): the
+        # save decisions, and so the collectives of to_logical, agree
+        # across ranks whatever the chief has already written.
+        self._steps = sorted(int(d) for d in os.listdir(self._dir)
+                             if d.isdigit() and
+                             os.path.isdir(os.path.join(self._dir, d)))
+
+    @property
+    def directory(self):
+        return self._dir
+
+    def all_steps(self):
+        return list(self._steps)
+
+    def latest_step(self):
+        return self._steps[-1] if self._steps else None
+
+    def should_save(self, step):
+        latest = self.latest_step()
+        if latest is not None and latest >= step:
+            return False
+        return (self._interval is not None and step % self._interval == 0) \
+            or not self._steps
+
+    def _step_dir(self, step):
+        return os.path.join(self._dir, str(int(step)))
+
+    def _manifest_path(self, step):
+        return os.path.join(self._dir, manifest_mod.manifest_name(step))
+
+    def save(self, step, state, force=False):
+        """Save ``state`` as ``step`` when :meth:`should_save` says so (or
+        ``force``); returns whether a checkpoint was written."""
+        step = int(step)
+        if not force and not self.should_save(step):
+            return False
+        if step in self._steps:
+            return False
+        tree, logical = _logical_tree(self._runner, state)
+        if manifest_mod.is_chief():
+            retry_call(write_tree, self._step_dir(step), tree,
+                       is_retryable=transient_runtime_error,
+                       describe=f"checkpoint save (step {step})")
+            if logical is not None:
+                manifest_mod.write_manifest(self._runner, step,
+                                            self._manifest_path(step),
+                                            logical)
+        self._steps = sorted(self._steps + [step])
+        self._prune()
+        _barrier()
+        return True
+
+    def _prune(self):
+        """Drop the oldest steps beyond ``max_to_keep`` (chief: their
+        directories and manifests)."""
+        if self._max_to_keep is None:
+            return
+        while len(self._steps) > self._max_to_keep:
+            step = self._steps.pop(0)
+            if manifest_mod.is_chief():
+                shutil.rmtree(self._step_dir(step), ignore_errors=True)
+                try:
+                    os.remove(self._manifest_path(step))
+                except OSError:  # hygiene only, never kill a save
+                    pass
+
+    def restore_params(self, step=None):
+        """Params-only restore of a managed step (default: the latest) as
+        a tree of CPU tensors, without touching or needing the optimizer."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise ValueError(
+                f"no checkpoint steps under {self._dir}; nothing to "
+                f"restore params from")
+        raw = _read(self._step_dir(step), f"params-only restore (step {step})")
+        logging.info("restored params-only checkpoint step %d", step)
+        return _params_subtree(raw)
+
+    def wait_until_finished(self):
+        """Saves are synchronous: nothing is pending."""
+
+    def restore_or_init(self, into=None):
+        """Resume from the newest INTACT checkpoint, or create fresh state.
+
+        Steps are tried newest first. A step that cannot be read (no index:
+        torn or truncated; data shorter than the index) or whose ``step``
+        leaf (the sentinel) differs from its directory's name falls back
+        to the previous retained one, because the likeliest cause is this
+        very job's earlier incarnation dying mid-write. A manifest that
+        does not match the live model raises :class:`ManifestMismatchError`
+        and never falls back. ``into``: a live state to copy the values
+        into (``Runner.from_logical``); with no step restorable it is reset
+        to the captured params with no optimizer state."""
+        from autodist_tpu_torch import resilience
+        steps = self.all_steps()
+        for step in reversed(steps):
+            man = manifest_mod.read_manifest(self._manifest_path(step))
+            if man is not None:
+                manifest_mod.validate_manifest(
+                    man, self._runner, where=f"step {step} in {self._dir}")
+            try:
+                raw = _read(self._step_dir(step),
+                            f"checkpoint restore (step {step})")
+                restored = int(raw["step"])
+                if restored != step:
+                    raise ValueError(
+                        f"checkpoint step sentinel mismatch: directory "
+                        f"{step} holds step={restored}")
+                state = _restore(self._runner, raw, man, f"step {step}",
+                                 into)
+            except KeyboardInterrupt:
+                raise
+            except ManifestMismatchError:
+                raise
+            except Exception as e:  # noqa: BLE001 - corruption is open-ended
+                resilience.record_event(
+                    "ckpt-fallback",
+                    f"step {step} unrestorable ({type(e).__name__}: "
+                    f"{str(e)[:200]}); trying previous retained step")
+                logging.warning("checkpoint step %d unrestorable (%s); "
+                                "falling back to the previous retained step",
+                                step, e)
+                continue
+            logging.info("resumed from checkpoint step %d", step)
+            return state
+        if steps:
+            logging.warning("no retained checkpoint was restorable; "
+                            "initializing fresh state")
+        if into is None:
+            return self._runner.create_state()
+        return self._runner.from_logical(self._runner.initial_logical(),
+                                         into=into)
+
+    def run(self, state, data_iter, num_steps, step_guard=None,
+            preemption=None, unroll=None):
+        """Step loop with periodic checkpointing, from ``state.step`` to
+        ``num_steps``; call again with :meth:`restore_or_init`'s state to
+        resume after a preemption.
+
+        * ``step_guard`` (:class:`~autodist_tpu_torch.resilience.StepGuard`)
+          reads the device-side ``notfinite`` flag every ``check_every``
+          steps AND before every periodic save (a poisoned state is never
+          persisted); on divergence restores the newest intact checkpoint
+          into the live state's tensors and continues with fresh batches.
+        * ``preemption`` (:class:`~autodist_tpu_torch.resilience.
+          PreemptionHandler`, or ``True`` to install one for the loop's
+          duration): a SIGTERM/SIGINT force-saves an emergency checkpoint
+          at the current step and raises :class:`~autodist_tpu_torch.
+          resilience.Preempted`.
+
+        ``unroll=K`` (env ``AUTODIST_UNROLL``) runs K steps per CUDA graph
+        (``Runner.megastep``); saves, preemption polls and guard checks
+        land on megastep boundaries. A resume whose start step is not
+        K-aligned single-steps up to the next boundary first. The JAX
+        package's coordinator, elastic drain and re-tuning hooks are not
+        ported (ROADMAP.md)."""
+        from autodist_tpu_torch.resilience import PreemptionHandler
+        runner = self._runner
+        metrics = None
+        if unroll is None:
+            unroll = const.ENV.AUTODIST_UNROLL.val
+        unroll = max(1, int(unroll))
+        chaos = None
+        if const.ENV.AUTODIST_CHAOS.val:
+            from autodist_tpu_torch.resilience import chaos
+        handler, installed = preemption, False
+        if handler is True:
+            handler = PreemptionHandler().install()
+            installed = True
+        try:
+            i = int(state.step)
+            while i < num_steps:
+                k = (unroll if unroll > 1 and i % unroll == 0
+                     and num_steps - i >= unroll else 1)
+                if k > 1:
+                    batch = runner._next_block(data_iter, k)
+                else:
+                    batch = next(data_iter)
+                if chaos is not None:
+                    batch = chaos.maybe_poison_batch(i + 1, batch)
+                if k > 1:
+                    state, metrics = runner.megastep(state, batch)
+                else:
+                    state, metrics = runner.step(state, batch)
+                i += k
+                # The flag is read before any save, the emergency one
+                # included: a diverged state is rolled back, never saved.
+                preempted = bool(handler) and handler.preempted
+                checked = step_guard is not None and (
+                    step_guard.due(i, unroll) or i >= num_steps
+                    or self.should_save(i) or preempted)
+                diverged = checked and step_guard.diverged(metrics)
+                if diverged:
+                    i, state = step_guard.rollback(i, manager=self,
+                                                   state=state)
+                elif checked:
+                    step_guard.progressed()
+                if handler:
+                    handler.check(self, i, state)  # raises Preempted
+                if not diverged:
+                    self.save(i, state)
+            self.wait_until_finished()
+        finally:
+            if installed:
+                handler.uninstall()
+        return state, metrics
+
+    def close(self):
+        self.wait_until_finished()

@@ -13,6 +13,7 @@ DEFAULT_WORKING_DIR = os.environ.get(
 DEFAULT_LOG_DIR = os.path.join(DEFAULT_WORKING_DIR, "logs")
 DEFAULT_GRAPH_DUMP_DIR = os.path.join(DEFAULT_WORKING_DIR, "graphs")
 DEFAULT_SERIALIZATION_DIR = os.path.join(DEFAULT_WORKING_DIR, "strategies")
+DEFAULT_CHECKPOINT_DIR = os.path.join(DEFAULT_WORKING_DIR, "checkpoints")
 
 # How long a worker waits for the chief to publish the serialized strategy
 # on the process group's store (the chief's capture and build can trail the
@@ -37,6 +38,11 @@ class ENV(enum.Enum):
     AUTODIST_STRATEGY = ("AUTODIST_STRATEGY", str, "")  # strategy builder by name ("ps", "parallax", "allreduce", ...; "" => PS() in AutoDist, AllReduce when serving)
     AUTODIST_STRATEGY_ID = ("AUTODIST_STRATEGY_ID", str, "")  # strategy artifact id to load (from DEFAULT_SERIALIZATION_DIR) instead of building
     AUTODIST_STRATEGY_SHIP_TIMEOUT_MS = ("AUTODIST_STRATEGY_SHIP_TIMEOUT_MS", int, 0)  # 0 => STRATEGY_SHIP_TIMEOUT_MS
+    # -- resilience (resilience/, checkpoint/) ------------------------------
+    AUTODIST_CHAOS = ("AUTODIST_CHAOS", str, "")             # fault injection knobs (resilience/chaos.py)
+    AUTODIST_GUARD_CHECK_EVERY = ("AUTODIST_GUARD_CHECK_EVERY", int, 10)   # StepGuard host-check cadence (steps)
+    AUTODIST_GUARD_MAX_STRIKES = ("AUTODIST_GUARD_MAX_STRIKES", int, 3)    # consecutive rollbacks before abort
+    AUTODIST_RETRY_MAX_ATTEMPTS = ("AUTODIST_RETRY_MAX_ATTEMPTS", int, 4)  # transient-I/O retry budget (resilience/retry.py)
     AUTODIST_UNROLL = ("AUTODIST_UNROLL", int, 1)  # fused steps per dispatch (megastep: one CUDA graph of K steps; 1 => one step per dispatch)
     AUTODIST_PREFETCH_DEPTH = ("AUTODIST_PREFETCH_DEPTH", int, 2)  # DevicePrefetcher in-flight transfers (0 => passthrough)
     AUTODIST_SERVE_BUCKETS = ("AUTODIST_SERVE_BUCKETS", str, "")  # "8,32,128" or "8x128,32x128" for (rows, seq)

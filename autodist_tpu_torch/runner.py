@@ -62,12 +62,19 @@ capturable (``capturable=True`` is turned on where it exists; SGD needs
 none; others are refused). On the CPU the same static-buffer code runs
 directly.
 
-Not ported yet (ROADMAP.md): ``step_guard`` (resilience), the native
-loader's ``BlockStacker`` wiring (``_wire_loader``), the overlap
-scheduler and the observability hooks.
+``to_logical`` / ``from_logical`` carry a state to and from its
+checkpoint form (whole, unpadded params and optimizer state by variable
+name); ``run(step_guard=)`` is the divergence-safe loop
+(``resilience.StepGuard``): the device-side ``notfinite`` flag is read
+every ``check_every`` steps (rounded up to a multiple of K under
+``unroll=K``), a healthy check refreshes the guard's snapshot, a
+diverged one copies the snapshot back into the state's own tensors (so a
+graph bound to them stays bound) and skips the offending batches.
+
+Not ported yet (ROADMAP.md): the native loader's ``BlockStacker`` wiring
+(``_wire_loader``), the overlap scheduler and the observability hooks.
 """
 import contextlib
-import functools
 import math
 import os
 import weakref
@@ -92,7 +99,9 @@ from autodist_tpu_torch.utils.tree import (flatten, flatten_with_path, leaves,
 
 class TrainState(NamedTuple):
     """Distributed training state; each step updates it in place and hands
-    back a new handle."""
+    back a new handle. The checkpoint form (:meth:`Runner.to_logical`)
+    holds logical tensors instead, and ``opt_state`` there is a tree
+    congruent with ``params`` of each variable's optimizer state dict."""
     step: Any        # 0-dim int64 tensor on the host
     params: Any      # nested dict of tensors at their stored layout
     opt_state: Any   # the torch.optim.Optimizer over the update tensors
@@ -284,6 +293,135 @@ class Runner:
         dim, logical, _ = placement.padding
         return t.narrow(dim, 0, logical)
 
+    def _update_tensors(self, state):
+        """[(name, tensor)] the optimizer updates, one per trainable
+        leaf: the stored leaf, or a ``zero1`` variable's shard."""
+        shards = self._shards.get(state.opt_state, {})
+        return [(n, shards.get(n, t)) for n, t in
+                self._trainable_leaves(state.params)]
+
+    def to_logical(self, state):
+        """The state at logical shapes, the checkpoint form: the params as
+        :meth:`logical_params` gives them, and ``opt_state`` a tree
+        congruent with them of each trainable variable's optimizer state
+        (``{"exp_avg": ..., "step": ...}`` for Adam; ``{}`` for a frozen
+        variable or before the optimizer's first step). A state tensor
+        shaped like its variable's update tensor is gathered (``zero1``
+        shards, ``fsdp`` pieces: a collective every rank of the data group
+        calls) and cut to the logical shape; the others (``step``) are kept
+        as they are. Tensors are detached views or gathered copies on the
+        device."""
+        group = self._mesh.group()
+        per_var = {}
+        for name, t in self._update_tensors(state):
+            kind, dim = self._kind(name)
+            out = {}
+            for key, v in state.opt_state.state.get(t, {}).items():
+                if not isinstance(v, torch.Tensor):
+                    raise TypeError(
+                        f"autodist_tpu_torch: optimizer state {name}/{key} "
+                        f"is a {type(v).__name__}, not a tensor: only "
+                        f"tensor state has a checkpoint form")
+                v = v.detach()
+                if v.dim() and v.shape == t.shape:
+                    if kind in ("zero1", "fsdp") and group is not None:
+                        v = _all_gather(v, dim, group)
+                    v = self._cut_padding(name, v)
+                out[key] = v
+            per_var[name] = out
+        opt_state = tree_map_with_path(
+            lambda path, _: per_var.get(path_to_name(path), {}),
+            state.params)
+        return TrainState(state.step.clone(), self.logical_params(state),
+                          opt_state)
+
+    def initial_logical(self):
+        """The checkpoint form of a fresh state: the captured params, step
+        0, no optimizer state."""
+        return TrainState(torch.zeros((), dtype=torch.int64),
+                          self._item.params,
+                          tree_map(lambda _: {}, self._item.params))
+
+    def from_logical(self, logical, into=None):
+        """A state from its checkpoint form (host or device tensors): each
+        param and each optimizer state tensor shaped like its variable
+        placed as ``Remapper.place_params`` places the param (padded, cut
+        to this rank's ``fsdp`` piece), a ``zero1`` variable's shard taken
+        from the whole; the other state tensors (``step``) as they are.
+
+        ``into`` (a live state of this runner) receives the values in its
+        own tensors (``copy_``, outside any capture), so a CUDA graph bound
+        to them stays bound and a capturable optimizer's device ``step``
+        stays on the device; ``into`` is stale afterwards. Without it a
+        fresh state is created first. An optimizer with no state yet gets
+        it made by one step over zero gradients before the values are
+        copied in (each tensor then has the dtype and device the optimizer
+        gives it); a variable whose saved state is empty has its state
+        dropped, and the graph steps bound to the state capture anew at
+        their next call."""
+        state = self.create_state() if into is None else into
+        logical_leaves = {path_to_name(p): torch.as_tensor(t) for p, t in
+                          flatten_with_path(logical.params)[0]}
+        live = [(path_to_name(p), t) for p, t in
+                flatten_with_path(state.params)[0]]
+        if set(logical_leaves) != {n for n, _ in live}:
+            raise ValueError(
+                f"autodist_tpu_torch: the logical params' leaves "
+                f"{sorted(logical_leaves)[:5]} are not this program's "
+                f"{sorted(n for n, _ in live)[:5]}")
+        saved_opt = _state_dicts(logical.opt_state, logical_leaves)
+        opt = state.opt_state
+        update = self._update_tensors(state)
+        if any(saved_opt.get(n) and not opt.state.get(t) for n, t in update):
+            _prime_optimizer(opt, [t for _, t in update])
+        dropped = False
+        with torch.no_grad():
+            for name, t in live:
+                value = self._stored(name, logical_leaves[name], shard=False)
+                if tuple(value.shape) != tuple(t.shape):
+                    raise ValueError(
+                        f"autodist_tpu_torch: {name}: stored shape "
+                        f"{tuple(value.shape)} != the live {tuple(t.shape)}")
+                t.copy_(value)
+            for name, t in update:
+                shape = tuple(logical_leaves[name].shape)
+                if self._kind(name)[0] == "zero1":
+                    t.copy_(self._stored(name, logical_leaves[name]))
+                saved = saved_opt.get(name) or {}
+                if not saved:
+                    dropped |= bool(opt.state.pop(t, None))
+                    continue
+                target = opt.state[t]
+                if set(target) != set(saved):
+                    raise ValueError(
+                        f"autodist_tpu_torch: {name}: optimizer state keys "
+                        f"{sorted(saved)} != the live optimizer's "
+                        f"{sorted(target)} (another optimizer?)")
+                for key, v in saved.items():
+                    v = torch.as_tensor(v)
+                    if v.dim() and tuple(v.shape) == shape:
+                        v = self._stored(name, v)
+                    target[key].copy_(v)
+        if dropped:
+            _bump_generation(opt)
+        if into is not None:
+            into.step._autodist_stale = True
+        return TrainState(torch.tensor(int(logical.step), dtype=torch.int64),
+                          state.params, opt)
+
+    def _stored(self, name, value, shard=True):
+        """A tensor at variable ``name``'s logical shape at its stored
+        layout on this rank's device: padded, cut to the ``fsdp`` piece,
+        and with ``shard`` a ``zero1`` variable's shard of the whole."""
+        placement = self._placements[name]
+        t = self._remapper.place_params(value, placements=placement,
+                                        copy=True)
+        kind, dim = self._kind(name)
+        if shard and kind == "zero1":
+            size = t.shape[dim] // self._program.data_axis_size
+            t = t.narrow(dim, placement.index * size, size)
+        return t
+
     _STALE_STATE_HINT = (
         "The state argument is donated each step: always continue from "
         "the state returned by the previous step(), not a stale handle.")
@@ -450,7 +588,9 @@ class Runner:
         key = (k, treedef, tuple(_leaf_spec(l) for l in flat))
         fn = self._graphs.get(key)
         if fn is None or not fn.bound_to(state):
-            fn = self._graphs[key] = _GraphStep(self, block, k)
+            # The runner owns these graphs: they refer back to it weakly.
+            fn = self._graphs[key] = _GraphStep(weakref.proxy(self), block,
+                                                k)
         return fn
 
     def _next_block(self, data_iter, k):
@@ -477,11 +617,17 @@ class Runner:
         ``unroll=K`` (env ``AUTODIST_UNROLL``, default 1) dispatches
         ``num_steps // K`` megasteps, each one CUDA graph of K steps over a
         block of K batches from ``data_iter``; ``num_steps`` must be a
-        multiple of K. ``unroll=1`` steps eagerly, one ``step`` a batch."""
-        if step_guard is not None:
-            raise NotImplementedError(
-                "step_guard (resilience/) is not ported to autodist_tpu_torch "
-                "yet (ROADMAP.md)")
+        multiple of K. ``unroll=1`` steps eagerly, one ``step`` a batch.
+
+        With ``step_guard`` (:class:`~autodist_tpu_torch.resilience.
+        StepGuard`) the loop is divergence-safe: the guard reads the
+        device-side ``notfinite`` flag every ``check_every`` steps (rounded
+        up to a multiple of K), keeps a device copy of the last healthy
+        state, and on divergence copies it back (``CheckpointManager.run``
+        rolls back to the last checkpoint instead), skipping the offending
+        batches. The snapshot is a second resident copy of the params and
+        the optimizer state. ``AUTODIST_CHAOS``'s ``nan_at`` / ``oom_at``
+        inject their faults here."""
         if unroll is None:
             unroll = const.ENV.AUTODIST_UNROLL.val
         unroll = max(1, int(unroll))
@@ -490,6 +636,9 @@ class Runner:
                 f"autodist_tpu_torch: num_steps={num_steps} is not a "
                 f"multiple of unroll={unroll}; megasteps dispatch whole "
                 f"K-step blocks")
+        chaos = None
+        if const.ENV.AUTODIST_CHAOS.val:
+            from autodist_tpu_torch.resilience import chaos
         profiler = contextlib.nullcontext()
         if trace_dir:
             from torch.profiler import ProfilerActivity, profile
@@ -497,21 +646,49 @@ class Runner:
             if self._remapper.device.type == "cuda":
                 activities.append(ProfilerActivity.CUDA)
             profiler = profile(activities=activities)
-        metrics = None
         with profiler as prof:
-            if unroll == 1:
-                for _ in range(num_steps):
-                    state, metrics = self.step(state, next(data_iter))
-            else:
-                for _ in range(num_steps // unroll):
-                    state, metrics = self.megastep(
-                        state, self._next_block(data_iter, unroll))
+            state, metrics = self._run_loop(state, data_iter, num_steps,
+                                            step_guard, chaos, unroll)
         if trace_dir:
             os.makedirs(trace_dir, exist_ok=True)
             rank = dist.get_rank() if dist.is_initialized() else 0
             path = os.path.join(trace_dir, f"trace-rank{rank}.json")
             prof.export_chrome_trace(path)
             logging.info("profiler trace: %s", path)
+        return state, metrics
+
+    def _run_loop(self, state, data_iter, num_steps, step_guard, chaos,
+                  unroll):
+        """One ``step`` a batch, or one ``megastep`` a K-block, with the
+        guard part of the JAX Runner's ``_run_observed``
+        (``autodist_tpu/runner.py:1529-1760``): chaos injection before each
+        dispatch, the flag read at the guard's cadence (K-block boundaries
+        under ``unroll=K``), snapshot on a healthy check, rollback on a
+        diverged one."""
+        if step_guard is not None:
+            step_guard.mark_good(0, state)
+        metrics = None
+        i = 0
+        while i < num_steps:
+            if unroll == 1:
+                batch = next(data_iter)
+            else:
+                batch = self._next_block(data_iter, unroll)
+            if chaos is not None:
+                batch = chaos.maybe_poison_batch(i + 1, batch)
+                chaos.maybe_oom(i + 1)
+            if unroll == 1:
+                state, metrics = self.step(state, batch)
+            else:
+                state, metrics = self.megastep(state, batch)
+            i += unroll
+            if step_guard is not None and (step_guard.due(i, unroll)
+                                           or i >= num_steps):
+                if step_guard.diverged(metrics):
+                    i, state = step_guard.rollback(i)
+                else:
+                    step_guard.progressed()
+                    step_guard.mark_good(i, state)
         return state, metrics
 
 
@@ -545,6 +722,48 @@ def _make_capturable(opt, device):
         f"CUDA graph (it has no capturable option): use an optimizer that "
         f"has one (Adam, AdamW, ...) or SGD, or the eager step "
         f"(make_callable(batch), run(unroll=1))")
+
+
+def optimizer_generation(opt):
+    """How many times the port replaced ``opt``'s state tensors (a
+    rollback or restore to a state from before its first step); a graph
+    step captured over older ones captures anew."""
+    return getattr(opt, "_autodist_generation", 0)
+
+
+def _bump_generation(opt):
+    opt._autodist_generation = optimizer_generation(opt) + 1
+
+
+def _prime_optimizer(opt, tensors):
+    """Make ``opt`` create its state for ``tensors``: one step over zero
+    gradients. The values it writes are the caller's to overwrite."""
+    for t in tensors:
+        t.grad = torch.zeros_like(t)
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+
+
+def _state_dicts(opt_tree, names):
+    """{name: optimizer state dict} read from a checkpoint-form
+    ``opt_state`` tree (nested dicts / lists, or the dicts a raw read
+    gives for lists) by each variable's '/'-joined path; ``{}`` where it
+    holds nothing."""
+    out = {}
+    for name in names:
+        node = opt_tree
+        for part in name.split("/"):
+            if isinstance(node, dict):
+                node = node.get(part)
+            elif isinstance(node, (list, tuple)) and part.isdigit() and \
+                    int(part) < len(node):
+                node = node[int(part)]
+            else:
+                node = None
+            if node is None:
+                break
+        out[name] = node if isinstance(node, dict) else {}
+    return out
 
 
 def _stack_metrics(steps):
@@ -591,7 +810,8 @@ class _GraphStep:
         graph = self.graphs.get(phase)
         if graph is None:
             graph = self.graphs[phase] = cuda_graph.Graph(
-                functools.partial(self._compute, phase), self._device)
+                cuda_graph.weak_call(self, lambda g: g._compute(phase)),
+                self._device)
         return graph
 
     @property
@@ -608,6 +828,7 @@ class _GraphStep:
         _make_capturable(state.opt_state, self._device)
         self._params, self._opt = state.params, state.opt_state
         self._leaves = leaves(state.params)
+        self._generation = optimizer_generation(state.opt_state)
 
     def _compute(self, phase):
         batch = unflatten(self._treedef, self._static)
@@ -645,6 +866,12 @@ class _GraphStep:
                 "autodist_tpu_torch: this state's tensors are not the ones "
                 "the step's CUDA graph was captured over. " +
                 self._NOT_BOUND_HINT)
+        elif optimizer_generation(self._opt) != self._generation:
+            # The optimizer's state was dropped (a rollback or restore to a
+            # state from before its first step): capture anew over the
+            # state tensors the next step creates.
+            self.graphs = {}
+            self._bind(state)
         self._copy_in(batch)
         graph = self._graph(int(state.step) % self._runner._period)
         metrics = tree_map(lambda t: t.clone() if isinstance(

@@ -124,7 +124,8 @@ class _Lane:
         self.pos = torch.zeros_like(self.tokens)
         self._host = [torch.zeros(self.slots, dtype=torch.long,
                                   pin_memory=cuda) for _ in range(3)]
-        self._step_graph = cuda_graph.Graph(self._compute, self.device)
+        self._step_graph = cuda_graph.Graph(
+            cuda_graph.weak_call(self, type(self)._compute), self.device)
         self.graph = None
         self.logits = self.ids = None
         if cuda:

@@ -219,8 +219,8 @@ class ReplicaRuntime:
         zeros = tree_map(lambda s: np.zeros(bucket + tuple(s.shape)[rank:],
                                             s.dtype), batch_struct)
         static, treedef = flatten(self.remapper.shard_batch(zeros))
-        graph = cuda_graph.Graph(
-            lambda: self._forward(unflatten(treedef, static)),
+        graph = cuda_graph.Graph(cuda_graph.weak_call(
+            self, lambda r: r._forward(unflatten(treedef, static))),
             self.remapper.device)
         t0 = time.perf_counter()
         self.remapper.fetch(graph())
@@ -328,11 +328,16 @@ class ReplicaRuntime:
         return self._busy_s / dt if dt > 0 else 0.0
 
     def close(self):
+        """Stop the replica's thread and release its bucket graphs (their
+        memory pools go back at once, whoever still holds the replica)."""
         if self._source is not None:
             self._source.close()
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        for _, graph in self._graphs.values():
+            graph.release()
+        self._graphs = {}
 
 
 class ServeEngine:

@@ -13,6 +13,12 @@ the same output tensors on every replay, overwritten.
   thread-local: other threads (serving replicas, decode lanes) may run
   kernels while one captures. A capture that fails raises; nothing falls
   back to the eager function.
+* **Ownership.** A graph's memory pool lives as long as the graph. An
+  object that owns a graph of its own method passes the method through
+  :func:`weak_call`, so the two form no reference cycle and dropping the
+  owner frees the pool at once, not at the cyclic collector's next run
+  (a capture that runs out of memory cannot free cached blocks and
+  fails).
 * **Launch counts.** A kernel wrapper calls :func:`count_launch` where it
   launches its kernel. Outside a capture that adds one to the wrapper's
   ``launches``; during a capture it adds one to the capturing graph's
@@ -24,6 +30,7 @@ the same output tensors on every replay, overwritten.
 """
 import contextlib
 import threading
+import weakref
 
 import torch
 
@@ -67,6 +74,13 @@ def add_launches(counts):
     with _lock:
         for counter, n in counts.items():
             counter.launches += n
+
+
+def weak_call(owner, fn):
+    """``lambda: fn(owner)`` through a weak reference to ``owner``: the
+    function of a graph that ``owner`` holds, without a reference cycle."""
+    ref = weakref.ref(owner)
+    return lambda: fn(ref())
 
 
 class Graph:

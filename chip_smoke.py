@@ -117,7 +117,31 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    kernels), losses and each param's update held to one rank's
    ``AllReduce()`` steps (a doubled gradient must read above the update
    tolerance), the ranks' params bitwise equal;
-9. output: one ``{"kernels": [...]}`` JSON line, then the last line
+9. training that survives (``checkpoint/``, ``resilience/``): (a) BERT-base
+   (max_len 512, batch 32 x 128, Adam 1e-4, the MLM loss scaled by the
+   float masked-LM weights, all 1) takes 12 steps under
+   ``CheckpointManager.run(unroll=2)`` (a CUDA graph of 2 steps), a
+   checkpoint every 4 steps, ``StepGuard(check_every=2)`` and
+   ``AUTODIST_CHAOS=nan_at=5`` set for this part only: exactly one
+   rollback, into the graph's own tensors (no new capture), no retained
+   step with non-finite params, finite falling losses, the newest step's
+   every leaf (Adam's device ``step`` included) bitwise the live state's;
+   the checkpoint's bytes and its save / restore ms (host-inclusive,
+   GB/s), BERT and ResNet-50; the guard's cost (graph step ms with no
+   guard, ``check_every`` 1 and 10). An uninterrupted 16-step graph run
+   over distinct batches saves step 8; (d) its newest step truncated,
+   ``restore_or_init`` in a fresh Runner falls back to step 8 (every leaf
+   bitwise) and resumes to 16: losses and the update held to the
+   uninterrupted run, each tolerance between the same run again (floor)
+   and a resume with Adam's moments zeroed (planted fault), all printed;
+   (b) the same for ResNet-50 (64 x 224^2, SGD 1e-3), bitwise; (c) a child
+   process (this script) trains BERT-base eagerly under
+   ``CheckpointManager.run(preemption=True)``, takes a real SIGTERM, saves
+   its emergency step 4 and exits with 128 + 15; this process resumes from
+   it for 4 more steps; (e) the params restored from the checkpoint serve
+   through ``serve.Server`` (bucket 8 x 512), bitwise the trained params'
+   eager forward. Flash launches: 12 a layer's step on every BERT path;
+10. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 import copy
@@ -126,6 +150,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -245,6 +270,28 @@ STRATEGY_STEPS = 4
 STRATEGY_GRAPH_STEPS = 20
 STRATEGY_LOSS_RTOL = 1e-3
 STRATEGY_GRAPH_RTOL = 1e-2
+# Phase 9, training that survives: BERT's graph step (K = RESIL_UNROLL
+# steps a CUDA graph) under CheckpointManager.run with a checkpoint every
+# RESIL_INTERVAL steps and a StepGuard reading the flag every RESIL_CHECK,
+# a NaN batch at step RESIL_NAN_AT (the first step of a K-block: a block's
+# batch is poisoned when nan_at names its first step, as in the JAX
+# package's CheckpointManager.run); then an uninterrupted run of
+# RESIL_RESUME_STEPS steps over distinct batches against a resume from its
+# step RESIL_RESUME_FROM in a fresh Runner. The resumed losses are held at
+# RESUME_RTOL (max relative difference) and the resumed update at
+# RESUME_UPDATE_RTOL (``update_error`` over the resumed steps); each must
+# lie between two uninterrupted runs of the program (the floor: the
+# gradients' atomics) and a planted fault (the resume with Adam's moments
+# zeroed). Read on an H100 (distinct random batches: the loss moves little):
+# losses floor 3.0e-5, fault 1.3e-3, resumed 1.4e-5; update floor 2.6e-2,
+# fault 0.93, resumed 2.5e-3. A preempted child process gets its
+# SIGTERM while it fetches batch PREEMPT_AT; the guard's cost is read over
+# GUARD_COST_STEPS graph steps.
+RESIL_STEPS, RESIL_RESUME_STEPS, RESIL_RESUME_FROM = 12, 16, 8
+RESIL_INTERVAL, RESIL_CHECK, RESIL_NAN_AT, RESIL_UNROLL = 4, 2, 5, 2
+RESUME_RTOL, RESUME_UPDATE_RTOL = 2e-4, 0.2
+PREEMPT_AT = 4
+GUARD_COST_STEPS = 20
 
 
 def check(cond, msg):
@@ -2487,11 +2534,624 @@ def gloo_strategy_phase(torch, fa, card, cfg, device, batch_size=32,
     return paths
 
 
+# Phase 9: training that survives (checkpoint/ and resilience/).
+
+def weighted_mlm_loss(cfg):
+    """BERT's MLM loss times the mean of the batch's float masked-LM
+    weights (BERT's pretraining input carries them; all 1 here, so the loss
+    is bitwise the plain one): the float leaf ``AUTODIST_CHAOS=nan_at``
+    poisons (it poisons only float leaves, and token ids are ints)."""
+    from autodist_tpu_torch.models import bert
+    base = bert.make_loss_fn(cfg)
+
+    def loss_fn(params, batch):
+        return base(params, tuple(batch[:4])) * batch[4].mean()
+    return loss_fn
+
+
+def weighted_batches(cfg, seeds, batch_size, seq, num_masked):
+    """BERT's synthetic batches (one per seed) with MLM weights of 1."""
+    from autodist_tpu_torch.models import bert
+    return [bert.synthetic_batch(cfg, batch_size, seq, num_masked, seed=s) +
+            (np.ones((batch_size, num_masked), np.float32),) for s in seeds]
+
+
+def _bert_runner(torch, cfg, device, batch, params=None):
+    """A fresh one-rank AllReduce() world training BERT (MLM weighted as
+    above, Adam 1e-4) from ``params`` (default: the seeded init; a runner
+    copies them and never writes them)."""
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
+    autodist_mod._reset_default()
+    ad = AutoDist(strategy_builder=AllReduce(), device=device)
+    if params is None:
+        params = bert.init(cfg, torch.Generator().manual_seed(0),
+                           device=device)
+    return ad.create_distributed_session(ad.capture(
+        weighted_mlm_loss(cfg), params,
+        functools.partial(torch.optim.Adam, lr=1e-4), example_batch=batch))
+
+
+def _resnet_runner(torch, cfg, device, batch):
+    """A fresh ResNet world (SGD 1e-3, AllReduce(chunk_size=128)) from the
+    seeded init."""
+    from autodist_tpu_torch.models import resnet
+    ad = _zoo_world(torch, device)
+    return ad.create_distributed_session(ad.capture(
+        resnet.make_loss_fn(cfg),
+        resnet.init(cfg, torch.Generator().manual_seed(0), device=device),
+        functools.partial(torch.optim.SGD, lr=1e-3), example_batch=batch))
+
+
+def _blocks(run, state, start, end, unroll):
+    """Drive ``run(state, n)`` (a call that takes the state to step ``n``)
+    one K-step block at a time from ``start`` to ``end``: (state, the
+    per-step losses)."""
+    losses = []
+    for n in range(start + unroll, end + 1, unroll):
+        state, metrics = run(state, n)
+        losses += [float(x) for x in metrics["loss"].reshape(-1)]
+    return state, losses
+
+
+def _logical_named(runner, state):
+    """The checkpoint form by name, on the host."""
+    from autodist_tpu_torch.checkpoint.manifest import state_tree
+    return {k: t.detach().cpu() for k, t in
+            flatten_params(state_tree(runner.to_logical(state))).items()}
+
+
+def _raw_named(path):
+    from autodist_tpu_torch.checkpoint.saver import read_tree
+    return flatten_params(read_tree(path))
+
+
+def _same(torch, got, want):
+    """Names whose tensors differ (dtype or bits)."""
+    return sorted(set(got) ^ set(want)) + [
+        n for n in want if n in got and (got[n].dtype != want[n].dtype or
+                                         not torch.equal(got[n], want[n]))]
+
+
+def _rel(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def _graph_of(runner):
+    """The runner's one megastep graph (its phase-0 Graph)."""
+    (step,) = runner._graphs.values()
+    return step.graphs[0]
+
+
+def _timed(torch, device, fn):
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _save_restore_rates(torch, card, label, runner, state, directory, device):
+    """Host-inclusive save and restore (into the live state) of one
+    checkpoint: prints bytes, ms and GB/s; returns the state."""
+    from autodist_tpu_torch.checkpoint import Saver
+    path = os.path.join(directory, f"{label}-timed")
+    _, save_ms = _timed(torch, device, lambda: Saver(runner).save(state, path))
+    nbytes = os.path.getsize(os.path.join(path, "arrays.bin"))
+    state, restore_ms = _timed(
+        torch, device, lambda: Saver(runner).restore(path, into=state))
+    print(f"  {label} checkpoint: {nbytes} bytes ({nbytes / 1e9:.3f} GB); "
+          f"save {save_ms:.1f} ms ({nbytes / save_ms / 1e6:.2f} GB/s), "
+          f"restore into the live state {restore_ms:.1f} ms "
+          f"({nbytes / restore_ms / 1e6:.2f} GB/s), host-inclusive, on "
+          f"{card}", flush=True)
+    shutil.rmtree(path)
+    return state
+
+
+def resilience_guard_run(torch, fa, card, cfg, device, batch, directory,
+                         init):
+    """(a) BERT's graph step under ``CheckpointManager.run`` with a
+    ``StepGuard`` and ``AUTODIST_CHAOS=nan_at``: exactly one rollback
+    (into the graph's own tensors, no new capture), no retained step with
+    non-finite params, finite falling losses, every leaf of the newest
+    step (Adam's ``step`` included) bitwise the live state's. Returns
+    (runner, state, flash launches)."""
+    from autodist_tpu_torch import resilience
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.resilience import StepGuard, chaos
+    runner = _bert_runner(torch, cfg, device, batch, init)
+    dbatch = runner.remapper.shard_batch(batch)
+    mgr = CheckpointManager(runner, directory,
+                            save_interval_steps=RESIL_INTERVAL, max_to_keep=3)
+    guard = StepGuard(check_every=RESIL_CHECK, max_strikes=3)
+    resilience.clear_events()
+    chaos.reset()
+    os.environ["AUTODIST_CHAOS"] = f"nan_at={RESIL_NAN_AT}"
+    _flash_counts(fa, reset=True)  # this path's run
+    try:
+        data = iter(lambda: dbatch, None)
+        state, first = mgr.run(mgr.restore_or_init(), data, RESIL_UNROLL,
+                               step_guard=guard, unroll=RESIL_UNROLL)
+        graph = _graph_of(runner)
+        state, last = mgr.run(state, data, RESIL_STEPS, step_guard=guard,
+                              unroll=RESIL_UNROLL)
+    finally:
+        del os.environ["AUTODIST_CHAOS"]
+        chaos.reset()
+    launches = _flash_counts(fa)
+    events = [(k, d) for _, k, d in resilience.events()]
+    first, last = ([float(x) for x in m["loss"]] for m in (first, last))
+    print(f"  (a) {RESIL_STEPS} steps, {RESIL_UNROLL} a CUDA graph, save "
+          f"every {RESIL_INTERVAL}, guard every {RESIL_CHECK}, nan_at="
+          f"{RESIL_NAN_AT}: rollbacks {guard.rollbacks}, events {events}; "
+          f"retained steps {mgr.all_steps()}; losses first block "
+          f"{first}, last {last}; graph captured once, replays "
+          f"{graph.replays}; flash launches {launches}", flush=True)
+    dispatched = RESIL_STEPS // RESIL_UNROLL + 1  # + the poisoned block
+    check(guard.rollbacks == 1 and ("chaos:nan", f"poisoned batch at step "
+          f"{RESIL_NAN_AT}") in events,
+          f"(a): {guard.rollbacks} rollbacks, events {events}")
+    seen = -(-RESIL_NAN_AT // RESIL_UNROLL) * RESIL_UNROLL  # block's end
+    check(("rollback", f"divergence at step {seen}: restored step "
+           f"{(seen - 1) // RESIL_INTERVAL * RESIL_INTERVAL} (strike 1/3)")
+          in events, f"(a): rollback events {events}")
+    check(int(state.step) == RESIL_STEPS, f"(a) ended at {int(state.step)}")
+    check(all(np.isfinite(first + last)) and max(last) < min(first),
+          f"(a): losses {first} ... {last}")
+    check(_graph_of(runner) is graph and len(runner._graphs) == 1 and
+          (device != "cuda" or graph.replays == dispatched - 1),
+          f"(a): the rollback recaptured: {runner._graphs}")
+    for name, n in launches.items():
+        check(n == cfg.num_layers * dispatched * RESIL_UNROLL,
+              f"(a): {name} launched {n} times, expected {cfg.num_layers} "
+              f"x {dispatched * RESIL_UNROLL}")
+    steps = mgr.all_steps()
+    check(steps == list(range(RESIL_STEPS - 2 * RESIL_INTERVAL,
+                              RESIL_STEPS + 1, RESIL_INTERVAL)),
+          f"(a): retained steps {steps}")
+    for step in steps:
+        raw = _raw_named(os.path.join(directory, str(step)))
+        bad = [n for n, t in raw.items() if n.startswith("params/")
+               and not torch.isfinite(t).all()]
+        check(not bad, f"(a): retained step {step} holds non-finite {bad}")
+    diff = _same(torch, _raw_named(os.path.join(directory, str(steps[-1]))),
+                 _logical_named(runner, state))
+    check(not diff, f"(a): the saved step {steps[-1]} differs from the live "
+          f"state at {diff[:5]}")
+    adam = next(iter(state.opt_state.state.values()))["step"]
+    print(f"  (a) step {steps[-1]}: every leaf bitwise the live state's "
+          f"({len(raw)} leaves; Adam's step {float(adam)} on "
+          f"{adam.device})", flush=True)
+    if device == "cuda":
+        check(adam.device.type == "cuda", f"(a): Adam's step on {adam.device}")
+    return runner, state, launches
+
+
+def resilience_resume(torch, fa, card, label, make_runner, batches,
+                      directory, device, fault=None):
+    """(a) / (b): an uninterrupted run of ``RESIL_RESUME_STEPS`` graph steps
+    (K a graph) under ``CheckpointManager.run`` saving every
+    ``RESIL_RESUME_FROM``, the same again (the floor), then (d) its newest
+    step truncated, a fresh Runner's ``restore_or_init`` falling back to
+    step ``RESIL_RESUME_FROM`` (every leaf bitwise the saved one) and
+    resuming to the end, and with ``fault`` (a function of the restored
+    state) the planted fault from the same step. Returns {"floor",
+    "resume", "fault": max rel. loss differences over the resumed steps,
+    "launches": the resumed run's flash launches, "params": bitwise or
+    not}."""
+    from autodist_tpu_torch import resilience
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.resilience import chaos
+    n, k, at = RESIL_RESUME_STEPS, RESIL_UNROLL, RESIL_RESUME_FROM
+    runner = make_runner()
+    dbatches = [runner.remapper.shard_batch(b) for b in batches]
+
+    def stream(start):
+        return iter(dbatches[i % len(dbatches)] for i in range(start, n))
+
+    mgr = CheckpointManager(runner, directory, save_interval_steps=at,
+                            max_to_keep=3)
+    data = stream(0)
+    state, ref = _blocks(lambda s, m: mgr.run(s, data, m, unroll=k),
+                         mgr.restore_or_init(), 0, n, k)
+    ref_params = flatten_params(runner.logical_params(state))
+    ref_params = {name: t.detach().clone() for name, t in ref_params.items()}
+    data = stream(0)
+    state, again = _blocks(lambda s, m: runner.run(s, data, k, unroll=k),
+                           runner.create_state(), 0, n, k)
+    floor = _rel(again[at:], ref[at:])
+    # Update errors over the resumed steps: ||p - p_ref|| / ||p_ref - p_at||.
+    at_params = {name[len("params/"):]: t for name, t in _raw_named(
+        os.path.join(directory, str(at))).items() if name.startswith(
+            "params/")}
+
+    def update(params):
+        return update_error(torch, {name: t.detach().cpu() for name, t in
+                                    flatten_params(params).items()},
+                            {name: t.cpu() for name, t in ref_params.items()},
+                            at_params)
+    floor_update = update(runner.logical_params(state))
+    del state
+    check(mgr.all_steps() == [k, at, n], f"{label}: steps {mgr.all_steps()}")
+    check(chaos.truncate_checkpoint(directory) == n, f"{label}: truncation")
+    runner = make_runner()  # a fresh Runner in a fresh world
+    resilience.clear_events()
+    mgr = CheckpointManager(runner, directory, save_interval_steps=at,
+                            max_to_keep=3)
+    state = mgr.restore_or_init()
+    fell = [d for _, kind, d in resilience.events() if kind == "ckpt-fallback"]
+    check(int(state.step) == at and len(fell) == 1,
+          f"{label}: restore_or_init gave step {int(state.step)}, fallbacks "
+          f"{fell}")
+    diff = _same(torch, _logical_named(runner, state),
+                 _raw_named(os.path.join(directory, str(at))))
+    check(not diff, f"{label}: restored leaves differ from step {at}'s: "
+          f"{diff[:5]}")
+    dbatches = [runner.remapper.shard_batch(b) for b in batches]
+    _flash_counts(fa, reset=True)  # the resumed run
+    data = stream(at)
+    state, resumed = _blocks(lambda s, m: mgr.run(s, data, m, unroll=k),
+                             state, at, n, k)
+    launches = _flash_counts(fa)
+    got = flatten_params(runner.logical_params(state))
+    params_equal = all(torch.equal(got[name], t)
+                       for name, t in ref_params.items())
+    out = {"floor": floor, "resume": _rel(resumed, ref[at:]),
+           "launches": launches, "params": params_equal,
+           "floor_update": floor_update,
+           "resume_update": update(runner.logical_params(state))}
+    print(f"  {label}: uninterrupted losses {ref[0]:.6f} ... {ref[-1]:.6f}; "
+          f"(d) newest step {n} truncated -> restore_or_init fell back to "
+          f"step {at} (every leaf bitwise); resumed steps {at + 1}-{n} vs "
+          f"the uninterrupted run: max rel. loss diff {out['resume']:.3e} "
+          f"(bitwise: {resumed == ref[at:]}), final params bitwise: "
+          f"{params_equal}; floor (the same program again) {floor:.3e}; "
+          f"update error over steps {at + 1}-{n}: resumed "
+          f"{out['resume_update']:.3e}, floor {floor_update:.3e}",
+          flush=True)
+    if fault is not None:
+        state = mgr.restore_or_init(into=state)
+        graph = _graph_of(runner)
+        fault(state)
+        data = stream(at)
+        state, faulty = _blocks(lambda s, m: mgr.run(s, data, m, unroll=k),
+                                state, at, n, k)
+        out["fault"] = _rel(faulty, ref[at:])
+        out["fault_update"] = update(runner.logical_params(state))
+        check(_graph_of(runner) is graph, f"{label}: the restore into the "
+              f"live state recaptured")
+        print(f"  {label}: planted fault (resume with Adam's moments zeroed) "
+              f"max rel. loss diff {out['fault']:.3e}, update error "
+              f"{out['fault_update']:.3e}", flush=True)
+    del state
+    return out
+
+
+def preempt_train_child(directory, spec):
+    """(c)'s child: BERT's eager step under ``CheckpointManager.run(
+    preemption=True)``. Prints {"batch": n} as it hands out batch n, and
+    at batch ``PREEMPT_AT`` waits for the SIGTERM; the emergency save and
+    ``Preempted`` (exit code 128 + 15) follow. Prints what it saved."""
+    import torch
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.ops import build
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.resilience import Preempted
+    spec = json.loads(spec)
+    device = spec["device"]
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build.load_all()  # built by the parent: the same sources and flags
+    cfg = T.TransformerConfig(**dict(spec["config"], dtype=getattr(
+        torch, spec["dtype"])))
+    (batch,) = weighted_batches(cfg, [0], spec["batch"], spec["seq"],
+                                spec["masked"])
+    runner = _bert_runner(torch, cfg, device, batch)
+    mgr = CheckpointManager(runner, directory, save_interval_steps=100)
+    dbatch = runner.remapper.shard_batch(batch)
+
+    def batches():
+        n = 0
+        while True:
+            n += 1
+            print(json.dumps({"batch": n}), flush=True)
+            if n == PREEMPT_AT:  # the loop's handler is installed
+                handler = signal.getsignal(signal.SIGTERM).__self__
+                deadline = time.monotonic() + 300
+                while not handler.preempted and time.monotonic() < deadline:
+                    time.sleep(0.01)
+            yield dbatch
+
+    _flash_counts(fa, reset=True)
+    try:
+        mgr.run(mgr.restore_or_init(), batches(), 10 ** 6, preemption=True)
+    except Preempted as e:
+        print(json.dumps({"saved_step": e.saved_step, "code": e.code,
+                          "steps": mgr.all_steps(),
+                          "launches": _flash_counts(fa)}), flush=True)
+        raise
+    return 1  # not preempted
+
+
+def preempt_start(cfg, device, directory, batch_size, seq, num_masked):
+    """(c), first half: start the child (this script, ``--preempt-train``)
+    and a thread that sends it SIGTERM when it asks for batch
+    ``PREEMPT_AT``. Returns (child, thread, log path, start time)."""
+    fields = {k: v for k, v in vars(cfg).items() if k != "dtype"}
+    spec = json.dumps({"device": device, "config": fields,
+                       "dtype": str(cfg.dtype).split(".")[-1], "seq": seq,
+                       "batch": batch_size, "masked": num_masked})
+    log = directory + "-child.log"
+    with open(log, "w") as err:
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--preempt-train",
+             directory, spec], stdout=subprocess.PIPE, stderr=err, text=True)
+    lines = []
+
+    def watch():
+        for line in child.stdout:
+            lines.append(line)
+            if line.startswith("{") and \
+                    json.loads(line).get("batch") == PREEMPT_AT:
+                child.send_signal(signal.SIGTERM)
+        child.wait()
+    thread = threading.Thread(target=watch, daemon=True)
+    thread.start()
+    return types.SimpleNamespace(child=child, thread=thread, log=log,
+                                 lines=lines, t0=time.perf_counter(),
+                                 directory=directory)
+
+
+def preempt_finish(torch, fa, cfg, device, batch, job, init):
+    """(c), second half: the child exited with 128 + 15 after saving step
+    ``PREEMPT_AT``; this process resumes from that step and takes 4 more.
+    Returns the flash launches (child + resume)."""
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    job.thread.join(timeout=600)
+    if job.child.poll() is None:
+        job.child.kill()
+        job.child.wait()
+    child_s = time.perf_counter() - job.t0
+    with open(job.log) as f:
+        tail = f.read()[-3000:]
+    check(job.child.returncode == 128 + signal.SIGTERM,
+          f"(c): the child exited with {job.child.returncode}: {tail}")
+    report = json.loads(job.lines[-1])
+    check(report.get("saved_step") == PREEMPT_AT and
+          report["code"] == 128 + signal.SIGTERM and
+          report["steps"] == [1, PREEMPT_AT],
+          f"(c): the child reported {report}")
+    runner = _bert_runner(torch, cfg, device, batch, init)
+    mgr = CheckpointManager(runner, job.directory, save_interval_steps=100)
+    _flash_counts(fa, reset=True)  # the resume
+    state = mgr.restore_or_init()
+    check(int(state.step) == PREEMPT_AT, f"(c): resumed at {int(state.step)}")
+    dbatch = runner.remapper.shard_batch(batch)
+    losses = []
+    for n in range(PREEMPT_AT + 1, PREEMPT_AT + 5):
+        state, metrics = mgr.run(state, iter([dbatch]), n)
+        losses.append(float(metrics["loss"]))
+    launches = _flash_counts(fa)
+    check(int(state.step) == PREEMPT_AT + 4 and all(np.isfinite(losses)),
+          f"(c): resumed to {int(state.step)}, losses {losses}")
+    total = {k: report["launches"][k] + launches[k] for k in launches}
+    for name, n in total.items():
+        check(n == cfg.num_layers * (PREEMPT_AT + 4),
+              f"(c): {name} launched {n} times, expected {cfg.num_layers} x "
+              f"{PREEMPT_AT + 4}")
+    print(f"  (c) child (BERT eager, preemption=True) got SIGTERM at batch "
+          f"{PREEMPT_AT}: exit code {job.child.returncode}, emergency step "
+          f"{report['saved_step']} (retained {report['steps']}), "
+          f"{child_s:.1f} s from its start (beside the other parts); "
+          f"resumed here from step {PREEMPT_AT}: losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; flash launches (child "
+          f"+ resume) {total}", flush=True)
+    return total
+
+
+def guard_cost(torch, card, runner, batches, device):
+    """The guard's cost on the graph step: ``Runner.run(unroll=K)`` over
+    ``GUARD_COST_STEPS`` steps with no guard, a ``StepGuard`` at
+    ``check_every`` 1 (every block: a flag read and a refresh of the
+    device snapshot) and at 10, and no guard again; host-inclusive ms per
+    step. Each guard is warmed first (its snapshot allocated and copied
+    by one ``mark_good``, timed on its own), so a reading is the steady
+    per-check cost."""
+    from autodist_tpu_torch.resilience import StepGuard
+    state = runner.create_state()
+    dbatches = [runner.remapper.shard_batch(b) for b in batches]
+
+    def run(guard):
+        nonlocal state
+        data = iter(dbatches[i % len(dbatches)]
+                    for i in range(GUARD_COST_STEPS))
+        (state, _), ms = _timed(torch, device, lambda: runner.run(
+            state, data, GUARD_COST_STEPS, step_guard=guard,
+            unroll=RESIL_UNROLL))
+        return ms / GUARD_COST_STEPS
+
+    def guarded(check_every):
+        guard = StepGuard(check_every)
+        _, alloc_ms = _timed(torch, device, lambda: guard.mark_good(0, state))
+        alloc.append(alloc_ms)
+        return run(guard)
+    alloc = []
+    run(None)  # capture
+    rows = [("none", run(None)), ("check_every=1", guarded(1)),
+            ("check_every=10", guarded(10)), ("none", run(None))]
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in _state_tensors(torch, state))
+    print(f"  guard cost, BERT graph step (unroll={RESIL_UNROLL}), "
+          f"{GUARD_COST_STEPS} steps a reading, host-inclusive ms/step: " +
+          ", ".join(f"{k} {v:.3f}" for k, v in rows) +
+          f"; the snapshot holds {nbytes} bytes ({nbytes / 1e9:.3f} GB) on "
+          f"the device, its allocation and first copy took " +
+          " / ".join(f"{ms:.3f}" for ms in alloc) + f" ms; on {card}",
+          flush=True)
+    return rows
+
+
+def resilience_serve(torch, fa, card, cfg, device, params, want, request):
+    """(e): params restored from a checkpoint serve through
+    ``serve.Server`` (bucket 8 x seq): the answer bitwise the eager
+    forward of the trained params (``want``). Returns the flash launches
+    (warm-up + replays)."""
+    from autodist_tpu_torch import serve
+    from autodist_tpu_torch.models import transformer as T
+
+    def apply_fn(p, batch):
+        ids, seg = batch
+        return T.encode(p, cfg, ids, segment_ids=seg).float()
+    rows = request[0].shape[0]
+    _flash_counts(fa, reset=True)  # the serving path
+    with serve.Server(apply_fn, params, request, buckets=(rows,),
+                      max_wait_ms=1, device=device) as srv:
+        got = srv.infer(request, timeout=300)
+        graphs = srv.engine.replicas[0].graphs
+        dispatches = sum(r["dispatches"] for r in srv.stats()["replicas"])
+    launches = _flash_counts(fa)["flash_fwd"]
+    check(torch.equal(got, want), f"(e): the served answer is not bitwise "
+          f"the trained params' eager forward (max diff "
+          f"{(got - want).abs().max().item()})")
+    replays = sum(g.replays for g in graphs.values())
+    check(launches == cfg.num_layers * (len(graphs) + dispatches) and
+          (device != "cuda" or replays == dispatches),
+          f"(e): flash_fwd launched {launches} times, {replays} replays in "
+          f"{dispatches} dispatches")
+    print(f"  (e) restored params served (bucket {rows} x "
+          f"{request[0].shape[1]}): the answer bitwise the trained params' "
+          f"eager forward; flash_fwd launches {launches} ({len(graphs)} "
+          f"warm-up + {dispatches} dispatches, {replays} graph replays)",
+          flush=True)
+    return launches
+
+
+def resilience_phase(torch, fa, card, cfg, resnet_cfg, device, batch_size=32,
+                     seq=128, num_masked=20, image=224, resnet_batch=64,
+                     serve_rows=8):
+    """Phase 9: checkpoint/ and resilience/ on BERT (a, c, d, e: graph and
+    eager steps through the flash kernels) and ResNet (b). The timed parts
+    run first; then the preempted child (c) runs beside (e), the resumes
+    and (b). Returns {path: flash launches}."""
+    import tempfile
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.models import bert, resnet
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.ops import build
+    print(f"phase 9: training that survives; a {cfg.num_layers}-layer, width "
+          f"{cfg.dim} BERT (MLM, batch {batch_size} x {seq}, Adam 1e-4) and "
+          f"ResNet (stages {resnet_cfg.stage_sizes}, batch {resnet_batch} x "
+          f"{image}^2, SGD 1e-3)", flush=True)
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
+    guard_dir = os.path.join(tmp.name, "guard")
+    paths, job = {}, None
+    try:
+        init = bert.init(cfg, torch.Generator().manual_seed(0), device=device)
+        (batch,) = weighted_batches(cfg, [0], batch_size, seq, num_masked)
+        batches = weighted_batches(cfg, range(RESIL_RESUME_STEPS), batch_size,
+                                   seq, num_masked)
+        runner, state, paths["resilience_bert_guard"] = resilience_guard_run(
+            torch, fa, card, cfg, device, batch, guard_dir, init)
+        state = _save_restore_rates(torch, card, "BERT", runner, state,
+                                    tmp.name, device)
+        # (e)'s reference: the trained params' eager forward, on a request
+        # of a full bucket at seq = the model's max_len.
+        ids, seg, _, _ = bert.synthetic_batch(cfg, serve_rows, cfg.max_len,
+                                              seed=1)
+        with torch.inference_mode():
+            want = T.encode(runner.logical_params(state), cfg,
+                            torch.as_tensor(ids, device=device),
+                            segment_ids=torch.as_tensor(
+                                seg, device=device)).float().cpu()
+        del state
+        guard_cost(torch, card, runner, batches, device)
+        runner = None
+        rbatches = [resnet.synthetic_batch(resnet_batch, image,
+                                           resnet_cfg.num_classes, seed=s)
+                    for s in range(4)]
+        runner = _resnet_runner(torch, resnet_cfg, device, rbatches[0])
+        _save_restore_rates(torch, card, "ResNet", runner,
+                            runner.create_state(), tmp.name, device)
+        runner = None
+        autodist_mod._reset_default()
+
+        job = preempt_start(cfg, device, os.path.join(tmp.name, "preempt"),
+                            batch_size, seq, num_masked)
+        params = CheckpointManager(None, guard_dir).restore_params()
+        paths["resilience_serve"] = {
+            "flash_fwd": resilience_serve(torch, fa, card, cfg, device,
+                                          params, want, (ids, seg)),
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        del params
+        shutil.rmtree(guard_dir)
+
+        def zero_moments(state):
+            with torch.no_grad():
+                for st in state.opt_state.state.values():
+                    st["exp_avg"].zero_()
+                    st["exp_avg_sq"].zero_()
+        got = resilience_resume(
+            torch, fa, card, "(a) BERT resume",
+            lambda: _bert_runner(torch, cfg, device, batches[0], init),
+            batches, os.path.join(tmp.name, "bert"), device,
+            fault=zero_moments)
+        for what, tol, key in (("losses", RESUME_RTOL, ""),
+                               ("update", RESUME_UPDATE_RTOL, "_update")):
+            floor, fault, resumed = (got[k + key] for k in
+                                     ("floor", "fault", "resume"))
+            print(f"  (a) BERT resume, {what}: floor {floor:.3e} < "
+                  f"tolerance {tol} < planted fault {fault:.3e}; resumed "
+                  f"{resumed:.3e}", flush=True)
+            check(floor < tol < fault, f"(a): the {what} tolerance {tol} "
+                  f"does not lie between the floor {floor} and the fault "
+                  f"{fault}")
+            check(resumed <= tol, f"(a): the resumed {what} are {resumed} "
+                  f"off the uninterrupted run's")
+        for name, n in got["launches"].items():
+            check(n == cfg.num_layers * (RESIL_RESUME_STEPS -
+                                         RESIL_RESUME_FROM),
+                  f"(a) resume: {name} launched {n} times")
+        paths["resilience_bert_resume"] = got["launches"]
+        shutil.rmtree(os.path.join(tmp.name, "bert"))
+
+        got = resilience_resume(
+            torch, fa, card, "(b) ResNet resume",
+            lambda: _resnet_runner(torch, resnet_cfg, device, rbatches[0]),
+            rbatches, os.path.join(tmp.name, "resnet"), device)
+        check(not any(got["launches"].values()), f"(b): flash launches "
+              f"{got['launches']} in a model without attention")
+        check(got["floor"] == got["resume"] == 0 and got["params"],
+              f"(b): the resumed run is not bitwise the uninterrupted one "
+              f"({got})")
+        paths["resilience_resnet_resume"] = got["launches"]
+        shutil.rmtree(os.path.join(tmp.name, "resnet"))
+
+        paths["resilience_bert_preempted"] = preempt_finish(
+            torch, fa, cfg, device, batch, job, init)
+    finally:
+        if job is not None and job.child.poll() is None:
+            job.child.kill()
+            job.child.wait()
+        autodist_mod._reset_default()
+        tmp.cleanup()
+    return paths
+
+
 def main():
     import torch
     if len(sys.argv) > 1 and sys.argv[1] == "--gloo-train":
         return gloo_train_rank(*(int(a) for a in sys.argv[2:5]),
                                sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--preempt-train":
+        return preempt_train_child(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA card", file=sys.stderr)
@@ -2542,6 +3202,8 @@ def main():
                               "cuda"))
     zoo.update(gloo_strategy_phase(torch, fa, card,
                                    bert.bert_base(max_len=128), "cuda"))
+    zoo.update(resilience_phase(torch, fa, card, bert.bert_base(max_len=512),
+                                resnet.resnet50(), "cuda"))
     fwd["launches"] = served + trained["flash_fwd"]
     fwd["launches_by_path"] = {"serve": served,
                                "train": trained["flash_fwd"],

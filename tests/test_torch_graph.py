@@ -430,3 +430,54 @@ def test_serving_answers_come_from_the_bucket_path_and_stay_owned():
                                      for _ in range(2)))
     finally:
         srv.close()
+
+
+def _graph_owners(kind):
+    """(owner, [the graphs it dropped]) after one use: a runner with a
+    megastep graph and an ``aot=True`` step, or a serving replica with two
+    buckets, closed with its server."""
+    if kind == "runner":
+        runner = _runner()
+        batch = _batches(1)[0]
+        state, _ = runner.run(runner.create_state(), iter(lambda: batch,
+                                                          None), 4, unroll=2)
+        step = runner.make_callable(batch, aot=True)
+        step(state, batch)
+        steps = list(runner._graphs.values()) + [step]
+        return runner, steps + [g for s in steps for g in s.graphs.values()]
+    cfg = bert.bert_tiny()
+    params = bert.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    request = (np.zeros((4, 16), np.int32), np.zeros((4, 16), np.int32))
+    with serve.Server(lambda p, b: T.encode(p, cfg, b[0], segment_ids=b[1]),
+                      params, request, buckets=(2, 4), max_wait_ms=0,
+                      device="cpu") as srv:
+        srv.infer(request, timeout=60)
+        replica = srv.engine.replicas[0]
+        graphs = list(replica.graphs.values())
+    assert replica.graphs == {}
+    return None, graphs
+
+
+@pytest.mark.parametrize("kind", ["runner", "replica"])
+def test_dropped_owners_free_their_graphs_without_the_collector(kind):
+    """A graph's function refers to its owner weakly (``cuda_graph.
+    weak_call``), and a closed serving replica releases its bucket graphs,
+    so a dropped runner's graphs and a closed server's, and on the card
+    their memory pools, are freed by reference counting alone: a later
+    capture does not run out of memory behind a reference cycle that the
+    cyclic collector has not reached yet."""
+    import gc
+    import weakref
+    _graph_owners(kind)  # torch's lazy imports keep the first caller's frames
+    autodist_mod._reset_default()
+    gc.collect()
+    gc.disable()
+    try:
+        owner, graphs = _graph_owners(kind)
+        refs = [weakref.ref(o) for o in [owner] * (owner is not None) +
+                graphs]
+        del owner, graphs
+        autodist_mod._reset_default()
+        assert len(refs) >= 2 and all(r() is None for r in refs)
+    finally:
+        gc.enable()

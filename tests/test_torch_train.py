@@ -413,8 +413,12 @@ def test_aux_output_and_make_callable_and_run(tmp_path):
     assert int(graphed.step) == int(eager.step) == 4
     for name, want in _named(eager.params).items():
         np.testing.assert_array_equal(_named(graphed.params)[name], want)
-    with pytest.raises(NotImplementedError, match="step_guard"):
-        runner.run(state, iter([batch]), 1, step_guard=object())
+    # A step guard on a healthy run: no rollback, every step taken.
+    from autodist_tpu_torch.resilience import StepGuard
+    guard = StepGuard(check_every=1)
+    state, metrics = runner.run(state, iter([batch] * 2), 2, step_guard=guard)
+    assert guard.rollbacks == 0 and int(state.step) == 6
+    assert not bool(metrics["notfinite"])
 
 
 def test_non_divisible_global_batch_raises(tmp_path):
