@@ -18,6 +18,11 @@ Ported so far:
   (``kernel.synchronization``, AllReduce with bucketed NCCL / gloo
   all-reduce) -> ``runner.Runner`` (``create_state``, ``step``, ``run``);
 
+* sequence parallelism: ``strategy.SequenceParallel`` carves a ``seq``
+  axis; the Runner runs the loss in the program's parallel context
+  (``parallel``), where a transformer's attention is ring or Ulysses
+  attention over the seq group and each rank encodes its chunk;
+
 over the model zoo (``models``) whose attention runs the flash-attention
 kernels, forward and backward (``ops.flash_attention``). ``convert``
 carries weights across from the JAX package. What is left is listed in

@@ -124,11 +124,16 @@ def write_manifest(runner, step, path, logical):
     read-only filesystem must not kill a save)."""
     if not is_chief():
         return None
+    return store_manifest(build_manifest(runner, step, logical), path)
+
+
+def store_manifest(manifest, path):
+    """Write a built manifest dict at ``path`` atomically; fail-open (a
+    read-only filesystem must not kill a save): None on an OSError."""
     try:
-        man = build_manifest(runner, step, logical)
         tmp = f"{path}.tmp.{os.getpid()}"
         with open(tmp, "w") as f:
-            json.dump(man, f, indent=1)
+            json.dump(manifest, f, indent=1)
         os.replace(tmp, path)  # atomic: a torn manifest is never visible
         return path
     except OSError as e:

@@ -23,14 +23,24 @@ flushed to disk) and renamed into place, so a torn write is never
 mistaken for a checkpoint; the index is its seal. Reads give CPU tensors
 (torch's host arrays; the JAX package's give numpy arrays).
 
+A save first copies every leaf into one host buffer laid out as
+``arrays.bin`` (pinned for leaves on the card, the copies on a side
+stream), then writes it with one call. ``Saver.save`` and
+:func:`write_tree` return once the checkpoint is durable;
+``CheckpointManager.save`` returns after the copy and leaves the write to
+a thread (``wait_until_finished``).
+
 Multi-rank: converting to the logical form is a collective every rank
-calls; only the chief (rank 0) writes, then every rank waits at a barrier.
-Paths must be on a filesystem every rank sees.
+calls; only the chief (rank 0) writes, then every rank waits at a barrier
+(for the manager, in ``wait_until_finished``). Paths must be on a
+filesystem every rank sees.
 """
 import json
 import os
 import shutil
+import threading
 import time
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -60,15 +70,68 @@ _NUMPY = {torch.float64: np.float64, torch.float32: np.float32,
 _TORCH = {manifest_mod.dtype_name(t): t for t in _NUMPY}
 
 
-def _host_bytes(t):
-    """A leaf as a contiguous little-endian numpy array (bf16 as bits)."""
-    t = torch.as_tensor(t).detach().cpu().contiguous()
-    if t.dtype not in _NUMPY:
-        raise TypeError(f"autodist_tpu_torch: cannot checkpoint a "
-                        f"{t.dtype} tensor")
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16)
-    return t.numpy()
+class _Staged(NamedTuple):
+    """A tree copied into one host buffer laid out as ``arrays.bin``:
+    ``buffer`` (uint8, pinned when a leaf was on the card), its first
+    ``nbytes`` the file's bytes, ``entries`` the index's leaves, and
+    ``done`` the CUDA event that marks the copies complete (None when
+    every leaf was on the host)."""
+    buffer: Any
+    nbytes: int
+    entries: list
+    done: Any
+
+
+def _stage(tree, buffer=None):
+    """Copy every leaf of ``tree`` into a host buffer laid out as
+    ``arrays.bin`` (``buffer`` when it is large enough and pinned where it
+    must be, else a new one). Host leaves are copied now. Leaves on the
+    card (one process drives one device) are copied without blocking on a
+    side stream that first waits for the work already queued, and the
+    current stream then waits for those copies: the caller may return at
+    once, and the next in-place update of a leaf runs only after its copy
+    (a device-side wait, no host stall)."""
+    leaves = [(path_to_name(p), torch.as_tensor(leaf).detach())
+              for p, leaf in flatten_with_path(tree)[0]]
+    entries, offset = [], 0
+    for name, t in leaves:
+        if t.dtype not in _NUMPY:
+            raise TypeError(f"autodist_tpu_torch: cannot checkpoint a "
+                            f"{t.dtype} tensor ({name})")
+        offset += -offset % _ALIGN
+        nbytes = t.numel() * t.element_size()
+        entries.append({"path": name,
+                        "dtype": manifest_mod.dtype_name(t.dtype),
+                        "shape": [int(s) for s in t.shape],
+                        "offset": offset, "nbytes": int(nbytes)})
+        offset += nbytes
+    device = next((t.device for _, t in leaves if t.is_cuda), None)
+    if buffer is None or buffer.numel() < offset or \
+            (device is not None and not buffer.is_pinned()):
+        buffer = torch.empty(offset, dtype=torch.uint8,
+                             pin_memory=device is not None)
+    end = 0
+    for e in entries:  # the alignment padding, zeros as before
+        buffer[end:e["offset"]].zero_()
+        end = e["offset"] + e["nbytes"]
+    side = done = None
+    if device is not None:
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+    for (_, t), e in zip(leaves, entries):
+        dst = buffer[e["offset"]:e["offset"] + e["nbytes"]]
+        dst = dst.view(t.dtype).view(t.shape)
+        if not t.is_cuda:
+            dst.copy_(t)
+            continue
+        with torch.cuda.stream(side):
+            dst.copy_(t, non_blocking=True)
+        t.record_stream(side)  # a gathered copy may be freed meanwhile
+    if side is not None:
+        done = torch.cuda.Event()
+        done.record(side)
+        torch.cuda.current_stream(device).wait_stream(side)
+    return _Staged(buffer, offset, entries, done)
 
 
 def _fsync(path):
@@ -79,38 +142,26 @@ def _fsync(path):
         os.close(fd)
 
 
-def write_tree(path, tree, force=True):
-    """Write ``tree`` (nested dicts / lists of tensors) as a checkpoint
-    directory at ``path``, atomically; returns the data bytes. An
-    existing checkpoint there is replaced only with ``force``."""
+def _write_staged(path, staged):
+    """Write a staged tree as a checkpoint directory at ``path``,
+    atomically, replacing one there: the data, then the index (the seal),
+    each fsynced, in a temporary sibling renamed into place. Waits for the
+    staging copies first. Returns the data bytes."""
     path = os.path.abspath(str(path))
-    if os.path.exists(path) and not force:
-        raise FileExistsError(f"checkpoint {path} exists (force=False)")
+    if staged.done is not None:
+        staged.done.synchronize()
     parent = os.path.dirname(path)
     os.makedirs(parent, exist_ok=True)
     tmp = f"{path}.tmp-{os.getpid()}-{time.monotonic_ns()}"
     os.makedirs(tmp)
     try:
-        entries, offset = [], 0
         with open(os.path.join(tmp, ARRAYS), "wb") as f:
-            for p, leaf in flatten_with_path(tree)[0]:
-                arr = _host_bytes(leaf)
-                pad = -offset % _ALIGN
-                f.write(b"\0" * pad)
-                offset += pad
-                f.write(memoryview(arr.reshape(-1)).cast("B"))
-                entries.append({
-                    "path": path_to_name(p),
-                    "dtype": manifest_mod.dtype_name(torch.as_tensor(
-                        leaf).dtype),
-                    "shape": [int(s) for s in arr.shape],
-                    "offset": offset, "nbytes": int(arr.nbytes)})
-                offset += arr.nbytes
+            f.write(memoryview(staged.buffer.numpy())[:staged.nbytes])
             f.flush()
             os.fsync(f.fileno())
         with open(os.path.join(tmp, INDEX), "w") as f:
             json.dump({"format": FORMAT, "version": FORMAT_VERSION,
-                       "nbytes": offset, "leaves": entries}, f)
+                       "nbytes": staged.nbytes, "leaves": staged.entries}, f)
             f.flush()
             os.fsync(f.fileno())
         if os.path.exists(path):
@@ -124,7 +175,16 @@ def write_tree(path, tree, force=True):
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
-    return offset
+    return staged.nbytes
+
+
+def write_tree(path, tree, force=True):
+    """Write ``tree`` (nested dicts / lists of tensors) as a checkpoint
+    directory at ``path``, atomically, before returning; returns the data
+    bytes. An existing checkpoint there is replaced only with ``force``."""
+    if os.path.exists(os.path.abspath(str(path))) and not force:
+        raise FileExistsError(f"checkpoint {path} exists (force=False)")
+    return _write_staged(path, _stage(tree))
 
 
 def read_tree(path):
@@ -301,7 +361,19 @@ class CheckpointManager:
     ``save_interval_steps``, never when it is not past the latest saved
     step, and only the newest ``max_to_keep`` steps are kept (None: all).
     A forced save of an existing step writes nothing (returns False).
-    Saves are synchronous (``wait_until_finished`` returns at once).
+
+    Saves are asynchronous, as orbax's: :meth:`save` converts the state to
+    its checkpoint form (a collective on several ranks), and the chief
+    copies it into one host staging buffer laid out as ``arrays.bin``
+    (pinned, reused by later saves; the copies run on a side stream that
+    the training stream then waits for on the device) and returns. A
+    writer thread writes the buffer, the index and the manifest to a
+    temporary sibling, fsyncs, renames, and only then removes the steps
+    pruned by ``max_to_keep``. :meth:`wait_until_finished` blocks until
+    that is durable (and then meets the other ranks at a barrier); a
+    second save, a restore and :meth:`close` wait first. A write that
+    failed raises from the wait that follows it. A process that dies
+    mid-write leaves only a temporary directory, never a step.
     """
 
     def __init__(self, runner, directory=None, save_interval_steps=100,
@@ -318,6 +390,10 @@ class CheckpointManager:
         self._steps = sorted(int(d) for d in os.listdir(self._dir)
                              if d.isdigit() and
                              os.path.isdir(os.path.join(self._dir, d)))
+        self._buffer = None      # the staging buffer, reused by each save
+        self._writer = None      # the pending save's thread
+        self._error = None       # what the pending save raised
+        self._unsynced = False   # a save since the last barrier
 
     @property
     def directory(self):
@@ -343,44 +419,64 @@ class CheckpointManager:
         return os.path.join(self._dir, manifest_mod.manifest_name(step))
 
     def save(self, step, state, force=False):
-        """Save ``state`` as ``step`` when :meth:`should_save` says so (or
-        ``force``); returns whether a checkpoint was written."""
+        """Start saving ``state`` as ``step`` when :meth:`should_save` says
+        so (or ``force``); returns whether a checkpoint was started. The
+        write goes on after this returns (:meth:`wait_until_finished`)."""
         step = int(step)
         if not force and not self.should_save(step):
             return False
         if step in self._steps:
             return False
+        self.wait_until_finished()  # one write at a time: it owns the buffer
         tree, logical = _logical_tree(self._runner, state)
-        if manifest_mod.is_chief():
-            retry_call(write_tree, self._step_dir(step), tree,
-                       is_retryable=transient_runtime_error,
-                       describe=f"checkpoint save (step {step})")
-            if logical is not None:
-                manifest_mod.write_manifest(self._runner, step,
-                                            self._manifest_path(step),
-                                            logical)
         self._steps = sorted(self._steps + [step])
-        self._prune()
-        _barrier()
+        pruned = self._prune()
+        self._unsynced = True
+        if manifest_mod.is_chief():
+            staged = _stage(tree, self._buffer)
+            self._buffer = staged.buffer
+            manifest = None if logical is None else \
+                manifest_mod.build_manifest(self._runner, step, logical)
+            self._writer = threading.Thread(
+                target=self._write, args=(step, staged, manifest, pruned),
+                name=f"checkpoint-step-{step}")
+            self._writer.start()
         return True
 
-    def _prune(self):
-        """Drop the oldest steps beyond ``max_to_keep`` (chief: their
-        directories and manifests)."""
-        if self._max_to_keep is None:
-            return
-        while len(self._steps) > self._max_to_keep:
-            step = self._steps.pop(0)
-            if manifest_mod.is_chief():
-                shutil.rmtree(self._step_dir(step), ignore_errors=True)
+    def _write(self, step, staged, manifest, pruned):
+        """The writer thread: the step made durable, then its manifest,
+        then the pruned steps removed. What it raises is kept for
+        :meth:`wait_until_finished`."""
+        try:
+            retry_call(_write_staged, self._step_dir(step), staged,
+                       is_retryable=transient_runtime_error,
+                       describe=f"checkpoint save (step {step})")
+            if manifest is not None:
+                manifest_mod.store_manifest(manifest,
+                                            self._manifest_path(step))
+            for old in pruned:
+                shutil.rmtree(self._step_dir(old), ignore_errors=True)
                 try:
-                    os.remove(self._manifest_path(step))
+                    os.remove(self._manifest_path(old))
                 except OSError:  # hygiene only, never kill a save
                     pass
+        except BaseException as e:  # noqa: BLE001 - raised by the wait
+            self._error = (step, pruned, e)
+
+    def _prune(self):
+        """Drop the oldest steps beyond ``max_to_keep`` from the list;
+        returns them (the writer removes the chief's directories and
+        manifests once the new step is durable)."""
+        pruned = []
+        if self._max_to_keep is not None:
+            while len(self._steps) > self._max_to_keep:
+                pruned.append(self._steps.pop(0))
+        return pruned
 
     def restore_params(self, step=None):
         """Params-only restore of a managed step (default: the latest) as
         a tree of CPU tensors, without touching or needing the optimizer."""
+        self.wait_until_finished()
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -392,7 +488,22 @@ class CheckpointManager:
         return _params_subtree(raw)
 
     def wait_until_finished(self):
-        """Saves are synchronous: nothing is pending."""
+        """Block until the pending save is durable (its data, index and
+        manifest fsynced and renamed into place), then meet the other
+        ranks at a barrier. Raises what the write raised; its step is then
+        not listed, and the steps it would have pruned are again."""
+        writer, self._writer = self._writer, None
+        if writer is not None:
+            writer.join()
+        failed, self._error = self._error, None
+        if failed is not None:
+            step, pruned, error = failed
+            self._steps = sorted({s for s in self._steps if s != step} |
+                                 set(pruned))
+            raise error
+        if self._unsynced:
+            self._unsynced = False
+            _barrier()
 
     def restore_or_init(self, into=None):
         """Resume from the newest INTACT checkpoint, or create fresh state.
@@ -407,6 +518,7 @@ class CheckpointManager:
         into (``Runner.from_logical``); with no step restorable it is reset
         to the captured params with no optimizer state."""
         from autodist_tpu_torch import resilience
+        self.wait_until_finished()
         steps = self.all_steps()
         for step in reversed(steps):
             man = manifest_mod.read_manifest(self._manifest_path(step))

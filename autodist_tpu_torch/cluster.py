@@ -6,7 +6,9 @@ Counterpart of ``autodist_tpu/cluster.py``. Two kinds of mesh:
   ``torch.distributed`` world, NCCL when this rank's device is a CUDA
   device, gloo when it is the CPU, and :meth:`Cluster.build_mesh` lays the
   named axes over its ranks with ``init_device_mesh``, one device per
-  rank. The ``data`` axis's process group carries the gradient reduction;
+  rank. The ``data`` axis's process group carries the gradient reduction
+  (the ``data`` x ``seq`` group's, :meth:`Mesh.group_over`, under
+  sequence parallelism), and the ``seq`` axis's the ring's hops;
 * a **local mesh** (serving): with no world started, ``build_mesh`` names
   the devices of this one process, as in slice 1; a replica places on one
   of them.
@@ -54,6 +56,7 @@ class Mesh:
         self.shape = dict(zip(self.axis_names, self.devices.shape))
         self.device_mesh = device_mesh
         self._local_device = local_device
+        self._groups = {}  # sorted axes -> the process group over them
 
     @property
     def size(self):
@@ -99,6 +102,35 @@ class Mesh:
         if self.device_mesh is None:
             return None
         return self.device_mesh.get_group(axis)
+
+    def group_over(self, axes):
+        """The process group of the ranks that share this rank's place on
+        every axis but ``axes`` (a rank mesh; None on a local mesh): the
+        data x seq group over which a sequence-parallel step averages its
+        gradients. One axis is :meth:`group`; axes that span the mesh are
+        the world; otherwise every rank builds every such group once
+        (``new_group`` is collective), on the first call, which every rank
+        makes."""
+        axes = tuple(a for a in self.axis_names if a in axes)
+        if self.device_mesh is None:
+            return None
+        if len(axes) == 1:
+            return self.group(axes[0])
+        if axes not in self._groups:
+            if math.prod(self.shape[a] for a in axes) == self.size:
+                self._groups[axes] = dist.group.WORLD
+            else:
+                dims = [self.axis_names.index(a) for a in axes]
+                rows = np.moveaxis(self.devices, dims,
+                                   range(-len(dims), 0))
+                rows = rows.reshape(-1, math.prod(self.shape[a]
+                                                  for a in axes))
+                me = dist.get_rank()
+                for ranks in rows:
+                    group = dist.new_group([int(r) for r in ranks])
+                    if me in ranks:
+                        self._groups[axes] = group
+        return self._groups[axes]
 
     def __repr__(self):
         return f"Mesh({self.shape})"

@@ -20,6 +20,14 @@ and the proto round-trip (``graphitem_pb2``).
 """
 import numpy as np
 import torch
+# A TorchDispatchMode's first use imports torch._dynamo, and that import
+# leaves a frame that refers to itself (``torch.fx.wrap`` keeps
+# ``inspect.currentframe()`` in a local) and, through ``f_back``, to every
+# frame that called it: the first capture of a process and the runner its
+# caller goes on to build would stay alive until the cyclic collector ran,
+# and on the card with them the runner's CUDA graph pools. Imported here,
+# the chain holds only module frames.
+import torch._dynamo  # noqa: F401
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from autodist_tpu_torch.utils import logging

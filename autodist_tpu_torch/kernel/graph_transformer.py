@@ -4,8 +4,8 @@ Counterpart of ``autodist_tpu/kernel/graph_transformer.py``: the program
 carries one ``Synchronizer`` per trainable variable (its placement specs
 and its gradient reduction), whether any of them needs the explicit
 (sharded-state / stale) gradient path, each parameter's placement, the
-optimizer state's specs, the padding plan of uneven shards, and the
-batch's data-axis split.
+optimizer state's specs, the padding plan of uneven shards, the batch's
+data-axis split, and the parallel context the loss runs in.
 """
 import math
 import os
@@ -48,6 +48,24 @@ class DistributedProgram:
         self.mesh = mesh
         self.synchronizers = synchronizers  # {var_name: Synchronizer}
         self.use_explicit_path = use_explicit_path
+        self._parallel_context = None
+
+    def parallel_context(self):
+        """The :class:`~autodist_tpu_torch.parallel.context.ParallelContext`
+        this strategy prescribes (its GraphConfig's ``seq_attn`` on this
+        mesh), which the Runner activates around the loss."""
+        if self._parallel_context is None:
+            from autodist_tpu_torch.parallel.context import ParallelContext
+            gc = self.strategy.graph_config
+            self._parallel_context = ParallelContext(
+                mesh=self.mesh, seq_attn=gc.seq_attn,
+                pipeline_microbatches=gc.pipeline_microbatches,
+                op_shardings=dict(gc.op_shardings))
+        return self._parallel_context
+
+    @property
+    def seq_axis_size(self):
+        return self.mesh.shape.get(const.MESH_AXIS_SEQ, 1)
 
     def _spec_tree(self, spec_of):
         return tree_map_with_path(

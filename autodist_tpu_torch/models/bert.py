@@ -26,8 +26,18 @@ def init(cfg, generator=None, device="cuda"):
 
 
 def make_loss_fn(cfg, attn_fn=None):
-    """Masked-LM loss. batch = (ids, segment_ids, mlm_positions, mlm_labels)."""
+    """Masked-LM loss. batch = (ids, segment_ids, mlm_positions, mlm_labels).
+    Not under sequence parallelism: the masked positions index the whole
+    sequence, which no rank of a seq group holds (ROADMAP.md, Queue A item
+    10(f))."""
     def loss_fn(params, batch):
+        from autodist_tpu_torch.parallel import context
+        if context.chunk(attn_fn, batch[0].shape[1]) is not None:
+            raise NotImplementedError(
+                "BERT's masked-LM loss under SequenceParallel is not ported "
+                "to autodist_tpu_torch yet (ROADMAP.md, Queue A item "
+                "10(f)): its masked positions index the whole sequence, "
+                "and each rank encodes its chunk")
         ids, seg, positions, labels = batch
         hidden = T.encode(params, cfg, ids, segment_ids=seg, attn_fn=attn_fn)
         index = positions.long()[..., None].expand(-1, -1, hidden.shape[-1])

@@ -27,11 +27,21 @@ def init(cfg, generator=None, device="cuda"):
 
 def make_loss_fn(cfg, attn_fn=None):
     """Next-token loss. batch = (tokens,): inputs tokens[:, :-1], targets
-    tokens[:, 1:]."""
+    tokens[:, 1:]. Under sequence parallelism ``encode`` gives this rank's
+    chunk of the sequence, and the targets are cut to the same chunk
+    (``parallel.context.chunk`` decides both): the loss is the rank's
+    token mean, whose mean over the seq group (the Runner's) is the whole
+    sequence's because the chunks are equal (``chunk`` raises
+    otherwise)."""
     def loss_fn(params, batch):
+        from autodist_tpu_torch.parallel import context
         (tokens,) = batch if isinstance(batch, (tuple, list)) else (batch,)
         hidden = T.encode(params, cfg, tokens[:, :-1], attn_fn=attn_fn)
-        return L.softmax_xent(T.logits(params, cfg, hidden), tokens[:, 1:])
+        targets = tokens[:, 1:]
+        span = context.chunk(attn_fn, targets.shape[1])
+        if span is not None:
+            targets = targets[:, span[0]:span[0] + span[1]]
+        return L.softmax_xent(T.logits(params, cfg, hidden), targets)
     return loss_fn
 
 

@@ -3,9 +3,9 @@
 Counterpart of ``autodist_tpu/models/transformer.py``, with the same param
 scopes (``layer<i>/attn/{query,key,value,out}``, ``layer<i>/mlp/{up,down}``).
 Ported: ``TransformerConfig``, ``block_init``, ``init``, ``block_apply``,
-``encode``, ``logits`` and the KV-cache decode functions ``init_cache``,
-``block_decode`` and ``decode_step``. The stacked-blocks layout and the
-sequence-parallel attention hook are not ported yet (ROADMAP.md).
+``encode`` (with the sequence-parallel attention hook), ``logits`` and
+the KV-cache decode functions ``init_cache``, ``block_decode`` and
+``decode_step``. The stacked-blocks layout is not ported yet (ROADMAP.md).
 """
 import torch
 import torch.nn.functional as F
@@ -72,24 +72,41 @@ def init(cfg, generator=None, device="cuda"):
 def encode(params, cfg, ids, segment_ids=None, attn_fn=None):
     """Token ids (batch, seq) -> final hidden states (batch, seq, dim).
 
-    With no explicit ``attn_fn`` every layer's attention is the flash
-    forward (``ops/flash_attention.py``), its causality positional; a head
-    dim or dtype the kernels do not take goes to the dense attention
-    instead (``make_flash_attn_fn``). An explicit ``attn_fn`` receives the
-    boolean causal mask, as in the JAX package.
+    With no explicit ``attn_fn`` the strategy's attention comes first
+    (``parallel.context.resolve_attn``: ``SequenceParallel``'s ring or
+    Ulysses attention); then this rank encodes only its chunk of the
+    sequence (``parallel.context.chunk``: its ids, positions and
+    segments), every activation seq-local, and returns
+    (batch, seq / P, dim). Otherwise
+    every layer's attention is the flash forward
+    (``ops/flash_attention.py``), its causality positional; a head dim or
+    dtype the kernels do not take goes to the dense attention instead
+    (``make_flash_attn_fn``). An explicit ``attn_fn`` receives the boolean
+    causal mask, as in the JAX package.
     """
     s = ids.shape[1]
-    # Embedding sum in f32; cast to the compute dtype after all three.
-    x = L.embed(params["embed"], ids) + params["pos_embed"][:s]
-    if cfg.num_segments and segment_ids is not None:
-        x = x + params["seg_embed"][segment_ids]
-    x = x.to(cfg.dtype)
+    off = 0
     if attn_fn is None:
-        from autodist_tpu_torch.ops.flash_attention import make_flash_attn_fn
-        attn_fn = make_flash_attn_fn(causal=cfg.causal)
+        from autodist_tpu_torch.parallel import context
+        span = context.chunk(None, s)
+        if span is not None:
+            off, s = span
+            attn_fn = context.resolve_attn(causal=cfg.causal)
+            ids = ids[:, off:off + s]
+            if segment_ids is not None:
+                segment_ids = segment_ids[:, off:off + s]
+        else:
+            from autodist_tpu_torch.ops.flash_attention import \
+                make_flash_attn_fn
+            attn_fn = make_flash_attn_fn(causal=cfg.causal)
         mask = None
     else:
         mask = L.causal_mask(s, device=ids.device) if cfg.causal else None
+    # Embedding sum in f32; cast to the compute dtype after all three.
+    x = L.embed(params["embed"], ids) + params["pos_embed"][off:off + s]
+    if cfg.num_segments and segment_ids is not None:
+        x = x + params["seg_embed"][segment_ids]
+    x = x.to(cfg.dtype)
     for i in range(cfg.num_layers):
         x = block_apply(params[f"layer{i}"], x, cfg, mask=mask,
                         attn_fn=attn_fn)

@@ -15,9 +15,10 @@ them. :func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`
 launch their kernel for a CUDA tensor and run the plain version for any
 other (the CPU tests; shape-only tracing on ``meta``).
 :func:`flash_attention` is the ``torch.autograd.Function`` over them, the
-counterpart of the JAX package's ``custom_vjp``. Ring attention's
-``block_attn_fwd`` / ``block_attn_bwd`` / ``combine_blocks`` wait for
-sequence parallelism (ROADMAP.md).
+counterpart of the JAX package's ``custom_vjp``. Ring attention's hop
+(``parallel/ring_attention.py``) runs :func:`block_attn_fwd` /
+:func:`block_attn_bwd` (the same kernels at global offsets, f32 outputs)
+and merges hops with :func:`combine_blocks`.
 """
 import ctypes
 import math
@@ -323,6 +324,64 @@ def flash_bwd(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0,
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, q_offset,
                            k_offset, out_dtype)
     return dq, dk, dv
+
+
+# -- ring attention's per-hop compute ---------------------------------------
+
+
+def block_attn_fwd(q, k, v, causal, q_offset, k_offset):
+    """One attention block: (o f32, lse f32 (b, h, sq, 1)) of the local q
+    against a visiting k/v block whose rows and columns sit at the global
+    offsets ``q_offset`` / ``k_offset`` (host ints: each hop is its own
+    launch). The counterpart of ``autodist_tpu/ops/flash_attention.py:377``:
+    the forward kernel with f32 o (one launch, counted on ``launches``) on
+    a CUDA tensor, the plain version elsewhere. A row with no visible key
+    gets o = 0 and lse = -1e30 (a finite sentinel :func:`combine_blocks`
+    weighs as nothing), a wholly masked block included: the kernel runs it
+    and writes the sentinel, it is not skipped. On the card, q/k/v the
+    kernels do not take (:func:`kernel_takes`) raise, as
+    :func:`flash_fwd` does; off the card they go to the plain version, as
+    the JAX package sends them to its dense path."""
+    if q.device.type != "cuda" and not kernel_takes(q, k, v):
+        return flash_fwd_reference(q, k, v, causal, q_offset, k_offset,
+                                   torch.float32)
+    out = flash_fwd(q, k, v, causal, q_offset, k_offset,
+                    out_dtype=torch.float32)
+    if q.device.type == "cuda":
+        cuda_graph.count_launch(block_attn_fwd)
+    return out
+
+
+def block_attn_bwd(q, k, v, do, lse, delta, causal, q_offset, k_offset):
+    """One block's (dq, dk, dv) in f32 against the GLOBAL lse and delta
+    (FlashAttention-2's cross-block form: p = exp(s - lse) are the true
+    probabilities though the block is one hop of a longer ring), the
+    counterpart of ``autodist_tpu/ops/flash_attention.py:397``: the two
+    backward kernels with f32 gradients on a CUDA tensor (``launches``
+    counts one per call, i.e. per hop: a dq and a dk/dv launch), the plain
+    version elsewhere. A masked entry contributes exactly 0. q/k/v the
+    kernels do not take raise on the card, as in :func:`block_attn_fwd`."""
+    if q.device.type != "cuda" and not kernel_takes(q, k, v):
+        return flash_bwd_reference(q, k, v, do.to(q.dtype), lse, delta,
+                                   causal, q_offset, k_offset)
+    out = flash_bwd(q, k, v, do, lse, delta, causal, q_offset, k_offset,
+                    out_dtype=torch.float32)
+    if q.device.type == "cuda":
+        cuda_graph.count_launch(block_attn_bwd)
+    return out
+
+
+block_attn_fwd.launches = 0
+block_attn_bwd.launches = 0
+
+
+def combine_blocks(o_a, lse_a, o_b, lse_b):
+    """Merge two finalized attention partials (o, lse) -> (o, lse) by
+    log-sum-exp reweighting (``autodist_tpu/ops/flash_attention.py:408``).
+    An empty partial (lse = -1e30) gets weight ~0 with no NaN path: the
+    sentinel is finite."""
+    lse = torch.logaddexp(lse_a, lse_b)
+    return o_a * torch.exp(lse_a - lse) + o_b * torch.exp(lse_b - lse), lse
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -32,6 +32,16 @@ One step, on every rank:
    ``t % (s + 1) == s`` the mean of each stale parameter over the group;
 5. the loss's mean over the data group.
 
+Under sequence parallelism (a ``seq`` axis, ``SequenceParallel``) the
+loss runs inside the program's parallel context (``parallel/context.py``),
+so the model's attention takes the ring or Ulysses hook and each rank
+computes its chunk of the sequence; the ``ar`` gradients and the loss
+are then averaged over the data x seq group, and the other kinds take a
+mean over the seq group before their data-axis lowering. The ranks of one
+seq group must be fed one batch: an eager step compares their batches
+(one all-gather over the seq group) and raises on a mismatch. The graph
+paths refuse a seq axis (their capture of the ring is ROADMAP item A15).
+
 Uneven dims are stored padded (``DistributedProgram.paddings``): the
 compute view cuts the logical rows out and the padded rows take zero
 gradients; :meth:`Runner.logical_params` gives the logical tree.
@@ -89,6 +99,7 @@ from autodist_tpu_torch.kernel.synchronization.all_reduce_synchronizer import \
     reduce_bucket
 from autodist_tpu_torch.kernel.synchronization.compressor import \
     all_reduce_mean_
+from autodist_tpu_torch.parallel import context as parallel_context
 from autodist_tpu_torch.remapper import Remapper
 from autodist_tpu_torch.utils import cuda_graph, logging
 from autodist_tpu_torch.utils.device import resolve_device
@@ -182,6 +193,14 @@ class Runner:
             if self._periods else 1
         self._shards = weakref.WeakKeyDictionary()  # optimizer -> zero1
         self._graphs = {}  # megastep graphs by block structure and phase
+        # Under a seq axis the seq group shares batch rows: gradients and
+        # the loss average over data x seq.
+        self._seq_group = None
+        self._grad_group = self._mesh.group()
+        if program.seq_axis_size > 1:
+            self._seq_group = self._mesh.group(const.MESH_AXIS_SEQ)
+            self._grad_group = self._mesh.group_over(
+                (const.MESH_AXIS_DATA, const.MESH_AXIS_SEQ))
 
     @staticmethod
     def _mask_non_trainable(item):
@@ -454,7 +473,9 @@ class Runner:
     def _sync_gradients(self, grads):
         """Reduce ``grads`` ({name: gradient of the stored leaf}) over the
         data group, by kind; a ``zero1`` gradient is replaced by this
-        rank's shard of the mean. A one-device local mesh (no process
+        rank's shard of the mean. Under a seq axis the ``ar`` buckets
+        reduce over the data x seq group and every other kind first takes
+        its mean over the seq group. A one-device local mesh (no process
         group) has nothing to reduce."""
         group = self._mesh.group()
         if group is None:
@@ -462,15 +483,46 @@ class Runner:
         syncs = self._program.synchronizers
         for bucket in self._buckets:
             if len(bucket) > 1:
-                reduce_bucket([grads[n] for n in bucket], group)
+                reduce_bucket([grads[n] for n in bucket], self._grad_group)
             else:
-                syncs[bucket[0]].sync_gradient(grads[bucket[0]], group)
+                syncs[bucket[0]].sync_gradient(grads[bucket[0]],
+                                               self._grad_group)
         n = self._program.data_axis_size
         for name, (kind, dim) in self._kinds.items():
+            if kind != "ar" and self._seq_group is not None:
+                all_reduce_mean_(grads[name], self._seq_group)
             if kind == "zero1":
                 grads[name] = _reduce_scatter(grads[name], dim, group).div_(n)
             elif kind == "fsdp":  # born reduce-scattered (the sum)
                 grads[name].div_(n)
+
+    def _check_seq_batch(self, batch):
+        """Raise unless every rank of this rank's seq group holds this
+        batch, shapes and bytes (two all-gathers over the seq group: the
+        lengths, then the bytes). Attention over mismatched sequences
+        would train on neither."""
+        flat = [torch.as_tensor(l).detach() for l in leaves(batch)]
+        device = flat[0].device if flat else self._remapper.device
+        shapes = torch.tensor([d for t in flat for d in (t.dim(),) +
+                               tuple(t.shape)], dtype=torch.int64)
+        mine = torch.cat([shapes.to(device).view(torch.uint8)] + [
+            t.contiguous().reshape(-1).view(torch.uint8) for t in flat])
+        group, p = self._seq_group, self._program.seq_axis_size
+        length = torch.tensor([mine.numel()], dtype=torch.int64,
+                              device=device)
+        lengths = length.new_empty(p)
+        dist.all_gather_into_tensor(lengths, length, group=group)
+        same = bool((lengths == length).all())
+        if same:
+            everyone = mine.new_empty(p * mine.numel())
+            dist.all_gather_into_tensor(everyone, mine, group=group)
+            same = bool((everyone.view(p, -1) == mine).all())
+        if not same:
+            raise ValueError(
+                "autodist_tpu_torch: the ranks of a seq group were fed "
+                "different batches; under sequence parallelism every rank "
+                "of a seq group takes the same batch (each computes its "
+                "chunk of the sequence)")
 
     def _finish_update(self, params, shards, step):
         """After the optimizer: each ``zero1`` shard all-gathered into its
@@ -495,7 +547,8 @@ class Runner:
         the step's count (only its phase in the staleness period
         matters). No host bookkeeping."""
         item = self._item
-        out = item.loss_fn(self._compute_view(params), batch)
+        with parallel_context.use(self._program.parallel_context()):
+            out = item.loss_fn(self._compute_view(params), batch)
         loss, aux = out if item.aux_output else (out, None)
         named = self._trainable_leaves(params)
         grads = torch.autograd.grad(loss, [t for _, t in named],
@@ -512,8 +565,8 @@ class Runner:
         opt.zero_grad(set_to_none=True)
         self._finish_update(params, shards, step)
         loss = loss.detach().float().clone()
-        if self._mesh.group() is not None:
-            all_reduce_mean_(loss, self._mesh.group())
+        if self._grad_group is not None:
+            all_reduce_mean_(loss, self._grad_group)
         metrics = {"loss": loss, "notfinite": torch.logical_not(
             torch.isfinite(loss))}
         if aux is not None:
@@ -529,6 +582,8 @@ class Runner:
         return TrainState(state.step + k, state.params, state.opt_state)
 
     def _step(self, state, batch):
+        if self._seq_group is not None:
+            self._check_seq_batch(batch)
         metrics = self._core(state.params, state.opt_state, batch,
                              int(state.step))
         return self._advance(state, 1), metrics
@@ -796,6 +851,12 @@ class _GraphStep:
         "callable (make_callable(batch, aot=True)) for a new state.")
 
     def __init__(self, runner, example, k=None):
+        if runner.program.seq_axis_size > 1:
+            raise NotImplementedError(
+                "autodist_tpu_torch: a sequence-parallel step runs eagerly: "
+                "capturing the ring's hops in a CUDA graph is not ported "
+                "yet (ROADMAP.md, Queue A item 15); use step() or "
+                "run(unroll=1)")
         self._runner = runner
         self.k = k
         flat, self._treedef = flatten(example)

@@ -12,10 +12,12 @@ from autodist_tpu_torch.strategy.ps_strategy import PS  # noqa: F401
 from autodist_tpu_torch.strategy.random_axis_partition_all_reduce_strategy \
     import RandomAxisPartitionAR  # noqa: F401
 from autodist_tpu_torch.strategy.registry import builder_from_name  # noqa: F401
+from autodist_tpu_torch.strategy.sequence_parallel_strategy import \
+    SequenceParallel  # noqa: F401
 from autodist_tpu_torch.strategy.uneven_partition_ps_strategy import \
     UnevenPartitionedPS  # noqa: F401
 
 __all__ = ["Strategy", "StrategyBuilder", "StrategyCompiler", "PS",
            "PSLoadBalancing", "PartitionedPS", "UnevenPartitionedPS",
            "AllReduce", "PartitionedAR", "RandomAxisPartitionAR", "Parallax",
-           "builder_from_name"]
+           "SequenceParallel", "builder_from_name"]

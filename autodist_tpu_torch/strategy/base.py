@@ -81,6 +81,32 @@ class Strategy:
         return str(self._proto)
 
 
+def carve_mesh_axis(strategy, resource_spec, axis_name, size):
+    """Carve ``axis_name: size`` out of a strategy's data axis
+    (``autodist_tpu/strategy/base.py:106-132``): every other axis the base
+    builder or the spec declared stays, and ``data`` shrinks so that the
+    axes still cover the device count."""
+    if size < 1:
+        raise ValueError(f"mesh axis {axis_name!r} must have size >= 1, "
+                         f"got {size}")
+    axes = dict(strategy.graph_config.mesh_axes)
+    n = len(resource_spec.accelerator_devices)
+    other = 1
+    for name, sz in axes.items():
+        if name not in (const.MESH_AXIS_DATA, axis_name):
+            other *= sz
+    if n % (size * other) != 0:
+        raise ValueError(
+            f"{axis_name} axis {size} x other axes {other} does not divide "
+            f"device count {n}")
+    axes[axis_name] = size
+    axes[const.MESH_AXIS_DATA] = n // (size * other)
+    strategy.graph_config.mesh_axes.clear()
+    for name, sz in axes.items():
+        strategy.graph_config.mesh_axes[name] = sz
+    return strategy
+
+
 class StrategyBuilder(ABC):
     """Policy that maps (GraphItem, ResourceSpec) -> Strategy."""
 

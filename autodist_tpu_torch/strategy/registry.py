@@ -15,17 +15,20 @@ from autodist_tpu_torch.strategy.ps_lb_strategy import PSLoadBalancing
 from autodist_tpu_torch.strategy.ps_strategy import PS
 from autodist_tpu_torch.strategy.random_axis_partition_all_reduce_strategy \
     import RandomAxisPartitionAR
+from autodist_tpu_torch.strategy.sequence_parallel_strategy import \
+    SequenceParallel
 from autodist_tpu_torch.strategy.uneven_partition_ps_strategy import \
     UnevenPartitionedPS
 
 BUILDERS = (AllReduce, PS, PSLoadBalancing, PartitionedPS,
             UnevenPartitionedPS, PartitionedAR, RandomAxisPartitionAR,
-            Parallax)
+            Parallax, SequenceParallel)
 _ALIASES = {"ps_lb": PSLoadBalancing, "all_reduce": AllReduce,
             "partitioned_ps": PartitionedPS,
             "uneven_partitioned_ps": UnevenPartitionedPS,
             "partitioned_ar": PartitionedAR,
-            "random_axis_ar": RandomAxisPartitionAR}
+            "random_axis_ar": RandomAxisPartitionAR,
+            "sequence_parallel": SequenceParallel}
 # Names the JAX package resolves that the port does not build yet.
 _NOT_PORTED = {
     "auto": "the tuner (ROADMAP.md, Queue A item 12)",
@@ -33,8 +36,6 @@ _NOT_PORTED = {
     "automap": "Automap (ROADMAP.md, Queue A item 12)",
     "modelparallel": "ModelParallel (ROADMAP.md, Queue A item 10)",
     "model_parallel": "ModelParallel (ROADMAP.md, Queue A item 10)",
-    "sequenceparallel": "SequenceParallel (ROADMAP.md, Queue A item 10)",
-    "sequence_parallel": "SequenceParallel (ROADMAP.md, Queue A item 10)",
     "pipeline": "Pipeline (ROADMAP.md, Queue A item 10)",
 }
 

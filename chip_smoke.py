@@ -140,12 +140,33 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    its emergency step 4 and exits with 128 + 15; this process resumes from
    it for 4 more steps; (e) the params restored from the checkpoint serve
    through ``serve.Server`` (bucket 8 x 512), bitwise the trained params'
-   eager forward. Flash launches: 12 a layer's step on every BERT path;
-10. output: one ``{"kernels": [...]}`` JSON line, then the last line
+   eager forward; (f) the graph step around an asynchronous
+   ``CheckpointManager.save`` (the save call, the graphs after it,
+   ``wait_until_finished``) beside a synchronous ``Saver.save``, the saved
+   step bitwise the state at the save. Flash launches: 12 a layer's step
+   on every BERT path;
+10. sequence parallelism: (a) in one process, a causal ring of 4 hops of
+   4096 over a global sequence of 16384 at lm1b's attention width (b 2,
+   h 16, d 64, bf16): every hop's ``block_attn_fwd`` / ``block_attn_bwd``
+   against its plain version (wholly masked hops exactly o = 0, lse =
+   -1e30, gradients 0), the ring's o, dq, dk and dv against one
+   ``flash_attention`` call over the whole sequence (the tolerance between
+   the ring's reading and a dropped hop's), and the hop kernels timed at
+   the diagonal and at a fully visible hop beside their plain versions,
+   SDPA (causal / non-causal) and the bound; (b) two gloo ranks on the
+   card train an LM at lm1b's widths (2 layers, max_len 4096, batch 2 x
+   4096, SGD 0.1) under ``SequenceParallel("ring")`` and ``("ulysses")``
+   through ``AutoDist`` -> ``Runner.step``, each rank its half of the
+   sequence: losses and the update held to one rank's ``AllReduce()``
+   steps over the whole sequence, each tolerance between that run again
+   and a block-diagonal fault, the ranks' params bitwise equal, and each
+   layer's launches of the hop and flash kernels counted;
+11. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 import copy
 import functools
+import itertools
 import json
 import os
 import re
@@ -292,6 +313,31 @@ RESIL_INTERVAL, RESIL_CHECK, RESIL_NAN_AT, RESIL_UNROLL = 4, 2, 5, 2
 RESUME_RTOL, RESUME_UPDATE_RTOL = 2e-4, 0.2
 PREEMPT_AT = 4
 GUARD_COST_STEPS = 20
+# (f), the save stall: K-step graphs timed before and after a save.
+SAVE_STALL_STEPS = 5
+
+# Phase 10, sequence parallelism. (a) One process emulates a ring of
+# SP_HOPS ranks over a global causal sequence at lm1b's attention width
+# (b, h, s, d = SP_SHAPE, bf16): every hop's block_attn_fwd / _bwd against
+# its plain version (the phase 2 tolerances: f32 o at O_F32_ATOL, lse at
+# LSE_ATOL, dq / dk at BWD_REL_DQDK_BF16 and dv at BWD_REL_DV_BF16 of the
+# max), then the ring's o, dq, dk and dv against one flash_attention call
+# over the whole sequence, relative to each one's max |value|: both round
+# to bf16 once at the end (2^-8 relative), the ring summing its hops in
+# f32 in another order. SP_RING_REL must lie between the ring's reading
+# and a planted fault (one hop dropped). (b) SP_WORLD gloo ranks (processes
+# of this script) on the one card train lm1b's widths at SP_LAYERS layers
+# and max_len SP_MAX_LEN on SP_BATCH x SP_MAX_LEN tokens, SGD SP_LR, under
+# SequenceParallel("ring") and ("ulysses"), each rank its half of the
+# sequence; their losses and update are held to one rank's AllReduce()
+# steps over the whole sequence at SP_LOSS_RTOL / SP_UPDATE_RTOL, each
+# between the floor (that run again) and a planted fault (each rank's
+# attention local to its chunk: block-diagonal).
+SP_SHAPE, SP_HOPS = (2, 16, 16384, 64), 4
+SP_RING_REL = 1e-2
+SP_WORLD, SP_LAYERS, SP_MAX_LEN, SP_BATCH = 2, 2, 4096, 2
+SP_STEPS, SP_LR = 3, 0.1
+SP_LOSS_RTOL, SP_UPDATE_RTOL = 2e-4, 5e-2
 
 
 def check(cond, msg):
@@ -2997,6 +3043,81 @@ def guard_cost(torch, card, runner, batches, device):
     return rows
 
 
+def save_stall(torch, card, runner, batches, device, directory):
+    """(f) The graph step around an asynchronous save. A K-step graph's
+    median over ``SAVE_STALL_STEPS``; then twice (the first save allocates
+    the pinned staging buffer, the second reuses it) the host-inclusive
+    time of ``CheckpointManager.save`` (it returns once the copy into
+    pinned memory is queued) followed by one graph, which waits on the
+    device for that copy: its excess over the median is the stall. The
+    graphs after it run while the writer thread writes, and
+    ``wait_until_finished`` is timed at the end; beside them a synchronous
+    ``Saver.save`` of the same state. Each saved step must be bitwise the
+    state as it was at its save, though the state took steps during the
+    write."""
+    from autodist_tpu_torch.checkpoint import CheckpointManager, Saver
+    state = runner.create_state()
+    data = itertools.cycle([runner.remapper.shard_batch(b) for b in batches])
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def graph():
+        nonlocal state
+        state, _ = runner.megastep(state, runner._next_block(
+            data, RESIL_UNROLL))
+
+    def timed_graph():
+        return _timed(torch, device, graph)[1]
+    for _ in range(2):
+        graph()  # capture, then one replay
+    median = float(np.median([timed_graph()
+                              for _ in range(SAVE_STALL_STEPS)]))
+    mgr = CheckpointManager(runner, os.path.join(directory, "stall"),
+                            save_interval_steps=None)
+    rows = []
+    for _ in range(2):
+        want = {k: t.clone() for k, t in
+                _logical_named(runner, state).items()}
+        step = int(state.step)
+        sync()
+        t0 = time.perf_counter()
+        mgr.save(step, state, force=True)
+        t1 = time.perf_counter()
+        graph()
+        sync()
+        t2 = time.perf_counter()
+        after = [timed_graph() for _ in range(SAVE_STALL_STEPS)]
+        _, wait_ms = _timed(torch, device, mgr.wait_until_finished)
+        diff = _same(torch, _raw_named(os.path.join(directory, "stall",
+                                                    str(step))), want)
+        check(not diff, f"(f): the async save of step {step} differs from "
+              f"the state at the save in {diff[:5]}")
+        rows.append({"save_ms": (t1 - t0) * 1e3,
+                     "stall_ms": (t2 - t0) * 1e3 - median,
+                     "after_ms": after, "wait_ms": wait_ms})
+    path = os.path.join(directory, "stall-sync")
+    _, sync_ms = _timed(torch, device, lambda: Saver(runner).save(state,
+                                                                  path))
+    print(f"  (f) save stall, BERT graph step (unroll={RESIL_UNROLL}), "
+          f"host-inclusive ms: a graph {median:.3f} (median of "
+          f"{SAVE_STALL_STEPS}); " + "; ".join(
+              f"save {i + 1}"
+              f"{' (allocates the pinned buffer)' if i == 0 else ''}: "
+              f"CheckpointManager.save returned in {r['save_ms']:.3f}, "
+              f"with the graph after it {r['stall_ms']:.3f} over the median"
+              f" (the stall), the next graphs "
+              f"{', '.join(f'{x:.3f}' for x in r['after_ms'])}, then "
+              f"wait_until_finished {r['wait_ms']:.3f}"
+              for i, r in enumerate(rows)) +
+          f"; a synchronous Saver.save {sync_ms:.3f}; each step read back "
+          f"bitwise the state at its save; on {card}", flush=True)
+    check(device != "cuda" or max(r["stall_ms"] for r in rows) < sync_ms,
+          f"(f): a save stalls the step {rows}, a synchronous save takes "
+          f"{sync_ms} ms")
+    shutil.rmtree(os.path.join(directory, "stall"))
+    shutil.rmtree(path)
+    return {"graph_ms": median, "saves": rows, "sync_save_ms": sync_ms}
+
+
 def resilience_serve(torch, fa, card, cfg, device, params, want, request):
     """(e): params restored from a checkpoint serve through
     ``serve.Server`` (bucket 8 x seq): the answer bitwise the eager
@@ -3073,6 +3194,7 @@ def resilience_phase(torch, fa, card, cfg, resnet_cfg, device, batch_size=32,
                                 seg, device=device)).float().cpu()
         del state
         guard_cost(torch, card, runner, batches, device)
+        save_stall(torch, card, runner, batches, device, tmp.name)
         runner = None
         rbatches = [resnet.synthetic_batch(resnet_batch, image,
                                            resnet_cfg.num_classes, seed=s)
@@ -3145,6 +3267,432 @@ def resilience_phase(torch, fa, card, cfg, resnet_cfg, device, batch_size=32,
     return paths
 
 
+# Phase 10: sequence parallelism.
+
+def _ring_counts(fa, reset=False):
+    """Launch counts of the flash kernels and of the hop wrappers."""
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+               fa.block_attn_fwd, fa.block_attn_bwd)
+    if reset:
+        for k in kernels:
+            k.launches = 0
+    return {k.__name__: k.launches for k in kernels}
+
+
+def ring_emulated(torch, fa, q, k, v, do, hops, drop=None):
+    """The ring of ``hops`` ranks over q/k/v/do (b, h, s, d), in one
+    process: rank r holds chunk r; at hop t it attends to chunk r - t
+    (``block_attn_fwd`` at the global offsets, merged by
+    ``combine_blocks``), and the backward accumulates each chunk's dk / dv
+    in the order the ring carries it (hop by hop). ``drop`` = (r, t) skips
+    that hop of rank r, forward and backward (the planted fault). Returns
+    (o, dq, dk, dv) in q's dtype."""
+    s = q.shape[2] // hops
+    qs, ks, vs, dos = (x.split(s, dim=2) for x in (q, k, v, do))
+    o = [torch.zeros(qs[0].shape, dtype=torch.float32, device=q.device)
+         for _ in range(hops)]
+    lse = [torch.full(qs[0].shape[:3] + (1,), -1e30, device=q.device)
+           for _ in range(hops)]
+    for t in range(hops):
+        for r in range(hops):
+            j = (r - t) % hops
+            if (r, t) != drop:
+                ob, lb = fa.block_attn_fwd(qs[r], ks[j], vs[j], True, r * s,
+                                           j * s)
+                o[r], lse[r] = fa.combine_blocks(o[r], lse[r], ob, lb)
+    delta = [(d * x).sum(-1, keepdim=True) for d, x in zip(dos, o)]
+    dq = [torch.zeros_like(x) for x in o]
+    dk = [torch.zeros_like(x) for x in o]
+    dv = [torch.zeros_like(x) for x in o]
+    for t in range(hops):
+        for r in range(hops):
+            j = (r - t) % hops
+            if (r, t) != drop:
+                g = fa.block_attn_bwd(qs[r], ks[j], vs[j], dos[r], lse[r],
+                                      delta[r], True, r * s, j * s)
+                dq[r] += g[0]
+                dk[j] += g[1]
+                dv[j] += g[2]
+    return [torch.cat(x, dim=2).to(q.dtype) for x in (o, dq, dk, dv)]
+
+
+def ring_kernel_phase(torch, fa):
+    """Phase 10 (a): the hop functions on the card at lm1b's width, each
+    hop against its plain version, the emulated ring against one
+    whole-sequence flash_attention call (forward and backward), between
+    its reading and a dropped hop; then the hop kernels timed at the
+    diagonal hop and at a fully visible one. Returns the two records."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    bf16, f32 = torch.bfloat16, torch.float32
+    b, h, seq, d = SP_SHAPE
+    s = seq // SP_HOPS
+    q, k, v, do = (torch.randn(SP_SHAPE, generator=gen, device=dev,
+                               dtype=bf16) for _ in range(4))
+    print(f"phase 10 (a): ring attention's hops, b{b} h{h} d{d} bf16 causal,"
+          f" a global sequence of {seq} as {SP_HOPS} hops of {s}", flush=True)
+    errs = {"block_attn_fwd": 0.0, "block_attn_bwd": 0.0}
+    qs, ks, vs, dos = (x.split(s, dim=2) for x in (q, k, v, do))
+    # Every (rank, chunk) block, with the global lse and delta the ring
+    # would hold: the whole sequence's, from one forward.
+    o_all, lse_all = fa.flash_fwd(q, k, v, True, out_dtype=f32)
+    delta_all = (do * o_all).sum(-1, keepdim=True)
+    lses = [x.contiguous() for x in lse_all.split(s, dim=2)]
+    deltas = [x.contiguous() for x in delta_all.split(s, dim=2)]
+    for r in range(SP_HOPS):
+        for j in range(SP_HOPS):
+            masked = j > r
+            args = (qs[r], ks[j], vs[j], True, r * s, j * s)
+            o_b, lse_b = fa.block_attn_fwd(*args)
+            o_p, lse_p = fa.flash_fwd_reference(*args, out_dtype=f32)
+            err_o = (o_b - o_p).abs().max().item()
+            err_l = (lse_b - lse_p).abs().max().item()
+            check(bool(torch.isfinite(o_b).all()) and err_o <= O_F32_ATOL
+                  and err_l <= LSE_ATOL, f"(a) block ({r}, {j}): o off by "
+                  f"{err_o}, lse by {err_l}")
+            bargs = (qs[r], ks[j], vs[j], dos[r], lses[r], deltas[r], True,
+                     r * s, j * s)
+            got = fa.block_attn_bwd(*bargs)
+            ref = fa.flash_bwd_reference(*bargs)
+            line = []
+            for label, g, want in zip(("dq", "dk", "dv"), got, ref):
+                tol = BWD_REL_DV_BF16 if label == "dv" else BWD_REL_DQDK_BF16
+                err = (g - want).abs().max().item()
+                scale = want.abs().max().item()
+                check(bool(torch.isfinite(g).all()) and
+                      err <= tol * max(scale, 1e-30), f"(a) block ({r}, "
+                      f"{j}): {label} off by {err} (max {scale})")
+                line.append(f"{label} {err:.2e}")
+                errs["block_attn_bwd"] = max(errs["block_attn_bwd"], err)
+            errs["block_attn_fwd"] = max(errs["block_attn_fwd"], err_o)
+            if masked:
+                check(not o_b.any() and bool((lse_b == -1e30).all()) and
+                      not any(g.any() for g in got), f"(a) the wholly "
+                      f"masked block ({r}, {j}) is not o = 0, lse = -1e30, "
+                      f"gradients 0")
+            print(f"  block (q chunk {r}, k chunk {j})"
+                  f"{' wholly masked' if masked else ''}: max|kernel-plain| "
+                  f"o {err_o:.2e}, lse {err_l:.2e}, " + ", ".join(line),
+                  flush=True)
+            del o_p, lse_p, ref
+    del o_all, lse_all, delta_all
+    # The ring against one whole-sequence call of the kernels.
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    whole_o = fa.flash_attention(*leaves, causal=True)
+    whole = [whole_o] + list(torch.autograd.grad(whole_o, leaves, do))
+    ring = ring_emulated(torch, fa, q, k, v, do, SP_HOPS)
+    fault = ring_emulated(torch, fa, q, k, v, do, SP_HOPS, drop=(2, 1))
+
+    def rel(a, w):
+        return ((a.float() - w.float()).abs().max() /
+                w.float().abs().max()).item()
+    names = ("o", "dq", "dk", "dv")
+    reading = {n: rel(a, w) for n, a, w in zip(names, ring, whole)}
+    planted = {n: rel(a, w) for n, a, w in zip(names, fault, whole)}
+    for n in names:
+        print(f"  the ring's {n} vs one flash_attention call over the whole "
+              f"sequence: {reading[n]:.3e} of the max < tolerance "
+              f"{SP_RING_REL} < the ring with hop 1 of rank 2 dropped "
+              f"{planted[n]:.3e}", flush=True)
+        check(reading[n] <= SP_RING_REL < planted[n], f"(a) the ring's {n}:"
+              f" reading {reading[n]}, fault {planted[n]}, tolerance "
+              f"{SP_RING_REL}")
+    del whole, ring, fault, leaves, whole_o
+
+    records = []
+    for name, tpu_line, source in (
+            ("block_attn_fwd", 377, "autodist_tpu_torch/csrc/flash_fwd.cu"),
+            ("block_attn_bwd", 397, "autodist_tpu_torch/csrc/flash_bwd.cu")):
+        record = {"name": name, "route": "cuda", "source": source,
+                  "replaces": f"autodist_tpu/ops/flash_attention.py:"
+                              f"{tpu_line}",
+                  "tpu_kernel": name,
+                  "design": "a wrapper over the flash kernels with f32 "
+                            "outputs at the hop's global offsets (one hop a "
+                            "launch; the backward a dq and a dk/dv launch)",
+                  "shape": [b, h, s, d], "max_abs_err": errs[name]}
+        for hop, (r, j) in (("diagonal", (1, 1)), ("visible", (2, 0))):
+            frac = (s + 1) / (2 * s) if r == j else 1.0
+            pairs = float(b * h * s * s) * frac
+            if name == "block_attn_fwd":
+                args = (qs[r], ks[j], vs[j], True, r * s, j * s)
+                kern = timed(torch, lambda: fa.block_attn_fwd(*args))
+                plain = timed(torch, lambda: fa.flash_fwd_reference(
+                    *args, out_dtype=f32))
+                lib = timed(torch, lambda: sdpa(qs[r], ks[j], vs[j],
+                                                is_causal=r == j))
+                flops = 4.0 * pairs * d
+                nbytes = 3 * qs[r].numel() * 2 + qs[r].numel() * 4 + \
+                    b * h * s * 4
+            else:
+                bargs = (qs[r], ks[j], vs[j], dos[r], lses[r], deltas[r],
+                         True, r * s, j * s)
+                kern = timed(torch, lambda: fa.block_attn_bwd(*bargs))
+                plain = timed(torch, lambda: fa.flash_bwd_reference(*bargs))
+                sl = [x.detach().clone().requires_grad_()
+                      for x in (qs[r], ks[j], vs[j])]
+                out = sdpa(*sl, is_causal=r == j)
+                lib = timed(torch, lambda: torch.autograd.grad(
+                    out, sl, dos[r], retain_graph=True))
+                # The function's work: five GEMMs a (q, k) pair (S
+                # recomputed once, dP, dV, dQ, dK). The split kernels
+                # recompute S and dP in each (6 + 8): that is not charged.
+                flops = 10.0 * pairs * d
+                nbytes = 4 * qs[r].numel() * 2 + 2 * b * h * s * 4 + \
+                    3 * qs[r].numel() * 4
+            bnd = bound(flops, nbytes)
+            print(f"  {name}, the {hop} hop (q chunk {r}, k chunk {j}): "
+                  f"device ms per call {kern['ms']:.4f}, host-inclusive "
+                  f"{kern['host_ms']:.4f}; plain {plain['ms']:.4f}; SDPA "
+                  f"({'causal' if r == j else 'non-causal'}"
+                  f"{', backward' if name == 'block_attn_bwd' else ''}) "
+                  f"{lib['ms']:.4f}; bound {bnd[0]:.4f} ({bnd[1]}: "
+                  f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB); bound / "
+                  f"kernel {bnd[0] / kern['ms']:.3f}; launches per call: "
+                  f"{kernel_names(kern)}", flush=True)
+            key = "" if hop == "diagonal" else "visible_"
+            record.update({key + "ms": kern["ms"],
+                           key + "host_ms": kern["host_ms"],
+                           key + "plain_ms": plain["ms"],
+                           key + "library_ms": lib["ms"],
+                           key + "bound_ms": bnd[0],
+                           key + "bound_by": bnd[1]})
+        record["library"] = ("scaled_dot_product_attention, causal for the "
+                             "diagonal hop, non-causal for visible_*")
+        records.append(record)
+    return records
+
+
+def sp_train_rank(rank, world, port, spec):
+    """One rank of :func:`sp_phase`: a gloo world over ``localhost`` on
+    device 0; the LM of ``spec`` trains ``SP_STEPS`` eager SGD steps under
+    SequenceParallel("ring"), ("ulysses") and the ring with each rank's
+    attention local to its chunk (the planted fault). Prints {run: losses,
+    launches, mesh, update error against the reference, ms per step,
+    params digest}."""
+    import datetime
+    import hashlib
+    import importlib
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.ops import build
+    from autodist_tpu_torch.ops import flash_attention as fa
+    ra = importlib.import_module("autodist_tpu_torch.parallel.ring_attention")
+    spec = json.loads(spec)
+    device = spec["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build.load_all()  # built by the parent: the same sources and flags
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    cfg = T.TransformerConfig(**dict(spec["config"], dtype=getattr(
+        torch, spec["dtype"])))
+    params, init = _lm_init(torch, cfg, device)
+    tokens = sp_tokens(cfg, spec["batch"], spec["seq"])
+    ref = torch.load(spec["ref"], map_location=device)
+    out = {"rank": rank}
+    real = ra.ring_attention
+    for key, attn in (("ring", "ring"), ("ulysses", "ulysses"),
+                      ("local", "ring")):
+        if key == "local":  # each rank attends within its own chunk
+            ra.ring_attention = (lambda q, k, v, group=None, causal=False:
+                                 fa.flash_attention(q, k, v, causal))
+        try:
+            losses, times, launches, mesh, final = _lm_train(
+                torch, fa, cfg, device,
+                S.SequenceParallel(attn=attn, seq_axis=world), params,
+                tokens, spec["steps"], spec["lr"])
+        finally:
+            ra.ring_attention = real
+        digest = hashlib.sha256()
+        for name, t in sorted(final.items()):
+            digest.update(t.detach().float().cpu().numpy().tobytes())
+        out[key] = {"losses": losses, "launches": launches, "ms": times,
+                    "mesh": mesh,
+                    "update_error": update_error(torch, final, ref, init),
+                    "digest": digest.hexdigest()}
+        del final
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def sp_tokens(cfg, batch, seq):
+    """The seeded (batch, seq + 1) token ids every run of phase 10 (b)
+    trains on."""
+    import torch
+    rng = np.random.RandomState(0)
+    return torch.from_numpy(rng.randint(0, cfg.vocab, (batch, seq + 1)))
+
+
+def _lm_train(torch, fa, cfg, device, builder, params, tokens, steps, lr):
+    """``steps`` eager SGD steps of the LM under ``builder`` from
+    ``params`` (the runner copies them): (losses, host ms per step,
+    launches of the flash kernels and hop wrappers over the steps, the
+    runner's program mesh, the final logical params by name)."""
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.models import lm
+    autodist_mod._reset_default()
+    ad = AutoDist(strategy_builder=builder, device=device)
+    runner = ad.create_distributed_session(ad.capture(
+        lm.make_loss_fn(cfg), params,
+        functools.partial(torch.optim.SGD, lr=lr), example_batch=(tokens,)))
+    state = runner.create_state()
+    _ring_counts(fa, reset=True)  # this run's main path
+    losses, times = [], []
+    for _ in range(steps):
+        (state, m), ms = _timed(torch, device, lambda: runner.step(
+            state, (tokens,)))
+        losses.append(float(m["loss"]))
+        times.append(ms)
+    launches = _ring_counts(fa)
+    final = flatten_params(runner.logical_params(state))
+    mesh = dict(runner.program.mesh.shape)
+    autodist_mod._reset_default()
+    return losses, times, launches, mesh, final
+
+
+def _lm_init(torch, cfg, device):
+    """The LM's seeded params, and a copy of them by name."""
+    from autodist_tpu_torch.models import lm
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device=device)
+    return params, {n: t.detach().clone()
+                    for n, t in flatten_params(params).items()}
+
+
+def sp_phase(torch, fa, card, device, vocab=32000, dim=1024, heads=16,
+             layers=SP_LAYERS, max_len=SP_MAX_LEN, batch=SP_BATCH,
+             steps=SP_STEPS):
+    """Phase 10 (b): ``SP_WORLD`` gloo ranks (processes of this script) on
+    the one card train the LM under SequenceParallel("ring") and
+    ("ulysses") through AutoDist -> Runner.step, each rank its chunk of the
+    sequence; losses and the whole update are held to one rank's
+    AllReduce() steps over the whole sequence (tolerances between that run
+    again and the block-diagonal fault), the ranks' params must agree
+    bitwise, and every layer launches the kernels its attention needs.
+    Returns {path: launches summed over the ranks}."""
+    import socket
+    import tempfile
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.ops import build
+    cfg = T.TransformerConfig(vocab=vocab, dim=dim, num_heads=heads,
+                              num_layers=layers, max_len=max_len,
+                              causal=True, dtype=torch.bfloat16)
+    seq = max_len
+    tokens = sp_tokens(cfg, batch, seq)
+    print(f"phase 10 (b): {SP_WORLD} gloo ranks on one device, an LM at "
+          f"lm1b's widths (vocab {vocab}, dim {dim}, {heads} heads), "
+          f"{layers} layers, batch {batch} x {seq} tokens ({seq // SP_WORLD}"
+          f" a rank), SGD {SP_LR}, {steps} eager steps under "
+          f"SequenceParallel('ring') and ('ulysses') vs one rank's "
+          f"AllReduce() over the whole sequence", flush=True)
+    params, init = _lm_init(torch, cfg, device)
+    ref = _lm_train(torch, fa, cfg, device, S.AllReduce(), params, tokens,
+                    steps, SP_LR)
+    again = _lm_train(torch, fa, cfg, device, S.AllReduce(), params, tokens,
+                      steps, SP_LR)
+    del params
+    for name, n in ref[2].items():
+        want = 0 if name.startswith("block") else layers * steps
+        check(n == want, f"(b) one rank: {name} launched {n} times")
+    floor_loss = _rel(again[0], ref[0])
+    floor_update = update_error(torch, again[4], ref[4], init)
+    check(all(np.isfinite(ref[0])) and ref[0][-1] < ref[0][0],
+          f"(b) one rank's losses {ref[0]}")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
+    ref_path = os.path.join(tmp.name, "ref.pt")
+    torch.save({n: t.detach().cpu() for n, t in ref[4].items()}, ref_path)
+    ref_losses, ref_ms = ref[0], ref[1]
+    del ref, again, init
+    fields = {k: v for k, v in vars(cfg).items() if k != "dtype"}
+    spec = json.dumps({"device": device, "config": fields,
+                       "dtype": str(cfg.dtype).split(".")[-1], "seq": seq,
+                       "batch": batch, "steps": steps, "lr": SP_LR,
+                       "ref": ref_path})
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sp-train", str(r),
+         str(SP_WORLD), str(port), spec], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(SP_WORLD)]
+    ranks = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            check(p.returncode == 0, f"an SP rank exited with "
+                  f"{p.returncode}: {err[-3000:]}")
+            ranks.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        tmp.cleanup()
+    got = {key: [r[key] for r in ranks] for key in ("ring", "ulysses",
+                                                     "local")}
+    fault_loss = _rel(got["local"][0]["losses"], ref_losses)
+    fault_update = got["local"][0]["update_error"]
+    print(f"  one rank AllReduce() over the whole sequence: losses "
+          f"{', '.join(f'{x:.6f}' for x in ref_losses)}, ms per step "
+          f"{', '.join(f'{x:.1f}' for x in ref_ms)}; floor (the run again): "
+          f"loss {floor_loss:.3e}, update {floor_update:.3e}; planted "
+          f"fault (attention local to each rank's chunk): loss "
+          f"{fault_loss:.3e}, update {fault_update:.3e}", flush=True)
+    paths, readings = {}, {}
+    for key in ("ring", "ulysses"):
+        runs = got[key]
+        losses = runs[0]["losses"]
+        rel = _rel(losses, ref_losses)
+        err = runs[0]["update_error"]
+        print(f"  SequenceParallel('{key}') on {SP_WORLD} ranks (mesh "
+              f"{runs[0]['mesh']}): losses "
+              f"{', '.join(f'{x:.6f}' for x in losses)}; max rel. diff "
+              f"{rel:.3e} (tol {SP_LOSS_RTOL}); update error {err:.3e} (tol "
+              f"{SP_UPDATE_RTOL}); ms per step "
+              f"{', '.join(f'{x:.1f}' for x in runs[0]['ms'])}; params "
+              f"equal on every rank: "
+              f"{len({r['digest'] for r in runs}) == 1}; launches per rank "
+              f"{runs[0]['launches']}", flush=True)
+        readings[key] = (rel, err)
+    for what, tol, floor, fault, i in (
+            ("loss", SP_LOSS_RTOL, floor_loss, fault_loss, 0),
+            ("update", SP_UPDATE_RTOL, floor_update, fault_update, 1)):
+        check(floor < tol < fault, f"(b) the {what} tolerance {tol} does not"
+              f" lie between the floor {floor} and the fault {fault}")
+        for key, got_key in readings.items():
+            check(got_key[i] <= tol, f"(b) {key}: the {what} reads "
+                  f"{got_key[i]} (tolerance {tol})")
+    for key, per_layer in (("ring", SP_WORLD), ("ulysses", 1)):
+        runs = got[key]
+        losses = runs[0]["losses"]
+        check(all(r["losses"] == losses for r in runs),
+              f"{key}: the ranks' losses differ")
+        check(len({r["digest"] for r in runs}) == 1,
+              f"{key}: the ranks' params differ")
+        check(all(r["mesh"] == {"data": 1, "seq": SP_WORLD} for r in runs),
+              f"{key}: mesh {runs[0]['mesh']}")
+        want = {"flash_fwd": layers * steps * per_layer,
+                "flash_bwd_dq": layers * steps * per_layer,
+                "flash_bwd_dkv": layers * steps * per_layer,
+                "block_attn_fwd": layers * steps * SP_WORLD * (key == "ring"),
+                "block_attn_bwd": layers * steps * SP_WORLD * (key == "ring")}
+        for r in runs:
+            check(r["launches"] == want, f"{key}: launches {r['launches']}, "
+                  f"expected {want}")
+        paths[f"sp_gloo{SP_WORLD}_{key}"] = {
+            k: sum(r["launches"][k] for r in runs) for k in want}
+    return paths
+
+
 def main():
     import torch
     if len(sys.argv) > 1 and sys.argv[1] == "--gloo-train":
@@ -3152,6 +3700,8 @@ def main():
                                sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--preempt-train":
         return preempt_train_child(sys.argv[2], sys.argv[3])
+    if len(sys.argv) > 1 and sys.argv[1] == "--sp-train":
+        return sp_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA card", file=sys.stderr)
@@ -3204,6 +3754,8 @@ def main():
                                    bert.bert_base(max_len=128), "cuda"))
     zoo.update(resilience_phase(torch, fa, card, bert.bert_base(max_len=512),
                                 resnet.resnet50(), "cuda"))
+    hops = ring_kernel_phase(torch, fa)
+    zoo.update(sp_phase(torch, fa, card, "cuda"))
     fwd["launches"] = served + trained["flash_fwd"]
     fwd["launches_by_path"] = {"serve": served,
                                "train": trained["flash_fwd"],
@@ -3217,10 +3769,15 @@ def main():
         record["launches_by_path"].update(
             {path: counts[record["name"]] for path, counts in zoo.items()})
         record["other_routes"] = routes[record["name"]]
+    for record in hops:  # their main path: the ring's steps in phase 10
+        record["launches"] = zoo[f"sp_gloo{SP_WORLD}_ring"][record["name"]]
+        record["launches_by_path"] = {
+            path: counts.get(record["name"], 0)
+            for path, counts in zoo.items()}
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - start:.1f}s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [fwd] + bwd}), flush=True)
+    print(json.dumps({"kernels": [fwd] + bwd + hops}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -215,25 +215,51 @@ def test_format_reads_with_numpy_alone(tmp_path):
 
 def test_writes_are_atomic(tmp_path, monkeypatch):
     """A save that fails mid-write leaves no checkpoint (and no temporary
-    directory) behind, and an existing checkpoint at the path untouched."""
+    directory) behind, and an existing checkpoint at the path untouched:
+    the data file torn halfway through its write, and the data written
+    whole but failing its fsync (the seal's first step)."""
     runner, batch = _port()
     state, _ = _train(runner, batch, runner.create_state(), steps=1)
     Saver(runner).save(state, tmp_path / "ckpt")
     before = _named(Saver().restore_raw(tmp_path / "ckpt"))
-    calls = []
+    torn = []
 
-    def failing(t):
-        calls.append(1)
-        if len(calls) > 2:
+    class TornData:
+        """``arrays.bin`` opened for writing: half the buffer reaches the
+        file, then the disk is full."""
+
+        def __init__(self, f):
+            self.f = f
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            self.f.close()
+
+        def write(self, data):
+            data = memoryview(data).cast("B")
+            torn.append(self.f.write(data[:data.nbytes // 2]))
+            self.f.flush()
             raise OSError("disk full")  # not a transient error: no retry
-        return real(t)
-    real = saver_mod._host_bytes
-    monkeypatch.setattr(saver_mod, "_host_bytes", failing)
+
+    def torn_open(path, mode="r", *args, **kwargs):
+        f = open(path, mode, *args, **kwargs)
+        return TornData(f) if os.path.basename(path) == saver_mod.ARRAYS \
+            else f
+
+    def failing_fsync(fd):
+        raise OSError("disk full")
+
     state, _ = runner.step(state, batch)
-    for name in ("ckpt", "fresh"):
-        calls.clear()
-        with pytest.raises(OSError, match="disk full"):
-            Saver(runner).save(state, tmp_path / name)
+    for module, name, fault in ((saver_mod, "open", torn_open),
+                                (saver_mod.os, "fsync", failing_fsync)):
+        monkeypatch.setattr(module, name, fault, raising=False)
+        for path in ("ckpt", "fresh"):
+            with pytest.raises(OSError, match="disk full"):
+                Saver(runner).save(state, tmp_path / path)
+        monkeypatch.undo()
+    assert len(torn) == 2 and all(n > 0 for n in torn), torn
     assert sorted(os.listdir(tmp_path)) == ["ckpt", "ckpt.manifest.json"]
     _assert_bitwise(_named(Saver().restore_raw(tmp_path / "ckpt")), before)
     with pytest.raises(FileExistsError):
@@ -242,6 +268,112 @@ def test_writes_are_atomic(tmp_path, monkeypatch):
 
 
 # -- the manager --------------------------------------------------------------
+
+def test_manager_save_returns_before_the_write_is_durable(tmp_path,
+                                                          monkeypatch):
+    """``CheckpointManager.save`` stages the state and returns while its
+    writer thread still writes; ``wait_until_finished`` blocks until the
+    step is durable; the step then restores bitwise the state as it was at
+    the save, though the live state took a step since (the staging copy is
+    the save's own)."""
+    import threading
+    import time
+    runner, batch = _port()
+    state, _ = _train(runner, batch, runner.create_state(), steps=2)
+    want = {k: v.clone() for k, v in _logical(runner, state).items()}
+    mgr = CheckpointManager(runner, tmp_path / "mgr", save_interval_steps=1)
+    gate = threading.Event()
+    real = os.fsync
+
+    def held(fd):
+        gate.wait(timeout=5)
+        real(fd)
+    monkeypatch.setattr(saver_mod.os, "fsync", held)
+    assert mgr.save(2, state)
+    pending = not gate.is_set() and not (tmp_path / "mgr" / "2").exists()
+    state, _ = runner.step(state, batch)  # the live tensors change
+    waiter = threading.Thread(target=mgr.wait_until_finished)
+    waiter.start()
+    time.sleep(0.3)
+    waited = waiter.is_alive()
+    gate.set()
+    waiter.join(timeout=60)
+    assert pending, "save() returned only after the write was durable"
+    assert waited, "wait_until_finished() did not wait for the write"
+    assert not waiter.is_alive()
+    assert (tmp_path / "mgr" / "2" / saver_mod.INDEX).exists()
+    assert (tmp_path / "mgr" / "manifest-2.json").exists()
+    monkeypatch.undo()
+    got = _named(Saver().restore_raw(tmp_path / "mgr" / "2"))
+    _assert_bitwise(got, want)
+    assert int(mgr.restore_or_init().step) == 2
+    mgr.close()
+
+
+def test_manager_second_save_waits_and_failures_raise(tmp_path, monkeypatch):
+    """A second save waits for the first write; a write that fails raises
+    from the wait that follows it, and its step is not listed."""
+    runner, batch = _port()
+    state, _ = _train(runner, batch, runner.create_state(), steps=1)
+    mgr = CheckpointManager(runner, tmp_path / "mgr", save_interval_steps=1,
+                            max_to_keep=1)
+    assert mgr.save(1, state)
+    state, _ = runner.step(state, batch)
+    assert mgr.save(2, state)   # waits for step 1, prunes it once 2 is durable
+    mgr.wait_until_finished()
+    assert sorted(os.listdir(tmp_path / "mgr")) == ["2", "manifest-2.json"]
+
+    def failing(fd):
+        raise OSError("disk full")
+    monkeypatch.setattr(saver_mod.os, "fsync", failing)
+    state, _ = runner.step(state, batch)
+    assert mgr.save(3, state)
+    with pytest.raises(OSError, match="disk full"):
+        mgr.wait_until_finished()
+    monkeypatch.undo()
+    assert mgr.all_steps() == [2]
+    assert sorted(os.listdir(tmp_path / "mgr")) == ["2", "manifest-2.json"]
+    mgr.close()
+
+
+_CRASH = r'''
+import functools, os, sys
+sys.path.insert(0, sys.argv[2])
+import test_torch_checkpoint as t
+from autodist_tpu_torch.checkpoint import CheckpointManager
+runner, batch = t._port()
+state, _ = t._train(runner, batch, runner.create_state(), steps=1)
+mgr = CheckpointManager(runner, sys.argv[1], save_interval_steps=1)
+mgr.save(1, state)
+mgr.wait_until_finished()
+state, _ = runner.step(state, batch)
+os.fsync = lambda fd: os._exit(3)  # the process dies mid-write
+mgr.save(2, state)
+mgr.wait_until_finished()
+'''
+
+
+def test_a_crash_mid_write_leaves_no_step(tmp_path):
+    """A process killed while its writer thread writes step 2 leaves step
+    2 as a temporary directory only: a new manager lists step 1 alone and
+    resumes from it."""
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("RANK", "WORLD_SIZE", "MASTER_"))}
+    env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    done = subprocess.run([sys.executable, "-c", _CRASH,
+                           str(tmp_path / "mgr"), tests], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert done.returncode == 3, done.stderr[-3000:]
+    assert any(".tmp-" in f for f in os.listdir(tmp_path / "mgr"))
+    runner, _ = _port()
+    mgr = CheckpointManager(runner, tmp_path / "mgr", save_interval_steps=1)
+    assert mgr.all_steps() == [1]
+    assert int(mgr.restore_or_init().step) == 1
+    assert not any(k == "ckpt-fallback" for _, k, _ in resilience.events())
+    mgr.close()
+
+
 
 def test_checkpoint_manager_resume(tmp_path):
     runner, batch = _port()

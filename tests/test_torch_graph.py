@@ -16,6 +16,7 @@ tests drive (``device="cpu"``). The JAX side runs on its 8-device CPU mesh.
   through the bucket graphs' plain path.
 """
 import functools
+import json
 import types
 
 import numpy as np
@@ -458,17 +459,50 @@ def _graph_owners(kind):
     return None, graphs
 
 
-@pytest.mark.parametrize("kind", ["runner", "replica"])
+# A fresh process builds its first runner with the cyclic collector off and
+# prints whether every graph owner died with the last reference to it.
+_FIRST_RUNNER = r'''
+import gc, json, sys, weakref
+sys.path.insert(0, sys.argv[1])
+import test_torch_graph as t
+gc.disable()
+owner, graphs = t._graph_owners("runner")
+refs = [weakref.ref(o) for o in [owner] + graphs]
+del owner, graphs
+t.autodist_mod._reset_default()
+print(json.dumps([r() is None for r in refs]))
+'''
+
+
+@pytest.mark.parametrize("kind", ["runner", "replica", "first_runner"])
 def test_dropped_owners_free_their_graphs_without_the_collector(kind):
     """A graph's function refers to its owner weakly (``cuda_graph.
     weak_call``), and a closed serving replica releases its bucket graphs,
     so a dropped runner's graphs and a closed server's, and on the card
     their memory pools, are freed by reference counting alone: a later
     capture does not run out of memory behind a reference cycle that the
-    cyclic collector has not reached yet."""
+    cyclic collector has not reached yet. ``first_runner``: the first
+    runner of a fresh process, whose capture is the first to import
+    torch's lazily imported modules (in a subprocess, so that this
+    worker's earlier tests cannot have imported them already)."""
     import gc
+    import os
+    import subprocess
+    import sys
     import weakref
-    _graph_owners(kind)  # torch's lazy imports keep the first caller's frames
+    if kind == "first_runner":
+        tests = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(tests),
+                   OMP_NUM_THREADS="1")
+        env = {k: v for k, v in env.items()
+               if not k.startswith(("RANK", "WORLD_SIZE", "MASTER_"))}
+        done = subprocess.run([sys.executable, "-c", _FIRST_RUNNER, tests],
+                              env=env, capture_output=True, text=True,
+                              timeout=120)
+        assert done.returncode == 0, done.stderr[-3000:]
+        freed = json.loads(done.stdout.strip().splitlines()[-1])
+        assert len(freed) >= 2 and all(freed), freed
+        return
     autodist_mod._reset_default()
     gc.collect()
     gc.disable()
