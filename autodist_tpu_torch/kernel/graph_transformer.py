@@ -29,13 +29,18 @@ class Placement(NamedTuple):
     over the data axis (None: whole); ``index``: this process's place on
     the data axis, its piece along ``dim`` (None where ``device`` is);
     ``shards``: the pieces along ``dim`` (1: whole); ``padding``:
-    ``(dim, logical, padded)`` of padded storage, or None.
+    ``(dim, logical, padded)`` of padded storage, or None; ``model_dim``,
+    ``model_index``, ``model_shards``: the same for a split over the
+    ``model`` axis (kind ``tp``).
     """
     device: Any
     dim: Any
     index: Any
     shards: int
     padding: Any
+    model_dim: Any = None
+    model_index: Any = None
+    model_shards: int = 1
 
 
 class DistributedProgram:
@@ -53,15 +58,25 @@ class DistributedProgram:
     def parallel_context(self):
         """The :class:`~autodist_tpu_torch.parallel.context.ParallelContext`
         this strategy prescribes (its GraphConfig's ``seq_attn`` on this
-        mesh), which the Runner activates around the loss."""
+        mesh, and the ``tp`` variables that reach the Megatron layers as
+        their pieces), which the Runner activates around the loss."""
         if self._parallel_context is None:
             from autodist_tpu_torch.parallel.context import ParallelContext
+            from autodist_tpu_torch.parallel.sharding_rules import \
+                megatron_pieces
             gc = self.strategy.graph_config
+            split = {name: dim for name, (kind, dim) in
+                     self.var_kinds().items() if kind == "tp"}
             self._parallel_context = ParallelContext(
                 mesh=self.mesh, seq_attn=gc.seq_attn,
                 pipeline_microbatches=gc.pipeline_microbatches,
-                op_shardings=dict(gc.op_shardings))
+                op_shardings=dict(gc.op_shardings),
+                pieces=megatron_pieces(self.synchronizers, split))
         return self._parallel_context
+
+    @property
+    def model_axis_size(self):
+        return self.mesh.shape.get(const.MESH_AXIS_MODEL, 1)
 
     @property
     def seq_axis_size(self):
@@ -95,6 +110,11 @@ class DistributedProgram:
         * ``zero1``: a PS variable whose optimizer state is split along
           ``dim``: the gradient is reduce-scattered onto this rank's
           state shard, the shard updated, the parameter all-gathered;
+        * ``tp``: the parameter split over the ``model`` axis along
+          ``dim`` (``ModelParallel``): each rank of a model group stores
+          its piece, which a Megatron layer takes as it is and the Runner
+          gathers for any other use; its state is split as it is, and its
+          gradient averaged over the data group;
         * ``ar``: everything else (and PS with ``gspmd_update``): a mean
           all-reduce of the whole gradient, a whole local update.
 
@@ -116,18 +136,19 @@ class DistributedProgram:
         """:class:`Placement` tree congruent with the params tree (the
         counterpart of ``param_shardings()``): a parameter partitioned over
         the data axis (kind ``fsdp``) is split in ``data_axis_size`` pieces
-        along its dim, the rest stay whole on every device; uneven dims are
-        padded first. A stale variable is whole (each rank holds its own
-        copy), and so is a PS one with ``gspmd_update``. Only the
-        data axis carries pieces: a parameter split over another mesh axis
-        of more than one device raises (tensor parallelism is not ported,
-        ROADMAP.md Queue A item 10)."""
+        along its dim, and one split over the model axis (kind ``tp``) in
+        ``model_axis_size`` pieces; the rest stay whole on every device;
+        uneven dims are padded first. A stale variable is whole (each rank
+        holds its own copy), and so is a PS one with ``gspmd_update``. A
+        parameter split over another mesh axis of more than one device
+        raises (not ported, ROADMAP.md Queue A item 10)."""
         mesh = self.mesh
         if mesh.size == 1 or mesh.device_mesh is not None:
             device = mesh.local_device
             index = mesh.axis_index(const.MESH_AXIS_DATA)
+            model_index = mesh.axis_index(const.MESH_AXIS_MODEL)
         else:
-            device = index = None
+            device = index = model_index = None
         n = self.data_axis_size
         paddings = self.paddings()
         kinds = self.var_kinds()
@@ -140,14 +161,18 @@ class DistributedProgram:
             for entry in spec:
                 for axis in (entry if isinstance(entry, tuple) else
                              (entry,)):
-                    if axis not in (None, const.MESH_AXIS_DATA) and \
+                    if axis not in (None, const.MESH_AXIS_DATA,
+                                    const.MESH_AXIS_MODEL) and \
                             mesh.shape.get(axis, 1) > 1:
                         raise NotImplementedError(
                             f"{name} is split over mesh axis '{axis}': "
-                            f"tensor parallelism is not ported to "
-                            f"autodist_tpu_torch yet (ROADMAP.md, Queue A "
-                            f"item 10)")
+                            f"only the data and model axes carry parameter "
+                            f"pieces in autodist_tpu_torch yet (ROADMAP.md, "
+                            f"Queue A item 10)")
             kind, dim = kinds.get(name, ("ar", None))
+            if kind == "tp":
+                return Placement(device, None, index, 1, paddings.get(name),
+                                 dim, model_index, self.model_axis_size)
             if kind != "fsdp":
                 dim = None
             return Placement(device, dim, index, n if dim is not None else 1,
@@ -232,6 +257,13 @@ class GraphTransformer:
             synchronizers[var.name] = Synchronizer.create(var, node, mesh)
         for sync in synchronizers.values():
             sync.param_spec()  # a partition over a missing axis raises here
+        if mesh.shape.get(const.MESH_AXIS_SEQ, 1) > 1 and \
+                mesh.shape.get(const.MESH_AXIS_MODEL, 1) > 1:
+            raise NotImplementedError(
+                f"mesh {dict(mesh.shape)}: tensor parallelism composed with "
+                f"sequence parallelism (a mesh with both 'seq' and 'model' "
+                f"over more than one device) is not ported to autodist_tpu_torch yet "
+                f"(ROADMAP.md, Queue A item 10(g))")
         use_explicit = any(s.needs_explicit_path
                            for s in synchronizers.values())
         for s in synchronizers.values():

@@ -21,13 +21,18 @@ class PartitionSpec(tuple):
         return f"PartitionSpec{tuple(self)!r}"
 
 
-def data_dim(spec):
-    """Index of the dimension ``spec`` places on the data axis, or None."""
+def axis_dim(spec, axis):
+    """Index of the dimension ``spec`` places on mesh axis ``axis``, or
+    None."""
     for i, entry in enumerate(spec):
-        if entry == const.MESH_AXIS_DATA or (
-                isinstance(entry, tuple) and const.MESH_AXIS_DATA in entry):
+        if entry == axis or (isinstance(entry, tuple) and axis in entry):
             return i
     return None
+
+
+def data_dim(spec):
+    """Index of the dimension ``spec`` places on the data axis, or None."""
+    return axis_dim(spec, const.MESH_AXIS_DATA)
 
 
 class PartitionerConfig:

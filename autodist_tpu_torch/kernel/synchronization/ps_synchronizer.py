@@ -70,11 +70,16 @@ class PSSynchronizer(Synchronizer):
         return self.mesh.shape.get(self.reduction_axis, 1) > 1
 
     def kind(self, n):
-        """``ar`` with ``gspmd_update``; ``zero1`` along the dim its state
-        spec splits over the data axis where the parameter stays whole."""
-        if self._staleness == 0 and self.gspmd_update:
-            return ("ar", None)
+        """``stale`` and ``tp`` as the base class decides; else ``ar`` with
+        ``gspmd_update``; ``zero1`` along the dim its state spec splits
+        over the data axis where the parameter stays whole. A partitioned
+        (``tp``) PS variable's state is its param spec: no ZeRO-1 split
+        over ``data`` (``state_spec``)."""
         kind = super().kind(n)
+        if kind[0] in ("stale", "tp"):
+            return kind
+        if self.gspmd_update:
+            return ("ar", None)
         if kind[0] == "ar" and n > 1 and \
                 (dim := data_dim(self.state_spec())) is not None:
             return ("zero1", dim)

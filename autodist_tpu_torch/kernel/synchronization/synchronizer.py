@@ -11,7 +11,8 @@ from abc import ABC
 
 from autodist_tpu_torch import const
 from autodist_tpu_torch.kernel.partitioner import (PartitionerConfig,
-                                                   PartitionSpec, data_dim,
+                                                   PartitionSpec, axis_dim,
+                                                   data_dim,
                                                    param_partition_spec)
 from autodist_tpu_torch.kernel.synchronization.compressor import \
     all_reduce_mean_
@@ -77,11 +78,23 @@ class Synchronizer(ABC):
     def kind(self, n):
         """(kind, dim): how the Runner lowers this variable on a data axis
         of ``n`` devices (``DistributedProgram.var_kinds``): ``stale``
-        with staleness, ``fsdp`` along the dim its parameter spec splits
-        over the data axis, else ``ar``."""
+        with staleness; ``tp`` along the dim its parameter spec splits
+        over a ``model`` axis of more than one device (each rank of a
+        model group stores its piece, the state spec is the param spec,
+        and the gradient is averaged over the data group only); ``fsdp``
+        along the dim it splits over the data axis; else ``ar``."""
         if self.staleness > 0:
             return ("stale", None)
-        if n > 1 and (dim := data_dim(self.param_spec())) is not None:
+        spec = self.param_spec()
+        if self.mesh.shape.get(const.MESH_AXIS_MODEL, 1) > 1 and \
+                (dim := axis_dim(spec, const.MESH_AXIS_MODEL)) is not None:
+            if data_dim(spec) is not None:
+                raise NotImplementedError(
+                    f"{self.var.name} is split over both the model and the "
+                    f"data axis ({spec}): autodist_tpu_torch splits a "
+                    f"parameter over one of them")
+            return ("tp", dim)
+        if n > 1 and (dim := data_dim(spec)) is not None:
             return ("fsdp", dim)
         return ("ar", None)
 

@@ -16,12 +16,27 @@ Ported: the initializers, ``dense``, ``conv``, ``batchnorm``, ``layernorm``,
 ``dot_product_attention``, ``causal_mask``, ``lstm``, ``max_pool`` (the
 ResNet stem's ``reduce_window``) and the losses (``softmax_xent``,
 ``sigmoid_bce``).
+
+Tensor parallelism (``ModelParallel``): where the weights reach a layer as
+this rank's Megatron pieces (``parallel.context.megatron``), ``mha`` and
+the transformer's MLP run the Megatron forms. The input of the
+column-parallel q/k/v and up projections goes through
+:func:`copy_to_model` (identity; its gradient all-reduced over the model
+group), and the row-parallel out and down projections are
+``dense(..., row_group=)`` (this rank's partial product all-reduced over
+the model group, the whole bias added once after the sum). The JAX
+package writes none of this: GSPMD inserts the collectives.
 """
 import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from autodist_tpu_torch.parallel import context
+from autodist_tpu_torch.parallel.collectives import GatherShards
+from autodist_tpu_torch.utils import logging
 
 
 # -- initializers ------------------------------------------------------------
@@ -89,11 +104,55 @@ def lstm_init(generator, in_dim, hidden):
 
 # -- layers ------------------------------------------------------------------
 
-def dense(p, x, dtype=None):
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: the identity forward; the backward sums the gradient
+    over the model group (each rank's column pieces contribute their part
+    of the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: the forward sums the row pieces' partial products over
+    the model group; the identity backward (every rank needs the whole
+    output's gradient for its piece)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x, group):
+    """``x`` in front of column-parallel weights over ``group``."""
+    return _CopyToModel.apply(x, group)
+
+
+def dense(p, x, dtype=None, row_group=None):
+    """``x @ kernel + bias``. With ``row_group`` the kernel is this rank's
+    row piece (its input dim split over the model group) and ``x`` the
+    matching piece of the input: the partial product is summed over the
+    group, then the whole bias added once."""
     k = p["kernel"]
     if dtype is not None:
         x, k = x.to(dtype), k.to(dtype)
     y = x @ k
+    if row_group is not None:
+        y = _ReduceFromModel.apply(y, row_group)
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y
@@ -181,12 +240,27 @@ def embed(p, ids):
 
 def mha(p, x, num_heads, mask=None, dtype=None, attn_fn=None):
     """Multi-head self-attention. ``attn_fn(q, k, v, mask)`` may override
-    the inner attention; q/k/v are (batch, heads, seq, head_dim)."""
+    the inner attention; q/k/v are (batch, heads, seq, head_dim).
+
+    Given this rank's Megatron pieces (q/k/v column pieces, out a row
+    piece), it attends over its share of the heads, whose count it takes
+    from the q piece's width, and sums the out projection over the model
+    group. Where the model axis does not divide the heads, the pieces are
+    gathered first and every rank computes the whole layer."""
     b, s, d = x.shape
     hd = d // num_heads
+    tp = context.megatron(p["query"]["kernel"], 1, d)
+    if tp is not None and p["query"]["kernel"].shape[1] % hd:
+        p = _gather_attention(p, tp, num_heads)
+        tp = None
+    group = None if tp is None else tp.model_group
+    if group is not None:
+        x = copy_to_model(x, group)
+    width = p["query"]["kernel"].shape[1]
+    heads = width // hd
 
     def split(t):
-        return t.reshape(b, s, num_heads, hd).transpose(1, 2)
+        return t.reshape(b, s, heads, hd).transpose(1, 2)
 
     q = split(dense(p["query"], x, dtype))
     k = split(dense(p["key"], x, dtype))
@@ -195,8 +269,29 @@ def mha(p, x, num_heads, mask=None, dtype=None, attn_fn=None):
         o = attn_fn(q, k, v, mask)
     else:
         o = dot_product_attention(q, k, v, mask)
-    o = o.transpose(1, 2).reshape(b, s, d)
-    return dense(p["out"], o, dtype)
+    o = o.transpose(1, 2).reshape(b, s, width)
+    return dense(p["out"], o, dtype, row_group=group)
+
+
+def _gather_attention(p, tp, num_heads):
+    """The attention weights whole, from this rank's pieces: q/k/v kernels
+    along dim 1 and biases along dim 0, the out kernel along dim 0, each
+    gathered over the model group (its gradient reduce-scattered and
+    divided by the model size)."""
+    if tp.log_once("mha-gather"):
+        logging.warning(
+            "ModelParallel: the model axis (%d) does not divide the %d "
+            "attention heads; the attention weights are gathered at use "
+            "and every rank computes all heads", tp.model_size, num_heads)
+
+    def gather(t, dim):
+        return GatherShards.apply(t, dim, tp.model_group, tp.model_size)
+    out = {name: {"kernel": gather(p[name]["kernel"], 1),
+                  **({"bias": gather(p[name]["bias"], 0)}
+                     if "bias" in p[name] else {})}
+           for name in ("query", "key", "value")}
+    out["out"] = dict(p["out"], kernel=gather(p["out"]["kernel"], 0))
+    return out
 
 
 def dot_product_attention(q, k, v, mask=None):

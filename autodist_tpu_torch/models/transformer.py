@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from autodist_tpu_torch.models import layers as L
+from autodist_tpu_torch.parallel import context
 from autodist_tpu_torch.utils.device import resolve_device
 from autodist_tpu_torch.utils.tree import tree_map
 
@@ -41,13 +42,20 @@ def block_init(generator, cfg):
 
 
 def block_apply(p, x, cfg, mask=None, attn_fn=None):
+    """One block. Under ``ModelParallel`` the attention and the MLP take
+    this rank's Megatron pieces (``layers.mha``; the MLP's up projection
+    column-parallel, its down projection row-parallel)."""
     h = L.layernorm(p["ln1"], x)
     x = x + L.mha(p["attn"], h, cfg.num_heads, mask=mask, dtype=cfg.dtype,
                   attn_fn=attn_fn)
     h = L.layernorm(p["ln2"], x)
+    tp = context.megatron(p["mlp"]["up"]["kernel"], 1, cfg.mlp_dim)
+    group = None if tp is None else tp.model_group
+    if group is not None:
+        h = L.copy_to_model(h, group)
     # jax.nn.gelu's default is the tanh approximation.
     h = F.gelu(L.dense(p["mlp"]["up"], h, cfg.dtype), approximate="tanh")
-    return x + L.dense(p["mlp"]["down"], h, cfg.dtype)
+    return x + L.dense(p["mlp"]["down"], h, cfg.dtype, row_group=group)
 
 
 def init(cfg, generator=None, device="cuda"):
@@ -87,7 +95,6 @@ def encode(params, cfg, ids, segment_ids=None, attn_fn=None):
     s = ids.shape[1]
     off = 0
     if attn_fn is None:
-        from autodist_tpu_torch.parallel import context
         span = context.chunk(None, s)
         if span is not None:
             off, s = span

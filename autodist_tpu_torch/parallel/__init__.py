@@ -1,8 +1,10 @@
-"""Parallelism beyond data parallelism: sequence (context) parallelism.
+"""Parallelism beyond data parallelism: sequence (context) and tensor
+parallelism.
 
 Counterpart of ``autodist_tpu/parallel/``. Ported: ring and Ulysses
-attention and the parallel context. Tensor parallelism
-(``sharding_rules``), experts and the pipeline are not ported yet
+attention, the parallel context, the Megatron sharding rules
+(``sharding_rules``) and the gathers of split parameters
+(``collectives``). Experts and the pipeline are not ported yet
 (ROADMAP.md, Queue A item 10).
 """
 from autodist_tpu_torch.parallel.context import (  # noqa: F401

@@ -11,7 +11,16 @@ semantics, so models stay runnable as plain PyTorch code.
 A JAX program sees the global arrays and asks the mesh for its place; a
 rank here holds its own shard, so the context also tells it its place on
 the ``seq`` axis: ``seq_index``, ``seq_size`` and ``seq_group`` (the
-process group of the ranks that share its batch rows).
+process group of the ranks that share its batch rows), and on the
+``model`` axis: ``model_index``, ``model_size`` and ``model_group`` (the
+ranks that share its batch and hold the other pieces of its weights).
+
+Under tensor parallelism (``ModelParallel``) one rule decides which split
+weights reach the model as their pieces: :meth:`ParallelContext.
+arrives_as_piece`, which the Runner asks for each variable (the others it
+gathers). The Megatron layers (``models/layers.py``) then see a piece as a
+weight 1/``model_size`` of its whole width, and :func:`megatron` gives
+them the context to run the Megatron form with.
 """
 import contextlib
 import contextvars
@@ -31,6 +40,10 @@ class ParallelContext:
             (GraphConfig.seq_attn).
         seq_index, seq_size, seq_group: this rank's place on the ``seq``
             axis, the axis's size and its process group (from the mesh).
+        model_index, model_size, model_group: the same for the ``model``
+            axis.
+        pieces: the variables that reach the Megatron layers as their
+            pieces (``sharding_rules.megatron_pieces``).
 
     The JAX context's ``attn_hook_in_use`` flag, which its loss reads to
     learn that the model took the hook, is :func:`chunk` here: the rule
@@ -41,7 +54,7 @@ class ParallelContext:
     """
 
     def __init__(self, mesh, seq_attn="", pipeline_microbatches=0,
-                 op_shardings=None):
+                 op_shardings=None, pieces=frozenset()):
         if pipeline_microbatches:
             raise NotImplementedError(
                 "pipeline_microbatches: the pipeline lowering is not ported "
@@ -53,7 +66,9 @@ class ParallelContext:
                 "12)")
         self.mesh = mesh
         self.seq_attn = seq_attn
+        self.pieces = frozenset(pieces)
         self._attn_cache = {}
+        self._logged = set()
 
     @property
     def seq_size(self):
@@ -70,6 +85,35 @@ class ParallelContext:
         if self.mesh is None or self.seq_size <= 1:
             return None
         return self.mesh.group(const.MESH_AXIS_SEQ)
+
+    @property
+    def model_size(self):
+        return 1 if self.mesh is None else \
+            self.mesh.shape.get(const.MESH_AXIS_MODEL, 1)
+
+    @property
+    def model_index(self):
+        return 0 if self.mesh is None else \
+            self.mesh.axis_index(const.MESH_AXIS_MODEL)
+
+    @property
+    def model_group(self):
+        if self.mesh is None or self.model_size <= 1:
+            return None
+        return self.mesh.group(const.MESH_AXIS_MODEL)
+
+    def arrives_as_piece(self, name):
+        """Whether variable ``name``, split over the model axis, reaches
+        the model as this rank's piece (a Megatron layer's weight) rather
+        than gathered whole."""
+        return self.model_size > 1 and name in self.pieces
+
+    def log_once(self, key):
+        """True the first time ``key`` is asked on this context: one log
+        line per program for a condition every step meets."""
+        first = key not in self._logged
+        self._logged.add(key)
+        return first
 
     def attn_fn(self, causal):
         """The strategy's attention hook, or None for default attention.
@@ -111,6 +155,23 @@ def resolve_attn(causal=False):
     """Strategy-provided ``attn_fn(q, k, v, mask)`` or None (use default)."""
     ctx = current()
     return ctx.attn_fn(causal) if ctx is not None else None
+
+
+def megatron(weight, dim, whole):
+    """The active context when ``weight`` reached a Megatron layer as its
+    piece (:meth:`ParallelContext.arrives_as_piece`): a model axis of more
+    than one rank, and ``weight`` 1/``model_size`` of its ``whole`` width
+    along ``dim``. None when it arrived whole; any other width raises."""
+    ctx = current()
+    width = weight.shape[dim]
+    if ctx is None or ctx.model_size <= 1 or width == whole:
+        return None
+    if width * ctx.model_size != whole:
+        raise ValueError(
+            f"a weight of width {width} along dim {dim} is neither whole "
+            f"({whole}) nor its piece over a model axis of "
+            f"{ctx.model_size}")
+    return ctx
 
 
 def chunk(attn_fn, s):

@@ -24,6 +24,14 @@ One step, on every rank:
      backward reduce-scatters the gradient, as the VJP of JAX's tiled
      ``all_gather`` does;
    * ``stale``: no reduction; each rank updates its own copy;
+   * ``tp`` (the parameter split over the ``model`` axis,
+     ``ModelParallel``): the rank stores its piece. A Megatron layer's
+     weight reaches the loss as it is (the layer's collectives make its
+     gradient this piece's); any other is all-gathered over the model
+     group through :class:`_GatherShards`, whose backward reduce-scatters
+     the gradient and divides it by the model size (every rank of a model
+     group computed the same whole gradient). Either gradient is then
+     averaged over the data group;
 
 4. the optimizer step (shard-local for ``zero1`` / ``fsdp``, which assumes
    an optimizer that works element by element, as the JAX Runner does;
@@ -31,6 +39,14 @@ One step, on every rank:
    shard into the whole parameter, and after every step ``t`` with
    ``t % (s + 1) == s`` the mean of each stale parameter over the group;
 5. the loss's mean over the data group.
+
+Under tensor parallelism (a ``model`` axis) the ranks of one model group
+must be fed one batch, which an eager step checks as it does for a seq
+group (below). The gradients of whole parameters and the loss, which
+every rank of a model group computes whole, average over data x model:
+on the card the ranks' gradients of a whole parameter differ in the last
+bits (scatter-add atomics), and the mean keeps their copies bitwise
+equal. The graph paths refuse a model axis (ROADMAP item A15).
 
 Under sequence parallelism (a ``seq`` axis, ``SequenceParallel``) the
 loss runs inside the program's parallel context (``parallel/context.py``),
@@ -100,6 +116,11 @@ from autodist_tpu_torch.kernel.synchronization.all_reduce_synchronizer import \
 from autodist_tpu_torch.kernel.synchronization.compressor import \
     all_reduce_mean_
 from autodist_tpu_torch.parallel import context as parallel_context
+from autodist_tpu_torch.parallel.collectives import GatherShards as \
+    _GatherShards
+from autodist_tpu_torch.parallel.collectives import all_gather as _all_gather
+from autodist_tpu_torch.parallel.collectives import \
+    reduce_scatter as _reduce_scatter
 from autodist_tpu_torch.remapper import Remapper
 from autodist_tpu_torch.utils import cuda_graph, logging
 from autodist_tpu_torch.utils.device import resolve_device
@@ -126,44 +147,6 @@ ELEMENTWISE_OPTIMIZERS = (
     torch.optim.NAdam, torch.optim.RAdam, torch.optim.RMSprop,
     torch.optim.Adagrad, torch.optim.Adadelta, torch.optim.ASGD,
     torch.optim.Rprop)
-
-
-class _GatherShards(torch.autograd.Function):
-    """A split (``fsdp``) parameter's pieces all-gathered along ``dim``
-    over ``group``; the backward reduce-scatters the gradient (the sum
-    over the group lands on this rank's piece), as the VJP of JAX's tiled
-    ``all_gather`` (``autodist_tpu/runner.py:839-846``)."""
-
-    @staticmethod
-    def forward(ctx, piece, dim, group):
-        ctx.dim, ctx.group = dim, group
-        return _all_gather(piece, dim, group)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _reduce_scatter(grad, ctx.dim, ctx.group), None, None
-
-
-def _all_gather(piece, dim, group):
-    """The group's pieces concatenated along ``dim`` (rank order), as a new
-    tensor (``all_gather_into_tensor`` gathers along dim 0: a piece split
-    along another dim is moved to the front, and the result moved back)."""
-    moved = piece.detach().movedim(dim, 0).contiguous()
-    n = dist.get_world_size(group)
-    out = moved.new_empty((moved.shape[0] * n,) + tuple(moved.shape[1:]))
-    dist.all_gather_into_tensor(out, moved, group=group)
-    return out.movedim(0, dim)
-
-
-def _reduce_scatter(whole, dim, group):
-    """This rank's piece along ``dim`` of the sum of ``whole`` over the
-    group (``reduce_scatter_tensor`` along dim 0, moved as in
-    :func:`_all_gather`)."""
-    moved = whole.movedim(dim, 0).contiguous()
-    n = dist.get_world_size(group)
-    out = moved.new_empty((moved.shape[0] // n,) + tuple(moved.shape[1:]))
-    dist.reduce_scatter_tensor(out, moved, group=group)
-    return out.movedim(0, dim).contiguous()
 
 
 class Runner:
@@ -193,14 +176,22 @@ class Runner:
             if self._periods else 1
         self._shards = weakref.WeakKeyDictionary()  # optimizer -> zero1
         self._graphs = {}  # megastep graphs by block structure and phase
-        # Under a seq axis the seq group shares batch rows: gradients and
-        # the loss average over data x seq.
-        self._seq_group = None
+        # A seq group, or a model group, shares its batch rows: the
+        # gradients of whole parameters and the loss average over data x
+        # that axis (``GraphTransformer`` refuses both at once). A model
+        # group also holds the pieces of the tp variables.
+        self._seq_group = self._model_group = self._share_group = None
         self._grad_group = self._mesh.group()
         if program.seq_axis_size > 1:
-            self._seq_group = self._mesh.group(const.MESH_AXIS_SEQ)
+            self._seq_group = self._share_group = self._mesh.group(
+                const.MESH_AXIS_SEQ)
             self._grad_group = self._mesh.group_over(
                 (const.MESH_AXIS_DATA, const.MESH_AXIS_SEQ))
+        if program.model_axis_size > 1:
+            self._model_group = self._share_group = self._mesh.group(
+                const.MESH_AXIS_MODEL)
+            self._grad_group = self._mesh.group_over(
+                (const.MESH_AXIS_DATA, const.MESH_AXIS_MODEL))
 
     @staticmethod
     def _mask_non_trainable(item):
@@ -219,21 +210,23 @@ class Runner:
 
     @property
     def var_kinds(self):
-        """{var_name: (kind, dim)}: ``stale``, ``fsdp``, ``zero1`` or
-        ``ar`` (``DistributedProgram.var_kinds``)."""
+        """{var_name: (kind, dim)}: ``stale``, ``fsdp``, ``zero1``, ``tp``
+        or ``ar`` (``DistributedProgram.var_kinds``)."""
         return self._kinds
 
     def bucket_plan(self):
-        """The all-reduces of one step's ``ar`` gradients, in order: lists
-        of variable names. Fusable synchronizers of one fusion group and
-        dtype share a bucket (one collective); the others reduce alone.
-        ``zero1`` / ``fsdp`` / ``stale`` variables take no all-reduce."""
+        """The all-reduces of one step's ``ar`` and ``tp`` gradients (a
+        ``tp`` gradient is its piece's), in order: lists of variable names.
+        Fusable synchronizers of one fusion group, dtype and kind share a
+        bucket (one collective); the others reduce alone. ``zero1`` /
+        ``fsdp`` / ``stale`` variables take no all-reduce."""
         buckets, keyed = [], {}
         for name, sync in self._program.synchronizers.items():
-            if self._kinds[name][0] != "ar":
+            kind = self._kinds[name][0]
+            if kind not in ("ar", "tp"):
                 continue
             if getattr(sync, "fusable", False):
-                key = (sync.group, sync.var.dtype)
+                key = (sync.group, sync.var.dtype, kind)
                 if key not in keyed:
                     keyed[key] = []
                     buckets.append(keyed[key])
@@ -254,7 +247,8 @@ class Runner:
 
     def create_state(self):
         """Place the captured params on this rank's device at their stored
-        layout (padded; an ``fsdp`` variable's piece only) and build the
+        layout (padded; an ``fsdp`` or ``tp`` variable's piece only) and
+        build the
         optimizer over the update tensors: the stored trainable leaves,
         except that a ``zero1`` variable's is this rank's shard of it (a
         tensor of its own, ``1/n`` of the variable, so its optimizer state
@@ -275,35 +269,45 @@ class Runner:
             else:
                 update.append(t)
         opt = self._item.optimizer(update)
-        if any(k in ("zero1", "fsdp") for k, _ in self._kinds.values()) and \
+        if any(k in ("zero1", "fsdp", "tp") for k, _ in
+               self._kinds.values()) and \
                 not isinstance(opt, ELEMENTWISE_OPTIMIZERS):
             raise ValueError(
                 f"autodist_tpu_torch: {type(opt).__name__} cannot update a "
-                f"variable shard by shard: the PS / partitioned lowering "
-                f"runs the optimizer on each rank's shard, which gives the "
-                f"whole update only for an optimizer that treats each "
-                f"element on its own "
+                f"variable shard by shard: the PS / partitioned / tensor-"
+                f"parallel lowering runs the optimizer on each rank's shard "
+                f"or piece, which gives the whole update only for an "
+                f"optimizer that treats each element on its own "
                 f"({', '.join(c.__name__ for c in ELEMENTWISE_OPTIMIZERS)}). "
-                f"Build the strategy with gspmd_update=True (PS family), "
-                f"or use AllReduce()")
+                f"Build the strategy with gspmd_update=True (PS family, "
+                f"no model axis), or use AllReduce()")
         self._shards[opt] = shards
         return TrainState(torch.zeros((), dtype=torch.int64), params, opt)
 
     def logical_params(self, state):
         """The params at their logical shapes, detached: padding cut off,
-        an ``fsdp`` variable's pieces all-gathered (a collective: every
-        rank of the data group calls it), a stale variable this rank's
-        copy (the JAX Runner's stored array holds every device's copy)."""
-        group = self._mesh.group()
-
+        an ``fsdp`` variable's pieces all-gathered over the data group and
+        a ``tp`` variable's over the model group (collectives: every rank
+        calls them), a stale variable this rank's copy (the JAX Runner's
+        stored array holds every device's copy)."""
         def logical(path, t):
             name = path_to_name(path)
-            kind, dim = self._kind(name)
             t = t.detach()
-            if kind == "fsdp":
-                t = _all_gather(t, dim, group)
+            if self._kind(name)[0] != "zero1":  # stored whole
+                t = self._gather_piece(name, t)
             return self._cut_padding(name, t)
         return tree_map_with_path(logical, state.params)
+
+    def _gather_piece(self, name, t):
+        """``t``, shaped like variable ``name``'s update tensor, gathered
+        whole: over the data group for ``zero1`` / ``fsdp``, over the
+        model group for ``tp``; as it is otherwise."""
+        kind, dim = self._kind(name)
+        if kind in ("zero1", "fsdp") and self._mesh.group() is not None:
+            return _all_gather(t, dim, self._mesh.group())
+        if kind == "tp":
+            return _all_gather(t, dim, self._model_group)
+        return t
 
     def _cut_padding(self, name, t):
         placement = self._placements.get(name)
@@ -326,14 +330,12 @@ class Runner:
         (``{"exp_avg": ..., "step": ...}`` for Adam; ``{}`` for a frozen
         variable or before the optimizer's first step). A state tensor
         shaped like its variable's update tensor is gathered (``zero1``
-        shards, ``fsdp`` pieces: a collective every rank of the data group
-        calls) and cut to the logical shape; the others (``step``) are kept
-        as they are. Tensors are detached views or gathered copies on the
+        shards, ``fsdp`` and ``tp`` pieces: collectives every rank calls)
+        and cut to the logical shape; the others (``step``) are kept as
+        they are. Tensors are detached views or gathered copies on the
         device."""
-        group = self._mesh.group()
         per_var = {}
         for name, t in self._update_tensors(state):
-            kind, dim = self._kind(name)
             out = {}
             for key, v in state.opt_state.state.get(t, {}).items():
                 if not isinstance(v, torch.Tensor):
@@ -343,9 +345,7 @@ class Runner:
                         f"tensor state has a checkpoint form")
                 v = v.detach()
                 if v.dim() and v.shape == t.shape:
-                    if kind in ("zero1", "fsdp") and group is not None:
-                        v = _all_gather(v, dim, group)
-                    v = self._cut_padding(name, v)
+                    v = self._cut_padding(name, self._gather_piece(name, v))
                 out[key] = v
             per_var[name] = out
         opt_state = tree_map_with_path(
@@ -365,7 +365,8 @@ class Runner:
         """A state from its checkpoint form (host or device tensors): each
         param and each optimizer state tensor shaped like its variable
         placed as ``Remapper.place_params`` places the param (padded, cut
-        to this rank's ``fsdp`` piece), a ``zero1`` variable's shard taken
+        to this rank's ``fsdp`` or ``tp`` piece), a ``zero1`` variable's
+        shard taken
         from the whole; the other state tensors (``step``) as they are.
 
         ``into`` (a live state of this runner) receives the values in its
@@ -430,8 +431,9 @@ class Runner:
 
     def _stored(self, name, value, shard=True):
         """A tensor at variable ``name``'s logical shape at its stored
-        layout on this rank's device: padded, cut to the ``fsdp`` piece,
-        and with ``shard`` a ``zero1`` variable's shard of the whole."""
+        layout on this rank's device: padded, cut to the ``fsdp`` or ``tp``
+        piece, and with ``shard`` a ``zero1`` variable's shard of the
+        whole."""
         placement = self._placements[name]
         t = self._remapper.place_params(value, placements=placement,
                                         copy=True)
@@ -457,57 +459,70 @@ class Runner:
     # -- the step ------------------------------------------------------------
 
     def _compute_view(self, params):
-        """The params the loss sees: ``fsdp`` pieces all-gathered (through
-        :class:`_GatherShards`, so their gradients reduce-scatter), padding
-        cut off."""
+        """The params the loss sees: ``fsdp`` pieces all-gathered over the
+        data group (through :class:`_GatherShards`, so their gradients
+        reduce-scatter); ``tp`` pieces as they are where the parallel
+        context says they reach a Megatron layer, else all-gathered over
+        the model group, their gradients reduce-scattered and divided by
+        the model size; padding cut off."""
         group = self._mesh.group()
+        ctx = self._program.parallel_context()
 
         def view(path, t):
             name = path_to_name(path)
             kind, dim = self._kind(name)
             if kind == "fsdp":
                 t = _GatherShards.apply(t, dim, group)
+            elif kind == "tp" and not ctx.arrives_as_piece(name):
+                t = _GatherShards.apply(t, dim, self._model_group,
+                                        self._program.model_axis_size)
             return self._cut_padding(name, t)
         return tree_map_with_path(view, params)
 
     def _sync_gradients(self, grads):
         """Reduce ``grads`` ({name: gradient of the stored leaf}) over the
         data group, by kind; a ``zero1`` gradient is replaced by this
-        rank's shard of the mean. Under a seq axis the ``ar`` buckets
-        reduce over the data x seq group and every other kind first takes
-        its mean over the seq group. A one-device local mesh (no process
-        group) has nothing to reduce."""
+        rank's shard of the mean. Under a seq or a model axis the ``ar``
+        buckets reduce over the data x seq (model) group and the
+        ``zero1`` / ``fsdp`` / ``stale`` kinds first take their mean over
+        the seq (model) group; a ``tp`` piece's gradient reduces over the
+        data group alone. Averaging a whole parameter's gradient over its
+        model group keeps the ranks' copies bitwise equal: on the card
+        each rank's gradient differs from the others' in the last bits
+        (scatter-add atomics). A one-device local mesh (no process group)
+        has nothing to reduce."""
         group = self._mesh.group()
         if group is None:
             return
         syncs = self._program.synchronizers
         for bucket in self._buckets:
+            over = group if self._kinds[bucket[0]][0] == "tp" \
+                else self._grad_group
             if len(bucket) > 1:
-                reduce_bucket([grads[n] for n in bucket], self._grad_group)
+                reduce_bucket([grads[n] for n in bucket], over)
             else:
-                syncs[bucket[0]].sync_gradient(grads[bucket[0]],
-                                               self._grad_group)
+                syncs[bucket[0]].sync_gradient(grads[bucket[0]], over)
         n = self._program.data_axis_size
         for name, (kind, dim) in self._kinds.items():
-            if kind != "ar" and self._seq_group is not None:
-                all_reduce_mean_(grads[name], self._seq_group)
+            if kind not in ("ar", "tp") and self._share_group is not None:
+                all_reduce_mean_(grads[name], self._share_group)
             if kind == "zero1":
                 grads[name] = _reduce_scatter(grads[name], dim, group).div_(n)
             elif kind == "fsdp":  # born reduce-scattered (the sum)
                 grads[name].div_(n)
 
-    def _check_seq_batch(self, batch):
-        """Raise unless every rank of this rank's seq group holds this
-        batch, shapes and bytes (two all-gathers over the seq group: the
-        lengths, then the bytes). Attention over mismatched sequences
-        would train on neither."""
+    def _check_group_batch(self, batch, group, axis, why):
+        """Raise unless every rank of ``group`` (this rank's group on mesh
+        axis ``axis``) holds this batch, shapes and bytes (two all-gathers
+        over the group: the lengths, then the bytes). ``why`` says what
+        the ranks of such a group compute."""
         flat = [torch.as_tensor(l).detach() for l in leaves(batch)]
         device = flat[0].device if flat else self._remapper.device
         shapes = torch.tensor([d for t in flat for d in (t.dim(),) +
                                tuple(t.shape)], dtype=torch.int64)
         mine = torch.cat([shapes.to(device).view(torch.uint8)] + [
             t.contiguous().reshape(-1).view(torch.uint8) for t in flat])
-        group, p = self._seq_group, self._program.seq_axis_size
+        p = self._mesh.shape[axis]
         length = torch.tensor([mine.numel()], dtype=torch.int64,
                               device=device)
         lengths = length.new_empty(p)
@@ -519,10 +534,9 @@ class Runner:
             same = bool((everyone.view(p, -1) == mine).all())
         if not same:
             raise ValueError(
-                "autodist_tpu_torch: the ranks of a seq group were fed "
-                "different batches; under sequence parallelism every rank "
-                "of a seq group takes the same batch (each computes its "
-                "chunk of the sequence)")
+                f"autodist_tpu_torch: the ranks of a {axis} group were fed "
+                f"different batches; every rank of a {axis} group takes the "
+                f"same batch ({why})")
 
     def _finish_update(self, params, shards, step):
         """After the optimizer: each ``zero1`` shard all-gathered into its
@@ -582,8 +596,18 @@ class Runner:
         return TrainState(state.step + k, state.params, state.opt_state)
 
     def _step(self, state, batch):
+        # Attention over mismatched sequences, or pieces of one layer
+        # applied to two batches, would train on neither.
         if self._seq_group is not None:
-            self._check_seq_batch(batch)
+            self._check_group_batch(
+                batch, self._seq_group, const.MESH_AXIS_SEQ,
+                "under sequence parallelism each computes its chunk of the "
+                "sequence")
+        if self._model_group is not None:
+            self._check_group_batch(
+                batch, self._model_group, const.MESH_AXIS_MODEL,
+                "under tensor parallelism each computes its pieces of every "
+                "layer")
         metrics = self._core(state.params, state.opt_state, batch,
                              int(state.step))
         return self._advance(state, 1), metrics
@@ -857,6 +881,12 @@ class _GraphStep:
                 "capturing the ring's hops in a CUDA graph is not ported "
                 "yet (ROADMAP.md, Queue A item 15); use step() or "
                 "run(unroll=1)")
+        if runner.program.model_axis_size > 1:
+            raise NotImplementedError(
+                "autodist_tpu_torch: a tensor-parallel step runs eagerly: "
+                "capturing the model group's collectives in a CUDA graph "
+                "is not ported yet (ROADMAP.md, Queue A item 15); use "
+                "step() or run(unroll=1)")
         self._runner = runner
         self.k = k
         flat, self._treedef = flatten(example)

@@ -2,6 +2,8 @@
 from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce  # noqa: F401
 from autodist_tpu_torch.strategy.base import (Strategy, StrategyBuilder,  # noqa: F401
                                               StrategyCompiler)
+from autodist_tpu_torch.strategy.model_parallel_strategy import \
+    ModelParallel  # noqa: F401
 from autodist_tpu_torch.strategy.parallax_strategy import Parallax  # noqa: F401
 from autodist_tpu_torch.strategy.partitioned_all_reduce_strategy import \
     PartitionedAR  # noqa: F401
@@ -20,4 +22,4 @@ from autodist_tpu_torch.strategy.uneven_partition_ps_strategy import \
 __all__ = ["Strategy", "StrategyBuilder", "StrategyCompiler", "PS",
            "PSLoadBalancing", "PartitionedPS", "UnevenPartitionedPS",
            "AllReduce", "PartitionedAR", "RandomAxisPartitionAR", "Parallax",
-           "SequenceParallel", "builder_from_name"]
+           "SequenceParallel", "ModelParallel", "builder_from_name"]

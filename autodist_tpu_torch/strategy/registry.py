@@ -2,11 +2,12 @@
 
 Counterpart of the name registry in ``autodist_tpu/tuner/auto.py``
 (``_registry``, ``builder_from_name``): the lowercased class names of the
-ported builders plus the snake_case aliases. ``auto`` (the tuner) and the
-builders of the other mesh axes are named but not ported: they raise
+ported builders plus the snake_case aliases. ``auto`` (the tuner),
+``automap`` and ``pipeline`` are named but not ported: they raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
+from autodist_tpu_torch.strategy.model_parallel_strategy import ModelParallel
 from autodist_tpu_torch.strategy.parallax_strategy import Parallax
 from autodist_tpu_torch.strategy.partitioned_all_reduce_strategy import \
     PartitionedAR
@@ -22,20 +23,19 @@ from autodist_tpu_torch.strategy.uneven_partition_ps_strategy import \
 
 BUILDERS = (AllReduce, PS, PSLoadBalancing, PartitionedPS,
             UnevenPartitionedPS, PartitionedAR, RandomAxisPartitionAR,
-            Parallax, SequenceParallel)
+            Parallax, SequenceParallel, ModelParallel)
 _ALIASES = {"ps_lb": PSLoadBalancing, "all_reduce": AllReduce,
             "partitioned_ps": PartitionedPS,
             "uneven_partitioned_ps": UnevenPartitionedPS,
             "partitioned_ar": PartitionedAR,
             "random_axis_ar": RandomAxisPartitionAR,
-            "sequence_parallel": SequenceParallel}
+            "sequence_parallel": SequenceParallel,
+            "model_parallel": ModelParallel}
 # Names the JAX package resolves that the port does not build yet.
 _NOT_PORTED = {
     "auto": "the tuner (ROADMAP.md, Queue A item 12)",
     "autostrategy": "the tuner (ROADMAP.md, Queue A item 12)",
     "automap": "Automap (ROADMAP.md, Queue A item 12)",
-    "modelparallel": "ModelParallel (ROADMAP.md, Queue A item 10)",
-    "model_parallel": "ModelParallel (ROADMAP.md, Queue A item 10)",
     "pipeline": "Pipeline (ROADMAP.md, Queue A item 10)",
 }
 

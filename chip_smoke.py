@@ -161,7 +161,28 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    steps over the whole sequence, each tolerance between that run again
    and a block-diagonal fault, the ranks' params bitwise equal, and each
    layer's launches of the hop and flash kernels counted;
-11. output: one ``{"kernels": [...]}`` JSON line, then the last line
+11. tensor parallelism: (a) two gloo ranks on the card (processes of this
+   script) train BERT-base at full width and depth (vocab 30522, dim 768,
+   12 heads and layers, max_len 512, bf16 compute) on the MLM batch (32 x
+   128, 20 masked positions, SGD 0.1, 4 eager steps) under
+   ``ModelParallel(AllReduce(), model_axis=2)`` and ``ModelParallel(PS())``
+   on ``{data: 1, model: 2}``, each rank running the flash kernels on its
+   6 heads: losses and each run's update held to one rank's
+   ``AllReduce()`` steps from the same seeded init, each tolerance
+   between the floor (that run again) and the planted faults (the
+   gathered gradient left undivided, the copy-to-model backward
+   all-reduce dropped), the replicated parameters bitwise equal across
+   the ranks and the pieces not, 12 launches of each flash kernel a step
+   on each rank; (b) prints each rank's stored parameter bytes against
+   the whole model's, its peak memory, the step ms, the model group's
+   activation all-reduce and embedding gather ms, and the three flash
+   kernels at b32 h6 s128 d64 against their plain versions, SDPA and the
+   bound (device and host-inclusive ms); (c) the ``AllReduce`` run's
+   ``CheckpointManager`` step restores into a one-rank Runner, every leaf
+   bitwise the TP world's logical params, and the restored params serve
+   through ``serve.Server`` (bucket 8 x 512) bitwise that Runner's eager
+   forward; (d) the phase's seconds;
+12. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 import copy
@@ -338,6 +359,23 @@ SP_RING_REL = 1e-2
 SP_WORLD, SP_LAYERS, SP_MAX_LEN, SP_BATCH = 2, 2, 4096, 2
 SP_STEPS, SP_LR = 3, 0.1
 SP_LOSS_RTOL, SP_UPDATE_RTOL = 2e-4, 5e-2
+
+# Phase 11, tensor parallelism. TP_WORLD gloo ranks (processes of this
+# script) on the one card train BERT-base under ModelParallel over each
+# base of TP_BUILDERS on {data: 1, model: TP_WORLD}, TP_STEPS eager SGD
+# steps at TP_LR, each rank its pieces of every layer; losses and the
+# update are held to one rank's AllReduce() steps at TP_LOSS_RTOL /
+# TP_UPDATE_RTOL, each between the floor (that run again) and the planted
+# faults of TP_FAULTS (the gathered gradient undivided; the copy-to-model
+# backward all-reduce dropped). The model computes in bf16: a row-parallel
+# product is two bf16 partial sums added (one rank rounds the whole sum
+# once), so the runs part by bf16 roundings. The flash kernels run on each
+# rank's heads at TP_SHAPE (b, h, sq, sk, d).
+TP_WORLD, TP_STEPS, TP_LR = 2, 4, 0.1
+TP_LOSS_RTOL, TP_UPDATE_RTOL = 1e-3, 5e-2
+TP_BUILDERS = (("allreduce", "AllReduce"), ("ps", "PS"))
+TP_FAULTS = ("undivided", "no_allreduce")
+TP_SHAPE = (32, 6, 128, 128, 64)
 
 
 def check(cond, msg):
@@ -3118,7 +3156,8 @@ def save_stall(torch, card, runner, batches, device, directory):
     return {"graph_ms": median, "saves": rows, "sync_save_ms": sync_ms}
 
 
-def resilience_serve(torch, fa, card, cfg, device, params, want, request):
+def resilience_serve(torch, fa, card, cfg, device, params, want, request,
+                     label="(e)"):
     """(e): params restored from a checkpoint serve through
     ``serve.Server`` (bucket 8 x seq): the answer bitwise the eager
     forward of the trained params (``want``). Returns the flash launches
@@ -3137,15 +3176,15 @@ def resilience_serve(torch, fa, card, cfg, device, params, want, request):
         graphs = srv.engine.replicas[0].graphs
         dispatches = sum(r["dispatches"] for r in srv.stats()["replicas"])
     launches = _flash_counts(fa)["flash_fwd"]
-    check(torch.equal(got, want), f"(e): the served answer is not bitwise "
+    check(torch.equal(got, want), f"{label}: the served answer is not bitwise "
           f"the trained params' eager forward (max diff "
           f"{(got - want).abs().max().item()})")
     replays = sum(g.replays for g in graphs.values())
     check(launches == cfg.num_layers * (len(graphs) + dispatches) and
           (device != "cuda" or replays == dispatches),
-          f"(e): flash_fwd launched {launches} times, {replays} replays in "
-          f"{dispatches} dispatches")
-    print(f"  (e) restored params served (bucket {rows} x "
+          f"{label}: flash_fwd launched {launches} times, {replays} replays "
+          f"in {dispatches} dispatches")
+    print(f"  {label} restored params served (bucket {rows} x "
           f"{request[0].shape[1]}): the answer bitwise the trained params' "
           f"eager forward; flash_fwd launches {launches} ({len(graphs)} "
           f"warm-up + {dispatches} dispatches, {replays} graph replays)",
@@ -3693,6 +3732,433 @@ def sp_phase(torch, fa, card, device, vocab=32000, dim=1024, heads=16,
     return paths
 
 
+# Phase 11: tensor parallelism.
+
+def tp_kernel_phase(torch, fa):
+    """Phase 11 (b): the three flash kernels at a tensor-parallel rank's
+    attention shape (``TP_SHAPE``: BERT-base's 12 heads over a model axis
+    of 2) against their plain versions on the same inputs (the training
+    path's calls: f32 and bf16 o from one forward launch, bf16 gradients),
+    then timed beside the plain versions, SDPA and the bound. Returns
+    {kernel name: fields for its record}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, h, sq, sk, d = TP_SHAPE
+    bf16, f32 = torch.bfloat16, torch.float32
+    q, k, v, do = [torch.randn((b, h, s, d), generator=gen, device=dev,
+                               dtype=bf16) for s in (sq, sk, sk, sq)]
+    o, lse, o_low = fa.flash_fwd(q, k, v, out_dtype=f32, with_lowp=True)
+    ro, rl = fa.flash_fwd_reference(q, k, v, out_dtype=f32)
+    errs = {"flash_fwd": float((o - ro).abs().max())}
+    check(errs["flash_fwd"] <= O_F32_ATOL and
+          float((lse - rl).abs().max()) <= LSE_ATOL and
+          torch.equal(o_low, o.to(bf16)),
+          f"flash_fwd at {TP_SHAPE}: o off by {errs['flash_fwd']}")
+    delta = (do.float() * o).sum(-1, keepdim=True)
+    args = (q, k, v, do, lse, delta)
+    ref = fa.flash_bwd_reference(*args)
+    # f32 gradients against the plain version (phase 2's tolerances); the
+    # training path's bf16 gradients bitwise those cast.
+    for name, f32_out, bf16_out, want, tols in (
+            ("flash_bwd_dq", (fa.flash_bwd_dq(*args),),
+             (fa.flash_bwd_dq(*args, out_dtype=bf16),), ref[:1],
+             (BWD_REL_DQDK_BF16,)),
+            ("flash_bwd_dkv", fa.flash_bwd_dkv(*args),
+             fa.flash_bwd_dkv(*args, out_dtype=bf16), ref[1:],
+             (BWD_REL_DQDK_BF16, BWD_REL_DV_BF16))):
+        errs[name] = 0.0
+        for g, low, w, t in zip(f32_out, bf16_out, want, tols):
+            err = float((g - w).abs().max())
+            errs[name] = max(errs[name], err)
+            check(err <= t * float(w.abs().max()) and
+                  torch.equal(low, g.to(bf16)),
+                  f"{name} at {TP_SHAPE}: off by {err}, or its bf16 "
+                  f"gradients are not its f32 ones cast")
+    pairs = float(b * h * sq * sk * d)
+    ins = sum(x.numel() * x.element_size() for x in args)
+    fwd_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, o, lse,
+                                                          o_low))
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+    runs = {
+        "flash_fwd": (
+            lambda: fa.flash_fwd(q, k, v, out_dtype=f32, with_lowp=True),
+            lambda: fa.flash_fwd_reference(q, k, v, out_dtype=f32),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+            bound(4 * pairs, fwd_bytes), "the forward"),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(*args, out_dtype=bf16),
+            lambda: fa.flash_bwd_reference(*args),
+            lambda: torch.autograd.grad(sdpa_out, leaves, do,
+                                        retain_graph=True),
+            bound(6 * pairs, ins + q.numel() * 2), "dq, dk and dv together"),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(*args, out_dtype=bf16),
+            lambda: fa.flash_bwd_reference(*args),
+            lambda: torch.autograd.grad(sdpa_out, leaves, do,
+                                        retain_graph=True),
+            bound(8 * pairs, ins + 2 * k.numel() * 2),
+            "dq, dk and dv together")}
+    out = {}
+    for name, (kern_fn, plain_fn, lib_fn, bnd, covers) in runs.items():
+        kern, plain, lib = (timed(torch, f) for f in (kern_fn, plain_fn,
+                                                      lib_fn))
+        check(all(name + "_wgmma" in n for n in kern["kernels"]),
+              f"{name} at {TP_SHAPE} launched {kernel_names(kern)}")
+        print(f"  (b) {name} at b{b} h{h} s{sq} d{d} bf16 (a TP rank's "
+              f"heads), device ms per call (profiler, {TIMED_CALLS} calls) / "
+              f"host-inclusive ms per call (events): kernel "
+              f"{kern['ms']:.4f} / {kern['host_ms']:.4f}, plain "
+              f"{plain['ms']:.4f} / {plain['host_ms']:.4f}, SDPA ({covers})"
+              f" {lib['ms']:.4f} / {lib['host_ms']:.4f}; bound "
+              f"{bnd[0]:.4f} ({bnd[1]}); bound / kernel "
+              f"{bnd[0] / kern['ms']:.3f}; max abs err {errs[name]:.3e}",
+              flush=True)
+        out[name] = {"tp_shape": [b, h, sq, d], "tp_ms": kern["ms"],
+                     "tp_host_ms": kern["host_ms"], "tp_plain_ms": plain["ms"],
+                     "tp_plain_host_ms": plain["host_ms"],
+                     "tp_library_ms": lib["ms"],
+                     "tp_library_host_ms": lib["host_ms"],
+                     "tp_bound_ms": bnd[0], "tp_bound_by": bnd[1],
+                     "tp_max_abs_err": errs[name]}
+    return out
+
+
+def _tp_train(torch, fa, cfg, device, builder, params, batch, steps):
+    """``steps`` eager SGD steps of BERT's MLM loss under ``builder`` from
+    ``params`` (the runner copies them), without checks: the losses, host
+    ms per step, flash launches over the steps, peak device memory, the
+    runner and the state."""
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.models import bert
+    autodist_mod._reset_default()
+    ad = AutoDist(strategy_builder=builder, device=device)
+    runner = ad.create_distributed_session(ad.capture(
+        bert.make_loss_fn(cfg), params,
+        functools.partial(torch.optim.SGD, lr=TP_LR), example_batch=batch))
+    state = runner.create_state()
+    dbatch = runner.remapper.shard_batch(batch)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _flash_counts(fa, reset=True)  # this run's main path
+    losses, times = [], []
+    for _ in range(steps):
+        (state, m), ms = _timed(torch, device, lambda: runner.step(
+            state, dbatch))
+        losses.append(float(m["loss"]))
+        times.append(ms)
+    return types.SimpleNamespace(
+        losses=losses, times=times, launches=_flash_counts(fa),
+        peak=torch.cuda.max_memory_allocated() if device == "cuda" else 0,
+        runner=runner, state=state)
+
+
+def _digest(torch, tensors):
+    """sha256 of the tensors' bytes, in the given order."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _collective_ms(torch, device, fn, n=10):
+    """Host-inclusive ms per call of a collective, over ``n`` calls after
+    one warm-up."""
+    fn()
+    _, ms = _timed(torch, device, lambda: [fn() for _ in range(n)])
+    return ms / n
+
+
+def tp_train_rank(rank, world, port, spec):
+    """One rank of :func:`tp_phase`: a gloo world over ``localhost`` on
+    device 0; BERT (``spec``'s config, the seeded init, the whole batch)
+    trains ``TP_STEPS`` eager SGD steps under ModelParallel over each base
+    of ``TP_BUILDERS`` and, over AllReduce, with each fault of
+    ``TP_FAULTS`` monkeypatched in; the AllReduce run is saved through
+    ``CheckpointManager`` into ``spec["ckpt"]``. Prints {run: losses,
+    launches, ms, mesh, kinds, update error against the reference,
+    digests of the replicated params and of the pieces, stored and whole
+    parameter bytes, peak memory}, the logical params' digest per leaf and
+    the model group's collective times."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.models import bert, layers
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.ops import build
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.parallel import collectives
+    spec = json.loads(spec)
+    device = spec["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build.load_all()  # built by the parent: the same sources and flags
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    cfg = T.TransformerConfig(**dict(spec["config"], dtype=getattr(
+        torch, spec["dtype"])))
+    params = bert.init(cfg, torch.Generator().manual_seed(0), device=device)
+    init = {n: t.detach().clone() for n, t in flatten_params(params).items()}
+    batch = bert.synthetic_batch(cfg, spec["batch"], spec["seq"],
+                                 spec["masked"], seed=0)
+    ref = torch.load(spec["ref"], map_location=device)
+
+    def undivided(ctx, grad):
+        return (collectives.reduce_scatter(grad, ctx.dim, ctx.group), None,
+                None, None)
+    faults = {"undivided": (collectives.GatherShards, "backward",
+                            staticmethod(undivided)),
+              "no_allreduce": (layers._CopyToModel, "backward",
+                               staticmethod(lambda ctx, grad: (grad, None)))}
+    out = {"rank": rank}
+    for key in [k for k, _ in TP_BUILDERS] + list(TP_FAULTS):
+        base = dict(TP_BUILDERS).get(key, "AllReduce")
+        patch = faults.get(key)
+        if patch is not None:
+            real = patch[0].__dict__[patch[1]]
+            setattr(patch[0], patch[1], patch[2])
+        try:
+            run = _tp_train(torch, fa, cfg, device, S.ModelParallel(
+                getattr(S, base)(), model_axis=world), params, batch,
+                spec["steps"])
+        finally:
+            if patch is not None:
+                setattr(patch[0], patch[1], real)
+        kinds = run.runner.var_kinds
+        final = flatten_params(run.runner.logical_params(run.state))
+        stored = flatten_params(run.state.params)
+        out[key] = {
+            "losses": run.losses, "launches": run.launches, "ms": run.times,
+            "mesh": dict(run.runner.program.mesh.shape),
+            "kinds": sorted({k for k, _ in kinds.values()}),
+            "update_error": update_error(torch, final, ref, init),
+            "replicated": _digest(torch, (t for n, t in sorted(stored.items())
+                                  if kinds[n][0] != "tp")),
+            "pieces": _digest(torch, (t for n, t in sorted(stored.items())
+                                      if kinds[n][0] == "tp")),
+            "stored_bytes": sum(t.numel() * t.element_size()
+                                for t in stored.values()),
+            "whole_bytes": sum(t.numel() * t.element_size()
+                               for t in final.values()),
+            "stored_params": sum(t.numel() for t in stored.values()),
+            "whole_params": sum(t.numel() for t in final.values()),
+            "peak_bytes": run.peak}
+        if key == "allreduce":
+            mgr = CheckpointManager(run.runner, spec["ckpt"])
+            mgr.save(spec["steps"], run.state, force=True)
+            mgr.wait_until_finished()
+            mgr.close()
+            out["logical"] = {n: _digest(torch, [t]) for n, t in final.items()}
+            group = run.runner.program.mesh.group("model")
+            act = torch.zeros((spec["batch"], spec["seq"], cfg.dim),
+                              dtype=cfg.dtype, device=device)
+            table = stored["embed/embedding"]
+            out["allreduce_ms"] = _collective_ms(
+                torch, device, lambda: dist.all_reduce(act, group=group))
+            out["gather_ms"] = _collective_ms(
+                torch, device, lambda: collectives.all_gather(
+                    table, 1, group))
+            out["gather_bytes"] = table.numel() * table.element_size() * \
+                world
+        del run, final, stored
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def tp_phase(torch, fa, card, cfg, device, batch_size=32, seq=128,
+             num_masked=20, steps=TP_STEPS):
+    """Phase 11 (a), (c), (d): ``TP_WORLD`` gloo ranks (processes of this
+    script) on the one card train ``cfg`` under ModelParallel over each
+    base of ``TP_BUILDERS`` through AutoDist -> Runner.step; held to one
+    rank's AllReduce() steps (tolerances between that run again and the
+    planted faults), the replicated params bitwise equal across the ranks,
+    every layer's flash kernels launched once a step on each rank; then the
+    AllReduce run's checkpoint restores into one rank bitwise and serves.
+    Returns {path: flash launches, summed over the ranks}."""
+    import socket
+    import tempfile
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.ops import build
+    t_phase = time.perf_counter()
+    print(f"phase 11: {TP_WORLD} gloo ranks on one device, BERT at width "
+          f"{cfg.dim}, {cfg.num_heads} heads, {cfg.num_layers} layers "
+          f"(vocab {cfg.vocab}, max_len {cfg.max_len}; MLM batch "
+          f"{batch_size} x {seq}, SGD {TP_LR}), {steps} eager steps under "
+          + ", ".join(f"ModelParallel({b}(), model_axis={TP_WORLD})"
+                      for _, b in TP_BUILDERS) +
+          f" on {{data: 1, model: {TP_WORLD}}} vs one rank's AllReduce()",
+          flush=True)
+    batch = bert.synthetic_batch(cfg, batch_size, seq, num_masked, seed=0)
+    try:
+        ref = strategy_run(torch, fa, cfg, device, "one rank AllReduce()",
+                           S.AllReduce(), batch, steps, optimizer="SGD",
+                           lr=TP_LR)
+        again = strategy_run(torch, fa, cfg, device,
+                             "one rank AllReduce() again", S.AllReduce(),
+                             batch, steps, optimizer="SGD", lr=TP_LR)
+    finally:
+        autodist_mod._reset_default()
+    floor = {"loss": _rel(again.losses, ref.losses),
+             "update": update_error(torch, again.params, ref.params,
+                                    ref.init)}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
+    ref_path = os.path.join(tmp.name, "ref.pt")
+    ckpt = os.path.join(tmp.name, "tp_ckpt")
+    torch.save({n: t.detach().cpu() for n, t in ref.params.items()},
+               ref_path)
+    ref_losses, ref_ms = ref.losses, ref.times
+    del ref, again
+    fields = {k: v for k, v in vars(cfg).items() if k != "dtype"}
+    spec = json.dumps({"device": device, "config": fields,
+                       "dtype": str(cfg.dtype).split(".")[-1], "seq": seq,
+                       "batch": batch_size, "masked": num_masked,
+                       "steps": steps, "ref": ref_path, "ckpt": ckpt})
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-train", str(r),
+         str(TP_WORLD), str(port), spec], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(TP_WORLD)]
+    ranks = []
+    try:
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=900)
+                check(p.returncode == 0, f"a TP rank exited with "
+                      f"{p.returncode}: {err[-3000:]}")
+                ranks.append(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        faults = {key: (_rel(ranks[0][key]["losses"], ref_losses),
+                        ranks[0][key]["update_error"]) for key in TP_FAULTS}
+        print(f"  one rank AllReduce(): losses "
+              f"{', '.join(f'{x:.6f}' for x in ref_losses)}, ms per step "
+              f"{', '.join(f'{x:.1f}' for x in ref_ms)}; floor (the run "
+              f"again): loss {floor['loss']:.3e}, update "
+              f"{floor['update']:.3e}; planted faults: " + "; ".join(
+                  f"{key}: loss {l:.3e}, update {u:.3e}"
+                  for key, (l, u) in faults.items()) + f" (on {card})",
+              flush=True)
+        for i, (what, tol) in enumerate((("loss", TP_LOSS_RTOL),
+                                         ("update", TP_UPDATE_RTOL))):
+            least = min(f[i] for f in faults.values())
+            check(floor[what] < tol < least, f"(a) the {what} tolerance "
+                  f"{tol} does not lie between the floor {floor[what]} and "
+                  f"the faults' least reading {least}")
+        paths = {}
+        for key, base in TP_BUILDERS:
+            runs = [r[key] for r in ranks]
+            losses = runs[0]["losses"]
+            rel = _rel(losses, ref_losses)
+            err = runs[0]["update_error"]
+            stored = runs[0]["stored_bytes"] / runs[0]["whole_bytes"]
+            print(f"  ModelParallel({base}()) on {TP_WORLD} ranks (mesh "
+                  f"{runs[0]['mesh']}, kinds {'/'.join(runs[0]['kinds'])}): "
+                  f"losses {', '.join(f'{x:.6f}' for x in losses)}; max rel. "
+                  f"diff {rel:.3e} (tol {TP_LOSS_RTOL}); update error "
+                  f"{err:.3e} (tol {TP_UPDATE_RTOL}); replicated params "
+                  f"equal on every rank: "
+                  f"{len({r['replicated'] for r in runs}) == 1}, pieces "
+                  f"differ: {len({r['pieces'] for r in runs}) == TP_WORLD}; "
+                  f"flash launches per rank {runs[0]['launches']}", flush=True)
+            for r in runs:
+                print(f"    rank {runs.index(r)}: stores "
+                      f"{r['stored_params'] / 1e6:.2f} M of "
+                      f"{r['whole_params'] / 1e6:.2f} M parameters "
+                      f"({r['stored_bytes']} of {r['whole_bytes']} bytes, "
+                      f"{100 * r['stored_bytes'] / r['whole_bytes']:.1f}%); "
+                      f"peak memory {r['peak_bytes'] / 2**30:.2f} GiB; ms "
+                      f"per step (host-inclusive) "
+                      f"{', '.join(f'{x:.1f}' for x in r['ms'])}; on {card}",
+                      flush=True)
+            check(rel <= TP_LOSS_RTOL, f"(a) {base}: losses {losses} vs one "
+                  f"rank's {ref_losses}")
+            check(err <= TP_UPDATE_RTOL, f"(a) {base}: update error {err}")
+            check(all(r["losses"] == losses for r in runs),
+                  f"(a) {base}: the ranks' losses differ")
+            check(len({r["replicated"] for r in runs}) == 1,
+                  f"(a) {base}: the replicated params differ across ranks")
+            check(len({r["pieces"] for r in runs}) == TP_WORLD,
+                  f"(a) {base}: two ranks hold the same pieces")
+            check(all(r["mesh"] == {"data": 1, "model": TP_WORLD}
+                      for r in runs), f"(a) {base}: mesh {runs[0]['mesh']}")
+            check(0.45 < stored < 0.55, f"(a) {base}: a rank stores "
+                  f"{stored:.3f} of the parameter bytes")
+            want = {name: cfg.num_layers * steps for name in
+                    ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+            for r in runs:
+                check(r["launches"] == want, f"(a) {base}: launches "
+                      f"{r['launches']}, expected {want}")
+            paths[f"tp_gloo{TP_WORLD}_{key}"] = {
+                k: sum(r["launches"][k] for r in runs) for k in want}
+        print(f"  (b) the model group's collectives on gloo (CUDA tensors, "
+              f"host-inclusive): activation all-reduce of {batch_size} x "
+              f"{seq} x {cfg.dim} {str(cfg.dtype)[6:]} "
+              f"{ranks[0]['allreduce_ms']:.2f} ms (4 a layer a step: 2 "
+              f"forward, 2 backward); embedding table gather "
+              f"({ranks[0]['gather_bytes'] / 1e6:.1f} MB gathered) "
+              f"{ranks[0]['gather_ms']:.2f} ms (and its reduce-scatter in "
+              f"the backward); on {card}", flush=True)
+
+        # (c) the checkpoint round trip.
+        autodist_mod._reset_default()
+        ad = AutoDist(strategy_builder=S.AllReduce(), device=device)
+        runner = ad.create_distributed_session(ad.capture(
+            bert.make_loss_fn(cfg), bert.init(
+                cfg, torch.Generator().manual_seed(0), device=device),
+            functools.partial(torch.optim.SGD, lr=TP_LR),
+            example_batch=batch))
+        state = CheckpointManager(runner, ckpt).restore_or_init()
+        got = {n: _digest(torch, [t]) for n, t in
+               flatten_params(runner.logical_params(state)).items()}
+        check(got == ranks[0]["logical"], f"(c) the restored leaves "
+              f"{sorted(n for n in got if got[n] != ranks[0]['logical'].get(n))[:5]} "
+              f"are not bitwise the TP world's logical params")
+        print(f"  (c) the TP world's checkpoint (step {steps}) restored into "
+              f"a one-rank AllReduce() Runner: {len(got)} leaves bitwise the "
+              f"TP world's logical params", flush=True)
+        rng = np.random.RandomState(11)
+        request = (rng.randint(0, cfg.vocab, (8, cfg.max_len)).astype(
+            np.int32), rng.randint(0, 2, (8, cfg.max_len)).astype(np.int32))
+        with torch.inference_mode():
+            want = T.encode(runner.logical_params(state), cfg,
+                            torch.as_tensor(request[0], device=device),
+                            segment_ids=torch.as_tensor(
+                                request[1], device=device)).float().cpu()
+        del state, runner
+        autodist_mod._reset_default()
+        paths["tp_serve_restored"] = {
+            "flash_fwd": resilience_serve(
+                torch, fa, card, cfg, device,
+                CheckpointManager(None, ckpt).restore_params(), want, request,
+                label="(c)"),
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    finally:
+        autodist_mod._reset_default()
+        tmp.cleanup()
+    print(f"  (d) phase 11 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
+
+
 def main():
     import torch
     if len(sys.argv) > 1 and sys.argv[1] == "--gloo-train":
@@ -3702,6 +4168,8 @@ def main():
         return preempt_train_child(sys.argv[2], sys.argv[3])
     if len(sys.argv) > 1 and sys.argv[1] == "--sp-train":
         return sp_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--tp-train":
+        return tp_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA card", file=sys.stderr)
@@ -3756,6 +4224,9 @@ def main():
                                 resnet.resnet50(), "cuda"))
     hops = ring_kernel_phase(torch, fa)
     zoo.update(sp_phase(torch, fa, card, "cuda"))
+    tp_kernels = tp_kernel_phase(torch, fa)
+    zoo.update(tp_phase(torch, fa, card, bert.bert_base(max_len=512),
+                        "cuda"))
     fwd["launches"] = served + trained["flash_fwd"]
     fwd["launches_by_path"] = {"serve": served,
                                "train": trained["flash_fwd"],
@@ -3769,6 +4240,7 @@ def main():
         record["launches_by_path"].update(
             {path: counts[record["name"]] for path, counts in zoo.items()})
         record["other_routes"] = routes[record["name"]]
+        record.update(tp_kernels[record["name"]])
     for record in hops:  # their main path: the ring's steps in phase 10
         record["launches"] = zoo[f"sp_gloo{SP_WORLD}_ring"][record["name"]]
         record["launches_by_path"] = {
