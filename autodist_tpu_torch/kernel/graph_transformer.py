@@ -31,7 +31,8 @@ class Placement(NamedTuple):
     ``shards``: the pieces along ``dim`` (1: whole); ``padding``:
     ``(dim, logical, padded)`` of padded storage, or None; ``model_dim``,
     ``model_index``, ``model_shards``: the same for a split over the
-    ``model`` axis (kind ``tp``).
+    ``model`` or the ``expert`` axis (kind ``tp``; the program's
+    ``piece_axis``).
     """
     device: Any
     dim: Any
@@ -58,25 +59,44 @@ class DistributedProgram:
     def parallel_context(self):
         """The :class:`~autodist_tpu_torch.parallel.context.ParallelContext`
         this strategy prescribes (its GraphConfig's ``seq_attn`` on this
-        mesh, and the ``tp`` variables that reach the Megatron layers as
-        their pieces), which the Runner activates around the loss."""
+        mesh, the ``tp`` variables that reach the Megatron layers or the
+        MoE layer as their pieces, and whether the program takes the
+        explicit path), which the Runner activates around the loss."""
         if self._parallel_context is None:
             from autodist_tpu_torch.parallel.context import ParallelContext
-            from autodist_tpu_torch.parallel.sharding_rules import \
-                megatron_pieces
+            from autodist_tpu_torch.parallel.sharding_rules import (
+                expert_pieces, megatron_pieces)
             gc = self.strategy.graph_config
             split = {name: dim for name, (kind, dim) in
                      self.var_kinds().items() if kind == "tp"}
+            pieces = megatron_pieces(self.synchronizers, split) if \
+                self.model_axis_size > 1 else \
+                expert_pieces(self.synchronizers, split)
             self._parallel_context = ParallelContext(
                 mesh=self.mesh, seq_attn=gc.seq_attn,
                 pipeline_microbatches=gc.pipeline_microbatches,
-                op_shardings=dict(gc.op_shardings),
-                pieces=megatron_pieces(self.synchronizers, split))
+                op_shardings=dict(gc.op_shardings), pieces=pieces,
+                explicit=self.use_explicit_path)
         return self._parallel_context
 
     @property
     def model_axis_size(self):
         return self.mesh.shape.get(const.MESH_AXIS_MODEL, 1)
+
+    @property
+    def expert_axis_size(self):
+        return self.mesh.shape.get(const.MESH_AXIS_EXPERT, 1)
+
+    @property
+    def piece_axis(self):
+        """The axis whose groups hold the pieces of the ``tp`` variables:
+        ``model`` or ``expert`` over more than one device (``transform``
+        refuses both at once), else None."""
+        if self.model_axis_size > 1:
+            return const.MESH_AXIS_MODEL
+        if self.expert_axis_size > 1:
+            return const.MESH_AXIS_EXPERT
+        return None
 
     @property
     def seq_axis_size(self):
@@ -136,19 +156,21 @@ class DistributedProgram:
         """:class:`Placement` tree congruent with the params tree (the
         counterpart of ``param_shardings()``): a parameter partitioned over
         the data axis (kind ``fsdp``) is split in ``data_axis_size`` pieces
-        along its dim, and one split over the model axis (kind ``tp``) in
-        ``model_axis_size`` pieces; the rest stay whole on every device;
+        along its dim, and one split over the model or the expert axis
+        (kind ``tp``) in that axis's size of pieces; the rest stay whole
+        on every device;
         uneven dims are padded first. A stale variable is whole (each rank
         holds its own copy), and so is a PS one with ``gspmd_update``. A
         parameter split over another mesh axis of more than one device
         raises (not ported, ROADMAP.md Queue A item 10)."""
         mesh = self.mesh
+        piece_axis = self.piece_axis
         if mesh.size == 1 or mesh.device_mesh is not None:
             device = mesh.local_device
             index = mesh.axis_index(const.MESH_AXIS_DATA)
-            model_index = mesh.axis_index(const.MESH_AXIS_MODEL)
+            piece_index = mesh.axis_index(piece_axis) if piece_axis else 0
         else:
-            device = index = model_index = None
+            device = index = piece_index = None
         n = self.data_axis_size
         paddings = self.paddings()
         kinds = self.var_kinds()
@@ -162,17 +184,19 @@ class DistributedProgram:
                 for axis in (entry if isinstance(entry, tuple) else
                              (entry,)):
                     if axis not in (None, const.MESH_AXIS_DATA,
-                                    const.MESH_AXIS_MODEL) and \
+                                    const.MESH_AXIS_MODEL,
+                                    const.MESH_AXIS_EXPERT) and \
                             mesh.shape.get(axis, 1) > 1:
                         raise NotImplementedError(
                             f"{name} is split over mesh axis '{axis}': "
-                            f"only the data and model axes carry parameter "
-                            f"pieces in autodist_tpu_torch yet (ROADMAP.md, "
-                            f"Queue A item 10)")
+                            f"only the data, model and expert axes carry "
+                            f"parameter pieces in autodist_tpu_torch yet "
+                            f"(ROADMAP.md, Queue A item 10)")
             kind, dim = kinds.get(name, ("ar", None))
             if kind == "tp":
                 return Placement(device, None, index, 1, paddings.get(name),
-                                 dim, model_index, self.model_axis_size)
+                                 dim, piece_index,
+                                 mesh.shape[piece_axis])
             if kind != "fsdp":
                 dim = None
             return Placement(device, dim, index, n if dim is not None else 1,
@@ -264,6 +288,14 @@ class GraphTransformer:
                 f"sequence parallelism (a mesh with both 'seq' and 'model' "
                 f"over more than one device) is not ported to autodist_tpu_torch yet "
                 f"(ROADMAP.md, Queue A item 10(g))")
+        if mesh.shape.get(const.MESH_AXIS_EXPERT, 1) > 1 and any(
+                mesh.shape.get(a, 1) > 1 for a in (const.MESH_AXIS_MODEL,
+                                                   const.MESH_AXIS_SEQ)):
+            raise NotImplementedError(
+                f"mesh {dict(mesh.shape)}: expert parallelism composed with "
+                f"tensor or sequence parallelism (a mesh with 'expert' and "
+                f"'model' or 'seq' over more than one device) is not ported "
+                f"to autodist_tpu_torch yet (ROADMAP.md, Queue A item 10(i))")
         use_explicit = any(s.needs_explicit_path
                            for s in synchronizers.values())
         for s in synchronizers.values():

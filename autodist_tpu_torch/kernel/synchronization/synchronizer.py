@@ -42,7 +42,8 @@ class Synchronizer(ABC):
 
     def _partition_mesh_axis(self):
         """Mesh axis carrying parameter shards: 'model' when present and
-        larger than 1, else 'data'."""
+        larger than 1, else 'data'. (The expert overlay names its axis in
+        each partitioner: ``"<dim>:<size>:expert"``.)"""
         if self.mesh.shape.get(const.MESH_AXIS_MODEL, 1) > 1:
             return const.MESH_AXIS_MODEL
         return const.MESH_AXIS_DATA
@@ -79,21 +80,23 @@ class Synchronizer(ABC):
         """(kind, dim): how the Runner lowers this variable on a data axis
         of ``n`` devices (``DistributedProgram.var_kinds``): ``stale``
         with staleness; ``tp`` along the dim its parameter spec splits
-        over a ``model`` axis of more than one device (each rank of a
-        model group stores its piece, the state spec is the param spec,
-        and the gradient is averaged over the data group only); ``fsdp``
-        along the dim it splits over the data axis; else ``ar``."""
+        over a ``model`` or ``expert`` axis of more than one device (each
+        rank of a model / expert group stores its piece, the state spec is
+        the param spec, and the gradient is averaged over the data group
+        only); ``fsdp`` along the dim it splits over the data axis; else
+        ``ar``."""
         if self.staleness > 0:
             return ("stale", None)
         spec = self.param_spec()
-        if self.mesh.shape.get(const.MESH_AXIS_MODEL, 1) > 1 and \
-                (dim := axis_dim(spec, const.MESH_AXIS_MODEL)) is not None:
-            if data_dim(spec) is not None:
-                raise NotImplementedError(
-                    f"{self.var.name} is split over both the model and the "
-                    f"data axis ({spec}): autodist_tpu_torch splits a "
-                    f"parameter over one of them")
-            return ("tp", dim)
+        for axis in (const.MESH_AXIS_MODEL, const.MESH_AXIS_EXPERT):
+            if self.mesh.shape.get(axis, 1) > 1 and \
+                    (dim := axis_dim(spec, axis)) is not None:
+                if data_dim(spec) is not None:
+                    raise NotImplementedError(
+                        f"{self.var.name} is split over both the {axis} "
+                        f"and the data axis ({spec}): autodist_tpu_torch "
+                        f"splits a parameter over one of them")
+                return ("tp", dim)
         if n > 1 and (dim := data_dim(spec)) is not None:
             return ("fsdp", dim)
         return ("ar", None)

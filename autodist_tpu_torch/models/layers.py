@@ -142,6 +142,11 @@ def copy_to_model(x, group):
     return _CopyToModel.apply(x, group)
 
 
+def reduce_from_model(x, group):
+    """The sum over ``group`` of the ranks' partial ``x``."""
+    return _ReduceFromModel.apply(x, group)
+
+
 def dense(p, x, dtype=None, row_group=None):
     """``x @ kernel + bias``. With ``row_group`` the kernel is this rank's
     row piece (its input dim split over the model group) and ``x`` the
@@ -152,7 +157,7 @@ def dense(p, x, dtype=None, row_group=None):
         x, k = x.to(dtype), k.to(dtype)
     y = x @ k
     if row_group is not None:
-        y = _ReduceFromModel.apply(y, row_group)
+        y = reduce_from_model(y, row_group)
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y

@@ -1,11 +1,11 @@
-"""Parallelism beyond data parallelism: sequence (context) and tensor
-parallelism.
+"""Parallelism beyond data parallelism: sequence (context), tensor and
+expert parallelism.
 
 Counterpart of ``autodist_tpu/parallel/``. Ported: ring and Ulysses
-attention, the parallel context, the Megatron sharding rules
-(``sharding_rules``) and the gathers of split parameters
-(``collectives``). Experts and the pipeline are not ported yet
-(ROADMAP.md, Queue A item 10).
+attention, the parallel context, the Megatron and expert sharding rules
+(``sharding_rules``), the gathers of split parameters (``collectives``)
+and the mixture-of-experts layer (``moe``). The pipeline is not ported
+yet (ROADMAP.md, Queue A item 10(e)).
 """
 from autodist_tpu_torch.parallel.context import (  # noqa: F401
     ParallelContext, resolve_attn)

@@ -11,16 +11,24 @@ semantics, so models stay runnable as plain PyTorch code.
 A JAX program sees the global arrays and asks the mesh for its place; a
 rank here holds its own shard, so the context also tells it its place on
 the ``seq`` axis: ``seq_index``, ``seq_size`` and ``seq_group`` (the
-process group of the ranks that share its batch rows), and on the
-``model`` axis: ``model_index``, ``model_size`` and ``model_group`` (the
-ranks that share its batch and hold the other pieces of its weights).
+process group of the ranks that share its batch rows), on the ``model``
+axis: ``model_index``, ``model_size`` and ``model_group`` (the ranks that
+share its batch and hold the other pieces of its weights), the same on the
+``expert`` axis (``expert_*``), and on the ``data`` axis (``data_*``: the
+ranks that hold the batch's other rows).
 
-Under tensor parallelism (``ModelParallel``) one rule decides which split
-weights reach the model as their pieces: :meth:`ParallelContext.
-arrives_as_piece`, which the Runner asks for each variable (the others it
-gathers). The Megatron layers (``models/layers.py``) then see a piece as a
-weight 1/``model_size`` of its whole width, and :func:`megatron` gives
-them the context to run the Megatron form with.
+Under tensor or expert parallelism (``ModelParallel``) one rule decides
+which split weights reach the model as their pieces: :meth:`
+ParallelContext.arrives_as_piece`, which the Runner asks for each variable
+(the others it gathers). The Megatron layers (``models/layers.py``) then
+see a piece as a weight 1/``model_size`` of its whole width, and
+:func:`megatron` gives them the context to run the Megatron form with;
+``parallel/moe.py`` sees E/``expert_size`` experts and asks
+:func:`experts`.
+
+One more rule says which batch a layer that couples a batch's tokens (MoE
+routing: capacity, slot order, aux loss) sees: :attr:`ParallelContext.
+global_batch`.
 """
 import contextlib
 import contextvars
@@ -41,9 +49,14 @@ class ParallelContext:
         seq_index, seq_size, seq_group: this rank's place on the ``seq``
             axis, the axis's size and its process group (from the mesh).
         model_index, model_size, model_group: the same for the ``model``
-            axis.
-        pieces: the variables that reach the Megatron layers as their
-            pieces (``sharding_rules.megatron_pieces``).
+            axis; ``expert_*`` for the ``expert`` axis and ``data_*`` for
+            the ``data`` axis.
+        pieces: the variables that reach the Megatron layers or the MoE
+            layer as their pieces (``sharding_rules.megatron_pieces`` and
+            ``expert_pieces``).
+        explicit: the program takes the JAX Runner's explicit path
+            (``DistributedProgram.use_explicit_path``), on which a data
+            shard is the model's whole batch (:attr:`global_batch`).
 
     The JAX context's ``attn_hook_in_use`` flag, which its loss reads to
     learn that the model took the hook, is :func:`chunk` here: the rule
@@ -54,7 +67,7 @@ class ParallelContext:
     """
 
     def __init__(self, mesh, seq_attn="", pipeline_microbatches=0,
-                 op_shardings=None, pieces=frozenset()):
+                 op_shardings=None, pieces=frozenset(), explicit=False):
         if pipeline_microbatches:
             raise NotImplementedError(
                 "pipeline_microbatches: the pipeline lowering is not ported "
@@ -67,46 +80,54 @@ class ParallelContext:
         self.mesh = mesh
         self.seq_attn = seq_attn
         self.pieces = frozenset(pieces)
+        self.explicit = explicit
         self._attn_cache = {}
         self._logged = set()
 
-    @property
-    def seq_size(self):
-        return 1 if self.mesh is None else \
-            self.mesh.shape.get(const.MESH_AXIS_SEQ, 1)
+    def _size(self, axis):
+        return 1 if self.mesh is None else self.mesh.shape.get(axis, 1)
 
-    @property
-    def seq_index(self):
-        return 0 if self.mesh is None else \
-            self.mesh.axis_index(const.MESH_AXIS_SEQ)
+    def _index(self, axis):
+        return 0 if self.mesh is None else self.mesh.axis_index(axis)
 
-    @property
-    def seq_group(self):
-        if self.mesh is None or self.seq_size <= 1:
+    def _group(self, axis):
+        if self._size(axis) <= 1:
             return None
-        return self.mesh.group(const.MESH_AXIS_SEQ)
+        return self.mesh.group(axis)
+
+    seq_size = property(lambda self: self._size(const.MESH_AXIS_SEQ))
+    seq_index = property(lambda self: self._index(const.MESH_AXIS_SEQ))
+    seq_group = property(lambda self: self._group(const.MESH_AXIS_SEQ))
+    model_size = property(lambda self: self._size(const.MESH_AXIS_MODEL))
+    model_index = property(lambda self: self._index(const.MESH_AXIS_MODEL))
+    model_group = property(lambda self: self._group(const.MESH_AXIS_MODEL))
+    expert_size = property(lambda self: self._size(const.MESH_AXIS_EXPERT))
+    expert_index = property(lambda self: self._index(
+        const.MESH_AXIS_EXPERT))
+    expert_group = property(lambda self: self._group(
+        const.MESH_AXIS_EXPERT))
+    data_size = property(lambda self: self._size(const.MESH_AXIS_DATA))
+    data_index = property(lambda self: self._index(const.MESH_AXIS_DATA))
+    data_group = property(lambda self: self._group(const.MESH_AXIS_DATA))
 
     @property
-    def model_size(self):
-        return 1 if self.mesh is None else \
-            self.mesh.shape.get(const.MESH_AXIS_MODEL, 1)
-
-    @property
-    def model_index(self):
-        return 0 if self.mesh is None else \
-            self.mesh.axis_index(const.MESH_AXIS_MODEL)
-
-    @property
-    def model_group(self):
-        if self.mesh is None or self.model_size <= 1:
-            return None
-        return self.mesh.group(const.MESH_AXIS_MODEL)
+    def global_batch(self):
+        """Whether a layer that couples the tokens of a batch (MoE routing:
+        its capacity, slot order and aux loss) sees the global batch, the
+        data group's shards together, rather than this rank's shard. The
+        JAX package's answer depends on its Runner's path: its GSPMD path
+        computes on the global batch, its explicit path (``shard_map``
+        manual over ``data``: PS, ZeRO, compressors, staleness) on each
+        data shard. So: on the GSPMD path over a data axis of more than one
+        rank."""
+        return not self.explicit and self.data_size > 1
 
     def arrives_as_piece(self, name):
-        """Whether variable ``name``, split over the model axis, reaches
-        the model as this rank's piece (a Megatron layer's weight) rather
-        than gathered whole."""
-        return self.model_size > 1 and name in self.pieces
+        """Whether variable ``name``, split over the model or the expert
+        axis, reaches the model as this rank's piece (a Megatron layer's
+        weight, an MoE layer's experts) rather than gathered whole."""
+        return (self.model_size > 1 or self.expert_size > 1) and \
+            name in self.pieces
 
     def log_once(self, key):
         """True the first time ``key`` is asked on this context: one log
@@ -171,6 +192,23 @@ def megatron(weight, dim, whole):
             f"a weight of width {width} along dim {dim} is neither whole "
             f"({whole}) nor its piece over a model axis of "
             f"{ctx.model_size}")
+    return ctx
+
+
+def experts(weight, whole):
+    """The active context when ``weight``, an expert-stacked kernel of
+    ``whole`` experts along dim 0, reached the MoE layer as this rank's
+    piece (:meth:`ParallelContext.arrives_as_piece`): an expert axis of
+    more than one rank and 1/``expert_size`` of the experts. None when it
+    arrived whole; any other count raises."""
+    ctx = current()
+    n = weight.shape[0]
+    if ctx is None or ctx.expert_size <= 1 or n == whole:
+        return None
+    if n * ctx.expert_size != whole:
+        raise ValueError(
+            f"an expert kernel of {n} experts is neither whole ({whole}) "
+            f"nor its piece over an expert axis of {ctx.expert_size}")
     return ctx
 
 

@@ -1,4 +1,5 @@
-"""Tensor-parallel sharding rules (Megatron-style column / row splits).
+"""Tensor- and expert-parallel sharding rules (Megatron-style column / row
+splits; the experts of an MoE layer).
 
 Counterpart of ``autodist_tpu/parallel/sharding_rules.py``, with the same
 rule table and the same annotation: a rule maps a parameter-name pattern
@@ -9,9 +10,10 @@ Attention q/k/v and the MLP up projection are column-parallel (the output
 dim split); attention out and the MLP down projection are row-parallel
 (the input dim split; their biases stay whole); the embedding table splits
 its hidden dim. The JAX package leaves the collectives to GSPMD; here the
-model layers run the Megatron forms on the pieces (``models/layers.py``)
-and the Runner gathers every other split parameter at use
-(``runner.py``).
+model layers run the Megatron forms on the pieces (``models/layers.py``),
+the MoE layer its experts' share (``parallel/moe.py``, whose
+``EXPERT_RULES`` split over the ``expert`` axis), and the Runner gathers
+every other split parameter at use (``runner.py``).
 """
 import re
 
@@ -60,6 +62,27 @@ def megatron_pieces(names, split):
     return frozenset(name for members in scopes.values()
                      if all(split.get(n) == d for n, d in members)
                      for name, _ in members)
+
+
+_EXPERT_LAYER = re.compile(r"moe/(up|down)/kernel$")
+
+
+def expert_pieces(names, split):
+    """The variables of ``names`` that reach the MoE layer
+    (``parallel/moe.py``) as their pieces, given ``split`` ({name: dim} of
+    the variables split over the expert axis): a ``moe`` scope's
+    ``up/kernel`` and ``down/kernel`` where both are split on dim 0 (the
+    experts). The gate kernel, split on its expert dim 1 by
+    ``moe.EXPERT_RULES``, is gathered at use (d x E: small); so is a scope
+    split otherwise."""
+    scopes = {}
+    for name in names:
+        match = _EXPERT_LAYER.search(name)
+        if match:
+            scopes.setdefault(name[:match.start()], []).append(name)
+    return frozenset(
+        name for members in scopes.values() if len(members) == 2 and
+        all(split.get(n) == 0 for n in members) for name in members)
 
 
 def apply_sharding_rules(strategy, graph_item, model_axis_size, rules=None,

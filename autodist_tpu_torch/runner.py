@@ -24,14 +24,15 @@ One step, on every rank:
      backward reduce-scatters the gradient, as the VJP of JAX's tiled
      ``all_gather`` does;
    * ``stale``: no reduction; each rank updates its own copy;
-   * ``tp`` (the parameter split over the ``model`` axis,
-     ``ModelParallel``): the rank stores its piece. A Megatron layer's
-     weight reaches the loss as it is (the layer's collectives make its
-     gradient this piece's); any other is all-gathered over the model
-     group through :class:`_GatherShards`, whose backward reduce-scatters
-     the gradient and divides it by the model size (every rank of a model
-     group computed the same whole gradient). Either gradient is then
-     averaged over the data group;
+   * ``tp`` (the parameter split over the ``model`` or the ``expert``
+     axis, ``ModelParallel``): the rank stores its piece. A Megatron
+     layer's weight, or an MoE layer's experts, reaches the loss as it is
+     (the layer's collectives make its gradient this piece's); any other
+     is all-gathered over the model (expert) group through
+     :class:`_GatherShards`, whose backward reduce-scatters the gradient
+     and divides it by the group's size (every rank of the group computed
+     the same whole gradient). Either gradient is then averaged over the
+     data group;
 
 4. the optimizer step (shard-local for ``zero1`` / ``fsdp``, which assumes
    an optimizer that works element by element, as the JAX Runner does;
@@ -40,13 +41,14 @@ One step, on every rank:
    ``t % (s + 1) == s`` the mean of each stale parameter over the group;
 5. the loss's mean over the data group.
 
-Under tensor parallelism (a ``model`` axis) the ranks of one model group
-must be fed one batch, which an eager step checks as it does for a seq
-group (below). The gradients of whole parameters and the loss, which
-every rank of a model group computes whole, average over data x model:
-on the card the ranks' gradients of a whole parameter differ in the last
-bits (scatter-add atomics), and the mean keeps their copies bitwise
-equal. The graph paths refuse a model axis (ROADMAP item A15).
+Under tensor or expert parallelism (a ``model`` or ``expert`` axis) the
+ranks of one model (expert) group must be fed one batch, which an eager
+step checks as it does for a seq group (below). The gradients of whole
+parameters and the loss, which every rank of such a group computes whole,
+average over data x that axis: on the card the ranks' gradients of a
+whole parameter differ in the last bits (scatter-add atomics), and the
+mean keeps their copies bitwise equal. The graph paths refuse both axes
+(ROADMAP item A15).
 
 Under sequence parallelism (a ``seq`` axis, ``SequenceParallel``) the
 loss runs inside the program's parallel context (``parallel/context.py``),
@@ -176,22 +178,23 @@ class Runner:
             if self._periods else 1
         self._shards = weakref.WeakKeyDictionary()  # optimizer -> zero1
         self._graphs = {}  # megastep graphs by block structure and phase
-        # A seq group, or a model group, shares its batch rows: the
+        # A seq, model or expert group shares its batch rows: the
         # gradients of whole parameters and the loss average over data x
-        # that axis (``GraphTransformer`` refuses both at once). A model
-        # group also holds the pieces of the tp variables.
-        self._seq_group = self._model_group = self._share_group = None
+        # that axis (``GraphTransformer`` refuses two of them at once). A
+        # model or expert group (the piece group) also holds the pieces of
+        # the tp variables.
+        self._seq_group = self._piece_group = self._share_group = None
         self._grad_group = self._mesh.group()
         if program.seq_axis_size > 1:
             self._seq_group = self._share_group = self._mesh.group(
                 const.MESH_AXIS_SEQ)
             self._grad_group = self._mesh.group_over(
                 (const.MESH_AXIS_DATA, const.MESH_AXIS_SEQ))
-        if program.model_axis_size > 1:
-            self._model_group = self._share_group = self._mesh.group(
-                const.MESH_AXIS_MODEL)
+        if program.piece_axis is not None:
+            self._piece_group = self._share_group = self._mesh.group(
+                program.piece_axis)
             self._grad_group = self._mesh.group_over(
-                (const.MESH_AXIS_DATA, const.MESH_AXIS_MODEL))
+                (const.MESH_AXIS_DATA, program.piece_axis))
 
     @staticmethod
     def _mask_non_trainable(item):
@@ -287,9 +290,9 @@ class Runner:
     def logical_params(self, state):
         """The params at their logical shapes, detached: padding cut off,
         an ``fsdp`` variable's pieces all-gathered over the data group and
-        a ``tp`` variable's over the model group (collectives: every rank
-        calls them), a stale variable this rank's copy (the JAX Runner's
-        stored array holds every device's copy)."""
+        a ``tp`` variable's over the model (expert) group (collectives:
+        every rank calls them), a stale variable this rank's copy (the JAX
+        Runner's stored array holds every device's copy)."""
         def logical(path, t):
             name = path_to_name(path)
             t = t.detach()
@@ -301,12 +304,12 @@ class Runner:
     def _gather_piece(self, name, t):
         """``t``, shaped like variable ``name``'s update tensor, gathered
         whole: over the data group for ``zero1`` / ``fsdp``, over the
-        model group for ``tp``; as it is otherwise."""
+        model (expert) group for ``tp``; as it is otherwise."""
         kind, dim = self._kind(name)
         if kind in ("zero1", "fsdp") and self._mesh.group() is not None:
             return _all_gather(t, dim, self._mesh.group())
         if kind == "tp":
-            return _all_gather(t, dim, self._model_group)
+            return _all_gather(t, dim, self._piece_group)
         return t
 
     def _cut_padding(self, name, t):
@@ -462,9 +465,10 @@ class Runner:
         """The params the loss sees: ``fsdp`` pieces all-gathered over the
         data group (through :class:`_GatherShards`, so their gradients
         reduce-scatter); ``tp`` pieces as they are where the parallel
-        context says they reach a Megatron layer, else all-gathered over
-        the model group, their gradients reduce-scattered and divided by
-        the model size; padding cut off."""
+        context says they reach a Megatron or an MoE layer, else
+        all-gathered over the model (expert) group, their gradients
+        reduce-scattered and divided by the group's size; padding cut
+        off."""
         group = self._mesh.group()
         ctx = self._program.parallel_context()
 
@@ -474,20 +478,22 @@ class Runner:
             if kind == "fsdp":
                 t = _GatherShards.apply(t, dim, group)
             elif kind == "tp" and not ctx.arrives_as_piece(name):
-                t = _GatherShards.apply(t, dim, self._model_group,
-                                        self._program.model_axis_size)
+                t = _GatherShards.apply(
+                    t, dim, self._piece_group,
+                    self._mesh.shape[self._program.piece_axis])
             return self._cut_padding(name, t)
         return tree_map_with_path(view, params)
 
     def _sync_gradients(self, grads):
         """Reduce ``grads`` ({name: gradient of the stored leaf}) over the
         data group, by kind; a ``zero1`` gradient is replaced by this
-        rank's shard of the mean. Under a seq or a model axis the ``ar``
-        buckets reduce over the data x seq (model) group and the
-        ``zero1`` / ``fsdp`` / ``stale`` kinds first take their mean over
-        the seq (model) group; a ``tp`` piece's gradient reduces over the
-        data group alone. Averaging a whole parameter's gradient over its
-        model group keeps the ranks' copies bitwise equal: on the card
+        rank's shard of the mean. Under a seq, model or expert axis the
+        ``ar`` buckets reduce over the data x seq (model, expert) group and
+        the ``zero1`` / ``fsdp`` / ``stale`` kinds first take their mean
+        over the seq (model, expert) group; a ``tp`` piece's gradient
+        reduces over the data group alone. Averaging a whole parameter's
+        gradient over its model group keeps the ranks' copies bitwise
+        equal: on the card
         each rank's gradient differs from the others' in the last bits
         (scatter-add atomics). A one-device local mesh (no process group)
         has nothing to reduce."""
@@ -603,11 +609,13 @@ class Runner:
                 batch, self._seq_group, const.MESH_AXIS_SEQ,
                 "under sequence parallelism each computes its chunk of the "
                 "sequence")
-        if self._model_group is not None:
+        if self._piece_group is not None:
             self._check_group_batch(
-                batch, self._model_group, const.MESH_AXIS_MODEL,
+                batch, self._piece_group, self._program.piece_axis,
                 "under tensor parallelism each computes its pieces of every "
-                "layer")
+                "layer" if self._program.piece_axis == const.MESH_AXIS_MODEL
+                else "under expert parallelism each computes its experts' "
+                "share of every token")
         metrics = self._core(state.params, state.opt_state, batch,
                              int(state.step))
         return self._advance(state, 1), metrics
@@ -881,12 +889,14 @@ class _GraphStep:
                 "capturing the ring's hops in a CUDA graph is not ported "
                 "yet (ROADMAP.md, Queue A item 15); use step() or "
                 "run(unroll=1)")
-        if runner.program.model_axis_size > 1:
+        if runner.program.piece_axis is not None:
             raise NotImplementedError(
-                "autodist_tpu_torch: a tensor-parallel step runs eagerly: "
-                "capturing the model group's collectives in a CUDA graph "
-                "is not ported yet (ROADMAP.md, Queue A item 15); use "
-                "step() or run(unroll=1)")
+                f"autodist_tpu_torch: a step over a "
+                f"{runner.program.piece_axis} axis (tensor or expert "
+                f"parallelism) runs eagerly: capturing the "
+                f"{runner.program.piece_axis} group's collectives in a CUDA "
+                f"graph is not ported yet (ROADMAP.md, Queue A item 15); use "
+                f"step() or run(unroll=1)")
         self._runner = runner
         self.k = k
         flat, self._treedef = flatten(example)

@@ -1,16 +1,21 @@
-"""ModelParallel: tensor parallelism composed over any base strategy.
+"""ModelParallel: tensor (or expert) parallelism composed over any base
+strategy.
 
 Counterpart of ``autodist_tpu/strategy/model_parallel_strategy.py``, with
 the same proto: the base builder's per-variable synchronization, a
-``model`` axis carved out of ``data`` (``graph_config.mesh_axes``), and
-Megatron partitioners on the matched weights
-(``parallel/sharding_rules.py``). Each rank of a model group stores its
-piece of every split weight; the model layers run the Megatron forms on
-the pieces and the Runner gathers the other split weights at use.
+``model`` (or ``expert``) axis carved out of ``data``
+(``graph_config.mesh_axes``), and the rules' partitioners on the matched
+weights (``parallel/sharding_rules.py``). Each rank of a model (expert)
+group stores its piece of every split weight; the model layers run the
+Megatron forms (the MoE layer its experts) on the pieces and the Runner
+gathers the other split weights at use.
 
 Usage::
 
     ad = AutoDist(strategy_builder=ModelParallel(PS(), model_axis=2))
+    ad = AutoDist(strategy_builder=ModelParallel(
+        AllReduce(), model_axis=2, rules=moe.EXPERT_RULES,
+        mesh_axis="expert"))
 """
 from autodist_tpu_torch import const
 from autodist_tpu_torch.parallel.sharding_rules import (MEGATRON_RULES,
@@ -26,17 +31,14 @@ class ModelParallel(StrategyBuilder):
         base: StrategyBuilder deciding sync methods (default AllReduce).
         model_axis: size of the ``model`` mesh axis.
         rules: optional override of the (regex, weight-dim) rule table.
-        mesh_axis: the axis the rules split over; ``"expert"`` (the MoE
-            overlay) is not ported (ROADMAP.md, Queue A item 10(c)).
+        mesh_axis: the axis the rules split over: ``"model"``, or
+            ``"expert"`` for the MoE overlay (``rules=moe.EXPERT_RULES``:
+            each rank of an expert group stores and computes E/size
+            experts, ``parallel/moe.py``).
     """
 
     def __init__(self, base=None, model_axis=2, rules=None,
                  mesh_axis=const.MESH_AXIS_MODEL):
-        if mesh_axis == const.MESH_AXIS_EXPERT:
-            raise NotImplementedError(
-                "ModelParallel(mesh_axis='expert'): the MoE overlay "
-                "(parallel/moe.py) is not ported to autodist_tpu_torch yet "
-                "(ROADMAP.md, Queue A item 10(c))")
         self._base = base or AllReduce()
         self._model_axis = model_axis
         self._rules = rules or MEGATRON_RULES

@@ -182,9 +182,34 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    bitwise the TP world's logical params, and the restored params serve
    through ``serve.Server`` (bucket 8 x 512) bitwise that Runner's eager
    forward; (d) the phase's seconds;
-12. output: one ``{"kernels": [...]}`` JSON line, then the last line
+12. expert parallelism: one MoE layer (``parallel/moe.py``) at
+   Switch-Base-8's widths (d_model 768, d_ff 3072, 8 experts, top-2,
+   capacity factor 1.25, bf16 compute) -> a 4-class head, cross-entropy +
+   0.01 aux, on x of 32 x 128 x 768 (4096 tokens, capacity 1280), SGD 0.1,
+   4 steps: (a) one rank eagerly, again (the floor) and through
+   ``make_callable(aot=True)`` (the dispatch holds no host sync, or the
+   capture fails): the graph's losses within the floor of the eager ones,
+   ``flops_estimate`` covering the expert products; (b) two gloo ranks on
+   the card (processes of this script) under ``ModelParallel(AllReduce(),
+   model_axis=2, rules=moe.EXPERT_RULES, mesh_axis="expert")`` and over
+   ``PS()`` on ``{data: 1, expert: 2}``, each rank storing and computing 4
+   of the 8 experts: losses and each param's update held to one rank's
+   steps, each tolerance between the floor and the planted faults (the
+   copy-to-expert backward dropped, the aux gradient summed over the
+   expert group, the gathered gate gradient undivided), the replicated
+   parameters bitwise equal across the ranks and the pieces not, the
+   top-k indices equal across the group at every step, every expert
+   product of a rank on 4 experts; (c) prints the stored parameter bytes
+   and peak memory a rank, the step ms (one rank eager / graph, EP rank),
+   the expert FFN's device ms at 8 and 4 experts against its bound, and
+   the expert group's all-reduce of the (T, d) f32 output; (d) the
+   AllReduce run's ``CheckpointManager`` step restores into a one-rank
+   Runner, every leaf bitwise the EP world's logical params, and that
+   Runner's forward gives the EP step's loss; (e) the phase's seconds;
+13. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import copy
 import functools
 import itertools
@@ -376,6 +401,41 @@ TP_LOSS_RTOL, TP_UPDATE_RTOL = 1e-3, 5e-2
 TP_BUILDERS = (("allreduce", "AllReduce"), ("ps", "PS"))
 TP_FAULTS = ("undivided", "no_allreduce")
 TP_SHAPE = (32, 6, 128, 128, 64)
+
+# Phase 12, expert parallelism: one MoE layer at Switch-Base-8's widths
+# (google/switch-base-8: d_model 768, d_ff 3072, 8 experts) with
+# MoEConfig's top_k 2 and capacity_factor 1.25 and bf16 compute, trained
+# as the JAX package trains the layer (tests/test_moe.py:84-116,
+# bench.py:562-583): moe.apply -> a linear head of EP_CLASSES classes ->
+# cross-entropy + 0.01 aux, on x of (EP_BATCH, EP_SEQ, 768) (T = 4096
+# tokens, capacity 1280). One rank takes EP_STEPS eager SGD steps at EP_LR,
+# again (the floor), and through make_callable(aot=True); then EP_WORLD
+# gloo ranks (processes of this script) on the one card train under
+# ModelParallel(rules=moe.EXPERT_RULES, mesh_axis="expert") over each base
+# of EP_BUILDERS on {data: 1, expert: EP_WORLD}, each rank its E/ep
+# experts, and over AllReduce with each fault of EP_FAULTS (the
+# copy-to-expert backward dropped, the aux loss's gradient summed over the
+# expert group, the gathered gate gradient left undivided). Losses and the
+# update are held to one rank's AllReduce() steps at EP_LOSS_RTOL and
+# EP_UPDATE_RTOL (the largest relative L2 error of one param's update: the
+# gate holds 0.02% of the parameters, so a fault in its gradient hides in
+# the whole update's error), each between the floor and the faults' least reading:
+# the update's over EP_FAULTS, the loss's over EP_LOSS_FAULTS. The aux
+# fault moves only the gate's gradient, by 0.01 x aux's part of it, and the
+# loss by as little as the EP run's own rounding does (2.3e-6 against
+# 2.1e-6): it is read on the update. Read on an H100: the floor 0 (the
+# one-rank step is bitwise repeatable, and its graph bitwise the eager
+# step); the EP runs 2.1e-6 (loss) and 9.8e-4 (the up kernel's update;
+# the expert products' gradients over 4 experts round otherwise than over
+# 8); faults: copy-to-expert backward dropped 1.5e-4 / 0.50 (the gate),
+# gate gradient undivided 2.2e-4 / 1.00, aux summed 2.3e-6 / 3.8e-3.
+EP_D, EP_H, EP_E = 768, 3072, 8
+EP_BATCH, EP_SEQ, EP_CLASSES = 32, 128, 4
+EP_WORLD, EP_STEPS, EP_LR = 2, 4, 0.1
+EP_LOSS_RTOL, EP_UPDATE_RTOL = 2e-5, 2e-3
+EP_BUILDERS = (("allreduce", "AllReduce"), ("ps", "PS"))
+EP_FAULTS = ("no_copy", "aux_summed", "undivided")
+EP_LOSS_FAULTS = ("no_copy", "undivided")
 
 
 def check(cond, msg):
@@ -4159,6 +4219,476 @@ def tp_phase(torch, fa, card, cfg, device, batch_size=32, seq=128,
     return paths
 
 
+def ep_config(torch, d_model=EP_D, d_hidden=EP_H, num_experts=EP_E):
+    from autodist_tpu_torch.parallel import moe
+    return moe.MoEConfig(num_experts=num_experts, top_k=2, d_model=d_model,
+                         d_hidden=d_hidden, dtype=torch.bfloat16)
+
+
+def ep_init(torch, cfg, device):
+    """{"moe": the layer, "head": (d, EP_CLASSES) * 0.1} from seed 0."""
+    from autodist_tpu_torch.parallel import moe
+    gen = torch.Generator().manual_seed(0)
+    return {"moe": moe.init(gen, cfg, device=device),
+            "head": {"kernel": (torch.randn(
+                (cfg.d_model, EP_CLASSES), generator=gen) * 0.1).to(device)}}
+
+
+def ep_batch(torch, cfg, batch, seq, device):
+    """(x (batch, seq, d) f32, labels (batch, seq) int64) from seed 0."""
+    rng = np.random.RandomState(0)
+    return (torch.as_tensor(rng.randn(batch, seq, cfg.d_model).astype(
+                np.float32), device=device),
+            torch.as_tensor(rng.randint(0, EP_CLASSES, (batch, seq)),
+                            device=device))
+
+
+def ep_loss(cfg):
+    """The JAX package's MoE training loss: moe.apply -> head -> mean
+    cross-entropy over the tokens + 0.01 aux."""
+    import torch.nn.functional as F
+    from autodist_tpu_torch.parallel import moe
+
+    def loss_fn(params, batch):
+        x, labels = batch
+        h, aux = moe.apply(params["moe"], cfg, x)
+        logits = h @ params["head"]["kernel"]
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1)) + 0.01 * aux
+    return loss_fn
+
+
+def update_errors(torch, got, ref, init):
+    """{param: the relative L2 error of its update}, ||got - ref|| / ||ref
+    - init||, by name."""
+    return {n: update_error(torch, {n: got[n]}, {n: ref[n]}, {n: init[n]})
+            for n in ref}
+
+
+def _bmm_recorder(torch):
+    """A dispatch mode recording every bmm's leading (expert) dim in its
+    ``lead`` list."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.lead = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.bmm.default:
+                self.lead.append(int(args[0].shape[0]))
+            return func(*args, **(kwargs or {}))
+    return Record()
+
+
+def _ep_train(torch, fa, cfg, device, builder, params, batch, steps,
+              aot=False, record=False):
+    """``steps`` SGD steps of :func:`ep_loss` under ``builder`` from
+    ``params`` (the runner copies them), eagerly or through
+    ``make_callable(aot=True)``: the losses, host ms per step, flash
+    launches over the steps, peak device memory, the runner, the state, the
+    step function, the item's ``flops_estimate`` and, with ``record``, the
+    leading dims of step 1's bmms."""
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import autodist as autodist_mod
+    autodist_mod._reset_default()
+    ad = AutoDist(strategy_builder=builder, device=device)
+    item = ad.capture(ep_loss(cfg), params,
+                      functools.partial(torch.optim.SGD, lr=EP_LR),
+                      example_batch=batch)
+    runner = ad.create_distributed_session(item)
+    state = runner.create_state()
+    dbatch = runner.remapper.shard_batch(batch)
+    step_fn = runner.make_callable(batch, aot=aot)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _flash_counts(fa, reset=True)  # this run's main path
+    losses, times, lead = [], [], []
+    for i in range(steps):
+        rec = _bmm_recorder(torch) if record and i == 0 else \
+            contextlib.nullcontext()
+        with rec:
+            (state, m), ms = _timed(torch, device, lambda: step_fn(
+                state, dbatch))
+        if record and i == 0:
+            lead = rec.lead
+        losses.append(float(m["loss"]))
+        times.append(ms)
+    return types.SimpleNamespace(
+        losses=losses, times=times, launches=_flash_counts(fa),
+        peak=torch.cuda.max_memory_allocated() if device == "cuda" else 0,
+        runner=runner, state=state, step_fn=step_fn,
+        flops=item.flops_estimate(), lead=lead)
+
+
+def ep_train_rank(rank, world, port, spec):
+    """One rank of :func:`ep_phase`: a gloo world over ``localhost`` on
+    device 0; the MoE model (``spec``'s widths, the seeded init, the whole
+    batch) trains ``spec["steps"]`` eager SGD steps under
+    ModelParallel(rules=moe.EXPERT_RULES, mesh_axis="expert") over each
+    base of ``EP_BUILDERS`` and, over AllReduce, with each fault of
+    ``EP_FAULTS`` monkeypatched in; the AllReduce run is saved through
+    ``CheckpointManager`` into ``spec["ckpt"]`` and then takes one more
+    step, whose loss is that of the saved params. Prints {run: losses,
+    launches, ms, mesh, kinds, each param's update error against the
+    reference, digests of the replicated params, of the pieces and of each
+    step's top-k indices, step 1's bmm leading dims, stored and whole
+    parameter bytes, peak memory}, the logical params' digest per leaf and
+    the expert group's all-reduce time."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.models import layers
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.parallel import collectives, context, moe
+    spec = json.loads(spec)
+    device = spec["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    cfg = ep_config(torch, **spec["widths"])
+    params = ep_init(torch, cfg, device)
+    init = {n: t.detach().clone() for n, t in flatten_params(params).items()}
+    batch = ep_batch(torch, cfg, spec["batch"], spec["seq"], device)
+    ref = torch.load(spec["ref"], map_location=device)
+    real_route = moe._route
+    routes = []
+
+    def recorded(gates, cfg, group=None):
+        out = real_route(gates, cfg, group)
+        routes.append(_digest(torch, [out[1]]))
+        return out
+
+    def aux_summed(gates, cfg, group=None):
+        top_vals, top_idx, _ = real_route(gates, cfg, group)
+        _, _, aux = real_route(layers.copy_to_model(
+            gates, context.current().expert_group), cfg, group)
+        return top_vals, top_idx, aux
+
+    def undivided(ctx, grad):
+        return (collectives.reduce_scatter(grad, ctx.dim, ctx.group), None,
+                None, None)
+    faults = {"no_copy": (layers._CopyToModel, "backward",
+                          staticmethod(lambda ctx, grad: (grad, None))),
+              "aux_summed": (moe, "_route", aux_summed),
+              "undivided": (collectives.GatherShards, "backward",
+                            staticmethod(undivided))}
+    out = {"rank": rank}
+    for key in [k for k, _ in EP_BUILDERS] + list(EP_FAULTS):
+        base = dict(EP_BUILDERS).get(key, "AllReduce")
+        target, attr, fault = faults.get(key, (moe, "_route", recorded))
+        real = target.__dict__[attr]
+        setattr(target, attr, fault)
+        routes.clear()
+        try:
+            run = _ep_train(torch, fa, cfg, device, S.ModelParallel(
+                getattr(S, base)(), model_axis=world, rules=moe.EXPERT_RULES,
+                mesh_axis="expert"), params, batch, spec["steps"],
+                record=key not in faults)
+        finally:
+            setattr(target, attr, real)
+        kinds = run.runner.var_kinds
+        final = flatten_params(run.runner.logical_params(run.state))
+        stored = flatten_params(run.state.params)
+        out[key] = {
+            "losses": run.losses, "launches": run.launches, "ms": run.times,
+            "mesh": dict(run.runner.program.mesh.shape),
+            "kinds": sorted({k for k, _ in kinds.values()}),
+            "update_errors": update_errors(torch, final, ref, init),
+            "replicated": _digest(torch, (t for n, t in sorted(stored.items())
+                                  if kinds[n][0] != "tp")),
+            "pieces": _digest(torch, (t for n, t in sorted(stored.items())
+                                      if kinds[n][0] == "tp")),
+            "routes": list(routes), "bmm": run.lead,
+            "stored_bytes": sum(t.numel() * t.element_size()
+                                for t in stored.values()),
+            "whole_bytes": sum(t.numel() * t.element_size()
+                               for t in final.values()),
+            "peak_bytes": run.peak}
+        if key == "allreduce":
+            mgr = CheckpointManager(run.runner, spec["ckpt"])
+            mgr.save(spec["steps"], run.state, force=True)
+            mgr.wait_until_finished()
+            mgr.close()
+            out["logical"] = {n: _digest(torch, [t]) for n, t in final.items()}
+            _, m = run.step_fn(run.state, run.runner.remapper.shard_batch(
+                batch))
+            out["next_loss"] = float(m["loss"])
+            group = run.runner.program.mesh.group("expert")
+            partial = torch.zeros((spec["batch"] * spec["seq"],
+                                   cfg.d_model), device=device)
+            out["allreduce_ms"] = _collective_ms(
+                torch, device, lambda: dist.all_reduce(partial, group=group))
+            out["allreduce_bytes"] = partial.numel() * partial.element_size()
+        del run, final, stored
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def ep_ffn_timing(torch, card, cfg, tokens, ep):
+    """Prints the expert FFN's time (the two bmms and the GELU between
+    them) on the card at its buffers' shapes: all E experts (one rank)
+    and E/ep (an expert-parallel rank), bf16, device ms against the bound
+    of its operations."""
+    import math
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cap = min(tokens, max(1, math.ceil(tokens * cfg.top_k / cfg.num_experts *
+                                       cfg.capacity_factor)))
+    for e in (cfg.num_experts, cfg.num_experts // ep):
+        buf, up, down = [torch.randn(shape, generator=gen, device=dev,
+                                     dtype=torch.bfloat16) for shape in (
+            (e, cap, cfg.d_model), (e, cfg.d_model, cfg.d_hidden),
+            (e, cfg.d_hidden, cfg.d_model))]
+        t = timed(torch, lambda: torch.bmm(F.gelu(torch.bmm(
+            buf, up), approximate="tanh"), down))
+        flops = 2 * 2.0 * e * cap * cfg.d_model * cfg.d_hidden
+        nbytes = 2 * (buf.numel() * 2 + up.numel() + down.numel())
+        bnd = bound(flops, nbytes)
+        print(f"  (c) expert FFN of {e} experts (buffer {e} x {cap} x "
+              f"{cfg.d_model}, h {cfg.d_hidden}, bf16): device ms "
+              f"{t['ms']:.4f}, host-inclusive {t['host_ms']:.4f}; "
+              f"{flops / 1e9:.1f} GFLOP, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+              f"bound / device {bnd[0] / t['ms']:.3f}; on {card}",
+              flush=True)
+
+
+def ep_phase(torch, fa, card, device, widths=None, batch_size=EP_BATCH,
+             seq=EP_SEQ, steps=EP_STEPS):
+    """Phase 12: (a) one rank trains the MoE model eagerly, again, and
+    through make_callable(aot=True); (b) ``EP_WORLD`` gloo ranks (processes
+    of this script) on the one card train it under
+    ModelParallel(rules=moe.EXPERT_RULES, mesh_axis="expert") over each
+    base of ``EP_BUILDERS`` through AutoDist -> Runner.step, held to one
+    rank's AllReduce() steps (tolerances between that run again and the
+    planted faults), the replicated params bitwise equal across the ranks,
+    the top-k indices equal at every step, each rank's expert products on
+    E/ep experts; (c) memory, step and expert FFN times; (d) the AllReduce
+    run's checkpoint restores into one rank bitwise and its forward gives
+    the EP step's loss; (e) the phase's seconds. Returns {path: flash
+    launches} (none: the path has no attention)."""
+    import socket
+    import tempfile
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.ops import build
+    t_phase = time.perf_counter()
+    widths = widths or {}
+    cfg = ep_config(torch, **widths)
+    tokens = batch_size * seq
+    print(f"phase 12: an MoE layer at Switch-Base-8's widths (d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_hidden}, {cfg.num_experts} experts, "
+          f"top_k {cfg.top_k}, cf {cfg.capacity_factor}, bf16 compute) -> a "
+          f"{EP_CLASSES}-class head, CE + 0.01 aux, x {batch_size} x {seq} x "
+          f"{cfg.d_model}, SGD {EP_LR}, {steps} steps: one rank eager and "
+          f"aot=True, then {EP_WORLD} gloo ranks under " + ", ".join(
+              f"ModelParallel({b}(), model_axis={EP_WORLD}, "
+              f"rules=moe.EXPERT_RULES, mesh_axis='expert')"
+              for _, b in EP_BUILDERS), flush=True)
+    batch = ep_batch(torch, cfg, batch_size, seq, "cpu")
+    params = ep_init(torch, cfg, device)
+    init = {n: t.detach().clone() for n, t in flatten_params(params).items()}
+    paths = {}
+    try:
+        runs = {label: _ep_train(torch, fa, cfg, device, S.AllReduce(),
+                                 params, batch, steps, aot=aot)
+                for label, aot in (("eager", False), ("again", False),
+                                   ("aot", True))}
+        finals = {label: flatten_params(r.runner.logical_params(r.state))
+                  for label, r in runs.items()}
+        ref = runs["eager"]
+        expert_flops = 2 * 2.0 * tokens * cfg.top_k * \
+            cfg.capacity_factor * cfg.d_model * cfg.d_hidden
+        for label, r in runs.items():
+            check(all(np.isfinite(r.losses)) and r.losses[-1] < r.losses[0],
+                  f"(a) one rank {label}: losses {r.losses}")
+            check(not any(r.launches.values()), f"(a) one rank {label}: "
+                  f"flash launches {r.launches} on a path with none")
+        check(all(not torch.equal(init[n], finals["eager"][n])
+                  for n in init), "(a) a param did not change")
+        aot = runs["aot"]
+        if device == "cuda":
+            graph = aot.step_fn.graph
+            check(graph.captured and graph.replays == steps - 1,
+                  f"(a) the aot step replayed {graph.replays} times in "
+                  f"{steps} calls")
+        floor = {"loss": _rel(runs["again"].losses, ref.losses),
+                 "update": max(update_errors(torch, finals["again"],
+                                             finals["eager"], init).values())}
+        aot_rel = _rel(aot.losses, ref.losses)
+        print(f"  (a) one rank AllReduce(): losses "
+              f"{', '.join(f'{x:.6f}' for x in ref.losses)}; ms per step "
+              f"(host-inclusive) eager "
+              f"{', '.join(f'{x:.1f}' for x in ref.times)}, aot=True {', '.join(f'{x:.1f}' for x in aot.times)}; "
+              f"aot losses {', '.join(f'{x:.6f}' for x in aot.losses)}, max "
+              f"rel. diff from eager {aot_rel:.3e}, step 1 bitwise: "
+              f"{aot.losses[0] == ref.losses[0]}; floor (the run again): "
+              f"loss {floor['loss']:.3e}, update {floor['update']:.3e}; peak "
+              f"memory {ref.peak / 2**30:.2f} GiB; flops_estimate "
+              f"{ref.flops / 1e9:.1f} GFLOP (the expert products "
+              f"{expert_flops / 1e9:.1f}); on {card}", flush=True)
+        check(aot.losses[0] == ref.losses[0], f"(a) the aot step 1 loss "
+              f"{aot.losses[0]} is not the eager step's {ref.losses[0]}")
+        check(aot_rel <= floor["loss"], f"(a) aot losses {aot.losses} vs "
+              f"eager {ref.losses}: further apart than the eager run again "
+              f"({floor['loss']})")
+        check(ref.flops >= expert_flops, f"(a) flops_estimate {ref.flops} "
+              f"misses the expert products' {expert_flops}")
+        paths["ep_one_rank"] = ref.launches
+        paths["ep_one_rank_aot"] = aot.launches
+        ref_losses, ref_times = ref.losses, ref.times
+        ref_final = {n: t.detach().cpu() for n, t in finals["eager"].items()}
+        del runs, finals, ref, aot
+    finally:
+        autodist_mod._reset_default()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
+    ref_path = os.path.join(tmp.name, "ref.pt")
+    ckpt = os.path.join(tmp.name, "ep_ckpt")
+    torch.save(ref_final, ref_path)
+    spec = json.dumps({"device": device, "widths": widths, "seq": seq,
+                       "batch": batch_size, "steps": steps, "ref": ref_path,
+                       "ckpt": ckpt})
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ep-train", str(r),
+         str(EP_WORLD), str(port), spec], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(EP_WORLD)]
+    ranks = []
+    try:
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=900)
+                check(p.returncode == 0, f"an EP rank exited with "
+                      f"{p.returncode}: {err[-3000:]}")
+                ranks.append(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        faults = {key: (_rel(ranks[0][key]["losses"], ref_losses),
+                        max(ranks[0][key]["update_errors"].values()))
+                  for key in EP_FAULTS}
+        print(f"  (b) planted faults against one rank: " + "; ".join(
+            f"{key}: loss {l:.3e}, update {u:.3e} (" + ", ".join(
+                f"{n} {e:.2e}" for n, e in
+                ranks[0][key]["update_errors"].items()) + ")"
+            for key, (l, u) in faults.items()) + f" (on {card})", flush=True)
+        for i, (what, tol, keys) in enumerate((
+                ("loss", EP_LOSS_RTOL, EP_LOSS_FAULTS),
+                ("update", EP_UPDATE_RTOL, EP_FAULTS))):
+            least = min(faults[k][i] for k in keys)
+            check(floor[what] < tol < least, f"(b) the {what} tolerance "
+                  f"{tol} does not lie between the floor {floor[what]} and "
+                  f"the faults' least reading {least}")
+        local_e = cfg.num_experts // EP_WORLD
+        for key, base in EP_BUILDERS:
+            runs = [r[key] for r in ranks]
+            losses = runs[0]["losses"]
+            rel = _rel(losses, ref_losses)
+            errs = runs[0]["update_errors"]
+            err = max(errs.values())
+            print(f"  (b) ModelParallel({base}(), mesh_axis='expert') on "
+                  f"{EP_WORLD} ranks (mesh {runs[0]['mesh']}, kinds "
+                  f"{'/'.join(runs[0]['kinds'])}): losses "
+                  f"{', '.join(f'{x:.6f}' for x in losses)}; max rel. diff "
+                  f"{rel:.3e} (tol {EP_LOSS_RTOL}); update errors "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) +
+                  f" (tol {EP_UPDATE_RTOL}); replicated params equal on "
+                  f"every rank: {len({r['replicated'] for r in runs}) == 1}, "
+                  f"pieces differ: "
+                  f"{len({r['pieces'] for r in runs}) == EP_WORLD}; top-k "
+                  f"equal across the group at every step: "
+                  f"{len({tuple(r['routes']) for r in runs}) == 1}; step 1's "
+                  f"expert bmms on {sorted(set(runs[0]['bmm']))} experts",
+                  flush=True)
+            for i, r in enumerate(runs):
+                print(f"    rank {i}: stores {r['stored_bytes']} of "
+                      f"{r['whole_bytes']} parameter bytes "
+                      f"({100 * r['stored_bytes'] / r['whole_bytes']:.1f}%); "
+                      f"peak memory {r['peak_bytes'] / 2**30:.2f} GiB; ms per "
+                      f"step (host-inclusive) "
+                      f"{', '.join(f'{x:.1f}' for x in r['ms'])}; on {card}",
+                      flush=True)
+            check(rel <= EP_LOSS_RTOL, f"(b) {base}: losses {losses} vs one "
+                  f"rank's {ref_losses}")
+            check(err <= EP_UPDATE_RTOL, f"(b) {base}: update errors {errs}")
+            check(all(r["losses"] == losses for r in runs),
+                  f"(b) {base}: the ranks' losses differ")
+            check(len({r["replicated"] for r in runs}) == 1,
+                  f"(b) {base}: the replicated params differ across ranks")
+            check(len({r["pieces"] for r in runs}) == EP_WORLD,
+                  f"(b) {base}: two ranks hold the same pieces")
+            check(all(len(r["routes"]) == steps for r in runs) and
+                  len({tuple(r["routes"]) for r in runs}) == 1,
+                  f"(b) {base}: the ranks' top-k indices differ")
+            check(all(r["bmm"] and set(r["bmm"]) == {local_e} for r in runs),
+                  f"(b) {base}: expert bmms on {runs[0]['bmm']} experts, "
+                  f"expected {local_e}")
+            check(all(r["mesh"] == {"data": 1, "expert": EP_WORLD}
+                      for r in runs), f"(b) {base}: mesh {runs[0]['mesh']}")
+            check(all(not any(r["launches"].values()) for r in runs),
+                  f"(b) {base}: flash launches on a path with none")
+            paths[f"ep_gloo{EP_WORLD}_{key}"] = {
+                k: sum(r["launches"][k] for r in runs)
+                for k in runs[0]["launches"]}
+        print(f"  (c) the expert group's all-reduce of the (T, d) f32 output "
+              f"({ranks[0]['allreduce_bytes'] / 1e6:.1f} MB) on gloo ({device} "
+              f"tensors, host-inclusive): {ranks[0]['allreduce_ms']:.2f} ms "
+              f"(and one of the copy-to-expert gradients in the backward); "
+              f"one rank's step {min(ref_times):.1f} ms (min of "
+              f"{steps}); on {card}", flush=True)
+        if device == "cuda":
+            ep_ffn_timing(torch, card, cfg, tokens, EP_WORLD)
+
+        # (d) the checkpoint round trip.
+        autodist_mod._reset_default()
+        ad = AutoDist(strategy_builder=S.AllReduce(), device=device)
+        runner = ad.create_distributed_session(ad.capture(
+            ep_loss(cfg), ep_init(torch, cfg, device),
+            functools.partial(torch.optim.SGD, lr=EP_LR),
+            example_batch=batch))
+        state = CheckpointManager(runner, ckpt).restore_or_init()
+        logical = runner.logical_params(state)
+        got = {n: _digest(torch, [t]) for n, t in
+               flatten_params(logical).items()}
+        differ = sorted(n for n in got if got[n] != ranks[0]["logical"].get(n))
+        check(not differ, f"(d) the restored leaves {differ} are not "
+              f"bitwise the EP world's logical params")
+        with torch.no_grad():
+            loss = float(ep_loss(cfg)(logical, runner.remapper.shard_batch(
+                batch)))
+        rel = abs(loss - ranks[0]["next_loss"]) / abs(ranks[0]["next_loss"])
+        print(f"  (d) the EP world's checkpoint (step {steps}) restored into "
+              f"a one-rank AllReduce() Runner: {len(got)} leaves bitwise the "
+              f"EP world's logical params; its forward's loss {loss:.6f} vs "
+              f"the EP step's {ranks[0]['next_loss']:.6f} (rel. diff "
+              f"{rel:.3e}, bitwise: {loss == ranks[0]['next_loss']})",
+              flush=True)
+        check(rel <= EP_LOSS_RTOL, f"(d) the restored forward's loss {loss} "
+              f"vs the EP step's {ranks[0]['next_loss']}")
+        del state, runner, logical
+    finally:
+        autodist_mod._reset_default()
+        tmp.cleanup()
+    print(f"  (e) phase 12 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
+
+
 def main():
     import torch
     if len(sys.argv) > 1 and sys.argv[1] == "--gloo-train":
@@ -4170,6 +4700,8 @@ def main():
         return sp_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--tp-train":
         return tp_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--ep-train":
+        return ep_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA card", file=sys.stderr)
@@ -4227,6 +4759,7 @@ def main():
     tp_kernels = tp_kernel_phase(torch, fa)
     zoo.update(tp_phase(torch, fa, card, bert.bert_base(max_len=512),
                         "cuda"))
+    zoo.update(ep_phase(torch, fa, card, "cuda"))
     fwd["launches"] = served + trained["flash_fwd"]
     fwd["launches_by_path"] = {"serve": served,
                                "train": trained["flash_fwd"],

@@ -5,8 +5,8 @@
   partitioner) for AllReduce, PS and Parallax bases on ``lm_tiny`` and
   ``bert_tiny``, for custom rules, at model axes of 2 and 4 and where the
   axis divides no dim. ``model_parallel`` resolves in ``AutoDist`` and in
-  serving; ``mesh_axis="expert"`` raises naming item 10(c); a serving
-  engine of two replicas refuses the builder ("data-only").
+  serving; a serving engine of two replicas refuses the builder
+  ("data-only"). (``mesh_axis="expert"``: ``tests/test_torch_moe.py``.)
 * One 4-rank gloo world (subprocesses, ``OMP_NUM_THREADS=1``) on a
   ``{data: 2, model: 2}`` mesh, each data replica's rows to both ranks of
   its model group:
@@ -202,11 +202,6 @@ def test_model_parallel_name_resolves_and_builds(monkeypatch, tmp_path):
     _, item = _items("lm_tiny")
     built = ad._strategy_builder.build(item, ResourceSpec(str(path)))
     assert dict(built.graph_config.mesh_axes) == {"data": 2, "model": 2}
-
-
-def test_expert_overlay_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match=r"item 10\(c\)"):
-        strategy.ModelParallel(mesh_axis="expert")
 
 
 def test_serving_two_replicas_refuses_model_parallel(tmp_path):

@@ -57,6 +57,7 @@ def test_port_imports_with_jax_made_unimportable():
             "import autodist_tpu_torch.convert, autodist_tpu_torch.strategy\n"
             "import autodist_tpu_torch.autodist, autodist_tpu_torch.runner\n"
             "import autodist_tpu_torch.models.lm, autodist_tpu_torch.models.mlp\n"
+            "import autodist_tpu_torch.parallel.moe\n"
             "from autodist_tpu_torch.models import ZOO, bilstm, ncf, resnet\n"
             "import chip_smoke\n"
             "print('ok')\n")
