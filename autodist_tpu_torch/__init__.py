@@ -22,6 +22,12 @@ Ported so far:
   axis; the Runner runs the loss in the program's parallel context
   (``parallel``), where a transformer's attention is ring or Ulysses
   attention over the seq group and each rank encodes its chunk;
+* tensor and expert parallelism: ``strategy.ModelParallel`` over a
+  ``model`` or an ``expert`` axis (``parallel.sharding_rules``,
+  ``parallel.moe``);
+* pipeline parallelism: ``strategy.Pipeline`` carves a ``pipe`` axis and
+  splits the stacked layers of ``ops.scan_blocks`` over it, each rank
+  running its stage on the schedule of ``pipeline``;
 
 over the model zoo (``models``) whose attention runs the flash-attention
 kernels, forward and backward (``ops.flash_attention``). ``convert``

@@ -31,7 +31,7 @@ class Placement(NamedTuple):
     ``shards``: the pieces along ``dim`` (1: whole); ``padding``:
     ``(dim, logical, padded)`` of padded storage, or None; ``model_dim``,
     ``model_index``, ``model_shards``: the same for a split over the
-    ``model`` or the ``expert`` axis (kind ``tp``; the program's
+    ``model``, ``expert`` or ``pipe`` axis (kind ``tp``; the program's
     ``piece_axis``).
     """
     device: Any
@@ -58,10 +58,13 @@ class DistributedProgram:
 
     def parallel_context(self):
         """The :class:`~autodist_tpu_torch.parallel.context.ParallelContext`
-        this strategy prescribes (its GraphConfig's ``seq_attn`` on this
-        mesh, the ``tp`` variables that reach the Megatron layers or the
-        MoE layer as their pieces, and whether the program takes the
-        explicit path), which the Runner activates around the loss."""
+        this strategy prescribes (its GraphConfig's ``seq_attn`` and
+        ``pipeline_microbatches`` on this mesh, the ``tp`` variables that
+        reach the Megatron layers or the MoE layer as their pieces, or
+        every one split over ``pipe``, and whether the program takes the
+        explicit path), which the Runner activates around the loss. The
+        pipeline schedule is read from ``AUTODIST_PIPELINE_SCHEDULE`` when
+        the context is first asked for, as the JAX program's is."""
         if self._parallel_context is None:
             from autodist_tpu_torch.parallel.context import ParallelContext
             from autodist_tpu_torch.parallel.sharding_rules import (
@@ -69,9 +72,12 @@ class DistributedProgram:
             gc = self.strategy.graph_config
             split = {name: dim for name, (kind, dim) in
                      self.var_kinds().items() if kind == "tp"}
-            pieces = megatron_pieces(self.synchronizers, split) if \
-                self.model_axis_size > 1 else \
-                expert_pieces(self.synchronizers, split)
+            if self.piece_axis == const.MESH_AXIS_PIPELINE:
+                pieces = frozenset(split)  # a stage's layers: never gathered
+            elif self.model_axis_size > 1:
+                pieces = megatron_pieces(self.synchronizers, split)
+            else:
+                pieces = expert_pieces(self.synchronizers, split)
             self._parallel_context = ParallelContext(
                 mesh=self.mesh, seq_attn=gc.seq_attn,
                 pipeline_microbatches=gc.pipeline_microbatches,
@@ -88,14 +94,20 @@ class DistributedProgram:
         return self.mesh.shape.get(const.MESH_AXIS_EXPERT, 1)
 
     @property
+    def pipe_axis_size(self):
+        return self.mesh.shape.get(const.MESH_AXIS_PIPELINE, 1)
+
+    @property
     def piece_axis(self):
         """The axis whose groups hold the pieces of the ``tp`` variables:
-        ``model`` or ``expert`` over more than one device (``transform``
-        refuses both at once), else None."""
+        ``model``, ``expert`` or ``pipe`` over more than one device
+        (``transform`` refuses two at once), else None."""
         if self.model_axis_size > 1:
             return const.MESH_AXIS_MODEL
         if self.expert_axis_size > 1:
             return const.MESH_AXIS_EXPERT
+        if self.pipe_axis_size > 1:
+            return const.MESH_AXIS_PIPELINE
         return None
 
     @property
@@ -156,13 +168,13 @@ class DistributedProgram:
         """:class:`Placement` tree congruent with the params tree (the
         counterpart of ``param_shardings()``): a parameter partitioned over
         the data axis (kind ``fsdp``) is split in ``data_axis_size`` pieces
-        along its dim, and one split over the model or the expert axis
+        along its dim, and one split over the model, expert or pipe axis
         (kind ``tp``) in that axis's size of pieces; the rest stay whole
         on every device;
         uneven dims are padded first. A stale variable is whole (each rank
         holds its own copy), and so is a PS one with ``gspmd_update``. A
-        parameter split over another mesh axis of more than one device
-        raises (not ported, ROADMAP.md Queue A item 10)."""
+        parameter split over the seq axis of more than one device
+        raises."""
         mesh = self.mesh
         piece_axis = self.piece_axis
         if mesh.size == 1 or mesh.device_mesh is not None:
@@ -185,13 +197,13 @@ class DistributedProgram:
                              (entry,)):
                     if axis not in (None, const.MESH_AXIS_DATA,
                                     const.MESH_AXIS_MODEL,
-                                    const.MESH_AXIS_EXPERT) and \
+                                    const.MESH_AXIS_EXPERT,
+                                    const.MESH_AXIS_PIPELINE) and \
                             mesh.shape.get(axis, 1) > 1:
                         raise NotImplementedError(
                             f"{name} is split over mesh axis '{axis}': "
-                            f"only the data, model and expert axes carry "
-                            f"parameter pieces in autodist_tpu_torch yet "
-                            f"(ROADMAP.md, Queue A item 10)")
+                            f"autodist_tpu_torch splits parameters over the "
+                            f"data, model, expert and pipe axes only")
             kind, dim = kinds.get(name, ("ar", None))
             if kind == "tp":
                 return Placement(device, None, index, 1, paddings.get(name),
@@ -296,6 +308,16 @@ class GraphTransformer:
                 f"tensor or sequence parallelism (a mesh with 'expert' and "
                 f"'model' or 'seq' over more than one device) is not ported "
                 f"to autodist_tpu_torch yet (ROADMAP.md, Queue A item 10(i))")
+        if mesh.shape.get(const.MESH_AXIS_PIPELINE, 1) > 1 and any(
+                mesh.shape.get(a, 1) > 1 for a in (const.MESH_AXIS_SEQ,
+                                                   const.MESH_AXIS_MODEL,
+                                                   const.MESH_AXIS_EXPERT)):
+            raise NotImplementedError(
+                f"mesh {dict(mesh.shape)}: pipeline parallelism composed "
+                f"with sequence, tensor or expert parallelism (a mesh with "
+                f"'pipe' and 'seq', 'model' or 'expert' over more than one "
+                f"device) is not ported to autodist_tpu_torch yet "
+                f"(ROADMAP.md, Queue A item 10(j))")
         use_explicit = any(s.needs_explicit_path
                            for s in synchronizers.values())
         for s in synchronizers.values():

@@ -80,15 +80,16 @@ class Synchronizer(ABC):
         """(kind, dim): how the Runner lowers this variable on a data axis
         of ``n`` devices (``DistributedProgram.var_kinds``): ``stale``
         with staleness; ``tp`` along the dim its parameter spec splits
-        over a ``model`` or ``expert`` axis of more than one device (each
-        rank of a model / expert group stores its piece, the state spec is
-        the param spec, and the gradient is averaged over the data group
+        over a ``model``, ``expert`` or ``pipe`` axis of more than one
+        device (each rank of such a group stores its piece, the state spec
+        is the param spec, and the gradient is averaged over the data group
         only); ``fsdp`` along the dim it splits over the data axis; else
         ``ar``."""
         if self.staleness > 0:
             return ("stale", None)
         spec = self.param_spec()
-        for axis in (const.MESH_AXIS_MODEL, const.MESH_AXIS_EXPERT):
+        for axis in (const.MESH_AXIS_MODEL, const.MESH_AXIS_EXPERT,
+                     const.MESH_AXIS_PIPELINE):
             if self.mesh.shape.get(axis, 1) > 1 and \
                     (dim := axis_dim(spec, axis)) is not None:
                 if data_dim(spec) is not None:

@@ -1,11 +1,14 @@
 """Transformer blocks shared by BERT (encoder) and the causal LM.
 
 Counterpart of ``autodist_tpu/models/transformer.py``, with the same param
-scopes (``layer<i>/attn/{query,key,value,out}``, ``layer<i>/mlp/{up,down}``).
-Ported: ``TransformerConfig``, ``block_init``, ``init``, ``block_apply``,
-``encode`` (with the sequence-parallel attention hook), ``logits`` and
-the KV-cache decode functions ``init_cache``, ``block_decode`` and
-``decode_step``. The stacked-blocks layout is not ported yet (ROADMAP.md).
+scopes (``layer<i>/attn/{query,key,value,out}``, ``layer<i>/mlp/{up,down}``,
+or with ``scan_layers=True`` one ``blocks`` subtree of the same scopes
+whose leaves carry a leading layer dim, applied through
+``ops.scan_blocks``: one layer after another on one device, the pipeline
+schedule under the ``Pipeline`` strategy). Ported: ``TransformerConfig``,
+``block_init``, ``init``, ``block_apply``, ``encode`` (with the
+sequence-parallel attention hook), ``logits`` and the KV-cache decode
+functions ``init_cache``, ``block_decode`` and ``decode_step``.
 """
 import torch
 import torch.nn.functional as F
@@ -19,7 +22,7 @@ from autodist_tpu_torch.utils.tree import tree_map
 class TransformerConfig:
     def __init__(self, vocab=32000, dim=512, num_heads=8, num_layers=6,
                  mlp_dim=None, max_len=512, causal=False,
-                 dtype=torch.bfloat16, num_segments=0):
+                 dtype=torch.bfloat16, num_segments=0, scan_layers=False):
         self.vocab = vocab
         self.dim = dim
         self.num_heads = num_heads
@@ -29,6 +32,9 @@ class TransformerConfig:
         self.causal = causal
         self.dtype = dtype
         self.num_segments = num_segments
+        # Stacked-blocks layout: one "blocks" subtree with a leading layer
+        # dim, applied through ops.scan_blocks.
+        self.scan_layers = scan_layers
 
 
 def block_init(generator, cfg):
@@ -72,8 +78,13 @@ def init(cfg, generator=None, device="cuda"):
     if cfg.num_segments:
         params["seg_embed"] = L.normal(generator, (cfg.num_segments, cfg.dim),
                                        0.02)
-    for i in range(cfg.num_layers):
-        params[f"layer{i}"] = block_init(generator, cfg)
+    blocks = [block_init(generator, cfg) for _ in range(cfg.num_layers)]
+    if cfg.scan_layers:
+        from autodist_tpu_torch.pipeline.schedule import stack_stage_params
+        params["blocks"] = stack_stage_params(blocks)
+    else:
+        for i, block in enumerate(blocks):
+            params[f"layer{i}"] = block
     return tree_map(lambda t: t.to(device), params)
 
 
@@ -114,9 +125,15 @@ def encode(params, cfg, ids, segment_ids=None, attn_fn=None):
     if cfg.num_segments and segment_ids is not None:
         x = x + params["seg_embed"][segment_ids]
     x = x.to(cfg.dtype)
-    for i in range(cfg.num_layers):
-        x = block_apply(params[f"layer{i}"], x, cfg, mask=mask,
-                        attn_fn=attn_fn)
+    if cfg.scan_layers:
+        from autodist_tpu_torch.ops.blocks import scan_blocks
+        x = scan_blocks(params["blocks"],
+                        lambda bp, a: block_apply(bp, a, cfg, mask=mask,
+                                                  attn_fn=attn_fn), x)
+    else:
+        for i in range(cfg.num_layers):
+            x = block_apply(params[f"layer{i}"], x, cfg, mask=mask,
+                            attn_fn=attn_fn)
     return L.layernorm(params["ln_f"], x)
 
 
@@ -169,6 +186,10 @@ def decode_step(params, cfg, cache, tokens, pos):
     to the cache length, dense attention) computes at row ``pos``; in
     other matmul shapes, so to rounding, not bitwise (tests/test_torch_decode.py).
     """
+    if cfg.scan_layers:
+        raise NotImplementedError(
+            "decode_step does not support scan_layers layouts; build the "
+            "serving config with scan_layers=False")
     tokens, pos = tokens.long(), pos.long()
     x = L.embed(params["embed"], tokens[:, None]) + \
         params["pos_embed"][pos][:, None, :]

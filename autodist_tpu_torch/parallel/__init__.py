@@ -1,11 +1,12 @@
-"""Parallelism beyond data parallelism: sequence (context), tensor and
-expert parallelism.
+"""Parallelism beyond data parallelism: sequence (context), tensor,
+expert and pipeline parallelism.
 
 Counterpart of ``autodist_tpu/parallel/``. Ported: ring and Ulysses
 attention, the parallel context, the Megatron and expert sharding rules
-(``sharding_rules``), the gathers of split parameters (``collectives``)
-and the mixture-of-experts layer (``moe``). The pipeline is not ported
-yet (ROADMAP.md, Queue A item 10(e)).
+(``sharding_rules``), the gathers of split parameters and the neighbour
+exchange (``collectives``), the mixture-of-experts layer (``moe``) and the
+pipeline's re-export shim (``pipeline``; the schedule lives in
+``autodist_tpu_torch.pipeline``).
 """
 from autodist_tpu_torch.parallel.context import (  # noqa: F401
     ParallelContext, resolve_attn)

@@ -4,9 +4,12 @@ Counterpart of ``autodist_tpu/parallel/context.py``. The Runner activates
 a :class:`ParallelContext` (built from the strategy proto's GraphConfig by
 ``DistributedProgram.parallel_context``) around the user's loss, and the
 framework's model-level ops consult it: the attention resolver
-(``models/transformer.py``) picks the sequence-parallel attention. With no
-context, or no ``seq`` axis, the same ops keep their single-device
-semantics, so models stay runnable as plain PyTorch code.
+(``models/transformer.py``) picks the sequence-parallel attention, and
+``ops.scan_blocks`` lowers a stacked block stack onto the pipeline
+schedule (``pipeline/schedule.py``) when ``pipeline_microbatches`` is set
+and the mesh has a ``pipe`` axis. With no context, or no such axis, the
+same ops keep their single-device semantics, so models stay runnable as
+plain PyTorch code.
 
 A JAX program sees the global arrays and asks the mesh for its place; a
 rank here holds its own shard, so the context also tells it its place on
@@ -14,13 +17,16 @@ the ``seq`` axis: ``seq_index``, ``seq_size`` and ``seq_group`` (the
 process group of the ranks that share its batch rows), on the ``model``
 axis: ``model_index``, ``model_size`` and ``model_group`` (the ranks that
 share its batch and hold the other pieces of its weights), the same on the
-``expert`` axis (``expert_*``), and on the ``data`` axis (``data_*``: the
-ranks that hold the batch's other rows).
+``expert`` axis (``expert_*``) and the ``pipe`` axis (``pipe_*``: the
+ranks that share its batch and hold the other stages), and on the ``data``
+axis (``data_*``: the ranks that hold the batch's other rows).
 
-Under tensor or expert parallelism (``ModelParallel``) one rule decides
-which split weights reach the model as their pieces: :meth:`
+Under tensor, expert or pipeline parallelism one rule decides which split
+weights reach the model as their pieces: :meth:`
 ParallelContext.arrives_as_piece`, which the Runner asks for each variable
-(the others it gathers). The Megatron layers (``models/layers.py``) then
+(the others it gathers); a pipe piece is a stage's layers, and
+:func:`stage_pieces` tells ``scan_blocks`` and ``pipeline_apply`` that a
+stacked tree arrived as this rank's stage. The Megatron layers (``models/layers.py``) then
 see a piece as a weight 1/``model_size`` of its whole width, and
 :func:`megatron` gives them the context to run the Megatron form with;
 ``parallel/moe.py`` sees E/``expert_size`` experts and asks
@@ -32,6 +38,7 @@ global_batch`.
 """
 import contextlib
 import contextvars
+import weakref
 
 from autodist_tpu_torch import const
 
@@ -46,14 +53,25 @@ class ParallelContext:
         mesh: the rank mesh the program runs on (``cluster.Mesh``).
         seq_attn: "" | "ring" | "ulysses", the sequence-parallel attention
             (GraphConfig.seq_attn).
+        pipeline_microbatches: GPipe microbatch count M; > 0 lowers
+            ``scan_blocks`` onto the pipeline schedule over a ``pipe`` axis
+            of more than one rank (GraphConfig.pipeline_microbatches).
+        pipeline_schedule: ``"shift"`` (pipelined, default),
+            ``"sequential"`` (the bitwise unpipelined control arm),
+            ``"shift-noskip"`` or ``"1f1b"`` (shift's tick order, the stage
+            recomputed in the backward); read from
+            ``AUTODIST_PIPELINE_SCHEDULE`` when not given, at construction,
+            as the JAX context reads it.
+        act_seq_dim: the activation dim that is the sequence ((batch, seq,
+            hidden): 1).
         seq_index, seq_size, seq_group: this rank's place on the ``seq``
             axis, the axis's size and its process group (from the mesh).
         model_index, model_size, model_group: the same for the ``model``
-            axis; ``expert_*`` for the ``expert`` axis and ``data_*`` for
-            the ``data`` axis.
+            axis; ``expert_*`` for the ``expert`` axis, ``pipe_*`` for the
+            ``pipe`` axis and ``data_*`` for the ``data`` axis.
         pieces: the variables that reach the Megatron layers or the MoE
             layer as their pieces (``sharding_rules.megatron_pieces`` and
-            ``expert_pieces``).
+            ``expert_pieces``), or every variable split over ``pipe``.
         explicit: the program takes the JAX Runner's explicit path
             (``DistributedProgram.use_explicit_path``), on which a data
             shard is the model's whole batch (:attr:`global_batch`).
@@ -62,16 +80,12 @@ class ParallelContext:
     learn that the model took the hook, is :func:`chunk` here: the rule
     that decides it, which the model and its loss both call.
 
-    ``pipeline_microbatches`` (Queue A item 10(e)) and ``op_shardings``
-    (item 12) are not ported: setting either raises.
+    ``op_shardings`` (Queue A item 12) is not ported: setting it raises.
     """
 
     def __init__(self, mesh, seq_attn="", pipeline_microbatches=0,
-                 op_shardings=None, pieces=frozenset(), explicit=False):
-        if pipeline_microbatches:
-            raise NotImplementedError(
-                "pipeline_microbatches: the pipeline lowering is not ported "
-                "to autodist_tpu_torch yet (ROADMAP.md, Queue A item 10(e))")
+                 act_seq_dim=1, op_shardings=None, pipeline_schedule=None,
+                 pieces=frozenset(), explicit=False):
         if op_shardings:
             raise NotImplementedError(
                 "op_shardings: Automap's activation constraints are not "
@@ -79,7 +93,13 @@ class ParallelContext:
                 "12)")
         self.mesh = mesh
         self.seq_attn = seq_attn
+        self.pipeline_microbatches = pipeline_microbatches
+        self.pipeline_schedule = (pipeline_schedule or
+                                  const.ENV.AUTODIST_PIPELINE_SCHEDULE.val or
+                                  "shift")
+        self.act_seq_dim = act_seq_dim
         self.pieces = frozenset(pieces)
+        self._stage = {}  # id -> weakref of the tensors that are pipe pieces
         self.explicit = explicit
         self._attn_cache = {}
         self._logged = set()
@@ -106,6 +126,11 @@ class ParallelContext:
         const.MESH_AXIS_EXPERT))
     expert_group = property(lambda self: self._group(
         const.MESH_AXIS_EXPERT))
+    pipe_size = property(lambda self: self._size(const.MESH_AXIS_PIPELINE))
+    pipe_index = property(lambda self: self._index(
+        const.MESH_AXIS_PIPELINE))
+    pipe_group = property(lambda self: self._group(
+        const.MESH_AXIS_PIPELINE))
     data_size = property(lambda self: self._size(const.MESH_AXIS_DATA))
     data_index = property(lambda self: self._index(const.MESH_AXIS_DATA))
     data_group = property(lambda self: self._group(const.MESH_AXIS_DATA))
@@ -123,11 +148,21 @@ class ParallelContext:
         return not self.explicit and self.data_size > 1
 
     def arrives_as_piece(self, name):
-        """Whether variable ``name``, split over the model or the expert
+        """Whether variable ``name``, split over the model, expert or pipe
         axis, reaches the model as this rank's piece (a Megatron layer's
-        weight, an MoE layer's experts) rather than gathered whole."""
-        return (self.model_size > 1 or self.expert_size > 1) and \
-            name in self.pieces
+        weight, an MoE layer's experts, a stage's layers) rather than
+        gathered whole."""
+        return (self.model_size > 1 or self.expert_size > 1 or
+                self.pipe_size > 1) and name in self.pieces
+
+    def mark_stage(self, tensor):
+        """Record ``tensor`` as a pipe piece this rank's loss receives (the
+        Runner calls it for each piece it passes through)."""
+        self._stage[id(tensor)] = weakref.ref(tensor)
+
+    def is_stage(self, tensor):
+        ref = self._stage.get(id(tensor))
+        return ref is not None and ref() is tensor
 
     def log_once(self, key):
         """True the first time ``key`` is asked on this context: one log
@@ -193,6 +228,28 @@ def megatron(weight, dim, whole):
             f"({whole}) nor its piece over a model axis of "
             f"{ctx.model_size}")
     return ctx
+
+
+def stage_pieces(leaves):
+    """The active context when ``leaves`` (a stacked tree's, in
+    ``scan_blocks`` or ``pipeline_apply``) reached the model as this rank's
+    pieces over a ``pipe`` axis of more than one rank: its stage of the
+    stacked layers. None when they arrived whole (no context, no pipe axis,
+    or variables the strategy did not split over ``pipe``); a tree of some
+    pieces and some whole leaves raises."""
+    ctx = current()
+    if ctx is None or ctx.pipe_size <= 1 or not leaves:
+        return None
+    marked = [ctx.is_stage(t) for t in leaves]
+    if all(marked):
+        return ctx
+    if any(marked):
+        raise ValueError(
+            f"a stacked tree of {len(leaves)} leaves holds {sum(marked)} "
+            f"pipe pieces and {len(leaves) - sum(marked)} whole leaves: "
+            f"the Pipeline strategy's stage_pattern must match every leaf "
+            f"of a pipelined stack, or none")
+    return None
 
 
 def experts(weight, whole):

@@ -22,12 +22,9 @@ a sequence split across the ranks of the ``seq`` process group, rank
 The JAX functions run inside ``shard_map`` over the ``seq`` axis
 (``_wrap_sharded``); here a rank already holds its shard, so the hooks
 take the seq axis's process group from the mesh, and the group gives its
-size and the rank's place on the ring. A hop is an
-``all_to_all_single`` whose splits are zero for every rank but the
-neighbours, on every backend: gloo's P2P ``send`` / ``recv`` do not take
-CUDA tensors, while its all-to-all stages them through the host, and on
-NCCL the all-to-all is the same grouped send and receive a P2P exchange
-would issue. One transport serves the CPU tests, the card and NCCL.
+size and the rank's place on the ring. A hop is
+``parallel/collectives.exchange``: an ``all_to_all_single`` whose splits
+are zero for every rank but the neighbours, on every backend.
 Offsets are host ints baked into each kernel call, so these run eagerly;
 capturing the ring in a CUDA graph is ROADMAP item A15's.
 """
@@ -40,21 +37,17 @@ from autodist_tpu_torch.ops.flash_attention import (block_attn_bwd,
                                                     combine_blocks)
 from autodist_tpu_torch.ops.flash_attention import \
     flash_attention as _flash_attn
+from autodist_tpu_torch.parallel.collectives import exchange
 
 _NEG_INF = -1e30
 
 
 def _a2a_hop(send, recv, group, my_idx, p_size):
-    """One tensor to the next rank, the previous rank's into ``recv``, as
-    an all-to-all with zero splits to every other rank (bytes: the
-    exchange moves data and computes nothing)."""
-    nbytes = send.numel() * send.element_size()
-    out_splits, in_splits = [0] * p_size, [0] * p_size
-    in_splits[(my_idx + 1) % p_size] = nbytes
-    out_splits[(my_idx - 1) % p_size] = nbytes
-    return dist.all_to_all_single(
-        recv.view(-1).view(torch.uint8), send.reshape(-1).view(torch.uint8),
-        out_splits, in_splits, group=group, async_op=True)
+    """One tensor to the next rank, the previous rank's into ``recv``
+    (``collectives.exchange``: an all-to-all with zero splits to every
+    other rank)."""
+    return exchange(send, recv, group, dst=(my_idx + 1) % p_size,
+                    src=(my_idx - 1) % p_size, async_op=True)
 
 
 def _start_hop(tensors, group, my_idx, p_size):

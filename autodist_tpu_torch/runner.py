@@ -50,6 +50,22 @@ whole parameter differ in the last bits (scatter-add atomics), and the
 mean keeps their copies bitwise equal. The graph paths refuse both axes
 (ROADMAP item A15).
 
+Under pipeline parallelism (a ``pipe`` axis, ``Pipeline``) a rank stores
+its stage: the variables split over ``pipe`` (kind ``tp`` over the pipe
+group) reach the loss as its pieces and are never gathered, and
+``scan_blocks`` runs them on the pipeline schedule (``pipeline/``), whose
+output every rank of the pipe group holds whole, so every rank computes the
+head and the loss alike. The ranks of a pipe group must be fed one batch
+(the eager step checks it: stage 0 reads the inputs, every stage the
+loss). Each rank seeds its backward with ``1 / S`` (S the pipe axis's
+size): the schedule's backward sums the output's cotangents over the pipe
+group onto the last stage, and the whole parameters' gradients (the head,
+counted on every rank, and the embedding, whose input part arises on stage
+0 alone) are summed over the pipe group and averaged over the data group,
+so the group's sum is the one-device gradient and the ranks' copies stay
+bitwise equal; a stage's gradients average over the data group. The graph
+paths refuse a pipe axis (item A15).
+
 Under sequence parallelism (a ``seq`` axis, ``SequenceParallel``) the
 loss runs inside the program's parallel context (``parallel/context.py``),
 so the model's attention takes the ring or Ulysses hook and each rank
@@ -185,6 +201,8 @@ class Runner:
         # the tp variables.
         self._seq_group = self._piece_group = self._share_group = None
         self._grad_group = self._mesh.group()
+        # S, the pipe axis's size: whole gradients sum over the pipe group.
+        self._stages = program.pipe_axis_size
         if program.seq_axis_size > 1:
             self._seq_group = self._share_group = self._mesh.group(
                 const.MESH_AXIS_SEQ)
@@ -481,7 +499,10 @@ class Runner:
                 t = _GatherShards.apply(
                     t, dim, self._piece_group,
                     self._mesh.shape[self._program.piece_axis])
-            return self._cut_padding(name, t)
+            t = self._cut_padding(name, t)
+            if kind == "tp" and self._stages > 1:
+                ctx.mark_stage(t)  # this rank's stage (scan_blocks asks)
+            return t
         return tree_map_with_path(view, params)
 
     def _sync_gradients(self, grads):
@@ -495,8 +516,11 @@ class Runner:
         gradient over its model group keeps the ranks' copies bitwise
         equal: on the card
         each rank's gradient differs from the others' in the last bits
-        (scatter-add atomics). A one-device local mesh (no process group)
-        has nothing to reduce."""
+        (scatter-add atomics). Under a pipe axis of S ranks the whole
+        gradients (seeded with 1 / S) are summed over the pipe group
+        instead: the ``ar`` buckets' mean over data x pipe times S, the
+        other kinds' sum over the pipe group. A one-device local mesh (no
+        process group) has nothing to reduce."""
         group = self._mesh.group()
         if group is None:
             return
@@ -508,10 +532,17 @@ class Runner:
                 reduce_bucket([grads[n] for n in bucket], over)
             else:
                 syncs[bucket[0]].sync_gradient(grads[bucket[0]], over)
+            if self._stages > 1 and over is not group:
+                # The mean over data x pipe, times S: the pipe group's sum.
+                for name in bucket:
+                    grads[name].mul_(self._stages)
         n = self._program.data_axis_size
         for name, (kind, dim) in self._kinds.items():
             if kind not in ("ar", "tp") and self._share_group is not None:
-                all_reduce_mean_(grads[name], self._share_group)
+                if self._stages > 1:
+                    dist.all_reduce(grads[name], group=self._share_group)
+                else:
+                    all_reduce_mean_(grads[name], self._share_group)
             if kind == "zero1":
                 grads[name] = _reduce_scatter(grads[name], dim, group).div_(n)
             elif kind == "fsdp":  # born reduce-scattered (the sum)
@@ -572,6 +603,7 @@ class Runner:
         loss, aux = out if item.aux_output else (out, None)
         named = self._trainable_leaves(params)
         grads = torch.autograd.grad(loss, [t for _, t in named],
+                                    self._backward_seed(loss),
                                     allow_unused=True)
         # Unused leaves get zeros (as jax.grad gives); the reduction writes
         # in place, so expanded (stride-0) gradients become real tensors.
@@ -594,6 +626,14 @@ class Runner:
                 t, torch.Tensor) else t, aux)
         return metrics
 
+    def _backward_seed(self, loss):
+        """The loss's cotangent: None (1), or 1 / S under a pipe axis of S
+        ranks, where every rank computes the loss whole and the group's
+        sum of their gradients is the gradient."""
+        if self._stages == 1:
+            return None
+        return torch.full_like(loss, 1.0 / self._stages)
+
     @staticmethod
     def _advance(state, k):
         """The host side of ``k`` steps: the step counter, and the stale
@@ -611,11 +651,14 @@ class Runner:
                 "sequence")
         if self._piece_group is not None:
             self._check_group_batch(
-                batch, self._piece_group, self._program.piece_axis,
-                "under tensor parallelism each computes its pieces of every "
-                "layer" if self._program.piece_axis == const.MESH_AXIS_MODEL
-                else "under expert parallelism each computes its experts' "
-                "share of every token")
+                batch, self._piece_group, self._program.piece_axis, {
+                    const.MESH_AXIS_MODEL: "under tensor parallelism each "
+                    "computes its pieces of every layer",
+                    const.MESH_AXIS_EXPERT: "under expert parallelism each "
+                    "computes its experts' share of every token",
+                    const.MESH_AXIS_PIPELINE: "under pipeline parallelism "
+                    "stage 0 reads the inputs and every stage the loss",
+                }[self._program.piece_axis])
         metrics = self._core(state.params, state.opt_state, batch,
                              int(state.step))
         return self._advance(state, 1), metrics
@@ -892,8 +935,8 @@ class _GraphStep:
         if runner.program.piece_axis is not None:
             raise NotImplementedError(
                 f"autodist_tpu_torch: a step over a "
-                f"{runner.program.piece_axis} axis (tensor or expert "
-                f"parallelism) runs eagerly: capturing the "
+                f"{runner.program.piece_axis} axis (tensor, expert or "
+                f"pipeline parallelism) runs eagerly: capturing the "
                 f"{runner.program.piece_axis} group's collectives in a CUDA "
                 f"graph is not ported yet (ROADMAP.md, Queue A item 15); use "
                 f"step() or run(unroll=1)")

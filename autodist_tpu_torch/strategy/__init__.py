@@ -9,6 +9,7 @@ from autodist_tpu_torch.strategy.partitioned_all_reduce_strategy import \
     PartitionedAR  # noqa: F401
 from autodist_tpu_torch.strategy.partitioned_ps_strategy import \
     PartitionedPS  # noqa: F401
+from autodist_tpu_torch.strategy.pipeline_strategy import Pipeline  # noqa: F401
 from autodist_tpu_torch.strategy.ps_lb_strategy import PSLoadBalancing  # noqa: F401
 from autodist_tpu_torch.strategy.ps_strategy import PS  # noqa: F401
 from autodist_tpu_torch.strategy.random_axis_partition_all_reduce_strategy \
@@ -22,4 +23,4 @@ from autodist_tpu_torch.strategy.uneven_partition_ps_strategy import \
 __all__ = ["Strategy", "StrategyBuilder", "StrategyCompiler", "PS",
            "PSLoadBalancing", "PartitionedPS", "UnevenPartitionedPS",
            "AllReduce", "PartitionedAR", "RandomAxisPartitionAR", "Parallax",
-           "SequenceParallel", "ModelParallel", "builder_from_name"]
+           "SequenceParallel", "ModelParallel", "Pipeline", "builder_from_name"]

@@ -2,9 +2,9 @@
 
 Counterpart of the name registry in ``autodist_tpu/tuner/auto.py``
 (``_registry``, ``builder_from_name``): the lowercased class names of the
-ported builders plus the snake_case aliases. ``auto`` (the tuner),
-``automap`` and ``pipeline`` are named but not ported: they raise
-``NotImplementedError`` naming their ROADMAP item.
+ported builders plus the snake_case aliases. ``auto`` (the tuner) and
+``automap`` are named but not ported: they raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
 from autodist_tpu_torch.strategy.model_parallel_strategy import ModelParallel
@@ -12,6 +12,7 @@ from autodist_tpu_torch.strategy.parallax_strategy import Parallax
 from autodist_tpu_torch.strategy.partitioned_all_reduce_strategy import \
     PartitionedAR
 from autodist_tpu_torch.strategy.partitioned_ps_strategy import PartitionedPS
+from autodist_tpu_torch.strategy.pipeline_strategy import Pipeline
 from autodist_tpu_torch.strategy.ps_lb_strategy import PSLoadBalancing
 from autodist_tpu_torch.strategy.ps_strategy import PS
 from autodist_tpu_torch.strategy.random_axis_partition_all_reduce_strategy \
@@ -23,7 +24,7 @@ from autodist_tpu_torch.strategy.uneven_partition_ps_strategy import \
 
 BUILDERS = (AllReduce, PS, PSLoadBalancing, PartitionedPS,
             UnevenPartitionedPS, PartitionedAR, RandomAxisPartitionAR,
-            Parallax, SequenceParallel, ModelParallel)
+            Parallax, SequenceParallel, ModelParallel, Pipeline)
 _ALIASES = {"ps_lb": PSLoadBalancing, "all_reduce": AllReduce,
             "partitioned_ps": PartitionedPS,
             "uneven_partitioned_ps": UnevenPartitionedPS,
@@ -36,7 +37,6 @@ _NOT_PORTED = {
     "auto": "the tuner (ROADMAP.md, Queue A item 12)",
     "autostrategy": "the tuner (ROADMAP.md, Queue A item 12)",
     "automap": "Automap (ROADMAP.md, Queue A item 12)",
-    "pipeline": "Pipeline (ROADMAP.md, Queue A item 10)",
 }
 
 

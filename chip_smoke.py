@@ -206,7 +206,26 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    AllReduce run's ``CheckpointManager`` step restores into a one-rank
    Runner, every leaf bitwise the EP world's logical params, and that
    Runner's forward gives the EP step's loss; (e) the phase's seconds;
-13. output: one ``{"kernels": [...]}`` JSON line, then the last line
+13. pipeline parallelism: lm1b at full width and depth (vocab 32000, dim
+   1024, 16 heads of 64, 16 layers, bf16 compute) in the stacked layout
+   (``scan_layers=True``), batch 8 x 1024, SGD 0.1, 3 steps: (a) one rank
+   eagerly, again (the floor), through ``make_callable(aot=True)`` (losses
+   bitwise the eager ones) and with the same weights unstacked; (b) two
+   gloo ranks on the card (processes of this script) under
+   ``Pipeline(num_stages=2, num_microbatches=4)`` on ``{data: 1, pipe:
+   2}``, each rank storing and running 8 layers, under ``shift``,
+   ``shift`` again, ``sequential`` and ``1f1b``: losses and the update
+   held to (a) between the floor and two planted faults (the whole
+   gradients not summed over the pipe group; the head counted on every
+   rank), ``sequential`` and ``1f1b`` within the pipelined floor of
+   ``shift``, the whole parameters bitwise equal across the ranks; prints
+   each rank's stored parameter bytes, peak memory per schedule, step ms,
+   the pipe hop's and the output broadcast's ms through gloo; (c) each
+   rank's flash launches a step: its layers x microbatches (the forward
+   twice under ``1f1b``); (d) the ``shift`` run's checkpoint restores on
+   one rank, every leaf bitwise, its next step's loss the pipelined one's;
+   (e) the phase's seconds;
+14. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -436,6 +455,29 @@ EP_LOSS_RTOL, EP_UPDATE_RTOL = 2e-5, 2e-3
 EP_BUILDERS = (("allreduce", "AllReduce"), ("ps", "PS"))
 EP_FAULTS = ("no_copy", "aux_summed", "undivided")
 EP_LOSS_FAULTS = ("no_copy", "undivided")
+
+# Phase 13, pipeline parallelism: lm1b at full width and depth (vocab 32000,
+# dim 1024, 16 heads of 64, 16 layers, bf16 compute) in the stacked layout
+# (TransformerConfig(scan_layers=True)), PP_BATCH x PP_SEQ tokens, SGD
+# PP_LR, PP_STEPS eager steps. (a) One rank: eagerly, again (the floor),
+# through make_callable(aot=True) (its losses bitwise the eager ones) and
+# with the same weights unstacked (losses within PP_UNSTACKED_RTOL). (b)
+# PP_WORLD gloo ranks (processes of this script) on the one card under
+# Pipeline(num_stages=PP_WORLD, num_microbatches=PP_MICRO) on {data: 1,
+# pipe: PP_WORLD}, each rank storing and running L / PP_WORLD layers, under
+# each schedule of PP_SCHEDULES, shift again (the pipelined floor), and
+# shift with each fault of PP_FAULTS (the whole parameters' gradients not
+# summed over the pipe group; every rank's backward seeded 1, not 1 / S:
+# the head counted on every rank). Losses and the update are held to one
+# rank's AllReduce() steps at PP_LOSS_RTOL / PP_UPDATE_RTOL, each between
+# the one-rank floor and the faults' least reading; sequential and 1f1b
+# to shift within the pipelined floor (bitwise where it reads 0).
+PP_WORLD, PP_MICRO, PP_STEPS, PP_LR = 2, 4, 3, 0.1
+PP_BATCH, PP_SEQ = 8, 1024
+PP_SCHEDULES = ("shift", "sequential", "1f1b")
+PP_FAULTS = ("data_only", "head")
+PP_LOSS_RTOL, PP_UPDATE_RTOL = 1e-4, 5e-2
+PP_UNSTACKED_RTOL = 1e-5
 
 
 def check(cond, msg):
@@ -4689,6 +4731,399 @@ def ep_phase(torch, fa, card, device, widths=None, batch_size=EP_BATCH,
     return paths
 
 
+# Phase 13: pipeline parallelism.
+
+def _pp_train(torch, fa, cfg, device, builder, params, tokens, steps, lr,
+              aot=False, prepare=None):
+    """``steps`` SGD steps of the LM under ``builder`` from ``params`` (the
+    runner copies them), eagerly or through ``make_callable(aot=True)``;
+    ``prepare(runner)`` before the state. No checks: the losses, host ms
+    per step, flash launches over the steps, peak device memory, the
+    runner and the state."""
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.models import lm
+    autodist_mod._reset_default()
+    ad = AutoDist(strategy_builder=builder, device=device)
+    runner = ad.create_distributed_session(ad.capture(
+        lm.make_loss_fn(cfg), params,
+        functools.partial(torch.optim.SGD, lr=lr), example_batch=(tokens,)))
+    if prepare is not None:
+        prepare(runner)
+    state = runner.create_state()
+    batch = runner.remapper.shard_batch((tokens,))
+    step = runner.make_callable(batch, aot=aot)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _flash_counts(fa, reset=True)  # this run's main path
+    losses, times = [], []
+    for _ in range(steps):
+        (state, m), ms = _timed(torch, device, lambda: step(state, batch))
+        losses.append(float(m["loss"]))
+        times.append(ms)
+    return types.SimpleNamespace(
+        losses=losses, times=times, launches=_flash_counts(fa),
+        peak=torch.cuda.max_memory_allocated() if device == "cuda" else 0,
+        runner=runner, state=state, step=step, batch=batch)
+
+
+def _unstacked(torch, params):
+    """The stacked LM's weights in the ``layer<i>`` layout (copies)."""
+    from autodist_tpu_torch.utils.tree import tree_map
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    n = next(iter(flatten_params(params["blocks"]).values())).shape[0]
+    for i in range(n):
+        out[f"layer{i}"] = tree_map(lambda t: t[i].clone(), params["blocks"])
+    return out
+
+
+def pp_train_rank(rank, world, port, spec):
+    """One rank of :func:`pipeline_phase`: a gloo world over ``localhost``
+    on device 0; the stacked LM of ``spec`` trains ``spec["steps"]`` SGD
+    steps under Pipeline(num_stages=world, num_microbatches=PP_MICRO) under
+    each schedule of ``PP_SCHEDULES``, shift again, and shift with each
+    fault of ``PP_FAULTS``; the shift run is saved through
+    ``CheckpointManager`` into ``spec["ckpt"]`` and takes one step more.
+    Prints {run: losses, launches, ms, mesh, schedule, update error against
+    the reference and against the shift run, digests of the whole params
+    and of the pieces, stored bytes, peak memory}, the shift run's logical
+    digest per leaf and next loss, and the pipe hop's and the output
+    broadcast's ms."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.ops import build
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.parallel.collectives import exchange
+    spec = json.loads(spec)
+    device = spec["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build.load_all()  # built by the parent: the same sources and flags
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    cfg = T.TransformerConfig(**dict(spec["config"], dtype=getattr(
+        torch, spec["dtype"])))
+    params, init = _lm_init(torch, cfg, device)
+    tokens = sp_tokens(cfg, spec["batch"], spec["seq"])
+    ref = torch.load(spec["ref"], map_location=device)
+
+    def data_only(runner):  # whole gradients over the data group alone
+        runner._grad_group = runner.program.mesh.group("data")
+
+    def head(runner):  # every rank's backward seeded 1: the head S times
+        runner._backward_seed = lambda loss: torch.ones_like(loss)
+
+    out = {"rank": rank}
+    shift = None
+    for key in ("shift", "shift_again", "sequential", "1f1b") + PP_FAULTS:
+        sched = key if key in PP_SCHEDULES else "shift"
+        os.environ["AUTODIST_PIPELINE_SCHEDULE"] = sched
+        try:
+            run = _pp_train(torch, fa, cfg, device, S.Pipeline(
+                num_stages=world, num_microbatches=PP_MICRO), params, tokens,
+                spec["steps"], spec["lr"],
+                prepare={"data_only": data_only, "head": head}.get(key))
+        finally:
+            del os.environ["AUTODIST_PIPELINE_SCHEDULE"]
+        kinds = run.runner.var_kinds
+        final = flatten_params(run.runner.logical_params(run.state))
+        stored = flatten_params(run.state.params)
+        blocks = [n for n in stored if n.startswith("blocks/")]
+        out[key] = {
+            "losses": run.losses, "launches": run.launches, "ms": run.times,
+            "mesh": dict(run.runner.program.mesh.shape),
+            "schedule": run.runner.program.parallel_context()
+            .pipeline_schedule,
+            "update_error": update_error(torch, final, ref, init),
+            "vs_shift": (update_error(torch, final, shift, init)
+                         if shift is not None else 0.0),
+            "whole": key in PP_FAULTS or _digest(torch, (
+                t for n, t in sorted(stored.items()) if kinds[n][0] != "tp")),
+            "pieces": key in PP_FAULTS or _digest(torch, (
+                t for n, t in sorted(stored.items()) if kinds[n][0] == "tp")),
+            "piece_kinds": sorted({kinds[n][0] for n in blocks}),
+            "stored_bytes": sum(t.numel() * t.element_size()
+                                for t in stored.values()),
+            "whole_bytes": sum(t.numel() * t.element_size()
+                               for t in final.values()),
+            "stored_blocks": sum(stored[n].numel() for n in blocks),
+            "whole_blocks": sum(final[n].numel() for n in blocks),
+            "stored_params": sum(t.numel() for t in stored.values()),
+            "whole_params": sum(t.numel() for t in final.values()),
+            "peak_bytes": run.peak}
+        if key == "shift":
+            shift = {n: t.clone() for n, t in final.items()}
+            out["logical"] = {n: _digest(torch, [t]) for n, t in
+                              final.items()}
+            mgr = CheckpointManager(run.runner, spec["ckpt"])
+            mgr.save(spec["steps"], run.state, force=True)
+            mgr.wait_until_finished()
+            mgr.close()
+            run.state, m = run.step(run.state, run.batch)
+            out["next_loss"] = float(m["loss"])
+            group = run.runner.program.mesh.group("pipe")
+            me = run.runner.program.mesh.axis_index("pipe")
+            act = torch.zeros((spec["batch"] // PP_MICRO, spec["seq"],
+                               cfg.dim), dtype=cfg.dtype, device=device)
+            recv = torch.empty_like(act)
+            out["hop_ms"] = _collective_ms(torch, device, lambda: exchange(
+                act, recv, group, dst=1 if me == 0 else None,
+                src=0 if me == 1 else None))
+            outs = torch.zeros((spec["batch"], spec["seq"], cfg.dim),
+                               dtype=cfg.dtype, device=device)
+            out["broadcast_ms"] = _collective_ms(
+                torch, device, lambda: dist.broadcast(
+                    outs, src=dist.get_global_rank(group, world - 1),
+                    group=group))
+            out["hop_bytes"] = act.numel() * act.element_size()
+        del run, final, stored
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def pipeline_phase(torch, fa, card, device, vocab=32000, dim=1024, heads=16,
+                   layers=16, max_len=PP_SEQ, batch=PP_BATCH,
+                   steps=PP_STEPS):
+    """Phase 13: (a) the stacked LM on one rank (eager, again, aot=True,
+    unstacked); (b) ``PP_WORLD`` gloo ranks (processes of this script) on
+    the one card under Pipeline(num_stages=PP_WORLD,
+    num_microbatches=PP_MICRO) through AutoDist -> Runner.step, each rank
+    its stage, held to (a) between the floor and the planted faults,
+    sequential and 1f1b to shift; (c) each rank's flash launches: its
+    layers x microbatches a step (twice the forward under 1f1b); (d) the
+    shift run's checkpoint restored on one rank. Returns {path: flash
+    launches, summed over the ranks}."""
+    import socket
+    import tempfile
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.models import lm
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.ops import build
+    t_phase = time.perf_counter()
+    cfg = T.TransformerConfig(vocab=vocab, dim=dim, num_heads=heads,
+                              num_layers=layers, max_len=max_len,
+                              causal=True, dtype=torch.bfloat16,
+                              scan_layers=True)
+    seq = max_len
+    tokens = sp_tokens(cfg, batch, seq)
+    per_stage = layers // PP_WORLD
+    print(f"phase 13: the LM at lm1b's widths (vocab {vocab}, dim {dim}, "
+          f"{heads} heads, {layers} layers, scan_layers=True), batch {batch}"
+          f" x {seq} tokens, SGD {PP_LR}, {steps} steps; (a) one rank, (b) "
+          f"{PP_WORLD} gloo ranks on one device under Pipeline(num_stages="
+          f"{PP_WORLD}, num_microbatches={PP_MICRO}) ({per_stage} layers a "
+          f"rank, microbatches of {batch // PP_MICRO} x {seq})", flush=True)
+    params, init = _lm_init(torch, cfg, device)
+    runs = {}
+    try:
+        for key, aot in (("ref", False), ("again", False), ("aot", True)):
+            run = _pp_train(torch, fa, cfg, device, S.AllReduce(), params,
+                            tokens, steps, PP_LR, aot=aot)
+            runs[key] = types.SimpleNamespace(
+                losses=run.losses, times=run.times, launches=run.launches,
+                peak=run.peak, final=flatten_params(
+                    run.runner.logical_params(run.state)))
+            del run
+        flat_cfg = copy.copy(cfg)
+        flat_cfg.scan_layers = False
+        run = _pp_train(torch, fa, flat_cfg, device, S.AllReduce(),
+                        _unstacked(torch, params), tokens, steps, PP_LR)
+        runs["unstacked"] = types.SimpleNamespace(
+            losses=run.losses, times=run.times, launches=run.launches)
+        del run
+    finally:
+        autodist_mod._reset_default()
+    ref = runs["ref"]
+    floor = {"loss": _rel(runs["again"].losses, ref.losses),
+             "update": update_error(torch, runs["again"].final, ref.final,
+                                    init)}
+    unstacked = _rel(runs["unstacked"].losses, ref.losses)
+    print(f"  (a) one rank AllReduce(): losses "
+          f"{', '.join(f'{x:.6f}' for x in ref.losses)}; ms per step eager "
+          f"{', '.join(f'{x:.1f}' for x in ref.times)}, aot=True "
+          f"{', '.join(f'{x:.1f}' for x in runs['aot'].times)}; peak "
+          f"{ref.peak / 2**30:.2f} GiB; floor (the run again): loss "
+          f"{floor['loss']:.3e}, update {floor['update']:.3e}; aot=True "
+          f"losses bitwise: {runs['aot'].losses == ref.losses}; unstacked "
+          f"max rel. diff {unstacked:.3e} (tol {PP_UNSTACKED_RTOL}); flash "
+          f"launches {ref.launches}; on {card}", flush=True)
+    check(all(np.isfinite(ref.losses)) and ref.losses[-1] < ref.losses[0],
+          f"(a) one rank's losses {ref.losses}")
+    check(runs["aot"].losses == ref.losses, f"(a) aot=True losses "
+          f"{runs['aot'].losses} are not bitwise {ref.losses}")
+    check(unstacked <= PP_UNSTACKED_RTOL, f"(a) the unstacked losses "
+          f"{runs['unstacked'].losses} vs {ref.losses}")
+    for key in ("ref", "aot", "unstacked"):
+        want = {name: layers * steps for name in runs[key].launches}
+        check(runs[key].launches == want, f"(a) {key}: launches "
+              f"{runs[key].launches}, expected {want}")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
+    ref_path = os.path.join(tmp.name, "ref.pt")
+    ckpt = os.path.join(tmp.name, "pp_ckpt")
+    torch.save({n: t.detach().cpu() for n, t in ref.final.items()},
+               ref_path)
+    one_rank = {key: runs[key].launches for key in ("ref", "aot")}
+    ref_losses = ref.losses
+    del runs, ref, init  # params stay: (d)'s runner is built over them
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    fields = {k: v for k, v in vars(cfg).items() if k != "dtype"}
+    spec = json.dumps({"device": device, "config": fields,
+                       "dtype": str(cfg.dtype).split(".")[-1], "seq": seq,
+                       "batch": batch, "steps": steps, "lr": PP_LR,
+                       "ref": ref_path, "ckpt": ckpt})
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--pp-train", str(r),
+         str(PP_WORLD), str(port), spec], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(PP_WORLD)]
+    ranks = []
+    try:
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=900)
+                check(p.returncode == 0, f"a pipeline rank exited with "
+                      f"{p.returncode}: {err[-3000:]}")
+                ranks.append(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        paths = {}
+        r0 = ranks[0]
+        want_losses = r0["shift"]["losses"]
+        faults = {key: (_rel(r0[key]["losses"], ref_losses),
+                        r0[key]["update_error"]) for key in PP_FAULTS}
+        pp_floor = {"loss": _rel(r0["shift_again"]["losses"], want_losses),
+                    "update": r0["shift_again"]["vs_shift"]}
+        print(f"  (b) floors: one rank {floor['loss']:.3e} / "
+              f"{floor['update']:.3e}, pipelined (shift again) "
+              f"{pp_floor['loss']:.3e} / {pp_floor['update']:.3e}; planted "
+              f"faults (loss / update vs one rank): " + "; ".join(
+                  f"{key}: {l:.3e} / {u:.3e}" for key, (l, u) in
+                  faults.items()), flush=True)
+        for key in PP_SCHEDULES:
+            runs_k = [r[key] for r in ranks]
+            rk = runs_k[0]
+            print(f"  Pipeline under '{key}' (mesh {rk['mesh']}, schedule "
+                  f"{rk['schedule']}): losses "
+                  f"{', '.join(f'{x:.6f}' for x in rk['losses'])}; max rel. "
+                  f"diff vs one rank {_rel(rk['losses'], ref_losses):.3e} "
+                  f"(tol {PP_LOSS_RTOL}); update error vs one rank "
+                  f"{rk['update_error']:.3e} (tol {PP_UPDATE_RTOL}), vs shift "
+                  f"{rk['vs_shift']:.3e}; whole params equal on every "
+                  f"rank: {len({r['whole'] for r in runs_k}) == 1}; "
+                  f"flash launches per rank {rk['launches']}", flush=True)
+            for i, r in enumerate(runs_k):
+                print(f"    rank {i}: stores {r['stored_params'] / 1e6:.2f} "
+                      f"M of {r['whole_params'] / 1e6:.2f} M parameters "
+                      f"({r['stored_bytes']} of {r['whole_bytes']} bytes, "
+                      f"{100 * r['stored_bytes'] / r['whole_bytes']:.1f}%; "
+                      f"blocks {r['stored_blocks']} of {r['whole_blocks']}); "
+                      f"peak memory {r['peak_bytes'] / 2**30:.2f} GiB; ms "
+                      f"per step (host-inclusive) "
+                      f"{', '.join(f'{x:.1f}' for x in r['ms'])}; on {card}",
+                      flush=True)
+        print(f"  (b) the pipe hop of a {r0['hop_bytes'] / 2**20:.1f} MiB "
+              f"microbatch activation through gloo ({device} tensors, "
+              f"host-inclusive): {r0['hop_ms']:.2f} ms; the output "
+              f"broadcast ({PP_BATCH} x {seq} x {dim} bf16) "
+              f"{r0['broadcast_ms']:.2f} ms; on {card}", flush=True)
+        for i, (what, tol) in enumerate((("loss", PP_LOSS_RTOL),
+                                         ("update", PP_UPDATE_RTOL))):
+            least = min(f[i] for f in faults.values())
+            check(floor[what] < tol < least, f"(b) the {what} tolerance "
+                  f"{tol} does not lie between the floor {floor[what]} and "
+                  f"the faults' least reading {least}")
+        for key in PP_SCHEDULES:
+            runs_k = [r[key] for r in ranks]
+            rk = runs_k[0]
+            rel = _rel(rk["losses"], ref_losses)
+            check(rel <= PP_LOSS_RTOL, f"(b) {key}: losses {rk['losses']} "
+                  f"vs one rank's {ref_losses} ({rel:.3e})")
+            check(rk["update_error"] <= PP_UPDATE_RTOL, f"(b) {key}: update "
+                  f"error {rk['update_error']}")
+            check(all(r["losses"] == rk["losses"] for r in runs_k),
+                  f"(b) {key}: the ranks' losses differ")
+            check(len({r["whole"] for r in runs_k}) == 1,
+                  f"(b) {key}: the whole params differ across the ranks")
+            check(len({r["pieces"] for r in runs_k}) == PP_WORLD,
+                  f"(b) {key}: two ranks hold the same stage")
+            check(all(r["mesh"] == {"data": 1, "pipe": PP_WORLD} and
+                      r["schedule"] == key and r["piece_kinds"] == ["tp"]
+                      for r in runs_k), f"(b) {key}: mesh {rk['mesh']}, "
+                  f"schedule {rk['schedule']}, kinds {rk['piece_kinds']}")
+            check(all(2 * r["stored_blocks"] == r["whole_blocks"]
+                      for r in runs_k), f"(b) {key}: a rank stores "
+                  f"{rk['stored_blocks']} of {rk['whole_blocks']} block "
+                  f"parameters")
+            fwd = per_stage * PP_MICRO * steps * (2 if key == "1f1b" else 1)
+            want = {"flash_fwd": fwd,
+                    "flash_bwd_dq": per_stage * PP_MICRO * steps,
+                    "flash_bwd_dkv": per_stage * PP_MICRO * steps}
+            for r in runs_k:
+                check(r["launches"] == want, f"(c) {key}: launches "
+                      f"{r['launches']}, expected {want}")
+            paths[f"pp_gloo{PP_WORLD}_{key}"] = {
+                k: sum(r["launches"][k] for r in runs_k) for k in want}
+            if key != "shift":
+                rel_shift = _rel(rk["losses"], want_losses)
+                check(rel_shift <= pp_floor["loss"], f"(b) {key}: losses "
+                      f"{rk['losses']} vs shift's {want_losses} "
+                      f"({rel_shift:.3e}; floor {pp_floor['loss']:.3e})")
+                check(rk["vs_shift"] <= pp_floor["update"],
+                      f"(b) {key}: update {rk['vs_shift']:.3e} from shift's "
+                      f"(floor {pp_floor['update']:.3e})")
+        for key, label in (("ref", "pp_one_rank"), ("aot", "pp_one_rank_aot")):
+            paths[label] = one_rank[key]
+
+        # (d) the checkpoint restored on one rank.
+        autodist_mod._reset_default()
+        ad = AutoDist(strategy_builder=S.AllReduce(), device=device)
+        runner = ad.create_distributed_session(ad.capture(
+            lm.make_loss_fn(cfg), params,
+            functools.partial(torch.optim.SGD, lr=PP_LR),
+            example_batch=(tokens,)))
+        del params
+        state = CheckpointManager(runner, ckpt).restore_or_init()
+        got = {n: _digest(torch, [t]) for n, t in
+               flatten_params(runner.logical_params(state)).items()}
+        check(got == r0["logical"], f"(d) the restored leaves "
+              f"{sorted(n for n in got if got[n] != r0['logical'].get(n))[:5]}"
+              f" are not bitwise the pipelined run's logical params")
+        state, m = runner.step(state, (tokens,))
+        rel = abs(float(m["loss"]) - r0["next_loss"]) / abs(r0["next_loss"])
+        print(f"  (d) the 2-stage checkpoint (step {steps}) restored into a "
+              f"one-rank AllReduce() Runner: {len(got)} leaves bitwise; its "
+              f"next step's loss {float(m['loss']):.6f} vs the pipelined "
+              f"run's {r0['next_loss']:.6f} (rel. {rel:.3e}, tol "
+              f"{PP_LOSS_RTOL})", flush=True)
+        check(rel <= PP_LOSS_RTOL, f"(d) restored loss {float(m['loss'])} "
+              f"vs {r0['next_loss']}")
+        del state, runner
+    finally:
+        autodist_mod._reset_default()
+        tmp.cleanup()
+    print(f"  (e) phase 13 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
+
+
 def main():
     import torch
     if len(sys.argv) > 1 and sys.argv[1] == "--gloo-train":
@@ -4702,6 +5137,8 @@ def main():
         return tp_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--ep-train":
         return ep_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--pp-train":
+        return pp_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA card", file=sys.stderr)
@@ -4760,6 +5197,7 @@ def main():
     zoo.update(tp_phase(torch, fa, card, bert.bert_base(max_len=512),
                         "cuda"))
     zoo.update(ep_phase(torch, fa, card, "cuda"))
+    zoo.update(pipeline_phase(torch, fa, card, "cuda"))
     fwd["launches"] = served + trained["flash_fwd"]
     fwd["launches_by_path"] = {"serve": served,
                                "train": trained["flash_fwd"],

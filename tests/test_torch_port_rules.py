@@ -58,6 +58,7 @@ def test_port_imports_with_jax_made_unimportable():
             "import autodist_tpu_torch.autodist, autodist_tpu_torch.runner\n"
             "import autodist_tpu_torch.models.lm, autodist_tpu_torch.models.mlp\n"
             "import autodist_tpu_torch.parallel.moe\n"
+            "import autodist_tpu_torch.pipeline, autodist_tpu_torch.ops.blocks\n"
             "from autodist_tpu_torch.models import ZOO, bilstm, ncf, resnet\n"
             "import chip_smoke\n"
             "print('ok')\n")

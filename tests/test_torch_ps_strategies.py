@@ -170,7 +170,7 @@ def test_choose_state_sharding_spec_cases_match_jax(shape, want):
 @pytest.mark.parametrize("name", [
     "ps", "parallax", "partitionedps", "uneven_partitioned_ps",
     "random_axis_ar", "ps_lb", "allreduce", "partitioned_ar",
-    "modelparallel", "model_parallel"])
+    "modelparallel", "model_parallel", "pipeline"])
 def test_strategy_names_resolve_in_autodist_and_serving(monkeypatch, name):
     from autodist_tpu.tuner.auto import builder_from_name as jfrom_name
     monkeypatch.setenv("AUTODIST_STRATEGY", name)
@@ -182,7 +182,7 @@ def test_strategy_names_resolve_in_autodist_and_serving(monkeypatch, name):
 
 
 def test_auto_and_unported_names_raise(monkeypatch):
-    for name, item in (("auto", "item 12"), ("pipeline", "item 10")):
+    for name, item in (("auto", "item 12"), ("automap", "item 12")):
         monkeypatch.setenv("AUTODIST_STRATEGY", name)
         with pytest.raises(NotImplementedError, match=item):
             AutoDist(device="cpu")

@@ -124,8 +124,10 @@ def test_sequence_parallel_name_resolves_and_builds(monkeypatch, tmp_path):
 
 def test_parallel_context_refuses_what_is_not_ported():
     from autodist_tpu_torch.parallel.context import ParallelContext
-    with pytest.raises(NotImplementedError, match="10\\(e\\)"):
-        ParallelContext(None, pipeline_microbatches=2)
+    # The pipeline is ported: its count and schedule are kept.
+    ctx = ParallelContext(None, pipeline_microbatches=2,
+                          pipeline_schedule="1f1b")
+    assert (ctx.pipeline_microbatches, ctx.pipeline_schedule) == (2, "1f1b")
     with pytest.raises(NotImplementedError, match="item 12"):
         ParallelContext(None, op_shardings={"a": "data"})
     assert ParallelContext(None, seq_attn="ring").attn_fn(True) is None
