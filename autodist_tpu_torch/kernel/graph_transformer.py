@@ -293,13 +293,6 @@ class GraphTransformer:
             synchronizers[var.name] = Synchronizer.create(var, node, mesh)
         for sync in synchronizers.values():
             sync.param_spec()  # a partition over a missing axis raises here
-        if mesh.shape.get(const.MESH_AXIS_SEQ, 1) > 1 and \
-                mesh.shape.get(const.MESH_AXIS_MODEL, 1) > 1:
-            raise NotImplementedError(
-                f"mesh {dict(mesh.shape)}: tensor parallelism composed with "
-                f"sequence parallelism (a mesh with both 'seq' and 'model' "
-                f"over more than one device) is not ported to autodist_tpu_torch yet "
-                f"(ROADMAP.md, Queue A item 10(g))")
         if mesh.shape.get(const.MESH_AXIS_EXPERT, 1) > 1 and any(
                 mesh.shape.get(a, 1) > 1 for a in (const.MESH_AXIS_MODEL,
                                                    const.MESH_AXIS_SEQ)):
@@ -309,15 +302,14 @@ class GraphTransformer:
                 f"'model' or 'seq' over more than one device) is not ported "
                 f"to autodist_tpu_torch yet (ROADMAP.md, Queue A item 10(i))")
         if mesh.shape.get(const.MESH_AXIS_PIPELINE, 1) > 1 and any(
-                mesh.shape.get(a, 1) > 1 for a in (const.MESH_AXIS_SEQ,
-                                                   const.MESH_AXIS_MODEL,
+                mesh.shape.get(a, 1) > 1 for a in (const.MESH_AXIS_MODEL,
                                                    const.MESH_AXIS_EXPERT)):
             raise NotImplementedError(
                 f"mesh {dict(mesh.shape)}: pipeline parallelism composed "
-                f"with sequence, tensor or expert parallelism (a mesh with "
-                f"'pipe' and 'seq', 'model' or 'expert' over more than one "
-                f"device) is not ported to autodist_tpu_torch yet "
-                f"(ROADMAP.md, Queue A item 10(j))")
+                f"with tensor or expert parallelism (a mesh with 'pipe' and "
+                f"'model' or 'expert' over more than one device) is not "
+                f"ported to autodist_tpu_torch yet (ROADMAP.md, Queue A item "
+                f"10(j))")
         use_explicit = any(s.needs_explicit_path
                            for s in synchronizers.values())
         for s in synchronizers.values():

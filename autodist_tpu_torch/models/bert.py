@@ -26,24 +26,51 @@ def init(cfg, generator=None, device="cuda"):
 
 
 def make_loss_fn(cfg, attn_fn=None):
-    """Masked-LM loss. batch = (ids, segment_ids, mlm_positions, mlm_labels).
-    Not under sequence parallelism: the masked positions index the whole
-    sequence, which no rank of a seq group holds (ROADMAP.md, Queue A item
-    10(f))."""
+    """Masked-LM loss. batch = (ids, segment_ids, mlm_positions, mlm_labels):
+    the cross-entropy's mean over the rows' masked positions.
+
+    Under sequence parallelism (``parallel.context.chunk``) this rank
+    encodes its chunk of the sequence, and its loss covers the masked
+    positions in that chunk (:func:`chunk_mlm_loss`); without it the chunk
+    is the whole sequence."""
     def loss_fn(params, batch):
         from autodist_tpu_torch.parallel import context
-        if context.chunk(attn_fn, batch[0].shape[1]) is not None:
-            raise NotImplementedError(
-                "BERT's masked-LM loss under SequenceParallel is not ported "
-                "to autodist_tpu_torch yet (ROADMAP.md, Queue A item "
-                "10(f)): its masked positions index the whole sequence, "
-                "and each rank encodes its chunk")
         ids, seg, positions, labels = batch
         hidden = T.encode(params, cfg, ids, segment_ids=seg, attn_fn=attn_fn)
-        index = positions.long()[..., None].expand(-1, -1, hidden.shape[-1])
-        picked = torch.gather(hidden, 1, index)
-        return L.softmax_xent(T.logits(params, cfg, picked), labels)
+        length = ids.shape[1]
+        span = context.chunk(attn_fn, length) or (0, length)
+        return chunk_mlm_loss(params, cfg, hidden, positions, labels, span,
+                              length // span[1])
     return loss_fn
+
+
+def chunk_mlm_loss(params, cfg, hidden, positions, labels, span, p):
+    """The MLM loss of one rank of a seq group of ``p`` ranks, whose
+    ``hidden`` (rows, length, dim) is the chunk ``span`` = (offset,
+    length) of the sequence (``p`` 1 and the whole sequence without a seq
+    axis).
+
+    Every masked position is taken, at its index clamped into the chunk,
+    with weight 1 where it falls in the chunk and 0 elsewhere (static
+    shapes: no gather whose size depends on the data). The loss is
+    ``p * sum(weight * xent) / N``, N the rows times the masked positions
+    a row: the mean of the group's losses is the whole sequence's mean
+    (the JAX package's loss over its global hidden states), although the
+    chunks hold different counts of masked positions, row by row."""
+    off, length = span
+    local = positions.long() - off
+    weight = ((local >= 0) & (local < length)).float()
+    index = local.clamp(0, length - 1)[..., None].expand(
+        -1, -1, hidden.shape[-1])
+    picked = torch.gather(hidden, 1, index)
+    return chunk_mean(L.token_xent(T.logits(params, cfg, picked), labels),
+                      weight, p)
+
+
+def chunk_mean(xent, weight, p):
+    """``p * sum(weight * xent) / xent.numel()``: this chunk's share of
+    the mean over every masked position of the rows."""
+    return p * (xent * weight).sum() / xent.numel()
 
 
 def synthetic_batch(cfg, batch_size=8, seq_len=None, num_masked=4, seed=0):

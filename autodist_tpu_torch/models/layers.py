@@ -385,10 +385,16 @@ def lstm(p, xs, hidden, reverse=False, dtype=None):
 
 # -- losses ------------------------------------------------------------------
 
+def token_xent(logits, labels):
+    """Cross-entropy of each int label (the logits' shape without its last
+    dim); f32 softmax."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels.long()[..., None])[..., 0]
+
+
 def softmax_xent(logits, labels):
     """Mean cross-entropy over int labels; f32 softmax."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, labels.long()[..., None]).mean()
+    return token_xent(logits, labels).mean()
 
 
 def sigmoid_bce(logits, targets):

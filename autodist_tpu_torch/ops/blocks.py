@@ -14,7 +14,12 @@ When the active :mod:`~autodist_tpu_torch.parallel.context` carries
 ranks, the rank's L/S contiguous layers are its stage (the leaves arrive
 as its pieces, ``parallel.context.stage_pieces``; whole leaves are cut to
 them), and ``pipeline/schedule.py`` runs them, each stage applying its
-layers in order.
+layers in order. Under a seq axis too (``SequenceParallel(base=
+Pipeline(...))``) ``x`` is this rank's chunk of the sequence
+(``transformer.encode`` cut it) and stays so through the schedule: its
+hops go to the next stage's rank of the same chunk, and inside a stage
+the blocks' attention runs the ring (or Ulysses) over the rank's seq
+group.
 """
 from autodist_tpu_torch import const
 from autodist_tpu_torch.parallel import context as parallel_context
@@ -56,11 +61,6 @@ def scan_blocks(stacked_params, block_fn, x):
     if ctx is not None and ctx.pipeline_microbatches and ctx.pipe_size > 1:
         from autodist_tpu_torch.pipeline.schedule import run_stage
         p_size = ctx.pipe_size
-        if ctx.seq_attn and ctx.seq_size > 1:
-            raise NotImplementedError(
-                "scan_blocks under a pipeline with sequence parallelism "
-                "inside the stages is not ported to autodist_tpu_torch yet "
-                "(ROADMAP.md, Queue A item 10(j))")
         if parallel_context.stage_pieces(leaves) is not None:
             local = stacked_params  # this rank's stage: L/S layers
             num_layers = n * p_size

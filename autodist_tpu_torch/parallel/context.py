@@ -35,6 +35,13 @@ see a piece as a weight 1/``model_size`` of its whole width, and
 One more rule says which batch a layer that couples a batch's tokens (MoE
 routing: capacity, slot order, aux loss) sees: :attr:`ParallelContext.
 global_batch`.
+
+One context carries a seq attention and a piece axis at once (a ``{seq,
+model}`` or ``{pipe, seq}`` mesh): :meth:`ParallelContext.attn_fn` gives
+the ring or Ulysses over this rank's seq group (the ranks that share its
+place on every other axis), while :func:`megatron` and
+:func:`stage_pieces` answer for the model and pipe axes as they do alone,
+and :func:`chunk` cuts the same chunk.
 """
 import contextlib
 import contextvars

@@ -21,8 +21,11 @@ a sequence split across the ranks of the ``seq`` process group, rank
 
 The JAX functions run inside ``shard_map`` over the ``seq`` axis
 (``_wrap_sharded``); here a rank already holds its shard, so the hooks
-take the seq axis's process group from the mesh, and the group gives its
-size and the rank's place on the ring. A hop is
+take the rank's seq group from the mesh (on any mesh: the ranks that share
+its place on every other axis, e.g. its model or pipe coordinate), and the
+group gives its size and the rank's place on the ring. Under tensor
+parallelism the hooks see the rank's H/tp heads, which Ulysses must split
+over the seq axis (else it raises the JAX ``ValueError``). A hop is
 ``parallel/collectives.exchange``: an ``all_to_all_single`` whose splits
 are zero for every rank but the neighbours, on every backend.
 Offsets are host ints baked into each kernel call, so these run eagerly;
@@ -219,7 +222,8 @@ def ulysses_attention(q, k, v, group=None, causal=False):
 
 
 def _seq_group(mesh):
-    """The process group of the mesh's seq axis."""
+    """This rank's seq group: the ranks of the mesh's seq axis that share
+    its place on every other axis."""
     if mesh is None or mesh.device_mesh is None:
         raise NotImplementedError(
             "sequence parallelism needs a rank mesh (one process per "

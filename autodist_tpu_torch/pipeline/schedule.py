@@ -56,8 +56,10 @@ The executor runs ``M + S - 1`` ticks under ``shift`` (``M * S`` under
 ``sequential``) with the broadcast commit in every case; the JAX executor
 runs its sharded ``done`` conveyor (``M + 2S - 3`` ticks, equal at
 ``S = 2``) when ``M % S == 0``. And it skips idle slots on every backend
-(a Python ``if``); the JAX package does not skip on the CPU
-(:func:`resolve_skip_idle`, whose values are kept).
+and under a seq axis (a Python ``if``; the ranks of a seq group sit at one
+stage and skip the same ticks); the JAX package skips neither on the CPU
+nor under a seq axis (:func:`resolve_skip_idle`, whose values are kept):
+the values are the same, the ticks that compute differ.
 """
 import torch
 import torch.distributed as dist
@@ -334,9 +336,17 @@ def pipeline_apply(stage_params, stage_fn, x, num_microbatches, mesh=None,
         num_microbatches: microbatch count M (batch % M == 0).
         mesh: the rank mesh (must contain ``axis_name``); None: the active
             parallel context's.
-        seq_axis/seq_dim: sequence parallelism inside the stages is not
-            ported (ROADMAP.md, Queue A item 10(j)): a seq axis of more than
-            one rank raises.
+        seq_axis/seq_dim: sequence parallelism inside the stages: when
+            ``seq_axis`` names a mesh axis of more than one rank, ``x`` is
+            this rank's chunk of the sequence along activation dim
+            ``seq_dim`` (the rank's place on that axis), every stage's
+            activation and the output stay that chunk, and ``stage_fn``
+            runs the seq group's collectives itself (the ring's hops). A
+            hop goes to the next stage's rank of the same seq index (the
+            pipe group holds the ranks that share this rank's place on
+            every other axis), and the ranks of a seq group run the same
+            stage at the same tick, so their collectives pair up. The JAX
+            function takes the global activation and splits it itself.
         skip_idle: False computes the idle slots on garbage input (same
             values); None skips them.
         schedule: one of :data:`SCHEDULES`.
@@ -352,11 +362,12 @@ def pipeline_apply(stage_params, stage_fn, x, num_microbatches, mesh=None,
         raise ValueError(f"mesh {dict(mesh.shape)} has no '{axis_name}' "
                          f"axis; pipeline_apply needs it (add it to "
                          f"mesh_axes)")
-    if seq_axis is not None and mesh.shape.get(seq_axis, 1) > 1:
-        raise NotImplementedError(
-            "pipeline_apply with sequence parallelism inside the stages is "
-            "not ported to autodist_tpu_torch yet (ROADMAP.md, Queue A item "
-            "10(j))")
+    if seq_axis is not None and mesh.shape.get(seq_axis, 1) > 1 and (
+            seq_dim is None or not 0 < seq_dim < x.dim()):
+        raise ValueError(
+            f"pipeline_apply over the '{seq_axis}' axis needs seq_dim, the "
+            f"activation's sequence dim (1 <= seq_dim < {x.dim()}), got "
+            f"{seq_dim!r}")
     p_size = mesh.shape[axis_name]
     leaves, treedef = flatten(stage_params)
     piece = parallel_context.stage_pieces(leaves) is not None

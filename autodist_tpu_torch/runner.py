@@ -42,13 +42,11 @@ One step, on every rank:
 5. the loss's mean over the data group.
 
 Under tensor or expert parallelism (a ``model`` or ``expert`` axis) the
-ranks of one model (expert) group must be fed one batch, which an eager
-step checks as it does for a seq group (below). The gradients of whole
-parameters and the loss, which every rank of such a group computes whole,
-average over data x that axis: on the card the ranks' gradients of a
-whole parameter differ in the last bits (scatter-add atomics), and the
-mean keeps their copies bitwise equal. The graph paths refuse both axes
-(ROADMAP item A15).
+ranks of one model (expert) group must be fed one batch. The gradients of
+whole parameters and the loss, which every rank of such a group computes
+whole, average over data x that axis: on the card the ranks' gradients of
+a whole parameter differ in the last bits (scatter-add atomics), and the
+mean keeps their copies bitwise equal.
 
 Under pipeline parallelism (a ``pipe`` axis, ``Pipeline``) a rank stores
 its stage: the variables split over ``pipe`` (kind ``tp`` over the pipe
@@ -56,25 +54,42 @@ group) reach the loss as its pieces and are never gathered, and
 ``scan_blocks`` runs them on the pipeline schedule (``pipeline/``), whose
 output every rank of the pipe group holds whole, so every rank computes the
 head and the loss alike. The ranks of a pipe group must be fed one batch
-(the eager step checks it: stage 0 reads the inputs, every stage the
-loss). Each rank seeds its backward with ``1 / S`` (S the pipe axis's
-size): the schedule's backward sums the output's cotangents over the pipe
-group onto the last stage, and the whole parameters' gradients (the head,
-counted on every rank, and the embedding, whose input part arises on stage
-0 alone) are summed over the pipe group and averaged over the data group,
-so the group's sum is the one-device gradient and the ranks' copies stay
-bitwise equal; a stage's gradients average over the data group. The graph
-paths refuse a pipe axis (item A15).
+(stage 0 reads the inputs, every stage the loss). Each rank seeds its
+backward with ``1 / S`` (S the pipe axis's size): the schedule's backward
+sums the output's cotangents over the pipe group onto the last stage, and
+the whole parameters' gradients (the head, counted on every rank, and the
+embedding, whose input part arises on stage 0 alone) are summed over the
+pipe group and averaged over the data group, so the group's sum is the
+one-device gradient and the ranks' copies stay bitwise equal.
 
 Under sequence parallelism (a ``seq`` axis, ``SequenceParallel``) the
 loss runs inside the program's parallel context (``parallel/context.py``),
 so the model's attention takes the ring or Ulysses hook and each rank
-computes its chunk of the sequence; the ``ar`` gradients and the loss
-are then averaged over the data x seq group, and the other kinds take a
-mean over the seq group before their data-axis lowering. The ranks of one
-seq group must be fed one batch: an eager step compares their batches
-(one all-gather over the seq group) and raises on a mismatch. The graph
-paths refuse a seq axis (their capture of the ring is ROADMAP item A15).
+computes its chunk of the sequence; every rank of a seq group must be fed
+one batch. A rank's gradient is its chunk's part of the gradient of the
+group's summed losses (the ring carries the other chunks' parts back to
+it), so the seq group's mean is the gradient of the mean loss.
+
+The seq axis composes with one piece axis, model or pipe: a rank shares
+its batch rows over every such axis, and one set of rules holds for all:
+
+* an eager step compares the batches of the ranks that share them (one
+  all-gather over the group of those axes, ``Mesh.group_over``) and
+  raises on a mismatch;
+* the ``ar`` gradients and the loss average over data x seq x the piece
+  axis, each multiplied by S under a pipe axis (the pipe group's sum, with
+  the ``1 / S`` seed kept); the other kinds first take the same mean (the
+  pipe group's sum) over seq x the piece axis before their data-axis
+  lowering;
+* a piece's gradient (a Megatron weight, a stage's layers) averages over
+  data x seq: its piece group holds the other pieces, not copies;
+* the logical forms gather a piece over its piece group only: no
+  parameter is split over seq.
+
+The expert axis composes with nothing and the pipe axis with seq alone
+(``GraphTransformer`` refuses the rest, ROADMAP items A10 (i), (j)). The
+graph paths refuse every seq, model, expert and pipe axis (their capture
+of the groups' collectives is ROADMAP item A15).
 
 Uneven dims are stored padded (``DistributedProgram.paddings``): the
 compute view cuts the logical rows out and the padded rows take zero
@@ -194,25 +209,26 @@ class Runner:
             if self._periods else 1
         self._shards = weakref.WeakKeyDictionary()  # optimizer -> zero1
         self._graphs = {}  # megastep graphs by block structure and phase
-        # A seq, model or expert group shares its batch rows: the
-        # gradients of whole parameters and the loss average over data x
-        # that axis (``GraphTransformer`` refuses two of them at once). A
-        # model or expert group (the piece group) also holds the pieces of
-        # the tp variables.
-        self._seq_group = self._piece_group = self._share_group = None
-        self._grad_group = self._mesh.group()
-        # S, the pipe axis's size: whole gradients sum over the pipe group.
-        self._stages = program.pipe_axis_size
-        if program.seq_axis_size > 1:
-            self._seq_group = self._share_group = self._mesh.group(
-                const.MESH_AXIS_SEQ)
-            self._grad_group = self._mesh.group_over(
-                (const.MESH_AXIS_DATA, const.MESH_AXIS_SEQ))
-        if program.piece_axis is not None:
-            self._piece_group = self._share_group = self._mesh.group(
-                program.piece_axis)
-            self._grad_group = self._mesh.group_over(
-                (const.MESH_AXIS_DATA, program.piece_axis))
+        # The axes whose groups share a rank's batch rows: seq (each rank
+        # its chunk of the sequence) and the piece axis, model, expert or
+        # pipe (each rank its pieces of the tp variables), alone or
+        # together. The gradients of whole parameters and the loss average
+        # over data x all of them; a piece's over data x seq.
+        self._stages = program.pipe_axis_size  # whole gradients sum over pipe
+        self._seq_size = program.seq_axis_size
+        piece_axis = program.piece_axis
+        self._shared_axes = tuple(
+            a for a, on in ((const.MESH_AXIS_SEQ, self._seq_size > 1),
+                            (piece_axis, piece_axis is not None)) if on)
+        self._piece_group = None if piece_axis is None else \
+            self._mesh.group(piece_axis)
+        self._share_group = self._mesh.group_over(self._shared_axes) \
+            if self._shared_axes else None
+        self._grad_group = self._mesh.group_over(
+            (const.MESH_AXIS_DATA,) + self._shared_axes)
+        self._piece_grad_group = self._mesh.group_over(
+            (const.MESH_AXIS_DATA,) + tuple(
+                a for a in self._shared_axes if a != piece_axis))
 
     @staticmethod
     def _mask_non_trainable(item):
@@ -508,39 +524,41 @@ class Runner:
     def _sync_gradients(self, grads):
         """Reduce ``grads`` ({name: gradient of the stored leaf}) over the
         data group, by kind; a ``zero1`` gradient is replaced by this
-        rank's shard of the mean. Under a seq, model or expert axis the
-        ``ar`` buckets reduce over the data x seq (model, expert) group and
-        the ``zero1`` / ``fsdp`` / ``stale`` kinds first take their mean
-        over the seq (model, expert) group; a ``tp`` piece's gradient
-        reduces over the data group alone. Averaging a whole parameter's
-        gradient over its model group keeps the ranks' copies bitwise
-        equal: on the card
-        each rank's gradient differs from the others' in the last bits
-        (scatter-add atomics). Under a pipe axis of S ranks the whole
-        gradients (seeded with 1 / S) are summed over the pipe group
-        instead: the ``ar`` buckets' mean over data x pipe times S, the
-        other kinds' sum over the pipe group. A one-device local mesh (no
-        process group) has nothing to reduce."""
+        rank's shard of the mean. Under shared axes (seq, model, expert,
+        pipe: the module docstring's rules) the ``ar`` buckets reduce over
+        data x those axes, a ``tp`` piece's over data x seq, and the
+        ``zero1`` / ``fsdp`` / ``stale`` kinds first take their mean over
+        the shared axes; under a pipe axis of S ranks the whole gradients
+        (seeded with 1 / S) are summed over the pipe group instead: the
+        ``ar`` buckets' mean times S, the other kinds' sum over the pipe
+        group. Averaging a whole parameter's gradient over its model group
+        keeps the ranks' copies bitwise equal: on the card each rank's
+        gradient differs from the others' in the last bits (scatter-add
+        atomics). A one-device local mesh (no process group) has nothing
+        to reduce."""
         group = self._mesh.group()
         if group is None:
             return
         syncs = self._program.synchronizers
         for bucket in self._buckets:
-            over = group if self._kinds[bucket[0]][0] == "tp" \
-                else self._grad_group
+            piece = self._kinds[bucket[0]][0] == "tp"
+            over = self._piece_grad_group if piece else self._grad_group
             if len(bucket) > 1:
                 reduce_bucket([grads[n] for n in bucket], over)
             else:
                 syncs[bucket[0]].sync_gradient(grads[bucket[0]], over)
-            if self._stages > 1 and over is not group:
-                # The mean over data x pipe, times S: the pipe group's sum.
+            if self._stages > 1 and not piece:
+                # The mean over data x pipe (x seq), times S: the pipe
+                # group's sum.
                 for name in bucket:
                     grads[name].mul_(self._stages)
         n = self._program.data_axis_size
         for name, (kind, dim) in self._kinds.items():
             if kind not in ("ar", "tp") and self._share_group is not None:
-                if self._stages > 1:
+                if self._stages > 1:  # the sum over pipe, the mean over seq
                     dist.all_reduce(grads[name], group=self._share_group)
+                    if self._seq_size > 1:
+                        grads[name].div_(self._seq_size)
                 else:
                     all_reduce_mean_(grads[name], self._share_group)
             if kind == "zero1":
@@ -548,18 +566,18 @@ class Runner:
             elif kind == "fsdp":  # born reduce-scattered (the sum)
                 grads[name].div_(n)
 
-    def _check_group_batch(self, batch, group, axis, why):
-        """Raise unless every rank of ``group`` (this rank's group on mesh
-        axis ``axis``) holds this batch, shapes and bytes (two all-gathers
-        over the group: the lengths, then the bytes). ``why`` says what
-        the ranks of such a group compute."""
+    def _check_group_batch(self, batch, group, axes, why):
+        """Raise unless every rank of ``group`` (this rank's group over the
+        mesh axes ``axes``) holds this batch, shapes and bytes (two
+        all-gathers over the group: the lengths, then the bytes). ``why``
+        says what the ranks of such a group compute."""
         flat = [torch.as_tensor(l).detach() for l in leaves(batch)]
         device = flat[0].device if flat else self._remapper.device
         shapes = torch.tensor([d for t in flat for d in (t.dim(),) +
                                tuple(t.shape)], dtype=torch.int64)
         mine = torch.cat([shapes.to(device).view(torch.uint8)] + [
             t.contiguous().reshape(-1).view(torch.uint8) for t in flat])
-        p = self._mesh.shape[axis]
+        p = dist.get_world_size(group)
         length = torch.tensor([mine.numel()], dtype=torch.int64,
                               device=device)
         lengths = length.new_empty(p)
@@ -570,9 +588,10 @@ class Runner:
             dist.all_gather_into_tensor(everyone, mine, group=group)
             same = bool((everyone.view(p, -1) == mine).all())
         if not same:
+            name = " x ".join(axes)
             raise ValueError(
-                f"autodist_tpu_torch: the ranks of a {axis} group were fed "
-                f"different batches; every rank of a {axis} group takes the "
+                f"autodist_tpu_torch: the ranks of a {name} group were fed "
+                f"different batches; every rank of a {name} group takes the "
                 f"same batch ({why})")
 
     def _finish_update(self, params, shards, step):
@@ -641,24 +660,24 @@ class Runner:
         state.step._autodist_stale = True
         return TrainState(state.step + k, state.params, state.opt_state)
 
+    # What the ranks of a group over each shared axis compute.
+    _SHARED_WHY = {
+        const.MESH_AXIS_SEQ: "under sequence parallelism each computes its "
+        "chunk of the sequence",
+        const.MESH_AXIS_MODEL: "under tensor parallelism each computes its "
+        "pieces of every layer",
+        const.MESH_AXIS_EXPERT: "under expert parallelism each computes its "
+        "experts' share of every token",
+        const.MESH_AXIS_PIPELINE: "under pipeline parallelism stage 0 reads "
+        "the inputs and every stage the loss"}
+
     def _step(self, state, batch):
         # Attention over mismatched sequences, or pieces of one layer
         # applied to two batches, would train on neither.
-        if self._seq_group is not None:
+        if self._share_group is not None:
             self._check_group_batch(
-                batch, self._seq_group, const.MESH_AXIS_SEQ,
-                "under sequence parallelism each computes its chunk of the "
-                "sequence")
-        if self._piece_group is not None:
-            self._check_group_batch(
-                batch, self._piece_group, self._program.piece_axis, {
-                    const.MESH_AXIS_MODEL: "under tensor parallelism each "
-                    "computes its pieces of every layer",
-                    const.MESH_AXIS_EXPERT: "under expert parallelism each "
-                    "computes its experts' share of every token",
-                    const.MESH_AXIS_PIPELINE: "under pipeline parallelism "
-                    "stage 0 reads the inputs and every stage the loss",
-                }[self._program.piece_axis])
+                batch, self._share_group, self._shared_axes,
+                "; ".join(self._SHARED_WHY[a] for a in self._shared_axes))
         metrics = self._core(state.params, state.opt_state, batch,
                              int(state.step))
         return self._advance(state, 1), metrics

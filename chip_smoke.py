@@ -225,7 +225,33 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    twice under ``1f1b``); (d) the ``shift`` run's checkpoint restores on
    one rank, every leaf bitwise, its next step's loss the pipelined one's;
    (e) the phase's seconds;
-14. output: one ``{"kernels": [...]}`` JSON line, then the last line
+14. BERT's MLM under a seq axis: BERT-base at full width and depth (MLM
+   32 x 128, 20 masked positions a row, SGD 0.1, 3 eager steps) on one
+   rank twice (the floor), then (a) two gloo ranks on the card under
+   ``SequenceParallel("ring")`` on ``{data: 1, seq: 2}`` and (b) four
+   under ``ModelParallel(SequenceParallel(ring | ulysses, 2), 2)`` on
+   ``{data: 1, seq: 2, model: 2}`` (6 heads and a 64-row chunk a rank):
+   losses and the whole update held to one rank's between the floor and
+   the planted faults (each rank's attention local to its chunk; the
+   gathered embedding gradient undivided), the whole parameters bitwise
+   equal on every rank, the pieces one per model index, every flash and
+   hop function launched as counted from the code a rank and step;
+   prints each rank's stored parameter bytes, peak memory, step ms and
+   the seq hop's and the model all-reduce's ms through gloo; (c) the hop
+   functions at this path's hop shape and the flash kernels at Ulysses'
+   shape under TP against their plain versions, timed beside them, SDPA
+   and the bound; (d) the phase's seconds;
+15. pipeline x sequence parallelism: phase 13's LM and batch on four
+   gloo ranks under ``SequenceParallel("ring", 2, base=Pipeline(2, 4))``
+   on ``{data: 1, pipe: 2, seq: 2}`` (8 layers and a 512-row chunk a
+   rank) under ``shift`` and ``1f1b``, and ``shift`` with the pipe hop
+   sent to the next stage's rank of the other chunk (the planted fault):
+   held to phase 13's one-rank steps between its floor and the fault,
+   ``1f1b`` bitwise ``shift``, launches counted a rank and step; prints
+   stored bytes, peak memory per schedule, step ms, the seq and pipe
+   hops' and the output broadcast's ms; (c) the hop functions at this
+   ring's diagonal and visible hops against their plain versions, timed;
+16. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -313,9 +339,11 @@ KERNEL_GROUPS = (("batch norm", ("batch_norm",)),
 TRAIN_SHAPE = (32, 12, 128, 128, 64)
 SERVE_SHAPE = (8, 12, 512, 512, 64)
 # Back-to-back calls per timing (profiler and events alike), and profiles
-# taken before a window with no device time fails the run.
+# taken before a call is timed with CUDA events instead; ``timed`` tallies
+# its profiles, those that held no device time and its event timings.
 TIMED_CALLS = 20
-PROFILE_ATTEMPTS = 3
+PROFILE_ATTEMPTS = 5
+TIMINGS = {"profiles": 0, "empty": 0, "events": 0}
 # PyTorch's f32 -> bf16 cast kernel, as the profiler names it.
 CAST_KERNEL = "bfloat16_copy_kernel"
 # Phase 6, lm1b decode: the lanes' (slots, cache_len) buckets, the traffic,
@@ -479,6 +507,40 @@ PP_FAULTS = ("data_only", "head")
 PP_LOSS_RTOL, PP_UPDATE_RTOL = 1e-4, 5e-2
 PP_UNSTACKED_RTOL = 1e-5
 
+# Phase 14, BERT's MLM loss under a seq axis: BERT-base at full width and
+# depth, the MLM batch CP_BATCH x CP_SEQ with CP_MASKED masked positions,
+# SGD CP_LR, CP_STEPS eager steps. One rank's AllReduce() steps and the
+# same again (the floor); then gloo ranks (processes of this script) on
+# the one card: (a) SequenceParallel("ring") on {data: 1, seq: 2}, (b)
+# ModelParallel(SequenceParallel(ring | ulysses, 2), 2) on {data: 1, seq:
+# 2, model: 2} (6 heads and a 64-row chunk a rank). Losses and the whole
+# update are held to one rank's at CP_LOSS_RTOL / CP_UPDATE_RTOL, each
+# between the floor and the planted faults' least reading: every rank's
+# attention local to its chunk (block-diagonal; (a) and (b)), the gathered
+# embedding gradient left undivided by the model size ((b)).
+CP_BATCH, CP_SEQ, CP_MASKED, CP_STEPS, CP_LR = 32, 128, 20, 3, 0.1
+CP_LOSS_RTOL, CP_UPDATE_RTOL = 1e-3, 5e-2
+CP_SP_FAULTS = ("local",)
+CP_TP_FAULTS = ("local", "undivided")
+# Phase 15, pipeline x sequence parallelism: phase 13's LM (lm1b uncut,
+# stacked) and batch, under SequenceParallel("ring", 2, base=Pipeline(2,
+# PP_MICRO)) on {data: 1, pipe: 2, seq: 2}, four gloo ranks, each storing
+# and running 8 layers on its 512-row chunk, under shift and 1f1b; held to
+# phase 13's one-rank steps at PPSP_LOSS_RTOL / PPSP_UPDATE_RTOL, each
+# between the one-rank floor and the planted fault (the pipe hop sent to
+# the next stage's rank of the other chunk); 1f1b bitwise shift.
+PPSP_SCHEDULES = ("shift", "1f1b")
+PPSP_FAULTS = ("crossed",)
+PPSP_LOSS_RTOL, PPSP_UPDATE_RTOL = 1e-4, 5e-2
+# The hop shapes of the two phases' rings (b, h, s_chunk, d) and Ulysses'
+# attention under TP (b, h, sq, sk, d), held against the plain versions:
+# BERT-base's 12 heads on {seq: 2} and a TP rank's 6 on {seq: 2, model: 2}
+# over a 64-row chunk, lm1b's 16 heads over a 512-row chunk.
+SP_HOP_SHAPE = (32, 12, 64, 64)
+CP_HOP_SHAPE = (32, 6, 64, 64)
+PPSP_HOP_SHAPE = (2, 16, 512, 64)
+CP_ULYSSES_SHAPE = (32, 3, 128, 128, 64)
+
 
 def check(cond, msg):
     if not cond:
@@ -520,33 +582,43 @@ def timed(torch, fn, n=TIMED_CALLS, warmup=3):
     calls: for every kernel the calls launched, its mean device time per
     launch times its launches per call, summed (``kernels``: {kernel name:
     launches recorded per call}; a profile can drop events, which shows as
-    a fraction there and leaves the per-launch mean intact). A run whose
-    profile holds no device time is taken again (a whole window can come
-    back empty), up to ``PROFILE_ATTEMPTS`` times, then fails: there is no
-    fallback to host clocks. ``host_ms``: CUDA events around another ``n`` back-to-back
-    calls, over ``n``; it includes what the call does on the host before
-    its kernels reach the stream, and is the call's cost where the host
-    cannot run ahead of the card.
+    a fraction there and leaves the per-launch mean intact). The profile
+    traces ``n`` calls as its warm-up step and keeps the next ``n``: a
+    window traced from the instant tracing starts can come back without
+    device activity. A profile that still holds no device time is taken
+    again, up to ``PROFILE_ATTEMPTS`` times; after that, ``ms`` comes from
+    CUDA events around ``n`` calls queued behind a sleep kernel, so that
+    the events time the card's work and not the host's launches
+    (``timer``: "profiler" or "events"; ``kernels`` is then empty).
+    ``host_ms``: CUDA events around another ``n`` back-to-back calls, over
+    ``n``; it includes what the call does on the host before its kernels
+    reach the stream, and is the call's cost where the host cannot run
+    ahead of the card.
     """
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(warmup):
         fn()
+    total, events = 0.0, []
     for attempt in range(PROFILE_ATTEMPTS):
+        TIMINGS["profiles"] += 1
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         events = _device_events(prof)
         total = sum(_device_us(e) / e.count * max(1, round(e.count / n))
                     for e in events)
         if total > 0:
             break
+        TIMINGS["empty"] += 1
         print(f"  (profile {attempt + 1} of {PROFILE_ATTEMPTS} held no device "
-              f"time; profiling again)", flush=True)
-    check(total > 0, "torch.profiler recorded no device time: the kernels "
-          "cannot be timed on the device")
+              f"time)", flush=True)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -554,11 +626,51 @@ def timed(torch, fn, n=TIMED_CALLS, warmup=3):
         fn()
     end.record()
     end.synchronize()
-    return {"ms": total / 1e3, "host_ms": start.elapsed_time(end) / n,
-            "kernels": {e.key: e.count / n for e in events}}
+    host_ms = start.elapsed_time(end) / n
+    if total > 0:
+        return {"ms": total / 1e3, "host_ms": host_ms, "timer": "profiler",
+                "kernels": {e.key: e.count / n for e in events}}
+    ms = queued_ms(torch, fn, n, host_ms)
+    TIMINGS["events"] += 1
+    print(f"  (timed with CUDA events instead: {ms:.4f} device ms per call "
+          f"over {n} calls queued behind a sleep kernel; host-inclusive "
+          f"{host_ms:.4f})", flush=True)
+    return {"ms": ms, "host_ms": host_ms, "timer": "events", "kernels": {}}
+
+
+def queued_ms(torch, fn, n, host_ms):
+    """Device ms per call of ``fn``: CUDA events around ``n`` calls that
+    the host queues while a sleep kernel holds the stream for twice the
+    time it took them to launch, plus 5 ms; the events then open on a
+    full queue and time the card's work alone (the queue drains back to
+    back). A call that waits on the card inside ``fn`` empties the queue,
+    and its time is then host-inclusive, as ``host_ms`` is."""
+    if "sleep_cycles_per_ms" not in TIMINGS:
+        cycles = 10 ** 7
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)  # the first call loads the kernel
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        TIMINGS["sleep_cycles_per_ms"] = cycles / start.elapsed_time(end)
+    hold = 2 * n * host_ms + 5.0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(hold * TIMINGS["sleep_cycles_per_ms"]))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def kernel_names(t):
+    if not t["kernels"]:
+        return "no kernel the profiler named (timed with CUDA events)"
     return ", ".join(f"{name[:70]} x{count:g}"
                      for name, count in t["kernels"].items())
 
@@ -2555,6 +2667,35 @@ GLOO_BUILDERS = (("parallax", "Parallax", ("ar", "fsdp")),
                  ("ps", "PS", ("zero1",)))
 
 
+def _spawn_ranks(world, flag, spec, what, timeout=900):
+    """``world`` processes of this script (``flag``: ``--gloo-train``,
+    ``--sp-train``, ...) on the card, one gloo world over a free
+    ``localhost`` port, each given ``spec`` (a JSON string); every rank's
+    last printed line, parsed, in rank order. A rank that fails raises
+    (``what`` names it), and no process outlives the call."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(r), str(world),
+         str(port), spec], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(world)]
+    ranks = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            check(p.returncode == 0, f"{what} exited with {p.returncode}: "
+                  f"{err[-3000:]}")
+            ranks.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return ranks
+
+
 def _gloo_cfg(cfg):
     small = copy.copy(cfg)
     small.num_layers = GLOO_LAYERS
@@ -2625,7 +2766,6 @@ def gloo_strategy_phase(torch, fa, card, cfg, device, batch_size=32,
     ranks' params must agree bitwise, and each rank's flash kernels launch
     once per layer and step. Returns {path: flash launches, summed over
     the ranks}."""
-    import socket
     import tempfile
     from autodist_tpu_torch import autodist as autodist_mod
     from autodist_tpu_torch import strategy as S
@@ -2658,9 +2798,6 @@ def gloo_strategy_phase(torch, fa, card, cfg, device, batch_size=32,
     check(fault_err > GLOO_UPDATE_RTOL and fault_rel > STRATEGY_LOSS_RTOL,
           f"a doubled gradient reads within the tolerances: update error "
           f"{fault_err}, loss {fault_rel}")
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
     ref_path = os.path.join(tmp.name, "ref.pt")
@@ -2673,22 +2810,10 @@ def gloo_strategy_phase(torch, fa, card, cfg, device, batch_size=32,
                        "dtype": str(small.dtype).split(".")[-1], "seq": seq,
                        "batch": batch_size, "masked": num_masked,
                        "steps": steps, "ref": ref_path})
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--gloo-train", str(r),
-         str(GLOO_WORLD), str(port), spec], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(GLOO_WORLD)]
-    ranks = []
     try:
-        for p in procs:
-            out, err = p.communicate(timeout=600)
-            check(p.returncode == 0, f"a gloo rank exited with "
-                  f"{p.returncode}: {err[-3000:]}")
-            ranks.append(json.loads(out.strip().splitlines()[-1]))
+        ranks = _spawn_ranks(GLOO_WORLD, "--gloo-train", spec, "a gloo rank",
+                             timeout=600)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
         tmp.cleanup()
     paths = {}
     for key, builder, kinds in GLOO_BUILDERS:
@@ -3718,7 +3843,6 @@ def sp_phase(torch, fa, card, device, vocab=32000, dim=1024, heads=16,
     again and the block-diagonal fault), the ranks' params must agree
     bitwise, and every layer launches the kernels its attention needs.
     Returns {path: launches summed over the ranks}."""
-    import socket
     import tempfile
     from autodist_tpu_torch import strategy as S
     from autodist_tpu_torch.models import transformer as T
@@ -3747,9 +3871,6 @@ def sp_phase(torch, fa, card, device, vocab=32000, dim=1024, heads=16,
     floor_update = update_error(torch, again[4], ref[4], init)
     check(all(np.isfinite(ref[0])) and ref[0][-1] < ref[0][0],
           f"(b) one rank's losses {ref[0]}")
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
     ref_path = os.path.join(tmp.name, "ref.pt")
@@ -3761,22 +3882,10 @@ def sp_phase(torch, fa, card, device, vocab=32000, dim=1024, heads=16,
                        "dtype": str(cfg.dtype).split(".")[-1], "seq": seq,
                        "batch": batch, "steps": steps, "lr": SP_LR,
                        "ref": ref_path})
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--sp-train", str(r),
-         str(SP_WORLD), str(port), spec], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(SP_WORLD)]
-    ranks = []
     try:
-        for p in procs:
-            out, err = p.communicate(timeout=600)
-            check(p.returncode == 0, f"an SP rank exited with "
-                  f"{p.returncode}: {err[-3000:]}")
-            ranks.append(json.loads(out.strip().splitlines()[-1]))
+        ranks = _spawn_ranks(SP_WORLD, "--sp-train", spec, "an SP rank",
+                             timeout=600)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
         tmp.cleanup()
     got = {key: [r[key] for r in ranks] for key in ("ring", "ulysses",
                                                      "local")}
@@ -3836,16 +3945,17 @@ def sp_phase(torch, fa, card, device, vocab=32000, dim=1024, heads=16,
 
 # Phase 11: tensor parallelism.
 
-def tp_kernel_phase(torch, fa):
+def tp_kernel_phase(torch, fa, shape=TP_SHAPE, key="tp", label="(b)",
+                    who="a TP rank's heads"):
     """Phase 11 (b): the three flash kernels at a tensor-parallel rank's
     attention shape (``TP_SHAPE``: BERT-base's 12 heads over a model axis
-    of 2) against their plain versions on the same inputs (the training
-    path's calls: f32 and bf16 o from one forward launch, bf16 gradients),
-    then timed beside the plain versions, SDPA and the bound. Returns
-    {kernel name: fields for its record}."""
+    of 2; phase 14 (c) gives Ulysses' shape under TP) against their plain
+    versions on the same inputs (the training path's calls: f32 and bf16 o
+    from one forward launch, bf16 gradients), then timed beside the plain versions, SDPA and the bound. Returns
+    {kernel name: fields for its record, prefixed ``key``}."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
-    b, h, sq, sk, d = TP_SHAPE
+    b, h, sq, sk, d = shape
     bf16, f32 = torch.bfloat16, torch.float32
     q, k, v, do = [torch.randn((b, h, s, d), generator=gen, device=dev,
                                dtype=bf16) for s in (sq, sk, sk, sq)]
@@ -3855,7 +3965,7 @@ def tp_kernel_phase(torch, fa):
     check(errs["flash_fwd"] <= O_F32_ATOL and
           float((lse - rl).abs().max()) <= LSE_ATOL and
           torch.equal(o_low, o.to(bf16)),
-          f"flash_fwd at {TP_SHAPE}: o off by {errs['flash_fwd']}")
+          f"flash_fwd at {shape}: o off by {errs['flash_fwd']}")
     delta = (do.float() * o).sum(-1, keepdim=True)
     args = (q, k, v, do, lse, delta)
     ref = fa.flash_bwd_reference(*args)
@@ -3874,7 +3984,7 @@ def tp_kernel_phase(torch, fa):
             errs[name] = max(errs[name], err)
             check(err <= t * float(w.abs().max()) and
                   torch.equal(low, g.to(bf16)),
-                  f"{name} at {TP_SHAPE}: off by {err}, or its bf16 "
+                  f"{name} at {shape}: off by {err}, or its bf16 "
                   f"gradients are not its f32 ones cast")
     pairs = float(b * h * sq * sk * d)
     ins = sum(x.numel() * x.element_size() for x in args)
@@ -3906,9 +4016,9 @@ def tp_kernel_phase(torch, fa):
         kern, plain, lib = (timed(torch, f) for f in (kern_fn, plain_fn,
                                                       lib_fn))
         check(all(name + "_wgmma" in n for n in kern["kernels"]),
-              f"{name} at {TP_SHAPE} launched {kernel_names(kern)}")
-        print(f"  (b) {name} at b{b} h{h} s{sq} d{d} bf16 (a TP rank's "
-              f"heads), device ms per call (profiler, {TIMED_CALLS} calls) / "
+              f"{name} at {shape} launched {kernel_names(kern)}")
+        print(f"  {label} {name} at b{b} h{h} s{sq} d{d} bf16 ({who}), "
+              f"device ms per call (profiler, {TIMED_CALLS} calls) / "
               f"host-inclusive ms per call (events): kernel "
               f"{kern['ms']:.4f} / {kern['host_ms']:.4f}, plain "
               f"{plain['ms']:.4f} / {plain['host_ms']:.4f}, SDPA ({covers})"
@@ -3916,44 +4026,13 @@ def tp_kernel_phase(torch, fa):
               f"{bnd[0]:.4f} ({bnd[1]}); bound / kernel "
               f"{bnd[0] / kern['ms']:.3f}; max abs err {errs[name]:.3e}",
               flush=True)
-        out[name] = {"tp_shape": [b, h, sq, d], "tp_ms": kern["ms"],
-                     "tp_host_ms": kern["host_ms"], "tp_plain_ms": plain["ms"],
-                     "tp_plain_host_ms": plain["host_ms"],
-                     "tp_library_ms": lib["ms"],
-                     "tp_library_host_ms": lib["host_ms"],
-                     "tp_bound_ms": bnd[0], "tp_bound_by": bnd[1],
-                     "tp_max_abs_err": errs[name]}
+        out[name] = {f"{key}_{field}": value for field, value in (
+            ("shape", [b, h, sq, d]), ("ms", kern["ms"]),
+            ("host_ms", kern["host_ms"]), ("plain_ms", plain["ms"]),
+            ("plain_host_ms", plain["host_ms"]), ("library_ms", lib["ms"]),
+            ("library_host_ms", lib["host_ms"]), ("bound_ms", bnd[0]),
+            ("bound_by", bnd[1]), ("max_abs_err", errs[name]))}
     return out
-
-
-def _tp_train(torch, fa, cfg, device, builder, params, batch, steps):
-    """``steps`` eager SGD steps of BERT's MLM loss under ``builder`` from
-    ``params`` (the runner copies them), without checks: the losses, host
-    ms per step, flash launches over the steps, peak device memory, the
-    runner and the state."""
-    from autodist_tpu_torch import AutoDist
-    from autodist_tpu_torch import autodist as autodist_mod
-    from autodist_tpu_torch.models import bert
-    autodist_mod._reset_default()
-    ad = AutoDist(strategy_builder=builder, device=device)
-    runner = ad.create_distributed_session(ad.capture(
-        bert.make_loss_fn(cfg), params,
-        functools.partial(torch.optim.SGD, lr=TP_LR), example_batch=batch))
-    state = runner.create_state()
-    dbatch = runner.remapper.shard_batch(batch)
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    _flash_counts(fa, reset=True)  # this run's main path
-    losses, times = [], []
-    for _ in range(steps):
-        (state, m), ms = _timed(torch, device, lambda: runner.step(
-            state, dbatch))
-        losses.append(float(m["loss"]))
-        times.append(ms)
-    return types.SimpleNamespace(
-        losses=losses, times=times, launches=_flash_counts(fa),
-        peak=torch.cuda.max_memory_allocated() if device == "cuda" else 0,
-        runner=runner, state=state)
 
 
 def _digest(torch, tensors):
@@ -4027,9 +4106,9 @@ def tp_train_rank(rank, world, port, spec):
             real = patch[0].__dict__[patch[1]]
             setattr(patch[0], patch[1], patch[2])
         try:
-            run = _tp_train(torch, fa, cfg, device, S.ModelParallel(
-                getattr(S, base)(), model_axis=world), params, batch,
-                spec["steps"])
+            run = _train(torch, fa, device, S.ModelParallel(
+                getattr(S, base)(), model_axis=world), bert.make_loss_fn(cfg),
+                params, batch, spec["steps"], TP_LR)
         finally:
             if patch is not None:
                 setattr(patch[0], patch[1], real)
@@ -4085,7 +4164,6 @@ def tp_phase(torch, fa, card, cfg, device, batch_size=32, seq=128,
     every layer's flash kernels launched once a step on each rank; then the
     AllReduce run's checkpoint restores into one rank bitwise and serves.
     Returns {path: flash launches, summed over the ranks}."""
-    import socket
     import tempfile
     from autodist_tpu_torch import AutoDist
     from autodist_tpu_torch import autodist as autodist_mod
@@ -4116,9 +4194,6 @@ def tp_phase(torch, fa, card, cfg, device, batch_size=32, seq=128,
     floor = {"loss": _rel(again.losses, ref.losses),
              "update": update_error(torch, again.params, ref.params,
                                     ref.init)}
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
     ref_path = os.path.join(tmp.name, "ref.pt")
@@ -4132,23 +4207,8 @@ def tp_phase(torch, fa, card, cfg, device, batch_size=32, seq=128,
                        "dtype": str(cfg.dtype).split(".")[-1], "seq": seq,
                        "batch": batch_size, "masked": num_masked,
                        "steps": steps, "ref": ref_path, "ckpt": ckpt})
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--tp-train", str(r),
-         str(TP_WORLD), str(port), spec], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(TP_WORLD)]
-    ranks = []
     try:
-        try:
-            for p in procs:
-                out, err = p.communicate(timeout=900)
-                check(p.returncode == 0, f"a TP rank exited with "
-                      f"{p.returncode}: {err[-3000:]}")
-                ranks.append(json.loads(out.strip().splitlines()[-1]))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
+        ranks = _spawn_ranks(TP_WORLD, "--tp-train", spec, "a TP rank")
         faults = {key: (_rel(ranks[0][key]["losses"], ref_losses),
                         ranks[0][key]["update_error"]) for key in TP_FAULTS}
         print(f"  one rank AllReduce(): losses "
@@ -4517,7 +4577,6 @@ def ep_phase(torch, fa, card, device, widths=None, batch_size=EP_BATCH,
     run's checkpoint restores into one rank bitwise and its forward gives
     the EP step's loss; (e) the phase's seconds. Returns {path: flash
     launches} (none: the path has no attention)."""
-    import socket
     import tempfile
     from autodist_tpu_torch import AutoDist
     from autodist_tpu_torch import autodist as autodist_mod
@@ -4593,9 +4652,6 @@ def ep_phase(torch, fa, card, device, widths=None, batch_size=EP_BATCH,
         del runs, finals, ref, aot
     finally:
         autodist_mod._reset_default()
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
     ref_path = os.path.join(tmp.name, "ref.pt")
@@ -4604,23 +4660,8 @@ def ep_phase(torch, fa, card, device, widths=None, batch_size=EP_BATCH,
     spec = json.dumps({"device": device, "widths": widths, "seq": seq,
                        "batch": batch_size, "steps": steps, "ref": ref_path,
                        "ckpt": ckpt})
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--ep-train", str(r),
-         str(EP_WORLD), str(port), spec], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(EP_WORLD)]
-    ranks = []
     try:
-        try:
-            for p in procs:
-                out, err = p.communicate(timeout=900)
-                check(p.returncode == 0, f"an EP rank exited with "
-                      f"{p.returncode}: {err[-3000:]}")
-                ranks.append(json.loads(out.strip().splitlines()[-1]))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
+        ranks = _spawn_ranks(EP_WORLD, "--ep-train", spec, "an EP rank")
         faults = {key: (_rel(ranks[0][key]["losses"], ref_losses),
                         max(ranks[0][key]["update_errors"].values()))
                   for key in EP_FAULTS}
@@ -4733,37 +4774,38 @@ def ep_phase(torch, fa, card, device, widths=None, batch_size=EP_BATCH,
 
 # Phase 13: pipeline parallelism.
 
-def _pp_train(torch, fa, cfg, device, builder, params, tokens, steps, lr,
-              aot=False, prepare=None):
-    """``steps`` SGD steps of the LM under ``builder`` from ``params`` (the
-    runner copies them), eagerly or through ``make_callable(aot=True)``;
-    ``prepare(runner)`` before the state. No checks: the losses, host ms
-    per step, flash launches over the steps, peak device memory, the
-    runner and the state."""
+def _train(torch, fa, device, builder, loss_fn, params, batch, steps, lr,
+           aot=False, prepare=None, counts=None):
+    """``steps`` SGD steps of ``loss_fn`` under ``builder`` from ``params``
+    (the runner copies them), eagerly or through ``make_callable(aot=
+    True)``; ``prepare(runner)`` before the state. No checks: the losses,
+    host ms per step, the launches over the steps (``counts``: the flash
+    kernels', or with :func:`_ring_counts` the hop wrappers' too), peak
+    device memory, the runner, the state, the step and the placed batch."""
     from autodist_tpu_torch import AutoDist
     from autodist_tpu_torch import autodist as autodist_mod
-    from autodist_tpu_torch.models import lm
+    counts = counts or _flash_counts
     autodist_mod._reset_default()
     ad = AutoDist(strategy_builder=builder, device=device)
     runner = ad.create_distributed_session(ad.capture(
-        lm.make_loss_fn(cfg), params,
-        functools.partial(torch.optim.SGD, lr=lr), example_batch=(tokens,)))
+        loss_fn, params, functools.partial(torch.optim.SGD, lr=lr),
+        example_batch=batch))
     if prepare is not None:
         prepare(runner)
     state = runner.create_state()
-    batch = runner.remapper.shard_batch((tokens,))
+    batch = runner.remapper.shard_batch(batch)
     step = runner.make_callable(batch, aot=aot)
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    _flash_counts(fa, reset=True)  # this run's main path
+    counts(fa, reset=True)  # this run's main path
     losses, times = [], []
     for _ in range(steps):
         (state, m), ms = _timed(torch, device, lambda: step(state, batch))
         losses.append(float(m["loss"]))
         times.append(ms)
     return types.SimpleNamespace(
-        losses=losses, times=times, launches=_flash_counts(fa),
+        losses=losses, times=times, launches=counts(fa),
         peak=torch.cuda.max_memory_allocated() if device == "cuda" else 0,
         runner=runner, state=state, step=step, batch=batch)
 
@@ -4795,6 +4837,7 @@ def pp_train_rank(rank, world, port, spec):
     import torch.distributed as dist
     from autodist_tpu_torch import strategy as S
     from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.models import lm
     from autodist_tpu_torch.models import transformer as T
     from autodist_tpu_torch.ops import build
     from autodist_tpu_torch.ops import flash_attention as fa
@@ -4826,9 +4869,10 @@ def pp_train_rank(rank, world, port, spec):
         sched = key if key in PP_SCHEDULES else "shift"
         os.environ["AUTODIST_PIPELINE_SCHEDULE"] = sched
         try:
-            run = _pp_train(torch, fa, cfg, device, S.Pipeline(
-                num_stages=world, num_microbatches=PP_MICRO), params, tokens,
-                spec["steps"], spec["lr"],
+            run = _train(torch, fa, device, S.Pipeline(
+                num_stages=world, num_microbatches=PP_MICRO),
+                lm.make_loss_fn(cfg), params, (tokens,), spec["steps"],
+                spec["lr"],
                 prepare={"data_only": data_only, "head": head}.get(key))
         finally:
             del os.environ["AUTODIST_PIPELINE_SCHEDULE"]
@@ -4891,7 +4935,7 @@ def pp_train_rank(rank, world, port, spec):
 
 def pipeline_phase(torch, fa, card, device, vocab=32000, dim=1024, heads=16,
                    layers=16, max_len=PP_SEQ, batch=PP_BATCH,
-                   steps=PP_STEPS):
+                   steps=PP_STEPS, share=None):
     """Phase 13: (a) the stacked LM on one rank (eager, again, aot=True,
     unstacked); (b) ``PP_WORLD`` gloo ranks (processes of this script) on
     the one card under Pipeline(num_stages=PP_WORLD,
@@ -4900,8 +4944,9 @@ def pipeline_phase(torch, fa, card, device, vocab=32000, dim=1024, heads=16,
     sequential and 1f1b to shift; (c) each rank's flash launches: its
     layers x microbatches a step (twice the forward under 1f1b); (d) the
     shift run's checkpoint restored on one rank. Returns {path: flash
-    launches, summed over the ranks}."""
-    import socket
+    launches, summed over the ranks}. ``share`` ({"dir": a directory})
+    receives the one-rank reference for phase 15: ``share["reference"]``
+    = (losses, (floor loss, floor update), path of the final params)."""
     import tempfile
     from autodist_tpu_torch import AutoDist
     from autodist_tpu_torch import autodist as autodist_mod
@@ -4928,8 +4973,9 @@ def pipeline_phase(torch, fa, card, device, vocab=32000, dim=1024, heads=16,
     runs = {}
     try:
         for key, aot in (("ref", False), ("again", False), ("aot", True)):
-            run = _pp_train(torch, fa, cfg, device, S.AllReduce(), params,
-                            tokens, steps, PP_LR, aot=aot)
+            run = _train(torch, fa, device, S.AllReduce(),
+                         lm.make_loss_fn(cfg), params, (tokens,), steps,
+                         PP_LR, aot=aot)
             runs[key] = types.SimpleNamespace(
                 losses=run.losses, times=run.times, launches=run.launches,
                 peak=run.peak, final=flatten_params(
@@ -4937,8 +4983,9 @@ def pipeline_phase(torch, fa, card, device, vocab=32000, dim=1024, heads=16,
             del run
         flat_cfg = copy.copy(cfg)
         flat_cfg.scan_layers = False
-        run = _pp_train(torch, fa, flat_cfg, device, S.AllReduce(),
-                        _unstacked(torch, params), tokens, steps, PP_LR)
+        run = _train(torch, fa, device, S.AllReduce(),
+                     lm.make_loss_fn(flat_cfg), _unstacked(torch, params),
+                     (tokens,), steps, PP_LR)
         runs["unstacked"] = types.SimpleNamespace(
             losses=run.losses, times=run.times, launches=run.launches)
         del run
@@ -4968,15 +5015,16 @@ def pipeline_phase(torch, fa, card, device, vocab=32000, dim=1024, heads=16,
         want = {name: layers * steps for name in runs[key].launches}
         check(runs[key].launches == want, f"(a) {key}: launches "
               f"{runs[key].launches}, expected {want}")
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
     ref_path = os.path.join(tmp.name, "ref.pt")
     ckpt = os.path.join(tmp.name, "pp_ckpt")
     torch.save({n: t.detach().cpu() for n, t in ref.final.items()},
                ref_path)
+    if share is not None:
+        shutil.copy(ref_path, os.path.join(share["dir"], "pp_ref.pt"))
+        share["reference"] = (ref.losses, (floor["loss"], floor["update"]),
+                              os.path.join(share["dir"], "pp_ref.pt"))
     one_rank = {key: runs[key].launches for key in ("ref", "aot")}
     ref_losses = ref.losses
     del runs, ref, init  # params stay: (d)'s runner is built over them
@@ -4987,23 +5035,8 @@ def pipeline_phase(torch, fa, card, device, vocab=32000, dim=1024, heads=16,
                        "dtype": str(cfg.dtype).split(".")[-1], "seq": seq,
                        "batch": batch, "steps": steps, "lr": PP_LR,
                        "ref": ref_path, "ckpt": ckpt})
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--pp-train", str(r),
-         str(PP_WORLD), str(port), spec], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(PP_WORLD)]
-    ranks = []
     try:
-        try:
-            for p in procs:
-                out, err = p.communicate(timeout=900)
-                check(p.returncode == 0, f"a pipeline rank exited with "
-                      f"{p.returncode}: {err[-3000:]}")
-                ranks.append(json.loads(out.strip().splitlines()[-1]))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
+        ranks = _spawn_ranks(PP_WORLD, "--pp-train", spec, "a pipeline rank")
         paths = {}
         r0 = ranks[0]
         want_losses = r0["shift"]["losses"]
@@ -5124,6 +5157,474 @@ def pipeline_phase(torch, fa, card, device, vocab=32000, dim=1024, heads=16,
     return paths
 
 
+# Phases 14 and 15: sequence parallelism composed.
+
+def composed_hop_phase(torch, fa):
+    """Phase 14 (c) / 15 (c): the hop functions at the composed rings'
+    shapes (``SP_HOP_SHAPE``: BERT-base's 12 heads over a 64-row chunk,
+    non-causal; ``CP_HOP_SHAPE``: the 6 heads of a TP rank over it;
+    ``PPSP_HOP_SHAPE``: lm1b's 16 heads over a 512-row chunk, causal, the
+    diagonal and a visible hop) against their plain versions, then timed
+    beside them, SDPA and the bound. Returns {hop function: {case:
+    fields}}."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    f32 = torch.float32
+    out = {"block_attn_fwd": {}, "block_attn_bwd": {}}
+    for case, shape, causal, (r, j) in (
+            ("bert_sp", SP_HOP_SHAPE, False, (0, 1)),
+            ("bert_tp_sp", CP_HOP_SHAPE, False, (0, 1)),
+            ("lm1b_pp_sp_diagonal", PPSP_HOP_SHAPE, True, (1, 1)),
+            ("lm1b_pp_sp_visible", PPSP_HOP_SHAPE, True, (1, 0))):
+        b, h, s, d = shape
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev,
+                                   dtype=torch.bfloat16) for _ in range(4))
+        args = (q, k, v, causal, r * s, j * s)
+        o, lse = fa.block_attn_fwd(*args)
+        ro, rl = fa.flash_fwd_reference(*args, out_dtype=f32)
+        err_f = float((o - ro).abs().max())
+        check(err_f <= O_F32_ATOL and float((lse - rl).abs().max()) <=
+              LSE_ATOL, f"block_attn_fwd {case}: o off by {err_f}")
+        delta = (do.float() * o).sum(-1, keepdim=True)
+        bargs = (q, k, v, do, lse, delta, causal, r * s, j * s)
+        got, want = fa.block_attn_bwd(*bargs), fa.flash_bwd_reference(*bargs)
+        err_b = 0.0
+        for label, g, w in zip(("dq", "dk", "dv"), got, want):
+            tol = BWD_REL_DV_BF16 if label == "dv" else BWD_REL_DQDK_BF16
+            err = float((g - w).abs().max())
+            err_b = max(err_b, err)
+            check(err <= tol * float(w.abs().max()), f"block_attn_bwd "
+                  f"{case}: {label} off by {err}")
+        diag = causal and r == j
+        pairs = float(b * h * s * s) * ((s + 1) / (2 * s) if diag else 1.0)
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        lib_out = sdpa(*leaves, is_causal=diag)
+        for name, kern_fn, plain_fn, lib_fn, flops, nbytes, err in (
+                ("block_attn_fwd", lambda: fa.block_attn_fwd(*args),
+                 lambda: fa.flash_fwd_reference(*args, out_dtype=f32),
+                 lambda: sdpa(q, k, v, is_causal=diag), 4.0 * pairs * d,
+                 3 * q.numel() * 2 + q.numel() * 4 + b * h * s * 4, err_f),
+                ("block_attn_bwd", lambda: fa.block_attn_bwd(*bargs),
+                 lambda: fa.flash_bwd_reference(*bargs),
+                 lambda: torch.autograd.grad(lib_out, leaves, do,
+                                             retain_graph=True),
+                 10.0 * pairs * d,
+                 4 * q.numel() * 2 + 2 * b * h * s * 4 + 3 * q.numel() * 4,
+                 err_b)):
+            kern, plain, lib = (timed(torch, f) for f in (kern_fn, plain_fn,
+                                                          lib_fn))
+            bnd = bound(flops, nbytes)
+            print(f"  {name} at b{b} h{h} s{s} d{d} bf16 ({case}, "
+                  f"{'causal' if causal else 'non-causal'}, q chunk {r}, k "
+                  f"chunk {j}): device ms per call {kern['ms']:.4f}, "
+                  f"host-inclusive {kern['host_ms']:.4f}; plain "
+                  f"{plain['ms']:.4f}; SDPA {lib['ms']:.4f}; bound "
+                  f"{bnd[0]:.4f} ({bnd[1]}); bound / kernel "
+                  f"{bnd[0] / kern['ms']:.3f}; max abs err {err:.3e}",
+                  flush=True)
+            out[name][case] = {
+                "shape": list(shape), "causal": causal, "ms": kern["ms"],
+                "host_ms": kern["host_ms"], "plain_ms": plain["ms"],
+                "library_ms": lib["ms"], "bound_ms": bnd[0],
+                "bound_by": bnd[1], "max_abs_err": err}
+        del q, k, v, do, o, lse, ro, rl, got, want, leaves, lib_out
+    return out
+
+
+def cp_train_rank(rank, world, port, spec):
+    """One rank of phases 14 and 15: a gloo world over ``localhost`` on
+    device 0; BERT's MLM or the stacked LM (``spec``) trains each run of
+    ``spec["runs"]`` ([key, builder, fault, schedule]) from the seeded
+    init, with its fault monkeypatched in: ``local`` (each rank's
+    attention within its own chunk), ``undivided`` (the gathered gradient
+    left undivided by the model size), ``crossed`` (the pipe hop sent to
+    the next stage's rank of the other chunk). Prints {run: losses,
+    launches, ms, mesh, place, update error against the reference, digests
+    of the whole params and of the pieces, stored and whole bytes, peak
+    memory} and the groups' collective ms (after the first run)."""
+    import datetime
+    import importlib
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.models import bert, lm
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.ops import build
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.parallel import collectives
+    from autodist_tpu_torch.pipeline import schedule
+    ra = importlib.import_module("autodist_tpu_torch.parallel.ring_attention")
+    spec = json.loads(spec)
+    device = spec["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build.load_all()  # built by the parent: the same sources and flags
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    cfg = T.TransformerConfig(**dict(spec["config"], dtype=getattr(
+        torch, spec["dtype"])))
+    gen = torch.Generator().manual_seed(0)
+    if spec["model"] == "bert":
+        params = bert.init(cfg, gen, device=device)
+        batch = tuple(torch.as_tensor(a, device=device) for a in
+                      bert.synthetic_batch(cfg, spec["batch"], spec["seq"],
+                                           spec["masked"], seed=0))
+        loss_fn = bert.make_loss_fn(cfg)
+    else:
+        params = lm.init(cfg, gen, device=device)
+        batch = (sp_tokens(cfg, spec["batch"], spec["seq"]).to(device),)
+        loss_fn = lm.make_loss_fn(cfg)
+    init = {n: t.detach().clone() for n, t in flatten_params(params).items()}
+    ref = torch.load(spec["ref"], map_location=device)
+    # The crossed pipe groups of {pipe: 2, seq: 2} (rank = 2 pipe + seq):
+    # stage 0 of chunk c with stage 1 of chunk 1 - c.
+    crossed = None
+    if any(run[2] == "crossed" for run in spec["runs"]):
+        crossed = [dist.new_group([0, 3]), dist.new_group([1, 2])][
+            rank in (1, 2)]
+    real_init = schedule._Run.__init__
+
+    def crossed_init(self, stage_fn, treedef, num_micro, group, *rest):
+        real_init(self, stage_fn, treedef, num_micro, crossed, *rest)
+
+    def undivided(ctx, grad):
+        return (collectives.reduce_scatter(grad, ctx.dim, ctx.group), None,
+                None, None)
+    faults = {"local": (ra, "ring_attention", lambda q, k, v, group=None,
+                        causal=False: fa.flash_attention(q, k, v, causal)),
+              "undivided": (collectives.GatherShards, "backward",
+                            staticmethod(undivided)),
+              "crossed": (schedule._Run, "__init__", crossed_init)}
+    out = {"rank": rank}
+    for key, builder, fault, sched in spec["runs"]:
+        patch = faults.get(fault)
+        if patch is not None:
+            real = patch[0].__dict__[patch[1]]
+            setattr(patch[0], patch[1], patch[2])
+        if sched:
+            os.environ["AUTODIST_PIPELINE_SCHEDULE"] = sched
+        try:
+            run = _train(torch, fa, device, eval(builder, {"S": S}),
+                         loss_fn, params, batch, spec["steps"], spec["lr"],
+                         counts=_ring_counts)
+        finally:
+            if patch is not None:
+                setattr(patch[0], patch[1], real)
+            os.environ.pop("AUTODIST_PIPELINE_SCHEDULE", None)
+        kinds = run.runner.var_kinds
+        final = flatten_params(run.runner.logical_params(run.state))
+        stored = flatten_params(run.state.params)
+        mesh = run.runner.program.mesh
+        out[key] = {
+            "losses": run.losses, "launches": run.launches, "ms": run.times,
+            "mesh": dict(mesh.shape),
+            "place": {a: mesh.axis_index(a) for a in mesh.axis_names},
+            "schedule": run.runner.program.parallel_context()
+            .pipeline_schedule,
+            "update_error": update_error(torch, final, ref, init),
+            "whole": _digest(torch, (t for n, t in sorted(stored.items())
+                                     if kinds[n][0] != "tp")),
+            "pieces": _digest(torch, (t for n, t in sorted(stored.items())
+                                      if kinds[n][0] == "tp")),
+            "stored_bytes": sum(t.numel() * t.element_size()
+                                for t in stored.values()),
+            "whole_bytes": sum(t.numel() * t.element_size()
+                               for t in final.values()),
+            "peak_bytes": run.peak}
+        if "collectives" not in out:
+            out["collectives"] = _cp_collectives(torch, cfg, spec, mesh,
+                                                 device)
+        del run, final, stored
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _cp_collectives(torch, cfg, spec, mesh, device):
+    """Host-inclusive ms of one rank's collectives on ``mesh`` (every rank
+    calls them): the ring's hop of a K chunk over the seq group, the model
+    group's activation all-reduce, the pipe hop of a microbatch's chunk and
+    the output broadcast over the pipe group, as the mesh has them."""
+    import torch.distributed as dist
+    from autodist_tpu_torch.parallel.collectives import exchange
+    shape, out = mesh.shape, {}
+    p = shape["seq"]
+    rows, chunk = spec["batch"], spec["seq"] // p
+    heads = cfg.num_heads // shape.get("model", 1)
+    if shape.get("pipe", 1) > 1:
+        rows //= spec["micro"]
+    hd = cfg.dim // cfg.num_heads
+    kv = torch.zeros((rows, heads, chunk, hd), dtype=cfg.dtype, device=device)
+    recv = torch.empty_like(kv)
+    group, me = mesh.group("seq"), mesh.axis_index("seq")
+    out["seq_hop"] = (_collective_ms(torch, device, lambda: exchange(
+        kv, recv, group, dst=(me + 1) % p, src=(me - 1) % p)),
+        kv.numel() * kv.element_size())
+    act = torch.zeros((rows, chunk, cfg.dim), dtype=cfg.dtype, device=device)
+    if shape.get("model", 1) > 1:
+        group = mesh.group("model")
+        out["model_all_reduce"] = (_collective_ms(
+            torch, device, lambda: dist.all_reduce(act, group=group)),
+            act.numel() * act.element_size())
+    if shape.get("pipe", 1) > 1:
+        group, me = mesh.group("pipe"), mesh.axis_index("pipe")
+        recv = torch.empty_like(act)
+        out["pipe_hop"] = (_collective_ms(torch, device, lambda: exchange(
+            act, recv, group, dst=1 if me == 0 else None,
+            src=0 if me == 1 else None)), act.numel() * act.element_size())
+        outs = torch.zeros((spec["batch"], chunk, cfg.dim), dtype=cfg.dtype,
+                           device=device)
+        out["pipe_broadcast"] = (_collective_ms(
+            torch, device, lambda: dist.broadcast(
+                outs, src=dist.get_global_rank(group, 1), group=group)),
+            outs.numel() * outs.element_size())
+    return out
+
+
+def _cp_report(card, label, runs, ref_losses, want_mesh, want_launches,
+               steps, collectives=None):
+    """Print one composed run of every rank and check it: its losses and
+    update within the phase's tolerances of one rank (the caller passes
+    them), the ranks' losses equal, whole params bitwise equal, the pieces
+    equal across a seq group and different across their piece group, the
+    mesh and the launches. Returns (loss reading, update reading)."""
+    r0 = runs[0]
+    rel = _rel(r0["losses"], ref_losses)
+    err = max(r["update_error"] for r in runs)
+    coll = "; ".join(f"{k} {ms:.2f} ms ({n / 2**20:.2f} MiB)"
+                     for k, (ms, n) in (collectives or {}).items())
+    print(f"  {label} (mesh {r0['mesh']}): losses "
+          f"{', '.join(f'{x:.6f}' for x in r0['losses'])}; max rel. diff vs "
+          f"one rank {rel:.3e}; largest update error over the ranks "
+          f"{err:.3e}; whole params bitwise equal on every rank: "
+          f"{len({r['whole'] for r in runs}) == 1}; launches per rank and "
+          f"step {({k: v / steps for k, v in r0['launches'].items()})}"
+          + (f"; collectives (rank 0, gloo, host-inclusive): {coll}"
+             if coll else ""), flush=True)
+    for i, r in enumerate(runs):
+        print(f"    rank {i} {r['place']}: stores {r['stored_bytes']} of "
+              f"{r['whole_bytes']} parameter bytes "
+              f"({100 * r['stored_bytes'] / r['whole_bytes']:.1f}%); peak "
+              f"memory {r['peak_bytes'] / 2**30:.2f} GiB; ms per step "
+              f"(host-inclusive) {', '.join(f'{x:.1f}' for x in r['ms'])}; "
+              f"on {card}", flush=True)
+    check(all(r["losses"] == r0["losses"] for r in runs),
+          f"{label}: the ranks' losses differ")
+    check(len({r["whole"] for r in runs}) == 1,
+          f"{label}: the whole params differ across the ranks")
+    check(all(r["mesh"] == want_mesh for r in runs),
+          f"{label}: mesh {r0['mesh']}, expected {want_mesh}")
+    piece_axis = next((a for a in ("model", "pipe") if a in want_mesh), None)
+    if piece_axis is not None:
+        by = {}
+        for r in runs:
+            by.setdefault(r["place"][piece_axis], set()).add(r["pieces"])
+        check(all(len(v) == 1 for v in by.values()) and
+              len(set().union(*by.values())) == want_mesh[piece_axis],
+              f"{label}: the pieces are not one per {piece_axis} index")
+    for r in runs:
+        check(r["launches"] == want_launches, f"{label}: launches "
+              f"{r['launches']}, expected {want_launches}")
+    return rel, err
+
+
+def _cp_tolerances(what, floor, faults, tols):
+    """Check each tolerance lies between its floor and the faults' least
+    reading."""
+    for i, (name, tol) in enumerate(zip(("loss", "update"), tols)):
+        least = min(f[i] for f in faults.values())
+        check(floor[i] < tol < least, f"{what}: the {name} tolerance {tol} "
+              f"does not lie between the floor {floor[i]} and the faults' "
+              f"least reading {least}")
+
+
+def _hop_launches(layers, steps, hops, ring=True, forwards=1):
+    """Per rank: each layer's attention a step, ``hops`` ring hops (one
+    flash kernel each way a hop) or one Ulysses call."""
+    calls = layers * steps * (hops if ring else 1)
+    return {"flash_fwd": calls * forwards, "flash_bwd_dq": calls,
+            "flash_bwd_dkv": calls,
+            "block_attn_fwd": calls * forwards if ring else 0,
+            "block_attn_bwd": calls if ring else 0}
+
+
+def composed_bert_phase(torch, fa, card, cfg, device, batch_size=CP_BATCH,
+                        seq=CP_SEQ, num_masked=CP_MASKED, steps=CP_STEPS):
+    """Phase 14: BERT's MLM under a seq axis. One rank's AllReduce() steps
+    and again (the floor); (a) two gloo ranks under SequenceParallel
+    ("ring") on {data: 1, seq: 2}; (b) four under ModelParallel(
+    SequenceParallel(ring | ulysses, 2), 2) on {data: 1, seq: 2, model:
+    2}; each held to one rank between the floor and the planted faults.
+    Returns {path: launches, summed over the ranks}."""
+    import tempfile
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.ops import build
+    t_phase = time.perf_counter()
+    print(f"phase 14: BERT's MLM under a seq axis, BERT at width {cfg.dim}, "
+          f"{cfg.num_heads} heads, {cfg.num_layers} layers (vocab "
+          f"{cfg.vocab}, max_len {cfg.max_len}; batch {batch_size} x {seq}, "
+          f"{num_masked} masked positions a row, SGD {CP_LR}), {steps} eager "
+          f"steps vs one rank's AllReduce()", flush=True)
+    batch = bert.synthetic_batch(cfg, batch_size, seq, num_masked, seed=0)
+    counts = ((batch[2] >= 0) & (batch[2] < seq // 2)).sum(1)
+    print(f"  masked positions a row in the first half of the sequence: "
+          f"{counts.tolist()} (of {num_masked})", flush=True)
+    try:
+        ref = strategy_run(torch, fa, cfg, device, "one rank AllReduce()",
+                           S.AllReduce(), batch, steps, optimizer="SGD",
+                           lr=CP_LR)
+        again = strategy_run(torch, fa, cfg, device,
+                             "one rank AllReduce() again", S.AllReduce(),
+                             batch, steps, optimizer="SGD", lr=CP_LR)
+    finally:
+        autodist_mod._reset_default()
+    floor = (_rel(again.losses, ref.losses),
+             update_error(torch, again.params, ref.params, ref.init))
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
+    ref_path = os.path.join(tmp.name, "ref.pt")
+    torch.save({n: t.detach().cpu() for n, t in ref.params.items()},
+               ref_path)
+    ref_losses = ref.losses
+    print(f"  one rank AllReduce(): losses "
+          f"{', '.join(f'{x:.6f}' for x in ref_losses)}, ms per step "
+          f"{', '.join(f'{x:.1f}' for x in ref.times)}; floor (the run "
+          f"again): loss {floor[0]:.3e}, update {floor[1]:.3e}", flush=True)
+    del ref, again
+    fields = {k: v for k, v in vars(cfg).items() if k != "dtype"}
+    base = {"device": device, "config": fields, "model": "bert",
+            "dtype": str(cfg.dtype).split(".")[-1], "seq": seq,
+            "batch": batch_size, "masked": num_masked, "steps": steps,
+            "lr": CP_LR, "ref": ref_path}
+    sp = "S.SequenceParallel('ring', 2)"
+    tp_sp = "S.ModelParallel(S.SequenceParallel('{}', 2), model_axis=2)"
+    subs = (
+        ("(a)", 2, [["ring", sp, None, None]] +
+         [[f, sp, f, None] for f in CP_SP_FAULTS],
+         {"data": 1, "seq": 2}, (("ring", "SequenceParallel('ring')"),)),
+        ("(b)", 4, [["ring", tp_sp.format("ring"), None, None],
+                    ["ulysses", tp_sp.format("ulysses"), None, None]] +
+         [[f, tp_sp.format("ring"), f, None] for f in CP_TP_FAULTS],
+         {"data": 1, "seq": 2, "model": 2},
+         (("ring", "ModelParallel(SequenceParallel('ring', 2), 2)"),
+          ("ulysses", "ModelParallel(SequenceParallel('ulysses', 2), 2)"))))
+    paths = {}
+    try:
+        for sub, world, runs, mesh, keys in subs:
+            ranks = _spawn_ranks(world, "--cp-train", json.dumps(
+                dict(base, runs=runs)), f"a phase 14 {sub} rank")
+            faults = {f: (_rel(ranks[0][f]["losses"], ref_losses),
+                          max(r[f]["update_error"] for r in ranks))
+                      for _, _, f, _ in runs if f}
+            print(f"  {sub} {world} gloo ranks on one device; planted faults "
+                  f"(loss / update vs one rank): " + "; ".join(
+                      f"{k}: {l:.3e} / {u:.3e}" for k, (l, u) in
+                      faults.items()) + f" (on {card})", flush=True)
+            _cp_tolerances(f"phase 14 {sub}", floor, faults,
+                           (CP_LOSS_RTOL, CP_UPDATE_RTOL))
+            for key, label in keys:
+                want = _hop_launches(cfg.num_layers, steps, 2,
+                                     ring=key == "ring")
+                rel, err = _cp_report(card, f"{sub} {label}",
+                                      [r[key] for r in ranks], ref_losses,
+                                      mesh, want, steps,
+                                      ranks[0]["collectives"]
+                                      if key == "ring" else None)
+                check(rel <= CP_LOSS_RTOL, f"phase 14 {sub} {label}: loss "
+                      f"{rel:.3e} (tolerance {CP_LOSS_RTOL})")
+                check(err <= CP_UPDATE_RTOL, f"phase 14 {sub} {label}: "
+                      f"update {err:.3e} (tolerance {CP_UPDATE_RTOL})")
+                tag = "sp" if world == 2 else "tp_sp"
+                paths[f"bert_{tag}_gloo{world}_{key}"] = {
+                    k: sum(r[key]["launches"][k] for r in ranks)
+                    for k in want}
+    finally:
+        tmp.cleanup()
+    print(f"  (d) phase 14 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
+
+
+def composed_pipeline_phase(torch, fa, card, device, reference,
+                            vocab=32000, dim=1024, heads=16, layers=16,
+                            max_len=PP_SEQ, batch=PP_BATCH, steps=PP_STEPS):
+    """Phase 15: the stacked LM under SequenceParallel("ring", 2, base=
+    Pipeline(2, PP_MICRO)) on four gloo ranks, {data: 1, pipe: 2, seq: 2},
+    under each schedule of ``PPSP_SCHEDULES`` and with the planted fault;
+    held to one rank's steps (``reference``: phase 13's (losses, floor,
+    path of the final params), from :func:`pipeline_phase`'s ``share``).
+    Returns {path: launches, summed over the ranks}."""
+    from autodist_tpu_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    cfg = T.TransformerConfig(vocab=vocab, dim=dim, num_heads=heads,
+                              num_layers=layers, max_len=max_len,
+                              causal=True, dtype=torch.bfloat16,
+                              scan_layers=True)
+    seq = max_len
+    print(f"phase 15: the LM at lm1b's widths (vocab {vocab}, dim {dim}, "
+          f"{heads} heads, {layers} layers, scan_layers=True), batch {batch}"
+          f" x {seq}, SGD {PP_LR}, {steps} steps, on 4 gloo ranks of one "
+          f"device under SequenceParallel('ring', 2, base=Pipeline(2, "
+          f"{PP_MICRO})): {layers // 2} layers and a {seq // 2}-row chunk a "
+          f"rank", flush=True)
+    ref_losses, floor, ref_path = reference
+    print(f"  one rank AllReduce() (phase 13's (a)): losses "
+          f"{', '.join(f'{x:.6f}' for x in ref_losses)}; floor loss "
+          f"{floor[0]:.3e}, update {floor[1]:.3e}", flush=True)
+    builder = (f"S.SequenceParallel('ring', 2, base=S.Pipeline("
+               f"num_stages=2, num_microbatches={PP_MICRO}))")
+    runs = [[s, builder, None, s] for s in PPSP_SCHEDULES] + \
+        [[f, builder, f, "shift"] for f in PPSP_FAULTS]
+    fields = {k: v for k, v in vars(cfg).items() if k != "dtype"}
+    spec = {"device": device, "config": fields, "model": "lm",
+            "dtype": "bfloat16", "seq": seq, "batch": batch,
+            "micro": PP_MICRO, "steps": steps, "lr": PP_LR,
+            "ref": ref_path, "runs": runs}
+    ranks = _spawn_ranks(4, "--cp-train", json.dumps(spec),
+                         "a phase 15 rank")
+    faults = {f: (_rel(ranks[0][f]["losses"], ref_losses),
+                  max(r[f]["update_error"] for r in ranks))
+              for f in PPSP_FAULTS}
+    print(f"  (a) planted fault (loss / update vs one rank): " + "; ".join(
+        f"{k}: {l:.3e} / {u:.3e}" for k, (l, u) in faults.items()) +
+        f" (on {card})", flush=True)
+    _cp_tolerances("phase 15", floor, faults,
+                   (PPSP_LOSS_RTOL, PPSP_UPDATE_RTOL))
+    mesh = {"data": 1, "pipe": 2, "seq": 2}
+    paths = {}
+    per_stage = layers // 2
+    for sched in PPSP_SCHEDULES:
+        runs = [r[sched] for r in ranks]
+        want = _hop_launches(per_stage * PP_MICRO, steps, 2,
+                             forwards=2 if sched == "1f1b" else 1)
+        rel, err = _cp_report(card, f"(a) '{sched}'", runs, ref_losses, mesh,
+                              want, steps, ranks[0]["collectives"]
+                              if sched == "shift" else None)
+        check(all(r["schedule"] == sched for r in runs),
+              f"phase 15: schedule {runs[0]['schedule']}, not {sched}")
+        check(rel <= PPSP_LOSS_RTOL, f"phase 15 {sched}: loss {rel:.3e} "
+              f"(tolerance {PPSP_LOSS_RTOL})")
+        check(err <= PPSP_UPDATE_RTOL, f"phase 15 {sched}: update {err:.3e} "
+              f"(tolerance {PPSP_UPDATE_RTOL})")
+        if sched != "shift":
+            shift = [r["shift"] for r in ranks]
+            check(all(a["losses"] == b["losses"] and a["whole"] == b["whole"]
+                      and a["pieces"] == b["pieces"]
+                      for a, b in zip(runs, shift)),
+                  f"phase 15: '{sched}' is not bitwise 'shift'")
+        paths[f"pp_sp_gloo4_{sched}"] = {
+            k: sum(r["launches"][k] for r in runs) for k in want}
+    print(f"  (b) '{PPSP_SCHEDULES[1]}' bitwise 'shift' (losses, whole "
+          f"params and stages); phase 15 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths
+
+
 def main():
     import torch
     if len(sys.argv) > 1 and sys.argv[1] == "--gloo-train":
@@ -5139,6 +5640,8 @@ def main():
         return ep_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--pp-train":
         return pp_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--cp-train":
+        return cp_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA card", file=sys.stderr)
@@ -5197,7 +5700,23 @@ def main():
     zoo.update(tp_phase(torch, fa, card, bert.bert_base(max_len=512),
                         "cuda"))
     zoo.update(ep_phase(torch, fa, card, "cuda"))
-    zoo.update(pipeline_phase(torch, fa, card, "cuda"))
+    import tempfile
+    share = {"dir": tempfile.mkdtemp(dir=build.BUILD_DIR)}
+    try:
+        zoo.update(pipeline_phase(torch, fa, card, "cuda", share=share))
+        print("phase 14 (c) / 15 (c): the kernels at the composed paths' "
+              "shapes", flush=True)
+        composed = composed_hop_phase(torch, fa)
+        ulysses_tp = tp_kernel_phase(
+            torch, fa, shape=CP_ULYSSES_SHAPE, key="ulysses_tp",
+            label="phase 14 (c)", who="Ulysses under TP: a rank's 3 heads "
+            "over the whole sequence")
+        zoo.update(composed_bert_phase(torch, fa, card,
+                                       bert.bert_base(max_len=512), "cuda"))
+        zoo.update(composed_pipeline_phase(torch, fa, card, "cuda",
+                                           share["reference"]))
+    finally:
+        shutil.rmtree(share["dir"], ignore_errors=True)
     fwd["launches"] = served + trained["flash_fwd"]
     fwd["launches_by_path"] = {"serve": served,
                                "train": trained["flash_fwd"],
@@ -5212,13 +5731,17 @@ def main():
             {path: counts[record["name"]] for path, counts in zoo.items()})
         record["other_routes"] = routes[record["name"]]
         record.update(tp_kernels[record["name"]])
+        record.update(ulysses_tp[record["name"]])
     for record in hops:  # their main path: the ring's steps in phase 10
         record["launches"] = zoo[f"sp_gloo{SP_WORLD}_ring"][record["name"]]
         record["launches_by_path"] = {
             path: counts.get(record["name"], 0)
             for path, counts in zoo.items()}
+        record["composed"] = composed[record["name"]]
     print(f"chip_smoke: every phase passed in "
-          f"{time.perf_counter() - start:.1f}s", flush=True)
+          f"{time.perf_counter() - start:.1f}s; timings: {TIMINGS['profiles']}"
+          f" profiles, {TIMINGS['empty']} with no device time, "
+          f"{TIMINGS['events']} calls timed with CUDA events", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [fwd] + bwd + hops}), flush=True)
     print(json.dumps({"ok": True, "device": {

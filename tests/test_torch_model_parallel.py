@@ -29,9 +29,9 @@
     x model, and averaged over data alone (a fourth planted fault) the
     copies part;
   - a model group fed two batches raises, so do the graph paths (item
-    15), a non-elementwise optimizer on a piece, and a ``{seq, model}``
-    mesh (item 10(g)); the model axis not dividing the heads gathers the
-    attention weights and trains as AllReduce does;
+    15) and a non-elementwise optimizer on a piece (``{seq, model}``
+    trains: ``tests/test_torch_composed.py``); the model axis not dividing
+    the heads gathers the attention weights and trains as AllReduce does;
   - the TP world's checkpoint restores bitwise on one rank and its
     manifest's params entries are the JAX manifest's; a one-rank
     checkpoint restores into the TP world bitwise;
@@ -429,9 +429,6 @@ res["heads"] = train(S.ModelParallel(S.AllReduce(), model_axis=4),
 res["heads_ar"] = train(S.AllReduce(), lm.make_loss_fn(hcfg), hparams,
                         SGD(0.1), hbatches)[2]
 
-res["seq_model"] = raises(lambda: session(
-    S.ModelParallel(S.SequenceParallel(seq_axis=2), model_axis=2),
-    lm.make_loss_fn(lcfg), inp["lm"], SGD(0.1), (inp["tokens"][:2],)))
 autodist_mod._reset_default()
 dist.destroy_process_group()
 with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
@@ -672,12 +669,6 @@ def test_non_elementwise_optimizer_on_a_piece_raises(world):
     for got in world["lbfgs"]:
         assert got is not None and got[0] == "ValueError", got
         assert "LBFGS" in got[1]
-
-
-def test_seq_and_model_mesh_raises_naming_item_10g(world):
-    for got in world["seq_model"]:
-        assert got is not None and got[0] == "NotImplementedError", got
-        assert "10(g)" in got[1]
 
 
 def test_heads_the_model_axis_does_not_divide_gather_the_attention(world):

@@ -36,7 +36,8 @@
   - the 2-stage checkpoint restores bitwise on one process and its next
     step is the world's;
   - the graph paths raise under ``pipe`` (item 15), so does a pipe group
-    fed two batches, and pipe with seq, model or expert (item 10(j)).
+    fed two batches, and pipe with model or expert (item 10(j)); pipe
+    with seq trains (``tests/test_torch_composed.py``).
 """
 import fcntl
 import functools
@@ -627,10 +628,9 @@ res["user"] = train(PipeRules(), user_loss, inp["user"],
                     [inp["user_batch"]] * USER_STEPS, USER_STEPS,
                     mesh_axes={"data": 2, "pipe": 2})[2]
 
-# Pipe composed with seq, model or expert.
+# Pipe composed with model or expert.
 tokens = (inp["zoo_batches"][0][0][:2],)
 for key, base in (
-        ("seq", S.SequenceParallel(seq_axis=2)),
         ("model", S.ModelParallel(S.AllReduce(), model_axis=2)),
         ("expert", S.ModelParallel(S.AllReduce(), model_axis=2,
                                    rules=moe.EXPERT_RULES,
@@ -950,7 +950,6 @@ def test_two_stage_checkpoint_restores_on_one_process_and_continues(world):
     ("aot", "NotImplementedError", "item 15"),
     ("megastep", "NotImplementedError", "item 15"),
     ("mismatch", "ValueError", "pipe group were fed different batches"),
-    ("compose_seq", "NotImplementedError", "item 10\\(j\\)"),
     ("compose_model", "NotImplementedError", "item 10\\(j\\)"),
     ("compose_expert", "NotImplementedError", "item 10\\(j\\)")])
 def test_what_a_pipe_axis_refuses(world, case, kind, match):

@@ -15,9 +15,11 @@
   ``{data: 4, seq: 2}`` mesh and the port's ``AllReduce`` run at rtol
   1e-5 (f32, other summation orders), and the ranks' params agree
   bitwise. A seq group fed two batches raises, so does a sequence the
-  seq axis does not divide, BERT's masked-LM loss under a seq axis, and a
-  graph step (``make_callable(aot=True)``). ``Mesh.group_over`` builds the
-  data x seq group of a mesh with a third axis.
+  seq axis does not divide, and a graph step (``make_callable(aot=True)``)
+  (BERT's masked-LM loss under a seq axis trains:
+  ``tests/test_torch_composed.py``). ``Mesh.group_over`` builds the
+  data x seq group of a mesh with a third axis, and the seq group of a
+  ``{pipe, seq}`` mesh.
 """
 import fcntl
 import pickle
@@ -140,7 +142,7 @@ import datetime, functools, os, pickle, sys
 import numpy as np, torch, torch.distributed as dist
 from autodist_tpu_torch import AutoDist, strategy as S
 from autodist_tpu_torch import autodist as autodist_mod
-from autodist_tpu_torch.models import bert, lm
+from autodist_tpu_torch.models import lm
 from autodist_tpu_torch.utils.tree import flatten_with_path, path_to_name
 
 out, rank, world = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
@@ -204,13 +206,6 @@ other = (mine + 1 + runner.program.mesh.axis_index("seq")) % cfg.vocab
 res["mismatch"] = raises(lambda: runner.step(state, (other,)))
 res["indivisible"] = raises(lambda: runner.step(state, (mine[:, :16],)))
 res["graph"] = raises(lambda: runner.make_callable((mine,), aot=True))
-
-bcfg = bert.bert_tiny(max_len=16)
-bparams = bert.init(bcfg, device="cpu")
-bbatch = bert.synthetic_batch(bcfg, batch_size=2, seq_len=16)
-brunner = session(S.SequenceParallel(attn="ring", seq_axis=2),
-                  bert.make_loss_fn(bcfg), bparams, bbatch)
-res["bert"] = raises(lambda: brunner.step(brunner.create_state(), bbatch))
 autodist_mod._reset_default()
 
 # The data x seq group of a mesh with a third axis: the ranks that share
@@ -225,6 +220,15 @@ mesh = Mesh(np.arange(world).reshape(1, 2, 2), names,
 res["group_over"] = [
     sorted(dist.get_process_group_ranks(mesh.group_over(axes)))
     for axes in (("data", "seq"), ("seq", "model"), ("seq",))]
+names = ("data", "pipe", "seq")
+mesh = Mesh(np.arange(world).reshape(1, 2, 2), names,
+            device_mesh=init_device_mesh("cpu", (1, 2, 2),
+                                         mesh_dim_names=names),
+            local_device=torch.device("cpu"))
+res["group_over_pipe"] = [
+    sorted(dist.get_process_group_ranks(mesh.group_over(axes)))
+    for axes in (("data", "seq"), ("data", "pipe"), ("pipe", "seq"),
+                 ("seq",), ("pipe",))]
 dist.destroy_process_group()
 with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
     pickle.dump(res, f)
@@ -312,10 +316,7 @@ def test_a_sequence_the_seq_axis_does_not_divide_raises(world):
         assert "not divisible by the seq axis" in got[1]
 
 
-def test_bert_mlm_and_graph_steps_under_a_seq_axis_raise(world):
-    for got in world["bert"]:
-        assert got is not None and got[0] == "NotImplementedError", got
-        assert "10(f)" in got[1]
+def test_graph_steps_under_a_seq_axis_raise(world):
     for got in world["graph"]:
         assert got is not None and got[0] == "NotImplementedError", got
         assert "item 15" in got[1]
@@ -324,8 +325,16 @@ def test_bert_mlm_and_graph_steps_under_a_seq_axis_raise(world):
 def test_group_over_gives_the_ranks_that_share_the_other_axes(world):
     """``Mesh.group_over`` on {data: 1, seq: 2, model: 2} (rank = 2 x seq
     + model): data x seq is a new group per model coordinate, seq x model
-    the world, seq alone the mesh's seq group."""
+    the world, seq alone the mesh's seq group. On {data: 1, pipe: 2, seq:
+    2} (rank = 2 x pipe + seq): data x seq and seq are the ranks of this
+    rank's stage, data x pipe and pipe those of its chunk (the JAX mesh's
+    layout: ``seq`` inner), pipe x seq the world."""
     for rank, got in enumerate(world["group_over"]):
         model = rank % 2
         assert got == [[model, 2 + model], [0, 1, 2, 3],
                        [model, 2 + model]], (rank, got)
+    for rank, got in enumerate(world["group_over_pipe"]):
+        pipe, seq = divmod(rank, 2)
+        stage, chunk = [2 * pipe, 2 * pipe + 1], [seq, 2 + seq]
+        assert got == [stage, chunk, [0, 1, 2, 3], stage, chunk], (rank,
+                                                                   got)
