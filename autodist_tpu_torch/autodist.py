@@ -65,12 +65,14 @@ def _store_flake(exc):
         exc, getattr(dist, "DistStoreError", ()))
 
 
-def _reset_default():
+def _reset_default(keep_world=False):
     """Clear the per-process singleton and destroy the process group its
-    cluster started (test harness hook: one AutoDist after another)."""
+    cluster started (test harness hook: one AutoDist after another). With
+    ``keep_world`` the world stays for the next AutoDist to join (one
+    world for many sessions: its communicators are made once)."""
     global _default_autodist
     if _default_autodist is not None:
-        _default_autodist.cluster.terminate()
+        _default_autodist.cluster.terminate(keep_world=keep_world)
     _default_autodist = None
 
 

@@ -136,6 +136,28 @@ class Mesh:
         return f"Mesh({self.shape})"
 
 
+# Rank meshes of the live world by (device, axis names, shape): a session
+# that lays out a mesh an earlier session of this world laid out takes that
+# mesh, so its process groups (NCCL's communicators, made at their first
+# collective) are made once per world, not once per session.
+_RANK_MESHES = {}
+
+
+def _rank_mesh(device, names, shape):
+    world = dist.group.WORLD
+    if any(w is not world for w, _ in _RANK_MESHES.values()):
+        _RANK_MESHES.clear()  # another world: its groups are gone
+    key = (str(device), names, shape)
+    if key not in _RANK_MESHES:
+        from torch.distributed.device_mesh import init_device_mesh
+        device_mesh = init_device_mesh(device.type, shape,
+                                       mesh_dim_names=names)
+        _RANK_MESHES[key] = (world, Mesh(
+            np.arange(math.prod(shape)).reshape(shape), names,
+            device_mesh=device_mesh, local_device=device))
+    return _RANK_MESHES[key][1]
+
+
 def local_devices(spec):
     """``torch.device``s for a resource spec's accelerators on this host."""
     return [torch.device("cuda", d.device_index)
@@ -236,12 +258,7 @@ class Cluster:
             n = dist.get_world_size()
             names, shape = _resolve_axis_sizes(
                 axis_sizes, n, self._resource_spec.mesh_hints)
-            from torch.distributed.device_mesh import init_device_mesh
-            device_mesh = init_device_mesh(self._device.type, shape,
-                                           mesh_dim_names=tuple(names))
-            self._mesh = Mesh(np.arange(n).reshape(shape), names,
-                              device_mesh=device_mesh,
-                              local_device=self._device)
+            self._mesh = _rank_mesh(self._device, tuple(names), shape)
         else:
             devices = local_devices(self._resource_spec)
             n = len(devices)
@@ -260,10 +277,11 @@ class Cluster:
             self.build_mesh()
         return self._mesh
 
-    def terminate(self):
+    def terminate(self, keep_world=False):
         """Destroy the process group :meth:`start` began (a world the
-        caller initialized stays)."""
-        if self._owns_group and dist.is_initialized():
+        caller initialized stays, and so does this one with
+        ``keep_world``: the next :meth:`start` joins it)."""
+        if self._owns_group and dist.is_initialized() and not keep_world:
             dist.destroy_process_group()
         self._owns_group = False
         self._device = None

@@ -28,8 +28,12 @@ parallelism the hooks see the rank's H/tp heads, which Ulysses must split
 over the seq axis (else it raises the JAX ``ValueError``). A hop is
 ``parallel/collectives.exchange``: an ``all_to_all_single`` whose splits
 are zero for every rank but the neighbours, on every backend.
-Offsets are host ints baked into each kernel call, so these run eagerly;
-capturing the ring in a CUDA graph is ROADMAP item A15's.
+Offsets are host ints baked into each kernel call and fixed by the
+shapes, so a CUDA graph of the step holds the ring whole: the forward's
+overlapped hop is an ``async_op`` work whose ``wait`` joins NCCL's stream
+back to the capturing stream before the hop's tensors are read, and the
+capture's warm-up (the eager step) has already sent in both directions
+the ring uses.
 """
 import torch
 import torch.distributed as dist

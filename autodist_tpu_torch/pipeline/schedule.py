@@ -67,6 +67,7 @@ import torch.distributed as dist
 from autodist_tpu_torch import const
 from autodist_tpu_torch.parallel import context as parallel_context
 from autodist_tpu_torch.parallel.collectives import exchange
+from autodist_tpu_torch.utils import cuda_graph
 from autodist_tpu_torch.utils.tree import flatten, unflatten
 
 #: ``shift`` — the pipelined schedule; ``sequential`` — the bitwise
@@ -180,7 +181,7 @@ class _Run:
                            device=like.device) if src is not None else None
         exchange(send.contiguous() if dst is not None else like, recv,
                  self.group, dst=dst, src=src)
-        self.counts["hops"] += 1
+        cuda_graph.count_item(self.counts, "hops")
         return recv
 
     def forward(self, x, leaves, needs_dx):
@@ -215,7 +216,7 @@ class _Run:
                 with torch.no_grad():
                     self._apply(self.leaves, torch.zeros_like(x_micro[0]))
             recv = self._hop(t, send, x_micro[0], backward=False)
-        self.counts["forward_ticks"] += self.ticks
+        cuda_graph.count_item(self.counts, "forward_ticks", self.ticks)
         if p > 1:
             dist.broadcast(outs, src=dist.get_global_rank(self.group, p - 1),
                            group=self.group)
@@ -256,7 +257,7 @@ class _Run:
                         continue
                     grads[i] = g if grads[i] is None else grads[i] + g
             recv = self._hop(t, send, d_micro[0], backward=True)
-        self.counts["backward_ticks"] += self.ticks
+        cuda_graph.count_item(self.counts, "backward_ticks", self.ticks)
         self.saved = None
         out = iter(g if g is not None else torch.zeros_like(l)
                    for g, l in zip(grads, trainable))
@@ -281,7 +282,9 @@ class _Pipeline(torch.autograd.Function):
 
 #: Calls and ticks of the executor in this process (reset by the caller):
 #: ``forward_ticks`` / ``backward_ticks`` summed over the calls, ``hops``
-#: the exchanges this rank took part in.
+#: the exchanges this rank took part in. Under a CUDA graph of the step
+#: they count per replay (``utils/cuda_graph.count_item``), as a kernel
+#: wrapper's launches do, not at the capture.
 counts = {"forward_ticks": 0, "backward_ticks": 0, "hops": 0}
 
 

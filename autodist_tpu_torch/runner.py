@@ -87,9 +87,7 @@ its batch rows over every such axis, and one set of rules holds for all:
   parameter is split over seq.
 
 The expert axis composes with nothing and the pipe axis with seq alone
-(``GraphTransformer`` refuses the rest, ROADMAP items A10 (i), (j)). The
-graph paths refuse every seq, model, expert and pipe axis (their capture
-of the groups' collectives is ROADMAP item A15).
+(``GraphTransformer`` refuses the rest, ROADMAP items A10 (i), (j)).
 
 Uneven dims are stored padded (``DistributedProgram.paddings``): the
 compute view cuts the logical rows out and the padded rows take zero
@@ -112,14 +110,28 @@ steps over a K-stacked block (``lax.scan`` in one dispatch there), and
 batch buffers and the state's own tensors: each call copies its batch in
 and replays; the step counter and the stale marking stay on the host. The
 first call runs the real step (or K steps) eagerly on a side stream, as
-the capture's warm-up (it also issues every collective the step uses, so
-the communicator exists before capture), then captures: after N calls the
-state has taken N steps. A graph cannot branch on the host's step count,
-so with stale variables there is one graph per phase of the staleness
-period (the JAX step branches with ``lax.cond``). The optimizer must be
-capturable (``capturable=True`` is turned on where it exists; SGD needs
-none; others are refused). On the CPU the same static-buffer code runs
-directly.
+the capture's warm-up (it also issues every collective the step uses, over
+every group and in every hop direction, so NCCL's communicators and its
+point-to-point connections exist before capture), then captures: after N
+calls the state has taken N steps. A graph cannot branch on the host's
+step count, so with stale variables there is one graph per phase of the
+staleness period (the JAX step branches with ``lax.cond``); every rank
+takes the same phase at the same call, so the ranks capture the same
+collectives in the same order. The optimizer must be capturable
+(``capturable=True`` is turned on where it exists; SGD needs none; others
+are refused).
+
+The graph paths run under every axis the eager step runs under (data,
+seq, model, expert, pipe, seq x model, pipe x seq): the ring's and the
+pipeline's hops, the Megatron and expert all-reduces and gathers, and the
+pipe schedule's ticks are all fixed by the step's shapes. Two things
+differ from the eager step. The batch check of the ranks that share a
+batch (two all-gathers and a host read) runs once, on the batch (block)
+of a graph step's first call, and not on its replays. And a capture needs
+NCCL: over a gloo group (whose collectives stage CUDA tensors through the
+host) a graph step on CUDA raises ``RuntimeError``; it never runs the
+eager step instead. On the CPU the same static-buffer code runs directly,
+over any backend.
 
 ``to_logical`` / ``from_logical`` carry a state to and from its
 checkpoint form (whole, unpadded params and optimizer state by variable
@@ -566,6 +578,29 @@ class Runner:
             elif kind == "fsdp":  # born reduce-scattered (the sum)
                 grads[name].div_(n)
 
+    def _check_shared_batch(self, batch):
+        """Raise unless every rank that shares this rank's batch (its group
+        over the seq and piece axes) holds this batch; nothing without
+        such axes."""
+        if self._share_group is not None:
+            # Attention over mismatched sequences, or pieces of one layer
+            # applied to two batches, would train on neither.
+            self._check_group_batch(
+                batch, self._share_group, self._shared_axes,
+                "; ".join(self._SHARED_WHY[a] for a in self._shared_axes))
+
+    def process_groups(self):
+        """The process groups a step's collectives run over: each mesh
+        axis's and the gradient groups (none on a local mesh)."""
+        groups = [self._mesh.group(a) for a in self._mesh.axis_names]
+        groups += [self._share_group, self._grad_group,
+                   self._piece_grad_group]
+        out = []
+        for g in groups:
+            if g is not None and all(g is not h for h in out):
+                out.append(g)
+        return out
+
     def _check_group_batch(self, batch, group, axes, why):
         """Raise unless every rank of ``group`` (this rank's group over the
         mesh axes ``axes``) holds this batch, shapes and bytes (two
@@ -672,12 +707,7 @@ class Runner:
         "the inputs and every stage the loss"}
 
     def _step(self, state, batch):
-        # Attention over mismatched sequences, or pieces of one layer
-        # applied to two batches, would train on neither.
-        if self._share_group is not None:
-            self._check_group_batch(
-                batch, self._share_group, self._shared_axes,
-                "; ".join(self._SHARED_WHY[a] for a in self._shared_axes))
+        self._check_shared_batch(batch)
         metrics = self._core(state.params, state.opt_state, batch,
                              int(state.step))
         return self._advance(state, 1), metrics
@@ -703,7 +733,10 @@ class Runner:
         the step (captured at the first call, which runs the real step
         eagerly as its warm-up). A batch of another structure, shape or
         dtype raises ``ValueError``; so does a state other than the one the
-        first call was given (the graph is bound to its tensors)."""
+        first call was given (the graph is bound to its tensors). Under a
+        seq or piece axis the ranks that share a batch are checked to hold
+        one at the first call only. On CUDA every process group of the
+        step must be NCCL's (``RuntimeError`` otherwise)."""
         self._remapper.shard_batch(example_batch)
         if aot:
             step = _GraphStep(self, example_batch)
@@ -873,6 +906,25 @@ def _make_capturable(opt, device):
         f"(make_callable(batch), run(unroll=1))")
 
 
+def require_nccl(groups, device):
+    """Raise ``RuntimeError`` unless every process group of ``groups`` is
+    NCCL's where the step runs on CUDA: a CUDA graph captures NCCL's
+    collectives, while gloo's stage CUDA tensors through the host (no graph
+    can hold them). Nothing to check on other devices."""
+    if torch.device(device).type != "cuda":
+        return
+    for group in groups:
+        backend = str(dist.get_backend(group)).lower()
+        if "nccl" not in backend:
+            raise RuntimeError(
+                f"autodist_tpu_torch: a graph step (make_callable(aot=True), "
+                f"megastep, run(unroll>1)) on CUDA needs NCCL: this step's "
+                f"collectives run over a {backend} group, which a CUDA graph "
+                f"cannot capture. Start the world with the nccl backend "
+                f"(Cluster.start does on a CUDA device), or use the eager "
+                f"step (step(), run(unroll=1))")
+
+
 def optimizer_generation(opt):
     """How many times the port replaced ``opt``'s state tensors (a
     rollback or restore to a state from before its first step); a graph
@@ -945,28 +997,16 @@ class _GraphStep:
         "callable (make_callable(batch, aot=True)) for a new state.")
 
     def __init__(self, runner, example, k=None):
-        if runner.program.seq_axis_size > 1:
-            raise NotImplementedError(
-                "autodist_tpu_torch: a sequence-parallel step runs eagerly: "
-                "capturing the ring's hops in a CUDA graph is not ported "
-                "yet (ROADMAP.md, Queue A item 15); use step() or "
-                "run(unroll=1)")
-        if runner.program.piece_axis is not None:
-            raise NotImplementedError(
-                f"autodist_tpu_torch: a step over a "
-                f"{runner.program.piece_axis} axis (tensor, expert or "
-                f"pipeline parallelism) runs eagerly: capturing the "
-                f"{runner.program.piece_axis} group's collectives in a CUDA "
-                f"graph is not ported yet (ROADMAP.md, Queue A item 15); use "
-                f"step() or run(unroll=1)")
+        self._device = runner.remapper.device
+        require_nccl(runner.process_groups(), self._device)
         self._runner = runner
         self.k = k
         flat, self._treedef = flatten(example)
         self._specs = [_leaf_spec(l) for l in flat]
-        self._device = runner.remapper.device
         self._static = [torch.empty(shape, dtype=dtype, device=self._device)
                         for shape, dtype in self._specs]
         self._params = self._opt = self._leaves = None
+        self._checked = False  # the first call's batch checked
         self.graphs = {}  # phase -> Graph
 
     def _graph(self, phase):
@@ -1035,6 +1075,11 @@ class _GraphStep:
             # state tensors the next step creates.
             self.graphs = {}
             self._bind(state)
+        if not self._checked:
+            # Once, not per replay: the check's all-gathers and host read
+            # cannot sit in a graph.
+            self._runner._check_shared_batch(batch)
+            self._checked = True
         self._copy_in(batch)
         graph = self._graph(int(state.step) % self._runner._period)
         metrics = tree_map(lambda t: t.clone() if isinstance(

@@ -24,7 +24,9 @@ the same output tensors on every replay, overwritten.
   ``launches``; during a capture it adds one to the capturing graph's
   count instead, keyed by the capture stream (the autograd engine launches
   the backward from its own thread, on the forward's stream), and each
-  replay adds that count to the wrapper's ``launches``.
+  replay adds that count to the wrapper's ``launches``. Host bookkeeping
+  kept in a dict of counts (the pipeline schedule's ticks and hops) counts
+  the same way through :func:`count_item`, so it reads per replay too.
 * **Plain version.** On any device but CUDA, every call runs ``fn``
   directly, on the same static buffers.
 """
@@ -40,18 +42,56 @@ _lock = threading.Lock()
 _capturing = {}  # capture stream handle -> {counter: launches recorded}
 
 
-def count_launch(counter):
-    """One launch of ``counter``'s kernel (``counter`` is the wrapper that
-    carries ``launches``): counted now, or, while the current stream is
-    being captured by a :class:`Graph`, counted at each of its replays. A
-    capture that no :class:`Graph` owns counts nothing."""
+def _stream_capturing():
+    """Whether the current CUDA stream is being captured (never on a build
+    of PyTorch without CUDA, whose query raises)."""
+    try:
+        return torch.cuda.is_current_stream_capturing()
+    except RuntimeError:
+        return False
+
+
+def count_launch(counter, n=1):
+    """``n`` launches of ``counter``'s kernel (``counter`` is the wrapper
+    that carries ``launches``): counted now, or, while the current stream
+    is being captured by a :class:`Graph`, counted at each of its replays.
+    A capture that no :class:`Graph` owns counts nothing."""
     with _lock:
-        if torch.cuda.is_current_stream_capturing():
+        if _stream_capturing():
             counts = _capturing.get(torch.cuda.current_stream().cuda_stream)
             if counts is not None:
-                counts[counter] = counts.get(counter, 0) + 1
+                counts[counter] = counts.get(counter, 0) + n
             return
-        counter.launches += 1
+        counter.launches += n
+
+
+class _Item:
+    """Entry ``key`` of the dict ``counts`` as a counter: its ``launches``
+    is the entry's value."""
+
+    def __init__(self, counts, key):
+        self.counts, self.key = counts, key
+
+    def __hash__(self):
+        return hash((id(self.counts), self.key))
+
+    def __eq__(self, other):
+        return isinstance(other, _Item) and other.counts is self.counts \
+            and other.key == self.key
+
+    @property
+    def launches(self):
+        return self.counts[self.key]
+
+    @launches.setter
+    def launches(self, n):
+        self.counts[self.key] = n
+
+
+def count_item(counts, key, n=1):
+    """Add ``n`` to ``counts[key]`` now, or at each replay of the graph
+    capturing the current stream (:func:`count_launch`)."""
+    count_launch(_Item(counts, key), n)
 
 
 @contextlib.contextmanager

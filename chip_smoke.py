@@ -116,7 +116,10 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    the one card (the split-parameter and ZeRO-1 lowerings beside the
    kernels), losses and each param's update held to one rank's
    ``AllReduce()`` steps (a doubled gradient must read above the update
-   tolerance), the ranks' params bitwise equal;
+   tolerance), the ranks' params bitwise equal, and
+   ``make_callable(aot=True)`` over the gloo group refused with a
+   ``RuntimeError`` naming NCCL (a CUDA graph cannot hold gloo's
+   collectives; a graph step never falls back to the eager one);
 9. training that survives (``checkpoint/``, ``resilience/``): (a) BERT-base
    (max_len 512, batch 32 x 128, Adam 1e-4, the MLM loss scaled by the
    float masked-LM weights, all 1) takes 12 steps under
@@ -253,6 +256,36 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    ring's diagonal and visible hops against their plain versions, timed;
 16. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
+
+On four cards, ``python3 chip_smoke.py --cards 4 [--part a|b|c]`` runs
+the four-card phase alone instead (it refuses to run on fewer cards): the
+kernels built once; each run's one-rank reference, its floor (the
+reference again) and its planted fault (twice the learning rate: a
+doubled gradient) on card 0, each model's tolerances checked between
+them; then ONE world of four processes, one a card, started with
+torchrun's environment so that ``AutoDist`` -> ``Cluster.start`` opens
+the NCCL world, runs every selected run eagerly and through
+``make_callable(aot=True)`` (and ``run(unroll=4)`` for (a)'s
+``AllReduce()``): (a) BERT-base MLM, 32 x 128 a card, under
+``AllReduce()``, ``PS()``, ``PartitionedPS()``, ``Parallax()`` and
+``PS(staleness=2)`` (held to the mean of four one-rank runs on each
+replica's rows), ResNet-50 at 64 x 224^2 a card (timed only: its
+batch-norm statistics are a rank's), a checkpoint saved on four cards
+and restored on one and the reverse, and the 1 -> 4 card scaling of both
+graph steps; (b) lm1b width on ``{seq: 4}`` (ring and Ulysses, 2 x
+16384), BERT-base under ``ModelParallel(AllReduce() | PS())`` on
+``{data: 2, model: 2}``, the Switch-Base-8 layer on ``{data: 2, expert:
+2}`` (AllReduce: global routing; PS: per shard), lm1b uncut under
+``Pipeline(4, 8)`` on ``{pipe: 4}``; (c) BERT-base under
+``ModelParallel(SequenceParallel("ring", 2), 2)`` and lm1b under
+``SequenceParallel("ring", 2, base=Pipeline(2, 4))``. Each run: losses
+and the whole update held to its reference, the graph step to the eager
+one, the ranks' losses and replicated params bitwise equal, one strategy
+shipped to all, the launches a rank and step as counted from the code
+(per replay under the graph); prints the step ms eager and graph, rank
+0's profiled NCCL kernel ms and busy share (the pipe stage's against the
+bubble 3/11), peak memory and stored bytes. Its last line is the default
+run's, with the count of cards it drove.
 """
 import contextlib
 import copy
@@ -2749,6 +2782,11 @@ def gloo_train_rank(rank, world, port, spec):
                     "mesh": dict(run.runner.program.mesh.shape),
                     "update_error": err,
                     "digest": digest.hexdigest()}
+        try:  # a CUDA graph of gloo's collectives: refused, never eager
+            run.runner.make_callable(mine, aot=True)
+            out[key]["graph_refusal"] = None
+        except RuntimeError as e:
+            out[key]["graph_refusal"] = str(e)
         del run
     autodist_mod._reset_default()
     dist.destroy_process_group()
@@ -2840,6 +2878,16 @@ def gloo_strategy_phase(torch, fa, card, cfg, device, batch_size=32,
               f"{expr}: the ranks' params differ")
         check(all(g["mesh"] == {"data": GLOO_WORLD} for g in got),
               f"{expr}: mesh {got[0]['mesh']}")
+        if device == "cuda":
+            refusal = got[0]["graph_refusal"]
+            check(all(g["graph_refusal"] and "needs NCCL" in
+                      g["graph_refusal"] and "gloo" in g["graph_refusal"]
+                      for g in got), f"{expr}: make_callable(aot=True) over "
+                  f"the gloo world did not refuse naming NCCL: {refusal}")
+            print(f"    make_callable(aot=True) over the gloo group refuses "
+                  f"(RuntimeError): ..."
+                  f"{refusal[refusal.index('needs NCCL'):][:96]}...",
+                  flush=True)
         paths[f"strategy_gloo{GLOO_WORLD}_{key}"] = {
             k: sum(g["launches"][k] for g in got) for k in got[0]["launches"]}
     return paths
@@ -5625,6 +5673,765 @@ def composed_pipeline_phase(torch, fa, card, device, reference,
     return paths
 
 
+
+# Phase 16 (``--cards 4``): the ported lowerings on four cards over NCCL.
+#
+# One process per card, started with torchrun's environment (RANK,
+# WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), so the first
+# AutoDist's Cluster.start opens the NCCL world on cuda:LOCAL_RANK; each
+# later session joins it (``_reset_default(keep_world=True)``), and every
+# session that lays out a mesh again takes the world's cached groups.
+CARDS = 4
+# Steps a run takes eagerly and again through its graph step (BERT under
+# data parallelism takes 4: run(unroll=4) is one block); the graph step is
+# then timed over CARD_TIMED replays and profiled over CARD_PROFILED.
+CARD_STEPS, CARD_DP_STEPS, CARD_TIMED, CARD_PROFILED = 3, 4, 10, 2
+CARD_LR = 0.1
+# (key, part, model, builder expression, mesh, reference). A run is held to
+# the reference model's one-rank steps on card 0 (the same seeded init and
+# global batch, SGD CARD_LR) and its graph step to its own eager steps.
+CARD_RUNS = (
+    ("sp_ring", "b", "lm_sp", 'SequenceParallel("ring", 4)',
+     {"data": 1, "seq": 4}, "lm_sp"),
+    ("sp_ulysses", "b", "lm_sp", 'SequenceParallel("ulysses", 4)',
+     {"data": 1, "seq": 4}, "lm_sp"),
+    ("tp_ar", "b", "bert_tp", "ModelParallel(AllReduce(), model_axis=2)",
+     {"data": 2, "model": 2}, "bert_tp"),
+    ("tp_ps", "b", "bert_tp", "ModelParallel(PS(), model_axis=2)",
+     {"data": 2, "model": 2}, "bert_tp"),
+    ("ep_ar", "b", "ep", "ModelParallel(AllReduce(), model_axis=2, "
+     "rules=moe.EXPERT_RULES, mesh_axis='expert')",
+     {"data": 2, "expert": 2}, "ep"),
+    ("ep_ps", "b", "ep", "ModelParallel(PS(), model_axis=2, "
+     "rules=moe.EXPERT_RULES, mesh_axis='expert')",
+     {"data": 2, "expert": 2}, "ep_shard"),
+    ("pp", "b", "lm_pp", "Pipeline(num_stages=4, num_microbatches=8)",
+     {"data": 1, "pipe": 4}, "lm_pp"),
+    ("tp_sp", "c", "bert_cp",
+     'ModelParallel(SequenceParallel("ring", 2), model_axis=2)',
+     {"data": 1, "seq": 2, "model": 2}, "bert_cp"),
+    ("pp_sp", "c", "lm_pp",
+     'SequenceParallel("ring", 2, base=Pipeline(num_stages=2, '
+     'num_microbatches=4))', {"data": 1, "pipe": 2, "seq": 2}, "lm_pp"),
+    ("dp_ar", "a", "bert_dp", "AllReduce()", {"data": 4}, "bert_dp"),
+    ("dp_zero1", "a", "bert_dp", "PS()", {"data": 4}, "bert_dp"),
+    ("dp_fsdp", "a", "bert_dp", "PartitionedPS()", {"data": 4}, "bert_dp"),
+    ("dp_parallax", "a", "bert_dp", "Parallax()", {"data": 4}, "bert_dp"),
+    ("dp_stale2", "a", "bert_dp", "PS(staleness=2)", {"data": 4},
+     "bert_dp_stale"),
+    ("dp_resnet", "a", "resnet", "AllReduce(chunk_size=128)", {"data": 4},
+     None),
+)
+# Loss (max relative) and whole-update (relative L2) tolerances by model:
+# phases 8, 10, 12 and 13's. Each must lie above the model's floor (its
+# one-rank run again) and the update's below the planted fault (the
+# one-rank run at twice the learning rate: a doubled gradient).
+CARD_TOLS = {"bert_dp": (1e-3, 5e-2), "bert_tp": (1e-3, 5e-2),
+             "bert_cp": (1e-3, 5e-2), "lm_sp": (2e-4, 5e-2),
+             "lm_pp": (1e-4, 5e-2), "ep": (2e-5, 2e-3)}
+CARD_PARTS = ("a", "b", "c")
+
+
+def _card_launches(key, layers):
+    """The flash and hop launches a rank and step of run ``key`` over a
+    model of ``layers`` layers (phases 10-15's counts: a layer's attention
+    a step; a ring hop one flash kernel each way)."""
+    if key.startswith("dp_resnet") or key.startswith("ep_"):
+        return _hop_launches(0, 1, 1, ring=False)
+    if key.startswith(("dp_", "tp_ar", "tp_ps")):
+        return _hop_launches(layers, 1, 1, ring=False)
+    if key == "sp_ring":
+        return _hop_launches(layers, 1, 4)
+    if key == "sp_ulysses":
+        return _hop_launches(layers, 1, 4, ring=False)
+    if key == "pp":
+        return _hop_launches(layers // 4 * 8, 1, 1, ring=False)
+    if key == "tp_sp":
+        return _hop_launches(layers, 1, 2)
+    return _hop_launches(layers // 2 * 4, 1, 2)  # pp_sp
+
+
+def card_model(torch, name, device, tiny=False):
+    """A four-card model from seed 0: (loss_fn, params, global batch,
+    layers). ``tiny`` shrinks every width for a CPU rehearsal."""
+    from autodist_tpu_torch.models import bert, resnet
+    from autodist_tpu_torch.models import lm
+    from autodist_tpu_torch.models import transformer as T
+    if name.startswith("bert"):
+        max_len = 128 if name == "bert_dp" else 512
+        cfg = bert.bert_tiny(max_len=64, dtype=torch.bfloat16) if tiny \
+            else bert.bert_base(max_len=max_len)
+        rows = 128 if name == "bert_dp" else 32
+        seq = 32 if tiny else 128
+        batch = bert.synthetic_batch(cfg, 8 if tiny else rows, seq,
+                                     5 if tiny else 20, seed=0)
+        return (bert.make_loss_fn(cfg), bert.init(
+            cfg, torch.Generator().manual_seed(0), device=device), batch,
+            cfg.num_layers)
+    if name.startswith("lm"):
+        sp = name == "lm_sp"
+        if tiny:
+            cfg = T.TransformerConfig(vocab=256, dim=64, num_heads=4,
+                                      num_layers=2 if sp else 4,
+                                      max_len=64, causal=True,
+                                      dtype=torch.bfloat16)
+            batch = 2 if sp else 8
+        else:
+            cfg = lm.lm1b()
+            cfg.num_layers = 2 if sp else 16
+            cfg.max_len = 16384 if sp else 1024
+            batch = 2 if sp else 8
+        cfg.scan_layers = not sp
+        params, _ = _lm_init(torch, cfg, device)
+        return (lm.make_loss_fn(cfg), params,
+                (sp_tokens(cfg, batch, cfg.max_len),), cfg.num_layers)
+    if name.startswith("ep"):
+        widths = dict(d_model=64, d_hidden=128) if tiny else {}
+        cfg = ep_config(torch, **widths)
+        batch = ep_batch(torch, cfg, 8 if tiny else EP_BATCH,
+                         16 if tiny else EP_SEQ, "cpu")
+        loss = ep_loss(cfg)
+        if name == "ep_shard":  # PS: each data shard a batch of its own
+            half = batch[0].shape[0] // 2
+            whole = loss
+
+            def loss(params, b):
+                return (whole(params, tuple(a[:half] for a in b)) +
+                        whole(params, tuple(a[half:] for a in b))) / 2
+        return loss, ep_init(torch, cfg, device), batch, 0
+    cfg = resnet.cifar_resnet(depth=8, num_classes=10) if tiny \
+        else resnet.resnet50()
+    images = 16 if tiny else 224
+    batch = resnet.synthetic_batch(8 * CARDS if tiny else 64 * CARDS,
+                                   images, cfg.num_classes, seed=0)
+    return (resnet.make_loss_fn(cfg), resnet.init(
+        cfg, torch.Generator().manual_seed(0), device=device), batch, 0)
+
+
+def _card_rows(batch, index, n):
+    """Data replica ``index`` of ``n``'s rows of every leaf."""
+    per = len(batch[0]) // n
+    return tuple(a[index * per:(index + 1) * per] for a in batch)
+
+
+def _card_session(torch, builder, model, device, batch, lr=CARD_LR):
+    """A runner of ``model`` under ``builder`` (the world kept for the
+    next session), from the seeded init; and the init by name."""
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import autodist as autodist_mod
+    autodist_mod._reset_default(keep_world=True)
+    loss_fn, params, _, _ = model
+    init = {n: t.detach().clone() for n, t in flatten_params(params).items()}
+    ad = AutoDist(strategy_builder=builder, device=device)
+    runner = ad.create_distributed_session(ad.capture(
+        loss_fn, params, functools.partial(torch.optim.SGD, lr=lr),
+        example_batch=batch))
+    return runner, init
+
+
+def _card_steps(torch, fa, device, call, state, batch, steps):
+    """``steps`` calls: (state, losses, host ms per call, launches)."""
+    _ring_counts(fa, reset=True)
+    losses, times = [], []
+    for _ in range(steps):
+        (state, m), ms = _timed(torch, device, lambda: call(state, batch))
+        losses += [float(x) for x in m["loss"].reshape(-1)]
+        times.append(ms)
+    return state, losses, times, _ring_counts(fa)
+
+
+def _nccl_rows(rows):
+    """(NCCL kernels' device us, the other kernels' us, {NCCL kernel:
+    us}) of a profile's rows (us, count, name)."""
+    nccl = {}
+    for us, _, name in rows:
+        if "nccl" in name.lower():
+            short = name.split("(")[0]
+            nccl[short] = nccl.get(short, 0.0) + us
+    compute = sum(us for us, _, name in rows if "nccl" not in name.lower())
+    return sum(nccl.values()), compute, nccl
+
+
+def card_run(torch, fa, spec, run, model, ref):
+    """One run of ``CARD_RUNS`` on this rank: eager steps, then the graph
+    step (``make_callable(aot=True)``; the AllReduce run also
+    ``run(unroll=4)``) from the same init; returns what the parent checks
+    and prints."""
+    import torch.distributed as dist
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.parallel import moe
+    key, _, name, expr, axes, _ = run
+    device = spec["device"]
+    rank = int(os.environ["RANK"])
+    builder = eval(expr, dict(vars(S), moe=moe))  # noqa: S307 - our table
+    steps = CARD_DP_STEPS if name == "bert_dp" and key != "dp_stale2" \
+        else CARD_STEPS
+    batch = model[2]
+    data = axes.get("data", 1)
+    runner, init = _card_session(torch, builder, model, device,
+                                 _card_rows(batch, 0, data))
+    mesh = runner.program.mesh
+    mine = runner.remapper.shard_batch(
+        _card_rows(batch, mesh.axis_index("data"), data))
+    out = {"mesh": dict(mesh.shape), "strategy": runner.program.strategy.id,
+           "kinds": sorted({k for k, _ in runner.var_kinds.values()}),
+           "layers": model[3]}
+    paths = ["eager", "graph"] + (["unroll4"] if key == "dp_ar" else [])
+    if key == "dp_resnet":
+        paths = ["graph"]
+    finals = {}
+    for path in paths:
+        state = runner.create_state()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        if path == "unroll4":
+            blocks = lambda s, b: runner.run(s, iter([b] * steps), steps,
+                                             unroll=steps)
+            state, losses, times, launches = _card_steps(
+                torch, fa, device, blocks, state, mine, 1)
+        else:
+            call = runner.make_callable(mine, aot=path == "graph")
+            state, losses, times, launches = _card_steps(
+                torch, fa, device, call, state, mine, steps)
+        # Copies: the timed calls below go on updating the state in place.
+        final = {n: t.clone() for n, t in flatten_params(
+            runner.logical_params(state)).items()}
+        got = {"losses": losses, "ms": times,
+               "launches": {k: v / steps for k, v in launches.items()},
+               "peak_bytes": torch.cuda.max_memory_allocated()
+               if device == "cuda" else 0}
+        if ref is not None:
+            want = {n: t.to(device) for n, t in ref["params"].items()}
+            got["update_error"] = update_error(torch, final, want, init)
+            got["loss_rel"] = _rel(losses, ref["losses"])
+            del want
+        stored = flatten_params(state.params)
+        kinds = runner.var_kinds
+        got["whole"] = _digest(torch, (t for n, t in sorted(stored.items())
+                                       if kinds[n][0] not in ("tp", "fsdp")))
+        if path == "eager":
+            out["stored_bytes"] = sum(t.numel() * t.element_size()
+                                      for t in stored.values())
+            out["whole_bytes"] = sum(t.numel() * t.element_size()
+                                     for t in final.values())
+        if path == "graph":
+            timed_ms = []
+            for _ in range(CARD_TIMED):
+                (state, _), ms = _timed(torch, device,
+                                        lambda: call(state, mine))
+                timed_ms.append(ms)
+            got["timed_ms"] = timed_ms
+            if device == "cuda":
+                got["captures"] = len(call.graphs)
+                got["replays"] = sum(g.replays for g in call.graphs.values())
+            held = [state]
+
+            def one():  # every rank steps its state: the same phases
+                held[0], _ = call(held[0], mine)
+            if device == "cuda" and rank == 0:
+                wall, _, rows = _profile_step(torch, one, n=CARD_PROFILED)
+                nccl, compute, kernels = _nccl_rows(rows)
+                got["profile"] = {
+                    "wall_ms": wall / 1e3 / CARD_PROFILED,
+                    "nccl_ms": nccl / 1e3 / CARD_PROFILED,
+                    "compute_ms": compute / 1e3 / CARD_PROFILED,
+                    "nccl_kernels": {k: v / 1e3 / CARD_PROFILED
+                                     for k, v in kernels.items()}}
+            else:
+                for _ in range(CARD_PROFILED):
+                    one()
+            state = held[0]
+            if device == "cuda":
+                torch.cuda.synchronize()
+            if key == "dp_fsdp":
+                from autodist_tpu_torch.checkpoint import CheckpointManager
+                mgr = CheckpointManager(runner, spec["ckpt4"])
+                mgr.save(int(state.step), state, force=True)
+                mgr.wait_until_finished()
+                mgr.close()
+                out["saved_step"] = int(state.step)
+                out["saved_logical"] = {n: _digest(torch, [t]) for n, t in
+                                        flatten_params(runner.logical_params(
+                                            state)).items()}
+                # The one-card checkpoint restored into this world.
+                restored = CheckpointManager(
+                    runner, spec["ckpt1"]).restore_or_init()
+                back = flatten_params(runner.logical_params(restored))
+                out["restored_from_one"] = {n: _digest(torch, [t])
+                                            for n, t in back.items()}
+                del restored, back
+        finals[path] = final
+        out[path] = got
+        del state
+    if "eager" in finals:
+        for path in paths[1:]:
+            out[path]["vs_eager_update"] = update_error(
+                torch, finals[path], finals["eager"], init)
+            out[path]["vs_eager_loss"] = _rel(out[path]["losses"],
+                                              out["eager"]["losses"])
+    del finals, runner, init
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def cards_rank(spec_path):
+    """One process of the four-card world (torchrun's environment): every
+    selected run of ``CARD_RUNS`` in turn; writes its results to
+    ``rank<r>.json`` beside the spec."""
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.ops import build
+    from autodist_tpu_torch.ops import flash_attention as fa
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = spec["device"]
+    if device == "cuda":
+        # This rank's card before anything is placed (Cluster.start picks
+        # the same one).
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.load_all()  # built by the parent: the same sources and flags
+    refs = torch.load(spec["refs"], map_location="cpu", mmap=True)
+    out = {"rank": int(os.environ["RANK"]), "runs": {}}
+    models = {}
+    for run in CARD_RUNS:
+        if run[1] not in spec["parts"]:
+            continue
+        if run[2] not in models:
+            models.clear()
+            models[run[2]] = card_model(torch, run[2], device, spec["tiny"])
+        t0 = time.perf_counter()
+        print(f"run {run[0]}: {run[3]} on {run[4]}", flush=True)
+        out["runs"][run[0]] = card_run(torch, fa, spec, run, models[run[2]],
+                                       refs.get(run[5]))
+        out["runs"][run[0]]["seconds"] = time.perf_counter() - t0
+        print(f"run {run[0]}: {out['runs'][run[0]]['seconds']:.1f} s",
+              flush=True)
+        if device == "cuda":
+            out["runs"][run[0]]["backend"] = dist.get_backend()
+    models.clear()
+    autodist_mod._reset_default(keep_world=True)
+    dist.destroy_process_group()
+    path = os.path.join(os.path.dirname(spec_path), f"rank{out['rank']}.json")
+    with open(path, "w") as f:
+        json.dump(out, f)
+    print(json.dumps({"rank": out["rank"], "runs": len(out["runs"])}),
+          flush=True)
+    return 0
+
+
+def _card_reference(torch, fa, device, model, steps, lr, rows=None):
+    """One rank's AllReduce() steps of ``model`` on its global batch (or
+    ``rows`` of it): (losses, final logical params on the host)."""
+    from autodist_tpu_torch import strategy as S
+    batch = model[2] if rows is None else rows
+    runner, _ = _card_session(torch, S.AllReduce(), model, device, batch,
+                              lr=lr)
+    batch = runner.remapper.shard_batch(batch)
+    call = runner.make_callable(batch)
+    state, losses, _, _ = _card_steps(torch, fa, device, call,
+                                      runner.create_state(), batch, steps)
+    params = {n: t.detach().cpu() for n, t in
+              flatten_params(runner.logical_params(state)).items()}
+    del state, runner
+    return losses, params
+
+
+def cards_references(torch, fa, card, device, parts, tiny):
+    """On card 0, for each model the selected runs hold: the reference,
+    the floor (the reference again) and the planted fault (twice the
+    learning rate); checks each model's tolerances between them. Returns
+    {reference: {"losses", "params"}}."""
+    from autodist_tpu_torch import autodist as autodist_mod
+    refs = {}
+    names = []
+    for run in CARD_RUNS:
+        if run[1] in parts and run[5] is not None and run[5] not in names:
+            names.append(run[5])
+    for ref in names:
+        model_name = {"bert_dp_stale": "bert_dp", "ep_shard": "ep_shard"} \
+            .get(ref, ref)
+        model = card_model(torch, model_name, device, tiny)
+        steps = CARD_DP_STEPS if ref == "bert_dp" else CARD_STEPS
+        t0 = time.perf_counter()
+        if ref == "bert_dp_stale":
+            # PS(staleness=2) over CARD_STEPS steps: each data replica
+            # takes its own steps on its rows, and the copies average at
+            # the period's end: the mean of four one-rank runs.
+            runs = [_card_reference(torch, fa, device, model, steps,
+                                    CARD_LR, _card_rows(model[2], r, CARDS))
+                    for r in range(CARDS)]
+            refs[ref] = {
+                "losses": [sum(r[0][i] for r in runs) / CARDS
+                           for i in range(steps)],
+                "params": {n: sum(r[1][n].float() for r in runs) / CARDS
+                           for n in runs[0][1]}}
+            print(f"  reference {ref}: the mean of {CARDS} one-rank runs on "
+                  f"each replica's rows, losses "
+                  f"{', '.join(f'{x:.6f}' for x in refs[ref]['losses'])} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            continue
+        ref_losses, ref_params = _card_reference(torch, fa, device, model,
+                                                 steps, CARD_LR)
+        again = _card_reference(torch, fa, device, model, steps, CARD_LR)
+        fault = _card_reference(torch, fa, device, model, steps,
+                                2 * CARD_LR)
+        init = {n: t.detach().cpu() for n, t in
+                flatten_params(model[1]).items()}
+        floor = (_rel(again[0], ref_losses),
+                 update_error(torch, again[1], ref_params, init))
+        faulty = (_rel(fault[0], ref_losses),
+                  update_error(torch, fault[1], ref_params, init))
+        tol = CARD_TOLS[model_name.replace("_shard", "")]
+        print(f"  reference {ref}: one rank AllReduce(), losses "
+              f"{', '.join(f'{x:.6f}' for x in ref_losses)}; floor (again): "
+              f"loss {floor[0]:.3e}, update {floor[1]:.3e}; planted fault "
+              f"(lr x 2): loss {faulty[0]:.3e}, update {faulty[1]:.3e}; "
+              f"tolerances loss {tol[0]}, update {tol[1]} "
+              f"({time.perf_counter() - t0:.1f} s, on {card})", flush=True)
+        check(floor[0] <= tol[0], f"{ref}: the loss floor {floor[0]} is "
+              f"above the tolerance {tol[0]}")
+        check(floor[1] < tol[1] < faulty[1], f"{ref}: the update tolerance "
+              f"{tol[1]} does not lie between the floor {floor[1]} and the "
+              f"fault {faulty[1]}")
+        refs[ref] = {"losses": ref_losses, "params": ref_params}
+        del model, again, fault
+    autodist_mod._reset_default()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _card_one_rate(torch, fa, device, name, tiny, rows):
+    """The one-card graph step of ``name`` at ``rows`` rows under
+    AllReduce (the scaling cells' one-card side): median host ms over
+    CARD_TIMED replays after CARD_STEPS calls."""
+    from autodist_tpu_torch import strategy as S
+    model = card_model(torch, name, device, tiny)
+    batch = tuple(a[:rows] for a in model[2])
+    builder = S.AllReduce(chunk_size=128) if name == "resnet" \
+        else S.AllReduce()
+    runner, _ = _card_session(torch, builder, model, device, batch)
+    batch = runner.remapper.shard_batch(batch)
+    call = runner.make_callable(batch, aot=True)
+    state = runner.create_state()
+    state, _, _, _ = _card_steps(torch, fa, device, call, state, batch,
+                                 CARD_STEPS)
+    times = []
+    for _ in range(CARD_TIMED):
+        (state, _), ms = _timed(torch, device, lambda: call(state, batch))
+        times.append(ms)
+    del state, runner, model
+    return float(np.median(times))
+
+
+def _spawn_card_world(spec_path, world, timeout):
+    """``world`` processes of this script (``--cards-rank``) with
+    torchrun's environment over a free ``localhost`` port; raises if one
+    fails, and no process outlives the call."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("RANK", "WORLD_SIZE", "MASTER_", "LOCAL_"))}
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE=str(world), OMP_NUM_THREADS="1")
+    logs = [os.path.join(os.path.dirname(spec_path), f"rank{r}.log")
+            for r in range(world)]
+    procs = []
+    try:
+        for r in range(world):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--cards-rank", spec_path],
+                    env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                    stdout=log, stderr=subprocess.STDOUT, text=True))
+        deadline = time.time() + timeout
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.time() > deadline:
+                break
+            time.sleep(1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = []
+        for r in failed:
+            with open(logs[r]) as f:
+                tails.append(f"--- rank {r} (exit {procs[r].returncode}):\n"
+                             + f.read()[-3000:])
+        check(False, f"four-card ranks {failed} failed or ran out of "
+              f"{timeout} s:\n" + "\n".join(tails))
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(os.path.dirname(spec_path),
+                               f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def cards_phase(torch, fa, card, device, parts=CARD_PARTS, tiny=False,
+                timeout=600):
+    """Phase 16: the references on card 0, the four-card world, then every
+    check between its floor and its planted fault, and the figures.
+    Returns the ``kernels`` line's launches by path and its fields."""
+    import tempfile
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.ops import build
+    t_phase = time.perf_counter()
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
+    print(f"phase 16: {CARDS} cards, one process each over NCCL, parts "
+          f"{', '.join(parts)}; references on card 0 (SGD {CARD_LR})",
+          flush=True)
+    refs = cards_references(torch, fa, card, device, parts, tiny)
+    refs_path = os.path.join(tmp.name, "refs.pt")
+    torch.save(refs, refs_path)
+    one = {}
+    ckpt1 = os.path.join(tmp.name, "ckpt1")
+    if "a" in parts:
+        # The one-card side of the scaling cells, and a one-card
+        # checkpoint the world restores.
+        one["bert_ms"] = _card_one_rate(torch, fa, device, "bert_dp", tiny,
+                                        8 // 4 if tiny else 32)
+        one["resnet_ms"] = _card_one_rate(torch, fa, device, "resnet", tiny,
+                                          8 if tiny else 64)
+        model = card_model(torch, "bert_dp", device, tiny)
+        runner, _ = _card_session(torch, S.AllReduce(), model, device,
+                                  model[2])
+        call = runner.make_callable(model[2], shard_inputs=True)
+        state, _, _, _ = _card_steps(torch, fa, device, call,
+                                     runner.create_state(), model[2], 2)
+        mgr = CheckpointManager(runner, ckpt1)
+        mgr.save(2, state, force=True)
+        mgr.wait_until_finished()
+        mgr.close()
+        one["ckpt1"] = {n: _digest(torch, [t]) for n, t in flatten_params(
+            runner.logical_params(state)).items()}
+        del state, runner, model, call
+        print(f"  one card (the scaling cells' baseline): BERT-base graph "
+              f"step at 32 x 128 {one['bert_ms']:.2f} ms, ResNet-50 at 64 x "
+              f"224^2 {one['resnet_ms']:.2f} ms (median host ms over "
+              f"{CARD_TIMED} replays, on {card})", flush=True)
+    autodist_mod._reset_default()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    spec_path = os.path.join(tmp.name, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump({"device": device, "tiny": tiny, "parts": list(parts),
+                   "refs": refs_path, "ckpt1": ckpt1,
+                   "ckpt4": os.path.join(tmp.name, "ckpt4")}, f)
+    t0 = time.perf_counter()
+    try:
+        ranks = _spawn_card_world(spec_path, CARDS, timeout)
+        print(f"  the {CARDS}-process world ran in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        paths = cards_report(torch, card, device, parts, tiny, ranks, one)
+        if "a" in parts:
+            # The four-card checkpoint restored on one card.
+            model = card_model(torch, "bert_dp", device, tiny)
+            runner, _ = _card_session(torch, S.AllReduce(), model, device,
+                                      model[2])
+            state = CheckpointManager(runner, os.path.join(
+                tmp.name, "ckpt4")).restore_or_init()
+            got = {n: _digest(torch, [t]) for n, t in flatten_params(
+                runner.logical_params(state)).items()}
+            want = ranks[0]["runs"]["dp_fsdp"]["saved_logical"]
+            check(got == want, "(a) the four-card PartitionedPS() "
+                  "checkpoint does not restore bitwise on one card")
+            check(all(r["runs"]["dp_fsdp"]["restored_from_one"] ==
+                      one["ckpt1"] for r in ranks), "(a) the one-card "
+                  "checkpoint does not restore bitwise on four cards")
+            print(f"  (a) checkpoints: PartitionedPS()'s four-card step "
+                  f"{ranks[0]['runs']['dp_fsdp']['saved_step']} restored on "
+                  f"one card, {len(got)} leaves "
+                  f"bitwise; a one-card AllReduce() step 2 restored into "
+                  f"the four-card PartitionedPS() world, every leaf bitwise "
+                  f"on every rank", flush=True)
+            del state, runner, model
+    finally:
+        autodist_mod._reset_default()
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()  # the references'
+        tmp.cleanup()
+    print(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
+
+
+def cards_report(torch, card, device, parts, tiny, ranks, one):
+    """Prints every run of the four-card world, then checks them all;
+    returns {path: launches per rank and step}."""
+    paths = {}
+    selected = [run for run in CARD_RUNS if run[1] in parts]
+    for key, part, name, expr, axes, ref in selected:
+        runs = [r["runs"][key] for r in ranks]
+        r0 = runs[0]
+        tol = CARD_TOLS.get(name.replace("_shard", ""))
+        paths_here = [p for p in ("eager", "graph", "unroll4") if p in r0]
+        g = r0.get("graph", {})
+        prof = g.get("profile", {})
+        line = (f"  ({part}) {key}: {expr} on {axes} (kinds "
+                f"{'/'.join(r0['kinds'])})")
+        for path in paths_here:
+            got = r0[path]
+            line += (f"; {path}: losses "
+                     f"{', '.join(f'{x:.6f}' for x in got['losses'])}")
+            if tol is not None:
+                line += (f" (vs one rank: loss "
+                         f"{max(r[path]['loss_rel'] for r in runs):.3e}, "
+                         f"update "
+                         f"{max(r[path]['update_error'] for r in runs):.3e})")
+            if "vs_eager_update" in got:
+                line += (f", vs eager: loss {got['vs_eager_loss']:.3e}, "
+                         f"update {got['vs_eager_update']:.3e}")
+        print(line, flush=True)
+        eager_ms = r0["eager"]["ms"][1:] if "eager" in r0 else []
+        graph_ms = g.get("timed_ms", [])
+        stored = r0.get("stored_bytes")
+        print(f"    step ms (host-inclusive, rank 0): eager "
+              f"{float(np.median(eager_ms)) if eager_ms else float('nan'):.2f}"
+              f", graph {float(np.median(graph_ms)) if graph_ms else float('nan'):.2f} "
+              f"(median of {len(graph_ms)} replays; ranks: " + ", ".join(
+                  f"{float(np.median(r['graph']['timed_ms'])):.2f}"
+                  for r in runs if r.get("graph", {}).get("timed_ms")) +
+              f"); launches per rank and step "
+              f"{json.dumps(g.get('launches', {}))}; peak memory "
+              f"{max(r['graph']['peak_bytes'] for r in runs if 'graph' in r) / 2**30:.2f}"
+              f" GiB" + (f"; stores {stored} of {r0['whole_bytes']} "
+                         f"parameter bytes" if stored else "") +
+              f"; {r0['seconds']:.1f} s; on {card}", flush=True)
+        if prof:
+            busy = prof["compute_ms"] / prof["wall_ms"]
+            print(f"    rank 0 profiled graph step ({CARD_PROFILED} "
+                  f"replays): {prof['wall_ms']:.2f} ms wall, NCCL kernels "
+                  f"{prof['nccl_ms']:.3f} ms device (" + ", ".join(
+                      f"{k} {v:.3f}" for k, v in sorted(
+                          prof["nccl_kernels"].items())) +
+                  f"), other kernels {prof['compute_ms']:.2f} ms (busy share "
+                  f"{busy:.3f})" + (
+                      f"; the stage's busy share against the bubble: "
+                      f"{busy:.3f} vs 1 - 3/11 = {8 / 11:.3f}"
+                      if key == "pp" else ""), flush=True)
+        paths[f"cards{CARDS}_{key}"] = g.get("launches", {})
+    if "a" in parts:
+        r0 = ranks[0]["runs"]
+        bert4 = float(np.median(r0["dp_ar"]["graph"]["timed_ms"]))
+        resnet4 = float(np.median(r0["dp_resnet"]["graph"]["timed_ms"]))
+        parallax = float(np.median(r0["dp_parallax"]["graph"]["timed_ms"]))
+        rows_bert, rows_resnet = (2, 8) if tiny else (32, 64)
+        print(f"  (a) Parallax() vs AllReduce() graph step on {CARDS} cards: "
+              f"{parallax:.2f} vs {bert4:.2f} ms ({bert4 / parallax:.3f}x)",
+              flush=True)
+        for what, rows, ms1, ms4, unit in (
+                ("BERT-base", rows_bert, one["bert_ms"], bert4, "samples"),
+                ("ResNet-50", rows_resnet, one["resnet_ms"], resnet4,
+                 "images")):
+            print(f"  (a) scaling {what}: 1 card {rows / ms1 * 1e3:.1f} "
+                  f"{unit}/s, {CARDS} cards {rows / ms4 * 1e3:.1f} {unit}/s "
+                  f"per card ({CARDS * rows / ms4 * 1e3:.1f} in all): "
+                  f"efficiency {ms1 / ms4:.3f} (on {card})", flush=True)
+    # The checks, after every figure is printed.
+    for key, part, name, expr, axes, ref in selected:
+        runs = [r["runs"][key] for r in ranks]
+        r0 = runs[0]
+        tol = CARD_TOLS.get(name.replace("_shard", ""))
+        paths_here = [p for p in ("eager", "graph", "unroll4") if p in r0]
+        g = r0.get("graph", {})
+        check(all(r["mesh"] == axes for r in runs), f"({part}) {key}: mesh "
+              f"{r0['mesh']}, expected {axes}")
+        check(len({r["strategy"] for r in runs}) == 1, f"({part}) {key}: the "
+              f"ranks run different strategies (shipping)")
+        if device == "cuda":
+            check(all(r["backend"] == "nccl" for r in runs),
+                  f"({part}) {key}: a {r0['backend']} world")
+        for path in paths_here:
+            got = [r[path] for r in runs]
+            losses = got[0]["losses"]
+            check(all(np.isfinite(losses)), f"({part}) {key} {path}: "
+                  f"losses {losses}")
+            check(all(g["losses"] == losses for g in got),
+                  f"({part}) {key} {path}: the ranks' losses differ")
+            check(len({g["whole"] for g in got}) == 1,
+                  f"({part}) {key} {path}: the whole params differ across "
+                  f"the ranks")
+            if tol is not None:
+                rel = max(g["loss_rel"] for g in got)
+                err = max(g["update_error"] for g in got)
+                check(rel <= tol[0], f"({part}) {key} {path}: losses "
+                      f"{losses}, {rel:.3e} off one rank's (tol {tol[0]})")
+                check(err <= tol[1], f"({part}) {key} {path}: update error "
+                      f"{err:.3e} (tol {tol[1]})")
+            if path != "eager" and "eager" in r0 and tol is not None:
+                vs = (max(g["vs_eager_loss"] for g in got),
+                      max(g["vs_eager_update"] for g in got))
+                check(vs[0] <= tol[0] and vs[1] <= tol[1],
+                      f"({part}) {key} {path} vs eager: loss {vs[0]:.3e}, "
+                      f"update {vs[1]:.3e}")
+            if device == "cuda":
+                want = _card_launches(key, r0["layers"])
+                check(all(g["launches"] == want for g in got),
+                      f"({part}) {key} {path}: launches per rank and step "
+                      f"{got[0]['launches']}, expected {want}")
+        if device == "cuda" and "captures" in g:
+            calls = len(g["losses"]) + CARD_TIMED  # counted before the profile
+            check(g["replays"] == calls - g["captures"],
+                  f"({part}) {key}: {g['replays']} replays of "
+                  f"{g['captures']} graphs in {calls} calls")
+    return paths
+
+
+def cards_main(torch, argv):
+    """``--cards 4 [--part a|b|c]``: phase 16 alone, on four cards."""
+    parts = CARD_PARTS
+    if "--part" in argv:
+        parts = tuple(argv[argv.index("--part") + 1].split(","))
+        check(set(parts) <= set(CARD_PARTS), f"--part {parts}: one of a, b, c")
+    n = int(argv[argv.index("--cards") + 1])
+    check(n == CARDS, f"--cards {n}: this mode runs on {CARDS} cards")
+    if not torch.cuda.is_available() or torch.cuda.device_count() < CARDS:
+        print(f"chip_smoke --cards {CARDS}: needs {CARDS} CUDA cards, found "
+              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
+              file=sys.stderr)
+        return 1
+    from autodist_tpu_torch.ops import build
+    from autodist_tpu_torch.ops import flash_attention as fa
+    start = time.perf_counter()
+    card = card_line()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    build.load_all()
+    print(f"phase 1: built {', '.join(build.KERNELS)} in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    paths = cards_phase(torch, fa, card, "cuda", parts)
+    kernels = [{"name": k.__name__, "launches_by_path": {
+        p: c.get(k.__name__, 0) for p, c in paths.items()}}
+        for k in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                  fa.block_attn_fwd, fa.block_attn_bwd)]
+    print(f"chip_smoke --cards {CARDS}: every check passed in "
+          f"{time.perf_counter() - start:.1f}s", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": CARDS}}), flush=True)
+    return 0
+
+
 def main():
     import torch
     if len(sys.argv) > 1 and sys.argv[1] == "--gloo-train":
@@ -5642,6 +6449,10 @@ def main():
         return pp_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--cp-train":
         return cp_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--cards-rank":
+        return cards_rank(sys.argv[2])
+    if "--cards" in sys.argv:
+        return cards_main(torch, sys.argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA card", file=sys.stderr)

@@ -48,10 +48,10 @@ from autodist_tpu_torch.models import mlp
 from autodist_tpu_torch.resilience import chaos
 from autodist_tpu_torch.strategy import PS, AllReduce
 from autodist_tpu_torch.utils.tree import flatten_with_path, path_to_name
+from test_torch_ps_strategies import RANK_TIMEOUT_S, WORLD_TIMEOUT_S
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-4, 1e-5  # port (1 rank) vs JAX (8 devices), f32 Adam
-RANK_TIMEOUT_S = 120
 CFG = dict(in_dim=16, hidden=(32,), num_classes=4)  # mlp.tiny_fixture's
 
 
@@ -563,7 +563,8 @@ mode, directory, rank, world = (sys.argv[1], sys.argv[2], int(sys.argv[3]),
 if world > 1:
     dist.init_process_group("gloo", init_method="env://", rank=rank,
                             world_size=world,
-                            timeout=datetime.timedelta(seconds=60))
+                            timeout=datetime.timedelta(
+                                seconds=float(os.environ["WORLD_TIMEOUT_S"])))
 rng = np.random.RandomState(0)
 # No dim of w1 / w2 divides by 4: the split variables are stored padded.
 init = {"w1": rng.randn(18, 6).astype(np.float32) * 0.3,
@@ -638,7 +639,7 @@ def _run_world(world, args, cwd):
                                     "LOCAL_", "AUTODIST_"))}
         env.update(PYTHONPATH=ROOT, MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world),
-                   OMP_NUM_THREADS="1")
+                   OMP_NUM_THREADS="1", WORLD_TIMEOUT_S=str(WORLD_TIMEOUT_S))
         procs = [subprocess.Popen(
             [sys.executable, "-c", _NM_RANK, *args, str(r), str(world)],
             cwd=cwd, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),

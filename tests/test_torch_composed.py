@@ -22,10 +22,14 @@
   ``shift``; the pipe hop sent to the other seq index (a planted fault)
   reads far off. ``pipeline_apply(seq_axis="seq", seq_dim=1)`` directly,
   with ring attention inside the stages, against the JAX function.
+* The graph paths (``make_callable(aot=True)``, ``megastep``,
+  ``run(unroll=2)``) under TP x SP (ring, Ulysses) and PP x SP (``shift``,
+  ``1f1b``): bitwise the eager steps and held to the JAX package's
+  compiled step.
 * The composed builders' protos against the JAX builders', and what still
-  raises: expert with seq (10(i)), the graph paths (item 15), a composed
-  group fed two batches, Ulysses on local heads the seq axis does not
-  divide.
+  raises: expert with seq (10(i)), a composed group fed two batches (at
+  the graph paths' first call too), Ulysses on local heads the seq axis
+  does not divide.
 
 Every run shares one 4-rank gloo world (subprocesses, ``OMP_NUM_THREADS=
 1``); the JAX runs (8 CPU devices) are made once beside it. Tolerance:
@@ -59,6 +63,8 @@ from autodist_tpu_torch.graph_item import GraphItem
 from autodist_tpu_torch.models import bert, lm
 from autodist_tpu_torch.pipeline import schedule
 from autodist_tpu_torch.resource_spec import ResourceSpec
+from test_torch_ps_strategies import (GRAPH_PATHS, held_graph_paths,
+                                      jax_graph_paths)
 
 WORLD = 4
 STEPS = 3
@@ -190,7 +196,8 @@ with open(os.path.join(out, "inputs.pkl"), "rb") as f:
     inp = pickle.load(f)
 dist.init_process_group("gloo", init_method="env://", rank=rank,
                         world_size=world,
-                        timeout=datetime.timedelta(seconds=60))
+                        timeout=datetime.timedelta(
+                            seconds=float(os.environ["WORLD_TIMEOUT_S"])))
 # The planted fault's pipe groups on {pipe: 2, seq: 2} (rank = 2 pipe +
 # seq): stage 0 of seq index s paired with stage 1 of seq index 1 - s.
 crossed = [dist.new_group([0, 3]), dist.new_group([1, 2])][rank in (1, 2)]
@@ -201,6 +208,9 @@ SGD = functools.partial(torch.optim.SGD, lr=0.1)
 def named(tree):
     return {path_to_name(p): t.detach().float().numpy().copy()
             for p, t in flatten_with_path(tree)[0]}
+
+
+#GRAPH_PATHS
 
 
 def digest(tensors):
@@ -298,9 +308,12 @@ mine = rows(runner, lbatch)
 other = ((mine[0] + 1 + runner.program.mesh.axis_index("model")) %
          lcfg.vocab,)
 res["tp_sp_mismatch"] = raises(lambda: runner.step(state, other))
-res["tp_sp_aot"] = raises(lambda: runner.make_callable(mine, aot=True))
-res["tp_sp_megastep"] = raises(lambda: runner.run(state, iter([mine] * 2), 2,
-                                                  unroll=2))
+res["tp_sp_graph_mismatch"] = first_call_raises(runner, other)
+res["graph_lm_tp_sp_ulysses"] = graph_paths(runner, [mine] * 4)
+runner = session(S.ModelParallel(S.SequenceParallel("ring", 2), model_axis=2),
+                 lm.make_loss_fn(lcfg), inp["lm"],
+                 tuple(a[:2] for a in lbatch))
+res["graph_lm_tp_sp_ring"] = graph_paths(runner, [rows(runner, lbatch)] * 4)
 del runner, state
 
 
@@ -348,7 +361,20 @@ mine = rows(runner, lbatch)
 other = ((mine[0] + 1 + runner.program.mesh.axis_index("pipe")) %
          lcfg.vocab,)
 res["pp_sp_mismatch"] = raises(lambda: runner.step(state, other))
-res["pp_sp_aot"] = raises(lambda: runner.make_callable(mine, aot=True))
+res["pp_sp_graph_mismatch"] = first_call_raises(runner, other)
+for sched in ("shift", "1f1b"):
+    # The schedule is read when the program's context is first built: at
+    # the first (eager) step of graph_paths.
+    os.environ["AUTODIST_PIPELINE_SCHEDULE"] = sched
+    try:
+        runner = session(pp_sp, lm.make_loss_fn(scfg), inp["lm_scan"],
+                         tuple(a[:2] for a in lbatch))
+        res[f"graph_lm_pp_sp_{sched}"] = graph_paths(
+            runner, [rows(runner, lbatch)] * 4)
+        res[f"graph_lm_pp_sp_{sched}"]["schedule"] = \
+            runner.program.parallel_context().pipeline_schedule
+    finally:
+        del os.environ["AUTODIST_PIPELINE_SCHEDULE"]
 del runner, state
 real_init = schedule._Run.__init__
 
@@ -413,7 +439,7 @@ with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
     pickle.dump(res, f)
 '''.replace("STEPS", str(STEPS)).replace("SCHEDULES", repr(SCHEDULES)) \
    .replace("PA_MICRO", str(PA_MICRO)).replace("PA_SEQ", str(PA_SEQ)) \
-   .replace("NOISE", repr(NOISE))
+   .replace("NOISE", repr(NOISE)).replace("#GRAPH_PATHS", GRAPH_PATHS)
 
 
 def _jax_run(builder, loss_fn, params, batch):
@@ -713,9 +739,10 @@ def test_planted_faults_read_ten_times_the_tolerance(world, fault, ref):
      "seq x model group were fed different batches"),
     ("pp_sp_mismatch", "ValueError",
      "seq x pipe group were fed different batches"),
-    ("tp_sp_aot", "NotImplementedError", "item 15"),
-    ("tp_sp_megastep", "NotImplementedError", "item 15"),
-    ("pp_sp_aot", "NotImplementedError", "item 15"),
+    ("tp_sp_graph_mismatch", "ValueError",
+     "seq x model group were fed different batches"),
+    ("pp_sp_graph_mismatch", "ValueError",
+     "seq x pipe group were fed different batches"),
     ("expert_seq", "NotImplementedError", "item 10\\(i\\)"),
     ("ulysses_heads", "ValueError",
      "ulysses needs heads \\(3\\) divisible by seq-axis size \\(2\\)"),
@@ -726,3 +753,34 @@ def test_what_a_composed_mesh_refuses(world, case, kind, match):
     for res in cases[case]:
         assert res is not None and res[0] == kind, res
         assert re.search(match, res[1]), res[1]
+
+
+@pytest.mark.parametrize("case", ["lm_tp_sp_ring", "lm_tp_sp_ulysses",
+                                  "lm_pp_sp_shift", "lm_pp_sp_1f1b"])
+def test_graph_paths_under_composed_axes_match_step_and_jax(world, case):
+    """``make_callable(aot=True)``, ``megastep`` and ``run(unroll=2)``
+    under ``ModelParallel(SequenceParallel(ring | ulysses, 2), 2)`` on
+    ``{data: 1, seq: 2, model: 2}`` and ``SequenceParallel("ring", 2,
+    base=Pipeline(2, 2))`` on ``{data: 1, pipe: 2, seq: 2}`` (on the CPU
+    the graph's function runs directly, over its static buffers), 4 steps
+    of one batch: bitwise the eager steps, and held to the JAX package's
+    compiled step (its jit step: under a seq axis its AOT executable and
+    megastep fail on this jaxlib) at the eager parity's tolerance."""
+    cases, _ = world
+    js = jstrategy
+    if case.startswith("lm_tp_sp"):
+        _, params, loss_fn, tokens = _lm_fixture()
+        builder = js.ModelParallel(js.SequenceParallel(case.split("_")[-1],
+                                                       2), model_axis=2)
+    else:
+        _, params, loss_fn, tokens = _lm_fixture(scan_layers=True)
+        builder = js.SequenceParallel("ring", 2, base=js.Pipeline(
+            num_stages=2, num_microbatches=2))
+        assert all(r["schedule"] == case.split("_")[-1]
+                   for r in cases["graph_" + case])
+    _jreset()
+    ad = JAutoDist(strategy_builder=builder)
+    runner = ad.create_distributed_session(ad.capture(
+        loss_fn, params, optax.sgd(0.1), example_batch=tokens))
+    want = jax_graph_paths(runner, [tokens] * 4, aot=False, megastep=False)
+    held_graph_paths(cases["graph_" + case], want, RTOL, ATOL)

@@ -277,6 +277,32 @@ def test_optimizers_are_made_capturable_or_refused():
         fn(r.create_state(), _batches(1)[0])
 
 
+@pytest.mark.parametrize("k", [None, 2])
+def test_a_graph_step_on_cuda_over_gloo_raises_naming_nccl(k, monkeypatch):
+    """A graph step (``make_callable(aot=True)``: k None; ``megastep``: k
+    2) on a CUDA device whose process groups are gloo's raises
+    ``RuntimeError`` naming gloo and NCCL when it is built, before any
+    step runs (a CUDA graph cannot capture gloo's host-staged
+    collectives). The runner's one-rank world here is gloo's; its device
+    is made to read CUDA. On the CPU the same runner's graph step runs."""
+    runner = _runner()
+    batch = _batches(1)[0]
+    example = batch if k is None else tuple(np.stack([a] * k)
+                                            for a in batch)
+    assert runner.process_groups()
+    monkeypatch.setattr(runner_mod.Remapper, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    with pytest.raises(RuntimeError, match="needs NCCL") as got:
+        runner_mod._GraphStep(runner, example, k)
+    assert "gloo group" in str(got.value)
+    assert "eager step" in str(got.value)
+    monkeypatch.undo()
+    step = runner.make_callable(batch, aot=True)
+    state, metrics = step(runner.create_state(), batch)
+    assert np.isfinite(float(metrics["loss"]))
+    runner_mod.require_nccl(runner.process_groups(), "cpu")
+
+
 # -- remapper: shard_block and fetch ----------------------------------------
 
 

@@ -28,8 +28,11 @@
     atomics shift it): the whole parameters' gradients average over data
     x model, and averaged over data alone (a fourth planted fault) the
     copies part;
-  - a model group fed two batches raises, so do the graph paths (item
-    15) and a non-elementwise optimizer on a piece (``{seq, model}``
+  - the graph paths (``make_callable(aot=True)``, ``megastep``,
+    ``run(unroll=2)``) of the lm and bert runs are bitwise their eager
+    steps and match the JAX package's ``aot=True`` step and megastep;
+  - a model group fed two batches raises (at the graph paths' first call
+    too), so does a non-elementwise optimizer on a piece (``{seq, model}``
     trains: ``tests/test_torch_composed.py``); the model axis not dividing
     the heads gathers the attention weights and trains as AllReduce does;
   - the TP world's checkpoint restores bitwise on one rank and its
@@ -68,6 +71,8 @@ from autodist_tpu_torch.parallel.sharding_rules import (MEGATRON_RULES,
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.serve import engine
 from autodist_tpu_torch.utils.tree import flatten_with_path, path_to_name
+from test_torch_ps_strategies import (GRAPH_PATHS, held_graph_paths,
+                                      jax_graph_paths)
 
 WORLD = 4
 STEPS = 3
@@ -261,7 +266,8 @@ with open(os.path.join(out, "inputs.pkl"), "rb") as f:
     inp = pickle.load(f)
 dist.init_process_group("gloo", init_method="env://", rank=rank,
                         world_size=world,
-                        timeout=datetime.timedelta(seconds=60))
+                        timeout=datetime.timedelta(
+                            seconds=float(os.environ["WORLD_TIMEOUT_S"])))
 res = {}
 SGD = lambda lr: functools.partial(torch.optim.SGD, lr=lr)
 
@@ -269,6 +275,7 @@ SGD = lambda lr: functools.partial(torch.optim.SGD, lr=lr)
 def named(tree):
     return {path_to_name(p): t.detach().numpy().copy()
             for p, t in flatten_with_path(tree)[0]}
+#GRAPH_PATHS
 
 
 def session(builder, loss_fn, params, opt, example):
@@ -331,9 +338,8 @@ res["lm"]["model_group"] = sorted(dist.get_process_group_ranks(
     runner.program.mesh.group("model")))
 other = (mine[0] + 1 + runner.program.mesh.axis_index("model")) % lcfg.vocab
 res["mismatch"] = raises(lambda: runner.step(state, (other,)))
-res["aot"] = raises(lambda: runner.make_callable(mine, aot=True))
-res["megastep"] = raises(lambda: runner.run(
-    state, iter([mine] * 2), 2, unroll=2))
+res["graph_mismatch"] = first_call_raises(runner, (other,))
+res["graph_lm"] = graph_paths(runner, [mine] * 4)
 
 # The planted faults.
 real_backward = collectives.GatherShards.backward
@@ -400,6 +406,7 @@ mgr.save(STEPS, state, force=True)
 mgr.wait_until_finished()
 logical = runner.to_logical(state)
 res["bert"]["opt_state"] = named(logical.opt_state)
+res["graph_bert"] = graph_paths(runner, [rows(runner, bert_batches[0])] * 4)
 
 # A one-rank AllReduce checkpoint restored into the TP world.
 mgr = CheckpointManager(runner, inp["one_rank_ckpt"])
@@ -433,7 +440,7 @@ autodist_mod._reset_default()
 dist.destroy_process_group()
 with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
     pickle.dump(res, f)
-'''.replace("STEPS", str(STEPS))
+'''.replace("STEPS", str(STEPS)).replace("#GRAPH_PATHS", GRAPH_PATHS)
 
 
 def _one_rank_checkpoint(directory, params, batch):
@@ -658,11 +665,40 @@ def test_batch_splits_over_data_only(world):
         assert res["shard_batch_whole"]
 
 
-@pytest.mark.parametrize("case", ["aot", "megastep"])
-def test_graph_paths_under_a_model_axis_raise_naming_item_15(world, case):
-    for got in world[case]:
-        assert got is not None and got[0] == "NotImplementedError", got
-        assert "item 15" in got[1]
+def _jax_graph(builder, loss_fn, params, opt, batch):
+    _jreset()
+    ad = JAutoDist(strategy_builder=builder)
+    runner = ad.create_distributed_session(ad.capture(
+        loss_fn, params, opt, example_batch=batch))
+    return jax_graph_paths(runner, [batch] * 4)
+
+
+@pytest.mark.parametrize("case", ["lm", "bert"])
+def test_graph_paths_under_a_model_axis_match_step_and_jax(world, case):
+    """``make_callable(aot=True)``, ``megastep`` and ``run(unroll=2)`` on
+    ``{data: 2, model: 2}`` (on the CPU the graph's function runs
+    directly, over its static buffers), 4 steps of one batch: bitwise the
+    eager steps, and held to the JAX package's ``make_callable(aot=True)``
+    and ``megastep`` at the eager parity's tolerance. ``lm``: lm_tiny
+    under ``ModelParallel(AllReduce())``, SGD 0.1; ``bert``: bert_tiny MLM
+    under ``ModelParallel(PS())``, Adam (eps 1e-6)."""
+    if case == "lm":
+        _, params, loss_fn, batch = _lm_fixture()
+        want = _jax_graph(jstrategy.ModelParallel(jstrategy.AllReduce(),
+                                                  model_axis=2),
+                          loss_fn, params, optax.sgd(0.1), batch)
+    else:
+        params, loss_fn, batch = jbert.tiny_fixture(seed=0)
+        want = _jax_graph(jstrategy.ModelParallel(jstrategy.PS(),
+                                                  model_axis=2),
+                          loss_fn, params, optax.adam(1e-3, eps=1e-6), batch)
+    held_graph_paths(world["graph_" + case], want, RTOL, ATOL)
+
+
+def test_model_group_fed_two_batches_raises_at_the_graph_first_call(world):
+    for r, got in enumerate(world["graph_mismatch"]):
+        assert got is not None and got[0] == "ValueError", (r, got)
+        assert "model group were fed different batches" in got[1]
 
 
 def test_non_elementwise_optimizer_on_a_piece_raises(world):

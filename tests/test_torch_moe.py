@@ -31,8 +31,12 @@ port against the JAX package.
   - each rank's expert products take E/ep experts, and the expert and
     data groups' collectives run; replicated parameters are bitwise equal
     across the world and the pieces differ;
-  - an expert group fed two batches raises, so do the graph paths (item
-    15) and ``{expert, model}`` / ``{expert, seq}`` meshes (item 10(i));
+  - the graph paths (``make_callable(aot=True)``, ``megastep``,
+    ``run(unroll=2)``) under AllReduce and PS are bitwise their eager
+    steps and held to the same JAX references;
+  - an expert group fed two batches raises (at the graph paths' first
+    call too), so do ``{expert, model}`` / ``{expert, seq}`` meshes (item
+    10(i));
   - the EP world's checkpoint restores bitwise on one rank.
 """
 import fcntl
@@ -61,6 +65,8 @@ from autodist_tpu_torch.parallel import moe
 from autodist_tpu_torch.parallel.sharding_rules import expert_pieces
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.utils.tree import flatten_with_path, path_to_name
+from test_torch_ps_strategies import (GRAPH_PATHS, held_graph_paths,
+                                      jax_graph_paths)
 
 WORLD = 4
 STEPS = 3
@@ -377,7 +383,8 @@ with open(os.path.join(out, "inputs.pkl"), "rb") as f:
     inp = pickle.load(f)
 dist.init_process_group("gloo", init_method="env://", rank=rank,
                         world_size=world,
-                        timeout=datetime.timedelta(seconds=60))
+                        timeout=datetime.timedelta(
+                            seconds=float(os.environ["WORLD_TIMEOUT_S"])))
 res = {}
 cfg = moe.MoEConfig(num_experts=8, top_k=2, d_model=16, d_hidden=32)
 SGD = functools.partial(torch.optim.SGD, lr=LR)
@@ -398,6 +405,7 @@ def loss_fn(p, batch, fn=moe.apply):
 def named(tree):
     return {path_to_name(p): t.detach().numpy().copy()
             for p, t in flatten_with_path(tree)[0]}
+#GRAPH_PATHS
 
 
 def session(builder, example, loss=loss_fn):
@@ -490,9 +498,9 @@ mgr.close()
 mine = rows(runner, inp["batches"][0])
 other = (mine[0] + 1 + mesh.axis_index("expert"), mine[1])
 res["mismatch"] = raises(lambda: runner.step(state, other))
-res["aot"] = raises(lambda: runner.make_callable(mine, aot=True))
-res["megastep"] = raises(lambda: runner.run(state, iter([mine] * 2), 2,
-                                            unroll=2))
+res["graph_mismatch"] = first_call_raises(runner, other)
+GRAPH_BATCHES = [rows(runner, b) for b in inp["batches"][:2]] * 2
+res["graph_ar"] = graph_paths(runner, GRAPH_BATCHES)
 
 # The mean over the data group and its backward, alone: rank r's loss is
 # sum(c_r * mean_r'(x_r')); its gradient at x_r is the data mean of the
@@ -505,6 +513,7 @@ c = torch.arange(3.0) * (1 + mesh.axis_index("data"))
 res["mean"] = {"y": y.detach().numpy(), "gx": gx.numpy()}
 
 runner, state, res["ps"] = train(EP(S.PS()), record=True)
+res["graph_ps"] = graph_paths(runner, GRAPH_BATCHES)
 del runner, state
 res["ar_data4"] = train(S.AllReduce())[2]
 res["dense_data4"] = train(S.AllReduce(), loss=functools.partial(
@@ -552,7 +561,8 @@ autodist_mod._reset_default()
 dist.destroy_process_group()
 with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
     pickle.dump(res, f)
-'''.replace("STEPS", str(STEPS)).replace("LR", str(LR))
+'''.replace("STEPS", str(STEPS)).replace("LR", str(LR)).replace(
+    "#GRAPH_PATHS", GRAPH_PATHS)
 
 
 @pytest.fixture(scope="module")
@@ -613,12 +623,13 @@ def _jax_global():
     return losses, _named(runner.logical_params(state))
 
 
-def _jax_sgd(loss_of):
-    """SGD 0.1 over ``_batches()`` from the model's init, each step's loss
-    and gradient ``loss_of(params, batch)`` in JAX: (losses, params)."""
+def _jax_sgd(loss_of, batches=None):
+    """SGD 0.1 over ``batches`` (``_batches()``) from the model's init,
+    each step's loss and gradient ``loss_of(params, batch)`` in JAX:
+    (losses, params)."""
     _, params = _model()
     losses = []
-    for b in _batches():
+    for b in batches or _batches():
         loss, grad = jax.value_and_grad(loss_of)(params, b)
         params = jax.tree_util.tree_map(lambda p, g: p - LR * g, params,
                                         grad)
@@ -633,14 +644,14 @@ def _jax_whole_batch():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_per_shard():
+def _jax_per_shard(graph=False):
     """The mean of the JAX ``loss_fn`` (and so of its gradients) over the
-    port's two data shards of each batch: the explicit path's per-shard
-    semantics."""
+    port's two data shards of each batch (of ``_graph_batches()`` with
+    ``graph``): the explicit path's per-shard semantics."""
     loss_fn = _jloss(_model()[0])
     return _jax_sgd(lambda p, b: (
         loss_fn(p, (b[0][:8], b[1][:8])) + loss_fn(p, (b[0][8:], b[1][8:])))
-        / 2)
+        / 2, _graph_batches() if graph else None)
 
 
 def _excess(res, want):
@@ -810,11 +821,39 @@ def test_expert_group_fed_two_batches_raises(world):
         assert "expert group were fed different batches" in got[1]
 
 
-@pytest.mark.parametrize("case", ["aot", "megastep"])
-def test_graph_paths_under_an_expert_axis_raise_naming_item_15(world, case):
-    for got in world[case]:
-        assert got is not None and got[0] == "NotImplementedError", got
-        assert "item 15" in got[1] and "expert" in got[1]
+def _graph_batches():
+    """The graph paths' 4 steps: the first two batches, twice."""
+    return _batches()[:2] * 2
+
+
+@pytest.mark.parametrize("case", ["ar", "ps"])
+def test_graph_paths_under_an_expert_axis_match_step_and_jax(world, case):
+    """``make_callable(aot=True)``, ``megastep`` and ``run(unroll=2)`` on
+    ``{data: 2, expert: 2}`` (on the CPU the graph's function runs
+    directly, over its static buffers), over the first two batches twice:
+    bitwise the eager steps, and at the eager parity's tolerance the JAX
+    package's ``make_callable(aot=True)`` and ``megastep`` (AllReduce: the
+    global routing of its GSPMD run) or, under PS, the same JAX
+    per-shard reference the eager steps are held to."""
+    if case == "ar":
+        jcfg, jp = _model()
+        _jreset()
+        ad = JAutoDist(strategy_builder=jstrategy.ModelParallel(
+            jstrategy.AllReduce(), model_axis=2, rules=jmoe.EXPERT_RULES,
+            mesh_axis="expert"))
+        runner = ad.create_distributed_session(ad.capture(
+            _jloss(jcfg), jp, optax.sgd(LR), example_batch=_batches()[0]))
+        want = jax_graph_paths(runner, _graph_batches())
+    else:
+        losses, params = _jax_per_shard(graph=True)
+        want = {"aot": (losses, params), "megastep": (losses, params)}
+    held_graph_paths(world["graph_" + case], want, RTOL, ATOL)
+
+
+def test_expert_group_fed_two_batches_raises_at_the_graph_first_call(world):
+    for r, got in enumerate(world["graph_mismatch"]):
+        assert got is not None and got[0] == "ValueError", (r, got)
+        assert "expert group were fed different batches" in got[1]
 
 
 @pytest.mark.parametrize("case", ["expert_model", "expert_seq"])

@@ -35,13 +35,19 @@
     tolerance;
   - the 2-stage checkpoint restores bitwise on one process and its next
     step is the world's;
-  - the graph paths raise under ``pipe`` (item 15), so does a pipe group
-    fed two batches, and pipe with model or expert (item 10(j)); pipe
-    with seq trains (``tests/test_torch_composed.py``).
+  - the graph paths (``make_callable(aot=True)``, ``megastep``,
+    ``run(unroll=2)``) are bitwise the eager steps and match the JAX
+    package's ``aot=True`` step and megastep; the schedule's ticks and
+    hops count per call of the graph step, and per replay under a
+    (faked) capture;
+  - a pipe group fed two batches raises (at the graph paths' first call
+    too), so does pipe with model or expert (item 10(j)); pipe with seq
+    trains (``tests/test_torch_composed.py``).
 """
 import fcntl
 import functools
 import pickle
+import types
 
 import jax
 import jax.numpy as jnp
@@ -70,7 +76,10 @@ from autodist_tpu_torch.models import lm
 from autodist_tpu_torch.models import transformer as T
 from autodist_tpu_torch.pipeline import cutter, schedule
 from autodist_tpu_torch.resource_spec import ResourceSpec
+from autodist_tpu_torch.utils import cuda_graph
 from autodist_tpu_torch.utils.tree import flatten_with_path, path_to_name
+from test_torch_ps_strategies import (GRAPH_PATHS, held_graph_paths,
+                                      jax_graph_paths)
 
 WORLD = 4
 DIM = 16
@@ -463,13 +472,15 @@ with open(os.path.join(out, "inputs.pkl"), "rb") as f:
     inp = pickle.load(f)
 dist.init_process_group("gloo", init_method="env://", rank=rank,
                         world_size=world,
-                        timeout=datetime.timedelta(seconds=60))
+                        timeout=datetime.timedelta(
+                            seconds=float(os.environ["WORLD_TIMEOUT_S"])))
 res = {}
 
 
 def named(tree):
     return {path_to_name(p): t.detach().float().numpy().copy()
             for p, t in flatten_with_path(tree)[0]}
+#GRAPH_PATHS
 
 
 def raises(fn):
@@ -581,12 +592,23 @@ mgr.close()
 state, m = runner.step(state, rows(runner, inp["zoo_batches"][ZOO_STEPS]))
 res["zoo_next_loss"] = float(m["loss"])
 mine = rows(runner, inp["zoo_batches"][0])
-res["aot"] = raises(lambda: runner.make_callable(mine, aot=True))
-res["megastep"] = raises(lambda: runner.run(
-    state, iter([mine] * 2), 2, unroll=2))
 other = ((mine[0] + 1 + runner.program.mesh.axis_index("pipe")) %
          zcfg.vocab,)
 res["mismatch"] = raises(lambda: runner.step(state, other))
+res["graph_mismatch"] = first_call_raises(runner, other)
+GRAPH_BATCHES = [rows(runner, b) for b in inp["zoo_batches"][:2]] * 2
+res["graph_zoo"] = graph_paths(runner, GRAPH_BATCHES)
+# The schedule's counts over two calls of the eager step and of the graph
+# step.
+res["graph_counts"] = {}
+for path in ("eager", "aot"):
+    call = runner.step if path == "eager" else runner.make_callable(
+        GRAPH_BATCHES[0], aot=True, shard_inputs=True)
+    state = runner.create_state()
+    schedule.counts.update(forward_ticks=0, backward_ticks=0, hops=0)
+    for b in GRAPH_BATCHES[:2]:
+        state, _ = call(state, b)
+    res["graph_counts"][path] = dict(schedule.counts)
 del runner, state, mgr
 
 for sched in ("sequential", "shift-noskip", "1f1b"):
@@ -644,7 +666,8 @@ with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
     pickle.dump(res, f)
 '''.replace("MICRO", repr(MICRO)).replace("SCHEDULES", repr(SCHEDULES)) \
    .replace("ZOO_STEPS", str(ZOO_STEPS)).replace("USER_STEPS",
-                                                   str(USER_STEPS))
+                                                   str(USER_STEPS)) \
+   .replace("#GRAPH_PATHS", GRAPH_PATHS)
 
 
 @pytest.fixture(scope="module")
@@ -947,9 +970,9 @@ def test_two_stage_checkpoint_restores_on_one_process_and_continues(world):
 
 
 @pytest.mark.parametrize("case,kind,match", [
-    ("aot", "NotImplementedError", "item 15"),
-    ("megastep", "NotImplementedError", "item 15"),
     ("mismatch", "ValueError", "pipe group were fed different batches"),
+    ("graph_mismatch", "ValueError",
+     "pipe group were fed different batches"),
     ("compose_model", "NotImplementedError", "item 10\\(j\\)"),
     ("compose_expert", "NotImplementedError", "item 10\\(j\\)")])
 def test_what_a_pipe_axis_refuses(world, case, kind, match):
@@ -957,3 +980,71 @@ def test_what_a_pipe_axis_refuses(world, case, kind, match):
     for res in world[case]:
         assert res is not None and res[0] == kind, res
         assert re.search(match, res[1]), res[1]
+
+
+def test_graph_paths_under_a_pipe_axis_match_step_and_jax(world):
+    """``make_callable(aot=True)``, ``megastep`` and ``run(unroll=2)`` of
+    ``_zoo_lm`` under ``Pipeline(2, 4)`` on ``{data: 2, pipe: 2}`` (on the
+    CPU the graph's function runs directly, over its static buffers), over
+    the first two batches twice: bitwise the eager steps, and held to the
+    JAX package's ``make_callable(aot=True)`` and ``megastep`` at the eager
+    parity's tolerance."""
+    params, loss_fn, batches = _zoo_lm()
+    _jreset()
+    ad = JAutoDist(strategy_builder=jstrategy.Pipeline(num_stages=2,
+                                                       num_microbatches=4))
+    runner = ad.create_distributed_session(ad.capture(
+        loss_fn, params, optax.sgd(0.1), example_batch=batches[0]))
+    want = jax_graph_paths(runner, list(batches[:2]) * 2)
+    held_graph_paths(world["graph_zoo"], want, RTOL, ATOL)
+
+
+def test_the_graph_step_counts_the_schedule_per_call(world):
+    """Two calls of the graph step count the ticks and hops of two eager
+    steps (5 ticks a pass, and a hop a tick that sends)."""
+    for res in world["graph_counts"]:
+        assert res["aot"] == res["eager"]
+        assert res["eager"]["forward_ticks"] == 2 * 5
+        assert res["eager"]["backward_ticks"] == 2 * 5
+        assert res["eager"]["hops"] > 0
+
+
+def test_schedule_counts_per_replay_not_at_capture(monkeypatch):
+    """The schedule's counts under a (faked) capture go to the capturing
+    graph, each replay adds them, and outside a capture a call counts at
+    once: the counts read per replay, as a kernel's launches do."""
+    capturing = {"on": True}
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing["on"])
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(schedule, "counts",
+                        {"forward_ticks": 0, "backward_ticks": 0, "hops": 0})
+    mesh = types.SimpleNamespace(shape={"pipe": 1},
+                                 axis_index=lambda axis: 0,
+                                 group=lambda axis: None)
+    gen = torch.Generator().manual_seed(0)
+    stacked = {"w": torch.randn(1, 4, 4, generator=gen),
+               "b": torch.zeros(1, 4)}
+    x = torch.randn(8, 4, generator=gen)
+
+    def step():
+        leaves = {k: v.clone().requires_grad_() for k, v in stacked.items()}
+        y = schedule.run_stage(leaves, lambda p, h: torch.tanh(
+            h @ p["w"] + p["b"]), x, 4, mesh)
+        (y ** 2).mean().backward()
+
+    with cuda_graph.recording_launches(7) as counts:
+        step()
+    assert schedule.counts == {"forward_ticks": 0, "backward_ticks": 0,
+                               "hops": 0}
+    graph = cuda_graph.Graph(lambda: None, "cuda")   # replays faked too
+    graph.graph = types.SimpleNamespace(replay=lambda: None)
+    graph.launches = counts
+    for _ in range(3):
+        graph()
+    assert schedule.counts == {"forward_ticks": 12, "backward_ticks": 12,
+                               "hops": 0}
+    capturing["on"] = False
+    step()
+    assert schedule.counts["forward_ticks"] == 16

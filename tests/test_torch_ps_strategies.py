@@ -4,7 +4,7 @@ package: builders, the sharded / padded / stale lowerings, and shipping.
 * Each builder's proto equals the JAX builder's, node config for node
   config, on the same captured bert_tiny and linreg with 1, 4 and 8
   devices (``PSLoadBalancing.loads`` too).
-* One 8-rank gloo world (one subprocess per rank, 120 s each) runs every
+* One 8-rank gloo world (one subprocess per rank, 600 s each) runs every
   multi-rank case once; each case below reads its part of that run:
   the ``STRATEGIES`` matrix of ``tests/test_e2e_linreg.py:43-53`` (each
   rank feeds its 4 of every 32-row batch) against the JAX package's
@@ -41,6 +41,7 @@ from autodist_tpu import resource_spec as jrs
 from autodist_tpu import strategy as jstrategy
 from autodist_tpu.autodist import _reset_default as _jreset
 from autodist_tpu.graph_item import GraphItem as JGraphItem
+from autodist_tpu.graph_item import path_to_name as jpath_to_name
 from autodist_tpu.graph_item import VariableItem as JVariableItem
 from autodist_tpu.kernel import partitioner as jpart
 from autodist_tpu.models import bert as jbert
@@ -55,8 +56,117 @@ from autodist_tpu_torch.serve import engine
 from autodist_tpu_torch.utils.tree import flatten_with_path, path_to_name
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-RANK_TIMEOUT_S = 120
+# Every gloo world of the port's tests (its rank scripts read it from
+# WORLD_TIMEOUT_S, set by _run_world) gives a collective this long before
+# it errors: a rank of one world can sit at a collective while the rank it
+# waits on writes and fsyncs a checkpoint or is starved of the CPU by the
+# other test workers, and a mismatched collective must still error, not
+# hang. Each rank's process gets twice that.
+WORLD_TIMEOUT_S = 300
+RANK_TIMEOUT_S = 2 * WORLD_TIMEOUT_S
 WORLD = 8
+
+#: The graph paths against the eager steps, on a world's ranks: appended to
+#: a rank script that imports torch and defines ``named(tree)`` (logical
+#: params by name, as numpy).
+GRAPH_PATHS = r'''
+
+def graph_paths(runner, batches):
+    """From fresh states, over this rank's ``batches`` (an even count):
+    the eager steps, ``make_callable(aot=True)``, ``megastep`` over
+    consecutive pairs and ``run(unroll=2)``: {path: (losses, logical
+    params)} (``unroll2``: the last block's losses)."""
+    def block(pair):
+        return tuple(torch.stack([torch.as_tensor(a) for a in leaf])
+                     for leaf in zip(*pair))
+
+    out = {}
+    state, losses = runner.create_state(), []
+    for b in batches:
+        state, m = runner.step(state, b)
+        losses.append(float(m["loss"]))
+    out["eager"] = (losses, named(runner.logical_params(state)))
+    fn = runner.make_callable(batches[0], aot=True, shard_inputs=True)
+    state, losses = runner.create_state(), []
+    for b in batches:
+        state, m = fn(state, b)
+        losses.append(float(m["loss"]))
+    out["aot"] = (losses, named(runner.logical_params(state)))
+    state, losses = runner.create_state(), []
+    for i in range(0, len(batches), 2):
+        state, m = runner.megastep(state, block(batches[i:i + 2]))
+        losses += [float(v) for v in m["loss"]]
+    out["megastep"] = (losses, named(runner.logical_params(state)))
+    state, m = runner.run(runner.create_state(), iter(batches),
+                          len(batches), unroll=2)
+    out["unroll2"] = ([float(v) for v in m["loss"]],
+                      named(runner.logical_params(state)))
+    return out
+
+
+def first_call_raises(runner, batch):
+    """What the graph step's first call raises on ``batch`` (None)."""
+    try:
+        runner.make_callable(batch, aot=True)(runner.create_state(), batch)
+    except Exception as e:  # noqa: BLE001 - the test reads the type
+        return type(e).__name__, str(e)
+    return None
+'''
+
+
+def jax_graph_paths(runner, batches, aot=True, megastep=True):
+    """The JAX package's compiled steps from fresh states over ``batches``
+    (global batches; an even count): ``make_callable(aot=aot)`` a batch
+    and, with ``megastep``, ``megastep`` over consecutive pairs:
+    {path: (losses, logical params by name)}. (Under a seq axis this
+    jaxlib's AOT executable takes one input too few and its megastep leaks
+    a tracer: there the jit step alone is the reference.)"""
+    def logical(state):
+        return {jpath_to_name(p): np.asarray(v) for p, v in
+                jax.tree_util.tree_flatten_with_path(jax.device_get(
+                    runner.logical_params(state)))[0]}
+
+    out = {}
+    fn = runner.make_callable(batches[0], shard_inputs=True, aot=aot)
+    state, losses = runner.create_state(), []
+    for b in batches:
+        state, m = fn(state, b)
+        losses.append(float(jax.device_get(m["loss"])))
+    out["aot"] = (losses, logical(state))
+    if megastep:
+        state, losses = runner.create_state(), []
+        for i in range(0, len(batches), 2):
+            block = jax.tree_util.tree_map(
+                lambda *a: np.stack([np.asarray(x) for x in a]),
+                *batches[i:i + 2])
+            state, m = runner.megastep(state, block)
+            losses += [float(v) for v in np.asarray(m["loss"])]
+        out["megastep"] = (losses, logical(state))
+    return out
+
+
+def held_graph_paths(ranks, want, rtol, atol):
+    """Each rank's graph paths bitwise its eager steps, and held to the
+    JAX package's compiled steps ``want`` (:func:`jax_graph_paths`) at
+    ``rtol`` / ``atol``."""
+    for r, res in enumerate(ranks):
+        losses, params = res["eager"]
+        for path in ("aot", "megastep", "unroll2"):
+            got, got_params = res[path]
+            assert got == (losses if path != "unroll2" else losses[-2:]), \
+                (r, path, got, losses)
+            assert sorted(got_params) == sorted(params)
+            for k, v in params.items():
+                np.testing.assert_array_equal(got_params[k], v,
+                                              err_msg=f"rank {r} {path} {k}")
+        for path, (wl, wp) in want.items():
+            got, got_params = res[path]
+            np.testing.assert_allclose(got, wl, rtol=rtol, atol=atol,
+                                       err_msg=f"rank {r} {path}")
+            for k, v in wp.items():
+                np.testing.assert_allclose(got_params[k], v, rtol=rtol,
+                                           atol=atol,
+                                           err_msg=f"rank {r} {path} {k}")
 
 # tests/test_e2e_linreg.py:43-53, as expressions both packages evaluate.
 STRATEGIES = [
@@ -242,7 +352,8 @@ with open(os.path.join(out, "bert.pkl"), "rb") as f:
     bert_params, bert_batch = pickle.load(f)
 dist.init_process_group("gloo", init_method="env://", rank=rank,
                         world_size=world,
-                        timeout=datetime.timedelta(seconds=60))
+                        timeout=datetime.timedelta(
+                            seconds=float(os.environ["WORLD_TIMEOUT_S"])))
 x, y = data["x"], data["y"]
 SGD = functools.partial(torch.optim.SGD, lr=0.05)
 
@@ -464,10 +575,10 @@ def _run_world(script, world, args, cwd):
         port = _free_port()
         env = {k: v for k, v in os.environ.items()
                if not k.startswith(("RANK", "WORLD_SIZE", "MASTER_",
-                                    "LOCAL_"))}
+                                    "LOCAL_", "AUTODIST_"))}
         env.update(PYTHONPATH=ROOT, MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(port), WORLD_SIZE=str(world),
-                   OMP_NUM_THREADS="1")
+                   OMP_NUM_THREADS="1", WORLD_TIMEOUT_S=str(WORLD_TIMEOUT_S))
         procs = [subprocess.Popen(
             [sys.executable, "-c", script, *args, str(r), str(world)],
             cwd=cwd, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
@@ -827,7 +938,8 @@ from autodist_tpu_torch import AutoDist, strategy as S
 mode, rank, world = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 dist.init_process_group("gloo", init_method="env://", rank=rank,
                         world_size=world,
-                        timeout=datetime.timedelta(seconds=60))
+                        timeout=datetime.timedelta(
+                            seconds=float(os.environ["WORLD_TIMEOUT_S"])))
 
 
 def loss_fn(p, b):

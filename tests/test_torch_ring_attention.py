@@ -139,7 +139,8 @@ out, rank, world = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 data = dict(np.load(os.path.join(out, "qkv.npz")))
 dist.init_process_group("gloo", init_method="env://", rank=rank,
                         world_size=world,
-                        timeout=datetime.timedelta(seconds=60))
+                        timeout=datetime.timedelta(
+                            seconds=float(os.environ["WORLD_TIMEOUT_S"])))
 s = data["q"].shape[2] // world
 mine = {n: torch.from_numpy(a[:, :, rank * s:(rank + 1) * s].copy())
         for n, a in data.items()}

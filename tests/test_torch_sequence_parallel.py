@@ -14,9 +14,11 @@
   losses match the JAX package's ``SequenceParallel`` run on its 8-device
   ``{data: 4, seq: 2}`` mesh and the port's ``AllReduce`` run at rtol
   1e-5 (f32, other summation orders), and the ranks' params agree
-  bitwise. A seq group fed two batches raises, so does a sequence the
-  seq axis does not divide, and a graph step (``make_callable(aot=True)``)
-  (BERT's masked-LM loss under a seq axis trains:
+  bitwise. The graph paths (``make_callable(aot=True)``, ``megastep``,
+  ``run(unroll=2)``) are bitwise the eager steps and match the JAX
+  package's compiled step. A seq group fed two batches raises, at the
+  graph paths' first call too, so does a sequence the seq axis does not
+  divide (BERT's masked-LM loss under a seq axis trains:
   ``tests/test_torch_composed.py``). ``Mesh.group_over`` builds the
   data x seq group of a mesh with a third axis, and the seq group of a
   ``{pipe, seq}`` mesh.
@@ -39,6 +41,8 @@ from autodist_tpu_torch import AutoDist, convert, strategy
 from autodist_tpu_torch import autodist as autodist_mod
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.strategy.registry import builder_from_name
+from test_torch_ps_strategies import (GRAPH_PATHS, held_graph_paths,
+                                      jax_graph_paths)
 
 WORLD = 4
 STEPS = 3
@@ -150,9 +154,16 @@ with open(os.path.join(out, "inputs.pkl"), "rb") as f:
     params, tokens, steps = pickle.load(f)
 dist.init_process_group("gloo", init_method="env://", rank=rank,
                         world_size=world,
-                        timeout=datetime.timedelta(seconds=60))
+                        timeout=datetime.timedelta(
+                            seconds=float(os.environ["WORLD_TIMEOUT_S"])))
 cfg = lm.lm_tiny(max_len=16)
 res = {}
+
+
+def named(tree):
+    return {path_to_name(p): t.detach().numpy().copy()
+            for p, t in flatten_with_path(tree)[0]}
+#GRAPH_PATHS
 
 
 def session(builder, loss_fn, params, example):
@@ -205,7 +216,11 @@ mine = rows(runner, tokens)
 other = (mine + 1 + runner.program.mesh.axis_index("seq")) % cfg.vocab
 res["mismatch"] = raises(lambda: runner.step(state, (other,)))
 res["indivisible"] = raises(lambda: runner.step(state, (mine[:, :16],)))
-res["graph"] = raises(lambda: runner.make_callable((mine,), aot=True))
+res["graph_mismatch"] = first_call_raises(runner, (other,))
+res["graph_ring"] = graph_paths(runner, [(mine,)] * 4)
+runner = session(S.SequenceParallel(attn="ulysses", seq_axis=2),
+                 lm.make_loss_fn(cfg), params, (tokens[:2],))
+res["graph_ulysses"] = graph_paths(runner, [(rows(runner, tokens),)] * 4)
 autodist_mod._reset_default()
 
 # The data x seq group of a mesh with a third axis: the ranks that share
@@ -232,7 +247,7 @@ res["group_over_pipe"] = [
 dist.destroy_process_group()
 with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
     pickle.dump(res, f)
-'''
+'''.replace("#GRAPH_PATHS", GRAPH_PATHS)
 
 
 @pytest.fixture(scope="module")
@@ -316,10 +331,30 @@ def test_a_sequence_the_seq_axis_does_not_divide_raises(world):
         assert "not divisible by the seq axis" in got[1]
 
 
-def test_graph_steps_under_a_seq_axis_raise(world):
-    for got in world["graph"]:
-        assert got is not None and got[0] == "NotImplementedError", got
-        assert "item 15" in got[1]
+@pytest.mark.parametrize("attn", ["ring", "ulysses"])
+def test_graph_paths_under_a_seq_axis_match_step_and_jax(world, attn):
+    """``make_callable(aot=True)``, ``megastep`` and ``run(unroll=2)``
+    under ``SequenceParallel(attn)`` on ``{data: 2, seq: 2}`` (on the CPU
+    the graph's function runs directly, over its static buffers): bitwise
+    the eager steps, and held to the JAX package's compiled step (its jit
+    step: under a seq axis its AOT executable and megastep fail on this
+    jaxlib) over the same 4 steps at the eager parity's tolerance."""
+    _, params, loss_fn, batch = _lm_fixture()
+    _jreset()
+    ad = JAutoDist(strategy_builder=jstrategy.SequenceParallel(
+        attn=attn, seq_axis=2))
+    runner = ad.create_distributed_session(ad.capture(
+        loss_fn, params, optax.sgd(0.1), example_batch=batch))
+    want = jax_graph_paths(runner, [batch] * 4, aot=False, megastep=False)
+    held_graph_paths(world["graph_" + attn], want, RTOL, ATOL)
+
+
+def test_a_seq_group_fed_two_batches_raises_at_the_graph_first_call(world):
+    """The graph paths check the batch once, at their first call (the
+    check's all-gathers and host read cannot sit in a graph)."""
+    for r, got in enumerate(world["graph_mismatch"]):
+        assert got is not None and got[0] == "ValueError", (r, got)
+        assert "seq group were fed different batches" in got[1]
 
 
 def test_group_over_gives_the_ranks_that_share_the_other_axes(world):
