@@ -13,8 +13,8 @@ from typing import Any, NamedTuple
 
 from autodist_tpu_torch import const
 from autodist_tpu_torch.kernel.partitioner import PartitionSpec
-from autodist_tpu_torch.kernel.synchronization.synchronizer import \
-    Synchronizer
+from autodist_tpu_torch.kernel.synchronization.synchronizer import (
+    PIECE_AXES, Synchronizer)
 from autodist_tpu_torch.proto import strategy_pb2
 from autodist_tpu_torch.utils import logging
 from autodist_tpu_torch.utils.tree import (path_to_name, tree_map,
@@ -29,19 +29,17 @@ class Placement(NamedTuple):
     over the data axis (None: whole); ``index``: this process's place on
     the data axis, its piece along ``dim`` (None where ``device`` is);
     ``shards``: the pieces along ``dim`` (1: whole); ``padding``:
-    ``(dim, logical, padded)`` of padded storage, or None; ``model_dim``,
-    ``model_index``, ``model_shards``: the same for a split over the
-    ``model``, ``expert`` or ``pipe`` axis (kind ``tp``; the program's
-    ``piece_axis``).
+    ``(dim, logical, padded)`` of padded storage, or None; ``pieces``: a
+    ``(dim, index, shards)`` triple, the same, for each piece axis
+    (``model``, ``expert`` or ``pipe``) that splits it (kind ``tp``), in
+    the mesh's axis order.
     """
     device: Any
     dim: Any
     index: Any
     shards: int
     padding: Any
-    model_dim: Any = None
-    model_index: Any = None
-    model_shards: int = 1
+    pieces: tuple = ()
 
 
 class DistributedProgram:
@@ -60,9 +58,13 @@ class DistributedProgram:
         """The :class:`~autodist_tpu_torch.parallel.context.ParallelContext`
         this strategy prescribes (its GraphConfig's ``seq_attn`` and
         ``pipeline_microbatches`` on this mesh, the ``tp`` variables that
-        reach the Megatron layers or the MoE layer as their pieces, or
-        every one split over ``pipe``, and whether the program takes the
-        explicit path), which the Runner activates around the loss. The
+        reach the model as their pieces on each piece axis, and whether
+        the program takes the explicit path), which the Runner activates
+        around the loss. On the ``pipe`` axis every split variable is a
+        piece (a stage's layers: never gathered); on the ``model`` axis the
+        Megatron layers' weights (a stacked one's rule dim one further, its
+        dim 0 the layers) and an MoE layer's column / row pieces of its
+        experts; on the ``expert`` axis an MoE layer's experts. The
         pipeline schedule is read from ``AUTODIST_PIPELINE_SCHEDULE`` when
         the context is first asked for, as the JAX program's is."""
         if self._parallel_context is None:
@@ -70,14 +72,23 @@ class DistributedProgram:
             from autodist_tpu_torch.parallel.sharding_rules import (
                 expert_pieces, megatron_pieces)
             gc = self.strategy.graph_config
-            split = {name: dim for name, (kind, dim) in
-                     self.var_kinds().items() if kind == "tp"}
-            if self.piece_axis == const.MESH_AXIS_PIPELINE:
-                pieces = frozenset(split)  # a stage's layers: never gathered
-            elif self.model_axis_size > 1:
-                pieces = megatron_pieces(self.synchronizers, split)
-            else:
-                pieces = expert_pieces(self.synchronizers, split)
+            dims = self.piece_dims()
+
+            def split(axis):
+                return {name: dim for name, pairs in dims.items()
+                        for a, dim in pairs if a == axis}
+            stacked = frozenset(split(const.MESH_AXIS_PIPELINE))
+            pieces = {}
+            for axis in self.piece_axes:
+                on = split(axis)
+                if axis == const.MESH_AXIS_PIPELINE:
+                    pieces[axis] = frozenset(on)
+                elif axis == const.MESH_AXIS_MODEL:
+                    pieces[axis] = megatron_pieces(
+                        self.synchronizers, on, stacked=stacked) | \
+                        expert_pieces(self.synchronizers, on, axis)
+                else:
+                    pieces[axis] = expert_pieces(self.synchronizers, on)
             self._parallel_context = ParallelContext(
                 mesh=self.mesh, seq_attn=gc.seq_attn,
                 pipeline_microbatches=gc.pipeline_microbatches,
@@ -98,17 +109,21 @@ class DistributedProgram:
         return self.mesh.shape.get(const.MESH_AXIS_PIPELINE, 1)
 
     @property
-    def piece_axis(self):
-        """The axis whose groups hold the pieces of the ``tp`` variables:
-        ``model``, ``expert`` or ``pipe`` over more than one device
-        (``transform`` refuses two at once), else None."""
-        if self.model_axis_size > 1:
-            return const.MESH_AXIS_MODEL
-        if self.expert_axis_size > 1:
-            return const.MESH_AXIS_EXPERT
-        if self.pipe_axis_size > 1:
-            return const.MESH_AXIS_PIPELINE
-        return None
+    def piece_axes(self):
+        """The axes whose groups hold the pieces of the ``tp`` variables:
+        ``pipe``, ``expert`` and ``model`` over more than one device, in
+        the mesh's axis order (``transform`` takes at most two, and never
+        ``pipe`` with ``expert``)."""
+        return tuple(a for a in self.mesh.axis_names if a in PIECE_AXES and
+                     self.mesh.shape[a] > 1)
+
+    def piece_dims(self):
+        """{var_name: ((axis, dim), ...)}: every piece axis that splits
+        each ``tp`` variable and the dim it splits
+        (``Synchronizer.piece_dims``)."""
+        return {name: s.piece_dims() for name, s in
+                self.synchronizers.items()
+                if s.staleness == 0 and s.piece_dims()}
 
     @property
     def seq_axis_size(self):
@@ -142,11 +157,13 @@ class DistributedProgram:
         * ``zero1``: a PS variable whose optimizer state is split along
           ``dim``: the gradient is reduce-scattered onto this rank's
           state shard, the shard updated, the parameter all-gathered;
-        * ``tp``: the parameter split over the ``model`` axis along
-          ``dim`` (``ModelParallel``): each rank of a model group stores
-          its piece, which a Megatron layer takes as it is and the Runner
-          gathers for any other use; its state is split as it is, and its
-          gradient averaged over the data group;
+        * ``tp``: the parameter split over the ``model``, ``expert`` or
+          ``pipe`` axis along ``dim``, or over two of them (``dim``: every
+          (axis, dim) pair): each rank of a piece group stores its piece,
+          which a Megatron layer, an MoE layer or a pipeline stage takes
+          as it is and the Runner gathers for any other use; its state is
+          split as it is, and its gradient averaged over the axes that do
+          not split it;
         * ``ar``: everything else (and PS with ``gspmd_update``): a mean
           all-reduce of the whole gradient, a whole local update.
 
@@ -168,26 +185,26 @@ class DistributedProgram:
         """:class:`Placement` tree congruent with the params tree (the
         counterpart of ``param_shardings()``): a parameter partitioned over
         the data axis (kind ``fsdp``) is split in ``data_axis_size`` pieces
-        along its dim, and one split over the model, expert or pipe axis
-        (kind ``tp``) in that axis's size of pieces; the rest stay whole
-        on every device;
+        along its dim, and one split over the model, expert or pipe axis,
+        or two of them (kind ``tp``), in each such axis's size of pieces
+        along its dim; the rest stay whole on every device;
         uneven dims are padded first. A stale variable is whole (each rank
         holds its own copy), and so is a PS one with ``gspmd_update``. A
         parameter split over the seq axis of more than one device
         raises."""
         mesh = self.mesh
-        piece_axis = self.piece_axis
         if mesh.size == 1 or mesh.device_mesh is not None:
             device = mesh.local_device
             index = mesh.axis_index(const.MESH_AXIS_DATA)
-            piece_index = mesh.axis_index(piece_axis) if piece_axis else 0
+            place = {a: mesh.axis_index(a) for a in self.piece_axes}
         else:
-            device = index = piece_index = None
+            device = index = place = None
         n = self.data_axis_size
         paddings = self.paddings()
         kinds = self.var_kinds()
+        dims = self.piece_dims()
 
-        def place(path, _):
+        def placement(path, _):
             name = path_to_name(path)
             sync = self.synchronizers.get(name)
             spec = PartitionSpec() if sync is None or sync.staleness > 0 \
@@ -195,11 +212,8 @@ class DistributedProgram:
             for entry in spec:
                 for axis in (entry if isinstance(entry, tuple) else
                              (entry,)):
-                    if axis not in (None, const.MESH_AXIS_DATA,
-                                    const.MESH_AXIS_MODEL,
-                                    const.MESH_AXIS_EXPERT,
-                                    const.MESH_AXIS_PIPELINE) and \
-                            mesh.shape.get(axis, 1) > 1:
+                    if axis not in (None, const.MESH_AXIS_DATA) + \
+                            PIECE_AXES and mesh.shape.get(axis, 1) > 1:
                         raise NotImplementedError(
                             f"{name} is split over mesh axis '{axis}': "
                             f"autodist_tpu_torch splits parameters over the "
@@ -207,13 +221,14 @@ class DistributedProgram:
             kind, dim = kinds.get(name, ("ar", None))
             if kind == "tp":
                 return Placement(device, None, index, 1, paddings.get(name),
-                                 dim, piece_index,
-                                 mesh.shape[piece_axis])
+                                 tuple((d, None if place is None else
+                                        place[a], mesh.shape[a])
+                                       for a, d in dims[name]))
             if kind != "fsdp":
                 dim = None
             return Placement(device, dim, index, n if dim is not None else 1,
                              paddings.get(name))
-        return tree_map_with_path(place, self.graph_item.params)
+        return tree_map_with_path(placement, self.graph_item.params)
 
     def paddings(self):
         """Physical padding plan for uneven (non-divisible) shardings:
@@ -293,23 +308,30 @@ class GraphTransformer:
             synchronizers[var.name] = Synchronizer.create(var, node, mesh)
         for sync in synchronizers.values():
             sync.param_spec()  # a partition over a missing axis raises here
-        if mesh.shape.get(const.MESH_AXIS_EXPERT, 1) > 1 and any(
-                mesh.shape.get(a, 1) > 1 for a in (const.MESH_AXIS_MODEL,
-                                                   const.MESH_AXIS_SEQ)):
+        big = {a for a, n in mesh.shape.items() if n > 1}
+        expert, pipe, seq = (const.MESH_AXIS_EXPERT, const.MESH_AXIS_PIPELINE,
+                             const.MESH_AXIS_SEQ)
+        if expert in big and seq in big:
             raise NotImplementedError(
                 f"mesh {dict(mesh.shape)}: expert parallelism composed with "
-                f"tensor or sequence parallelism (a mesh with 'expert' and "
-                f"'model' or 'seq' over more than one device) is not ported "
-                f"to autodist_tpu_torch yet (ROADMAP.md, Queue A item 10(i))")
-        if mesh.shape.get(const.MESH_AXIS_PIPELINE, 1) > 1 and any(
-                mesh.shape.get(a, 1) > 1 for a in (const.MESH_AXIS_MODEL,
-                                                   const.MESH_AXIS_EXPERT)):
+                f"sequence parallelism (a mesh with 'expert' and 'seq' over "
+                f"more than one device) is not ported to autodist_tpu_torch "
+                f"yet: the routing's slot order would have to follow the "
+                f"seq chunks (ROADMAP.md, Queue A item 10(i)-seq)")
+        if pipe in big and expert in big:
             raise NotImplementedError(
                 f"mesh {dict(mesh.shape)}: pipeline parallelism composed "
-                f"with tensor or expert parallelism (a mesh with 'pipe' and "
-                f"'model' or 'expert' over more than one device) is not "
-                f"ported to autodist_tpu_torch yet (ROADMAP.md, Queue A item "
-                f"10(j))")
+                f"with expert parallelism (a mesh with 'pipe' and 'expert' "
+                f"over more than one device) is not ported to "
+                f"autodist_tpu_torch yet (ROADMAP.md, Queue A item "
+                f"10(j)-expert)")
+        pieces = sorted(big & set(PIECE_AXES))
+        if seq in big and len(pieces) > 1:
+            raise NotImplementedError(
+                f"mesh {dict(mesh.shape)}: sequence parallelism composed "
+                f"with two piece axes ({', '.join(pieces)}) is not ported "
+                f"to autodist_tpu_torch yet (ROADMAP.md, Queue A item "
+                f"10(k))")
         use_explicit = any(s.needs_explicit_path
                            for s in synchronizers.values())
         for s in synchronizers.values():

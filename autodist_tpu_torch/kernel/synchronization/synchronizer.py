@@ -17,6 +17,10 @@ from autodist_tpu_torch.kernel.partitioner import (PartitionerConfig,
 from autodist_tpu_torch.kernel.synchronization.compressor import \
     all_reduce_mean_
 
+#: The axes whose groups hold the pieces of a split parameter (kind ``tp``).
+PIECE_AXES = (const.MESH_AXIS_PIPELINE, const.MESH_AXIS_EXPERT,
+              const.MESH_AXIS_MODEL)
+
 
 class Synchronizer(ABC):
     """Lowered form of one strategy NodeConfig for one variable."""
@@ -76,28 +80,38 @@ class Synchronizer(ABC):
     def needs_explicit_path(self):
         return False
 
+    def piece_dims(self):
+        """Every (piece axis, dim) pair of this variable: the ``pipe``,
+        ``expert`` and ``model`` axes of more than one device its parameter
+        spec splits, in the mesh's axis order, each with the dim it splits
+        (a composed partitioner, ``"0:2:pipe,2:2:model"``, gives two)."""
+        spec = self.param_spec()
+        return tuple((axis, dim) for axis in self.mesh.axis_names
+                     if axis in PIECE_AXES and self.mesh.shape[axis] > 1 and
+                     (dim := axis_dim(spec, axis)) is not None)
+
     def kind(self, n):
         """(kind, dim): how the Runner lowers this variable on a data axis
         of ``n`` devices (``DistributedProgram.var_kinds``): ``stale``
-        with staleness; ``tp`` along the dim its parameter spec splits
-        over a ``model``, ``expert`` or ``pipe`` axis of more than one
-        device (each rank of such a group stores its piece, the state spec
-        is the param spec, and the gradient is averaged over the data group
-        only); ``fsdp`` along the dim it splits over the data axis; else
-        ``ar``."""
+        with staleness; ``tp`` where its parameter spec splits it over a
+        ``model``, ``expert`` or ``pipe`` axis of more than one device
+        (each rank of such a group stores its piece, the state spec is the
+        param spec, and the gradient is averaged over the axes that do not
+        split it), with the dim of its one piece axis, or every (piece
+        axis, dim) pair (:meth:`piece_dims`) where two axes split it;
+        ``fsdp`` along the dim it splits over the data axis; else ``ar``."""
         if self.staleness > 0:
             return ("stale", None)
         spec = self.param_spec()
-        for axis in (const.MESH_AXIS_MODEL, const.MESH_AXIS_EXPERT,
-                     const.MESH_AXIS_PIPELINE):
-            if self.mesh.shape.get(axis, 1) > 1 and \
-                    (dim := axis_dim(spec, axis)) is not None:
-                if data_dim(spec) is not None:
-                    raise NotImplementedError(
-                        f"{self.var.name} is split over both the {axis} "
-                        f"and the data axis ({spec}): autodist_tpu_torch "
-                        f"splits a parameter over one of them")
-                return ("tp", dim)
+        pairs = self.piece_dims()
+        if pairs:
+            if data_dim(spec) is not None:
+                raise NotImplementedError(
+                    f"{self.var.name} is split over both the "
+                    f"{pairs[0][0]} and the data axis ({spec}): "
+                    f"autodist_tpu_torch splits a parameter over one of "
+                    f"them")
+            return ("tp", pairs[0][1] if len(pairs) == 1 else pairs)
         if n > 1 and (dim := data_dim(spec)) is not None:
             return ("fsdp", dim)
         return ("ar", None)

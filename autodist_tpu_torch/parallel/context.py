@@ -24,13 +24,21 @@ axis (``data_*``: the ranks that hold the batch's other rows).
 Under tensor, expert or pipeline parallelism one rule decides which split
 weights reach the model as their pieces: :meth:`
 ParallelContext.arrives_as_piece`, which the Runner asks for each variable
-(the others it gathers); a pipe piece is a stage's layers, and
-:func:`stage_pieces` tells ``scan_blocks`` and ``pipeline_apply`` that a
-stacked tree arrived as this rank's stage. The Megatron layers (``models/layers.py``) then
-see a piece as a weight 1/``model_size`` of its whole width, and
-:func:`megatron` gives them the context to run the Megatron form with;
-``parallel/moe.py`` sees E/``expert_size`` experts and asks
-:func:`experts`.
+and each axis that splits it (over the others it gathers it); a pipe piece
+is a stage's layers, and :func:`stage_pieces` tells ``scan_blocks`` and
+``pipeline_apply`` that a stacked tree arrived as this rank's stage. The
+Megatron layers (``models/layers.py``) then see a piece as a weight
+1/``model_size`` of its whole width, and :func:`megatron` gives them the
+context to run the Megatron form with; ``parallel/moe.py`` sees
+E/``expert_size`` experts and asks :func:`experts`.
+
+Two piece axes compose where one variable is split over both (a composed
+partitioner, ``"0:2:pipe,2:2:model"``): ``{pipe, model}``, where a stage's
+stacked Megatron weights arrive as this rank's layers and heads, so the
+Megatron forms run inside the stage on the model group; and ``{expert,
+model}``, where an MoE layer's experts arrive as this rank's experts and
+hidden columns, and :meth:`ParallelContext.group_over` gives the group the
+layer's partial output sums over.
 
 One more rule says which batch a layer that couples a batch's tokens (MoE
 routing: capacity, slot order, aux loss) sees: :attr:`ParallelContext.
@@ -76,9 +84,11 @@ class ParallelContext:
         model_index, model_size, model_group: the same for the ``model``
             axis; ``expert_*`` for the ``expert`` axis, ``pipe_*`` for the
             ``pipe`` axis and ``data_*`` for the ``data`` axis.
-        pieces: the variables that reach the Megatron layers or the MoE
-            layer as their pieces (``sharding_rules.megatron_pieces`` and
-            ``expert_pieces``), or every variable split over ``pipe``.
+        pieces: {axis: the variables that reach the model as their pieces
+            over that axis}: over ``model`` the Megatron layers' weights
+            (``sharding_rules.megatron_pieces``) and an MoE layer's
+            columns, over ``expert`` its experts (``expert_pieces``), over
+            ``pipe`` every variable split over it.
         explicit: the program takes the JAX Runner's explicit path
             (``DistributedProgram.use_explicit_path``), on which a data
             shard is the model's whole batch (:attr:`global_batch`).
@@ -92,7 +102,7 @@ class ParallelContext:
 
     def __init__(self, mesh, seq_attn="", pipeline_microbatches=0,
                  act_seq_dim=1, op_shardings=None, pipeline_schedule=None,
-                 pieces=frozenset(), explicit=False):
+                 pieces=None, explicit=False):
         if op_shardings:
             raise NotImplementedError(
                 "op_shardings: Automap's activation constraints are not "
@@ -105,7 +115,7 @@ class ParallelContext:
                                   const.ENV.AUTODIST_PIPELINE_SCHEDULE.val or
                                   "shift")
         self.act_seq_dim = act_seq_dim
-        self.pieces = frozenset(pieces)
+        self.pieces = {a: frozenset(v) for a, v in (pieces or {}).items()}
         self._stage = {}  # id -> weakref of the tensors that are pipe pieces
         self.explicit = explicit
         self._attn_cache = {}
@@ -154,13 +164,19 @@ class ParallelContext:
         rank."""
         return not self.explicit and self.data_size > 1
 
-    def arrives_as_piece(self, name):
-        """Whether variable ``name``, split over the model, expert or pipe
-        axis, reaches the model as this rank's piece (a Megatron layer's
-        weight, an MoE layer's experts, a stage's layers) rather than
-        gathered whole."""
-        return (self.model_size > 1 or self.expert_size > 1 or
-                self.pipe_size > 1) and name in self.pieces
+    def arrives_as_piece(self, name, axis):
+        """Whether variable ``name``, split over ``axis`` (the model,
+        expert or pipe axis of more than one rank), reaches the model as
+        this rank's piece over it (a Megatron layer's weight, an MoE
+        layer's experts or columns, a stage's layers) rather than gathered
+        whole over the axis's group."""
+        return self._size(axis) > 1 and name in self.pieces.get(axis, ())
+
+    def group_over(self, axes):
+        """The process group of the ranks that share this rank's place on
+        every axis but ``axes`` (``cluster.Mesh.group_over``; one axis:
+        its group)."""
+        return self.mesh.group_over(axes)
 
     def mark_stage(self, tensor):
         """Record ``tensor`` as a pipe piece this rank's loss receives (the

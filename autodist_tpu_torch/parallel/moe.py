@@ -22,6 +22,12 @@ forward; the gradient summed over the group: each rank's backward reaches
 only its experts' assignments). The routing and the aux loss stay outside
 that copy: every rank of the group computes them whole.
 
+Over a ``model`` axis too (each expert's FFN split Megatron-wise by a
+composed partitioner: ``up`` ``"0:2:expert,2:2:model"``, ``down``
+``"0:2:expert,1:2:model"``) a rank computes the h/tp hidden columns of its
+E/ep experts (``up`` (E/ep, d, h/tp), the GELU, ``down`` (E/ep, h/tp,
+d)), and the copy and the sum run over the expert x model group.
+
 Which batch the routing sees is the JAX Runner's path's choice, asked in
 one place (``ParallelContext.global_batch``): on its GSPMD path (an
 AllReduce base) ``apply`` sees the global batch, so the capacity counts
@@ -36,6 +42,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from autodist_tpu_torch import const
 from autodist_tpu_torch.models import layers as L
 from autodist_tpu_torch.parallel import context
 from autodist_tpu_torch.parallel.collectives import all_gather
@@ -146,8 +153,9 @@ def _batch_group(ctx):
     if ctx.seq_size > 1:
         raise NotImplementedError(
             "autodist_tpu_torch: an MoE layer under a seq axis (each rank "
-            "holding a chunk of the sequence) is not ported yet (ROADMAP.md, "
-            "Queue A item 10(i))")
+            "holding a chunk of the sequence) is not ported yet: the "
+            "routing's slot order would have to follow the chunks "
+            "(ROADMAP.md, Queue A item 10(i)-seq)")
     return ctx if ctx.global_batch else None
 
 
@@ -171,9 +179,10 @@ def apply(params, cfg, x):
     captured and ``flops_estimate`` runs it on ``meta`` tensors.
 
     Under an expert axis whose ranks hold E/ep experts each (the pieces
-    of ``EXPERT_RULES``) a rank computes its experts only and the group
-    all-reduces the (T, d) f32 output; see the module docstring for the
-    batch the routing sees.
+    of ``EXPERT_RULES``) a rank computes its experts only, under a model
+    axis whose ranks hold h/tp hidden columns of each expert its columns
+    only, and the group of those axes all-reduces the (T, d) f32 output;
+    see the module docstring for the batch the routing sees.
     """
     lead_shape = tuple(x.shape[:-1])
     tokens = math.prod(lead_shape)
@@ -185,7 +194,17 @@ def apply(params, cfg, x):
         raise ValueError(f"up/kernel holds {up.shape[0]} experts and "
                          f"down/kernel {down.shape[0]}: one expert piece "
                          f"each")
+    tp = context.megatron(up, 2, cfg.d_hidden)
+    if down.shape[1] != up.shape[2]:
+        raise ValueError(f"up/kernel holds {up.shape[2]} hidden columns and "
+                         f"down/kernel {down.shape[1]} rows: one column "
+                         f"piece each")
     ctx = context.current()
+    # The ranks whose partial outputs make up the layer's: the group of the
+    # expert axis, the model axis or both.
+    axes = tuple(a for a, c in ((const.MESH_AXIS_EXPERT, ep),
+                                (const.MESH_AXIS_MODEL, tp)) if c is not None)
+    group = ctx.group_over(axes) if axes else None
     shard = _batch_group(ctx)
     data = 1 if shard is None else shard.data_size
 
@@ -248,9 +267,9 @@ def apply(params, cfg, x):
 
     xc = flat_x.to(cfg.dtype)
     vals = top_vals.t().reshape(-1)                              # (k*T,)
-    if ep is not None:
-        xc = L.copy_to_model(xc, ep.expert_group)
-        vals = L.copy_to_model(vals, ep.expert_group)
+    if group is not None:
+        xc = L.copy_to_model(xc, group)
+        vals = L.copy_to_model(vals, group)
     up, down = up.to(cfg.dtype), down.to(cfg.dtype)
     occupied = (buf > 0).unsqueeze(-1)
     expert_in = torch.where(occupied, xc[(buf - 1).clamp(min=0)], 0) \
@@ -263,8 +282,8 @@ def apply(params, cfg, x):
     y = expert_out[flat_ec.clamp(max=cells - 1)]
     w = vals * keep.reshape(-1).float()
     out = (y.float() * w[:, None]).view(k, tokens, d).sum(0)
-    if ep is not None:
-        out = L.reduce_from_model(out, ep.expert_group)
+    if group is not None:
+        out = L.reduce_from_model(out, group)
     return out.reshape(lead_shape + (d,)).to(x.dtype), aux
 
 

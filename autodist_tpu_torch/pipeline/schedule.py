@@ -32,6 +32,13 @@ because one SPMD program runs them; in PyTorch each rank's autograd
 engine runs only the nodes that reach its loss, which is why the
 schedule is one ``Function`` and not a ``Function`` per hop.
 
+Under a model axis too (``{pipe, model}``) a stage's layers are this
+rank's Megatron pieces, and the stage's forward, its VJP and ``1f1b``'s
+recompute run the model group's collectives. The ranks of a model group
+sit at one stage and run the same ticks (and skip the same idle slots),
+so they issue those collectives in one order; the hop and the output
+carry the whole activation, which every rank of a model group holds.
+
 The hop is ``parallel/collectives.exchange`` (an ``all_to_all_single``
 with zero splits but to the neighbour: gloo takes no CUDA tensors in its
 P2P calls), the commit a ``broadcast`` from the last stage, its transpose
@@ -153,6 +160,10 @@ class _Run:
         self.keep = schedule != "1f1b"
         self.ticks = executor_ticks(p_size, num_micro, schedule)
         self.counts = counts
+        # The backward runs outside the loss's parallel context (and on
+        # the autograd engine's thread): 1f1b's recompute of a stage whose
+        # Megatron layers ask for it takes it from here.
+        self.ctx = parallel_context.current()
 
     def _apply(self, leaves, inp):
         """The stage on ``inp``: the leaves' leading (stage) dim taken."""
@@ -241,7 +252,7 @@ class _Run:
                     inp, y = self.saved.pop(m)
                 else:
                     inp = self.saved.pop(m)
-                    with torch.enable_grad():
+                    with torch.enable_grad(), parallel_context.use(self.ctx):
                         inp.requires_grad_(self.needs_dx)
                         y = self._apply(self.leaves, inp)
                 inputs = ([inp] if self.needs_dx else []) + trainable

@@ -8,8 +8,9 @@ the processes the mesh spans, and it must divide by the data-axis size
 of the fused multi-step dispatch. One process drives one device, so the
 local batch goes to this process's device whole. ``place_params`` puts a
 parameter tree on that device once, at its stored layout (uneven dims
-padded, and a parameter split over the data or the model axis cut to this
-process's piece; ``autodist_tpu/remapper.py:290``); ``fetch`` brings results back
+padded, and a parameter split over the data axis or a piece axis cut to
+this process's piece, over both axes where two split it;
+``autodist_tpu/remapper.py:290``); ``fetch`` brings results back
 through pinned host memory.
 """
 import types
@@ -92,8 +93,8 @@ class Remapper:
     def place_params(self, params, placements=None, copy=False):
         """Place a parameter tree once, at its stored layout: each leaf
         padded where its placement pads it (zeros) and cut to this
-        process's piece where it is split over the data or the model
-        axis.
+        process's piece where it is split over the data axis or over one
+        or two piece axes (``Placement.pieces``).
         ``placements`` overrides the program's ``param_placements()``.
         Serving reads the placed tensors and never writes them; training
         updates its copy in place, so it asks for ``copy=True`` and leaves
@@ -144,9 +145,8 @@ def _place(t, placement, copy):
         widths[2 * (t.dim() - 1 - dim) + 1] = padded - logical
         t = torch.nn.functional.pad(t.detach(), widths)
     pieces = [(d, i, n) for d, i, n in (
-        (placement.dim, placement.index, placement.shards),
-        (placement.model_dim, placement.model_index,
-         placement.model_shards)) if d is not None]
+        ((placement.dim, placement.index, placement.shards),) +
+        tuple(placement.pieces)) if d is not None]
     if pieces:
         for dim, index, shards in pieces:
             size = t.shape[dim] // shards

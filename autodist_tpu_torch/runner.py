@@ -24,15 +24,17 @@ One step, on every rank:
      backward reduce-scatters the gradient, as the VJP of JAX's tiled
      ``all_gather`` does;
    * ``stale``: no reduction; each rank updates its own copy;
-   * ``tp`` (the parameter split over the ``model`` or the ``expert``
-     axis, ``ModelParallel``): the rank stores its piece. A Megatron
-     layer's weight, or an MoE layer's experts, reaches the loss as it is
-     (the layer's collectives make its gradient this piece's); any other
-     is all-gathered over the model (expert) group through
-     :class:`_GatherShards`, whose backward reduce-scatters the gradient
-     and divides it by the group's size (every rank of the group computed
-     the same whole gradient). Either gradient is then averaged over the
-     data group;
+   * ``tp`` (the parameter split over the ``model``, ``expert`` or
+     ``pipe`` axis, or two of them, ``ModelParallel`` / ``Pipeline``):
+     the rank stores its piece. Over each axis that splits it, a Megatron
+     layer's weight, an MoE layer's experts or hidden columns, or a
+     stage's layers reach the loss as they are (the layer's collectives
+     make its gradient this piece's); over any other it is all-gathered
+     over the axis's group through :class:`_GatherShards`, whose backward
+     reduce-scatters the gradient and divides it by the group's size
+     (every rank of the group computed the same whole gradient). The
+     gradient is then averaged over the data group and the shared axes
+     that do not split it;
 
 4. the optimizer step (shard-local for ``zero1`` / ``fsdp``, which assumes
    an optimizer that works element by element, as the JAX Runner does;
@@ -70,24 +72,33 @@ one batch. A rank's gradient is its chunk's part of the gradient of the
 group's summed losses (the ring carries the other chunks' parts back to
 it), so the seq group's mean is the gradient of the mean loss.
 
-The seq axis composes with one piece axis, model or pipe: a rank shares
-its batch rows over every such axis, and one set of rules holds for all:
+The seq axis composes with one piece axis, model or pipe, and two piece
+axes compose with each other (``{pipe, model}``, ``{expert, model}``: a
+variable split over both by a composed partitioner, ``"0:2:pipe,2:2:
+model"``). A rank shares its batch rows over every such axis, and one set
+of rules holds for all:
 
 * an eager step compares the batches of the ranks that share them (one
   all-gather over the group of those axes, ``Mesh.group_over``) and
   raises on a mismatch;
 * the ``ar`` gradients and the loss average over data x seq x the piece
-  axis, each multiplied by S under a pipe axis (the pipe group's sum, with
+  axes, each multiplied by S under a pipe axis (the pipe group's sum, with
   the ``1 / S`` seed kept); the other kinds first take the same mean (the
-  pipe group's sum) over seq x the piece axis before their data-axis
+  pipe group's sum) over seq x the piece axes before their data-axis
   lowering;
-* a piece's gradient (a Megatron weight, a stage's layers) averages over
-  data x seq: its piece group holds the other pieces, not copies;
-* the logical forms gather a piece over its piece group only: no
-  parameter is split over seq.
+* a piece's gradient (a Megatron weight, an MoE layer's experts, a
+  stage's layers) averages over data x seq x the piece axes that do not
+  split it (its piece group holds the other pieces, not copies), times S
+  where pipe does not split it: a stage's layer norm, split over pipe
+  alone, averages over data x model; the embedding split over model
+  alone sums over pipe; an MoE layer's experts split over both average
+  over data;
+* the logical forms gather a piece over the group of each axis that
+  splits it: no parameter is split over seq.
 
-The expert axis composes with nothing and the pipe axis with seq alone
-(``GraphTransformer`` refuses the rest, ROADMAP items A10 (i), (j)).
+The expert axis composes with neither seq nor pipe, and the seq axis with
+one piece axis only (``GraphTransformer`` refuses the rest, ROADMAP items
+A10 (i)-seq, (j)-expert and (k)).
 
 Uneven dims are stored padded (``DistributedProgram.paddings``): the
 compute view cuts the logical rows out and the padded rows take zero
@@ -212,7 +223,6 @@ class Runner:
         placements = program.param_placements()
         self._placements = {path_to_name(p): pl for p, pl in
                             flatten_with_path(placements)[0]}
-        self._buckets = self.bucket_plan()
         # Stale variables by period (s + 1); the step's phase is the step
         # count modulo their lcm.
         self._periods = {name: s.staleness + 1 for name, s in
@@ -222,25 +232,59 @@ class Runner:
         self._shards = weakref.WeakKeyDictionary()  # optimizer -> zero1
         self._graphs = {}  # megastep graphs by block structure and phase
         # The axes whose groups share a rank's batch rows: seq (each rank
-        # its chunk of the sequence) and the piece axis, model, expert or
+        # its chunk of the sequence) and the piece axes, model, expert or
         # pipe (each rank its pieces of the tp variables), alone or
         # together. The gradients of whole parameters and the loss average
-        # over data x all of them; a piece's over data x seq.
+        # over data x all of them; a piece's over data x those that do not
+        # split it.
         self._stages = program.pipe_axis_size  # whole gradients sum over pipe
         self._seq_size = program.seq_axis_size
-        piece_axis = program.piece_axis
-        self._shared_axes = tuple(
-            a for a, on in ((const.MESH_AXIS_SEQ, self._seq_size > 1),
-                            (piece_axis, piece_axis is not None)) if on)
-        self._piece_group = None if piece_axis is None else \
-            self._mesh.group(piece_axis)
+        # {name: ((axis, dim), ...)}: the piece axes that split each tp
+        # variable.
+        self._piece_dims = program.piece_dims()
+        self._shared_axes = ((const.MESH_AXIS_SEQ,) if self._seq_size > 1
+                             else ()) + program.piece_axes
         self._share_group = self._mesh.group_over(self._shared_axes) \
             if self._shared_axes else None
         self._grad_group = self._mesh.group_over(
             (const.MESH_AXIS_DATA,) + self._shared_axes)
-        self._piece_grad_group = self._mesh.group_over(
-            (const.MESH_AXIS_DATA,) + tuple(
-                a for a in self._shared_axes if a != piece_axis))
+        # A piece's gradient averages over data x the shared axes that do
+        # not split it (sums over pipe where pipe does not split it). Every
+        # rank makes the same groups in the same order (``new_group`` is
+        # collective).
+        self._piece_groups = {}
+        for name in sorted(self._piece_dims):
+            axes = self._reduce_axes(name)
+            if axes not in self._piece_groups:
+                self._piece_groups[axes] = self._mesh.group_over(axes)
+        # The group an MoE layer's partial output sums over on {expert,
+        # model} (made here, where every rank makes it).
+        both = (const.MESH_AXIS_EXPERT, const.MESH_AXIS_MODEL)
+        self._moe_group = self._mesh.group_over(both) if set(both) <= set(
+            program.piece_axes) else None
+        self._buckets = self.bucket_plan()
+
+    def _split_axes(self, name):
+        """The piece axes that split variable ``name`` (none: whole)."""
+        return tuple(a for a, _ in self._piece_dims.get(name, ()))
+
+    def _reduce_axes(self, name):
+        """The axes over which variable ``name``'s gradient is reduced:
+        data x the shared axes (seq, the piece axes) that do not split it
+        (a piece group holds the other pieces, not copies)."""
+        split = self._split_axes(name)
+        return (const.MESH_AXIS_DATA,) + tuple(
+            a for a in self._shared_axes if a not in split)
+
+    def _pipe_sum(self, name):
+        """The factor that turns variable ``name``'s mean over its reduce
+        group into the pipe group's sum: S under a pipe axis of S ranks
+        that does not split it (every rank's backward was seeded 1 / S),
+        else 1."""
+        if self._stages > 1 and \
+                const.MESH_AXIS_PIPELINE not in self._split_axes(name):
+            return self._stages
+        return 1
 
     @staticmethod
     def _mask_non_trainable(item):
@@ -266,16 +310,17 @@ class Runner:
     def bucket_plan(self):
         """The all-reduces of one step's ``ar`` and ``tp`` gradients (a
         ``tp`` gradient is its piece's), in order: lists of variable names.
-        Fusable synchronizers of one fusion group, dtype and kind share a
-        bucket (one collective); the others reduce alone. ``zero1`` /
-        ``fsdp`` / ``stale`` variables take no all-reduce."""
+        Fusable synchronizers of one fusion group, dtype, kind and reduce
+        group share a bucket (one collective); the others reduce alone.
+        ``zero1`` / ``fsdp`` / ``stale`` variables take no all-reduce."""
         buckets, keyed = [], {}
         for name, sync in self._program.synchronizers.items():
             kind = self._kinds[name][0]
             if kind not in ("ar", "tp"):
                 continue
             if getattr(sync, "fusable", False):
-                key = (sync.group, sync.var.dtype, kind)
+                key = (sync.group, sync.var.dtype, kind,
+                       self._reduce_axes(name))
                 if key not in keyed:
                     keyed[key] = []
                     buckets.append(keyed[key])
@@ -349,13 +394,14 @@ class Runner:
 
     def _gather_piece(self, name, t):
         """``t``, shaped like variable ``name``'s update tensor, gathered
-        whole: over the data group for ``zero1`` / ``fsdp``, over the
-        model (expert) group for ``tp``; as it is otherwise."""
+        whole: over the data group for ``zero1`` / ``fsdp``, over the group
+        of each piece axis that splits it for ``tp``; as it is
+        otherwise."""
         kind, dim = self._kind(name)
         if kind in ("zero1", "fsdp") and self._mesh.group() is not None:
             return _all_gather(t, dim, self._mesh.group())
-        if kind == "tp":
-            return _all_gather(t, dim, self._piece_group)
+        for axis, d in self._piece_dims.get(name, ()):
+            t = _all_gather(t, d, self._mesh.group(axis))
         return t
 
     def _cut_padding(self, name, t):
@@ -510,9 +556,10 @@ class Runner:
     def _compute_view(self, params):
         """The params the loss sees: ``fsdp`` pieces all-gathered over the
         data group (through :class:`_GatherShards`, so their gradients
-        reduce-scatter); ``tp`` pieces as they are where the parallel
-        context says they reach a Megatron or an MoE layer, else
-        all-gathered over the model (expert) group, their gradients
+        reduce-scatter); a ``tp`` piece as it is over each piece axis on
+        which the parallel context says it reaches a Megatron layer, an MoE
+        layer or a pipeline stage as its piece, and all-gathered over the
+        group of any other axis that splits it, its gradient
         reduce-scattered and divided by the group's size; padding cut
         off."""
         group = self._mesh.group()
@@ -523,12 +570,12 @@ class Runner:
             kind, dim = self._kind(name)
             if kind == "fsdp":
                 t = _GatherShards.apply(t, dim, group)
-            elif kind == "tp" and not ctx.arrives_as_piece(name):
-                t = _GatherShards.apply(
-                    t, dim, self._piece_group,
-                    self._mesh.shape[self._program.piece_axis])
+            for axis, d in self._piece_dims.get(name, ()):
+                if not ctx.arrives_as_piece(name, axis):
+                    t = _GatherShards.apply(t, d, self._mesh.group(axis),
+                                            self._mesh.shape[axis])
             t = self._cut_padding(name, t)
-            if kind == "tp" and self._stages > 1:
+            if const.MESH_AXIS_PIPELINE in self._split_axes(name):
                 ctx.mark_stage(t)  # this rank's stage (scan_blocks asks)
             return t
         return tree_map_with_path(view, params)
@@ -537,40 +584,43 @@ class Runner:
         """Reduce ``grads`` ({name: gradient of the stored leaf}) over the
         data group, by kind; a ``zero1`` gradient is replaced by this
         rank's shard of the mean. Under shared axes (seq, model, expert,
-        pipe: the module docstring's rules) the ``ar`` buckets reduce over
-        data x those axes, a ``tp`` piece's over data x seq, and the
-        ``zero1`` / ``fsdp`` / ``stale`` kinds first take their mean over
-        the shared axes; under a pipe axis of S ranks the whole gradients
-        (seeded with 1 / S) are summed over the pipe group instead: the
-        ``ar`` buckets' mean times S, the other kinds' sum over the pipe
-        group. Averaging a whole parameter's gradient over its model group
-        keeps the ranks' copies bitwise equal: on the card each rank's
-        gradient differs from the others' in the last bits (scatter-add
-        atomics). A one-device local mesh (no process group) has nothing
-        to reduce."""
+        pipe: the module docstring's rules) an ``ar`` bucket reduces over
+        data x those axes, a ``tp`` piece's over data x the shared axes
+        that do not split it, and the ``zero1`` / ``fsdp`` / ``stale``
+        kinds first take their mean over the shared axes; under a pipe
+        axis of S ranks the gradients that pipe does not split (seeded with
+        1 / S) are summed over the pipe group instead: the bucket's mean
+        times S, the other kinds' sum over the pipe group. Averaging a
+        whole parameter's gradient over its model group keeps the ranks'
+        copies bitwise equal: on the card each rank's gradient differs from
+        the others' in the last bits (scatter-add atomics). A one-device
+        local mesh (no process group) has nothing to reduce."""
         group = self._mesh.group()
         if group is None:
             return
         syncs = self._program.synchronizers
         for bucket in self._buckets:
-            piece = self._kinds[bucket[0]][0] == "tp"
-            over = self._piece_grad_group if piece else self._grad_group
+            first = bucket[0]
+            over = self._grad_group if self._kinds[first][0] == "ar" else \
+                self._piece_groups[self._reduce_axes(first)]
             if len(bucket) > 1:
                 reduce_bucket([grads[n] for n in bucket], over)
             else:
-                syncs[bucket[0]].sync_gradient(grads[bucket[0]], over)
-            if self._stages > 1 and not piece:
-                # The mean over data x pipe (x seq), times S: the pipe
-                # group's sum.
+                syncs[first].sync_gradient(grads[first], over)
+            if self._pipe_sum(first) > 1:
+                # The mean over data x pipe (x the other shared axes),
+                # times S: the pipe group's sum.
                 for name in bucket:
                     grads[name].mul_(self._stages)
         n = self._program.data_axis_size
         for name, (kind, dim) in self._kinds.items():
             if kind not in ("ar", "tp") and self._share_group is not None:
-                if self._stages > 1:  # the sum over pipe, the mean over seq
+                if self._stages > 1:  # pipe's sum, the others' mean
                     dist.all_reduce(grads[name], group=self._share_group)
-                    if self._seq_size > 1:
-                        grads[name].div_(self._seq_size)
+                    rest = dist.get_world_size(self._share_group) // \
+                        self._stages
+                    if rest > 1:
+                        grads[name].div_(rest)
                 else:
                     all_reduce_mean_(grads[name], self._share_group)
             if kind == "zero1":
@@ -593,8 +643,8 @@ class Runner:
         """The process groups a step's collectives run over: each mesh
         axis's and the gradient groups (none on a local mesh)."""
         groups = [self._mesh.group(a) for a in self._mesh.axis_names]
-        groups += [self._share_group, self._grad_group,
-                   self._piece_grad_group]
+        groups += [self._share_group, self._grad_group]
+        groups += list(self._piece_groups.values()) + [self._moe_group]
         out = []
         for g in groups:
             if g is not None and all(g is not h for h in out):

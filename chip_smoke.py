@@ -254,10 +254,29 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    stored bytes, peak memory per schedule, step ms, the seq and pipe
    hops' and the output broadcast's ms; (c) the hop functions at this
    ring's diagonal and visible hops against their plain versions, timed;
-16. output: one ``{"kernels": [...]}`` JSON line, then the last line
+17. two piece axes (a variable split over two mesh axes, from a fixed
+   builder, ``TwoAxis``: no builder composes them): (a) phase 13's LM
+   and batch on four gloo ranks under ``Pipeline(2, 4)`` with every
+   stacked Megatron weight and the embedding split over ``model`` too
+   (``{data: 1, pipe: 2, model: 2}``: 8 layers, 8 heads and 2048 MLP
+   columns a rank) under ``shift`` and ``1f1b``, held to phase 13's
+   one-rank steps between its floor and two planted faults (the
+   copy-to-model backward without its all-reduce; the gradients pipe
+   does not split averaged over pipe instead of summed), ``1f1b``
+   bitwise ``shift``, 32 flash launches of each kernel a rank and step
+   (64 forwards under ``1f1b``); (b) phase 12's MoE layer with ``up`` /
+   ``down`` split over ``expert`` and ``model`` (4 experts x 1536 columns
+   a rank), held to phase 12's one-rank steps between its floor and the
+   fault (the partial output summed over the expert group alone), the
+   expert FFN timed at a rank's shape; each prints stored bytes, peak
+   memory, step ms and its groups' collective ms; (c) the flash kernels
+   at (a)'s rank shape (b2 h8 s1024 d64, causal) against their plain
+   versions, timed beside SDPA and the bound; (d) (a)'s checkpoint
+   restores on one rank bitwise;
+18. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-On four cards, ``python3 chip_smoke.py --cards 4 [--part a|b|c]`` runs
+On four cards, ``python3 chip_smoke.py --cards 4 [--part a|b|c|d]`` runs
 the four-card phase alone instead (it refuses to run on fewer cards): the
 kernels built once; each run's one-rank reference, its floor (the
 reference again) and its planted fault (twice the learning rate: a
@@ -278,7 +297,9 @@ graph steps; (b) lm1b width on ``{seq: 4}`` (ring and Ulysses, 2 x
 2}`` (AllReduce: global routing; PS: per shard), lm1b uncut under
 ``Pipeline(4, 8)`` on ``{pipe: 4}``; (c) BERT-base under
 ``ModelParallel(SequenceParallel("ring", 2), 2)`` and lm1b under
-``SequenceParallel("ring", 2, base=Pipeline(2, 4))``. Each run: losses
+``SequenceParallel("ring", 2, base=Pipeline(2, 4))``; (d) phase 17's
+two runs, lm1b on ``{pipe: 2, model: 2}`` and the MoE layer on
+``{expert: 2, model: 2}``. Each run: losses
 and the whole update held to its reference, the graph step to the eager
 one, the ranks' losses and replicated params bitwise equal, one strategy
 shipped to all, the launches a rank and step as counted from the code
@@ -3994,12 +4015,14 @@ def sp_phase(torch, fa, card, device, vocab=32000, dim=1024, heads=16,
 # Phase 11: tensor parallelism.
 
 def tp_kernel_phase(torch, fa, shape=TP_SHAPE, key="tp", label="(b)",
-                    who="a TP rank's heads"):
+                    who="a TP rank's heads", causal=False):
     """Phase 11 (b): the three flash kernels at a tensor-parallel rank's
     attention shape (``TP_SHAPE``: BERT-base's 12 heads over a model axis
-    of 2; phase 14 (c) gives Ulysses' shape under TP) against their plain
-    versions on the same inputs (the training path's calls: f32 and bf16 o
-    from one forward launch, bf16 gradients), then timed beside the plain versions, SDPA and the bound. Returns
+    of 2; phase 14 (c) gives Ulysses' shape under TP, phase 17 (c) a PP x
+    TP rank's, ``causal``) against their plain versions on the same inputs
+    (the training path's calls: f32 and bf16 o from one forward launch,
+    bf16 gradients), then timed beside the plain versions, SDPA and the
+    bound (under ``causal`` the visible (q, k) pairs only). Returns
     {kernel name: fields for its record, prefixed ``key``}."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -4007,8 +4030,9 @@ def tp_kernel_phase(torch, fa, shape=TP_SHAPE, key="tp", label="(b)",
     bf16, f32 = torch.bfloat16, torch.float32
     q, k, v, do = [torch.randn((b, h, s, d), generator=gen, device=dev,
                                dtype=bf16) for s in (sq, sk, sk, sq)]
-    o, lse, o_low = fa.flash_fwd(q, k, v, out_dtype=f32, with_lowp=True)
-    ro, rl = fa.flash_fwd_reference(q, k, v, out_dtype=f32)
+    o, lse, o_low = fa.flash_fwd(q, k, v, causal, out_dtype=f32,
+                                 with_lowp=True)
+    ro, rl = fa.flash_fwd_reference(q, k, v, causal, out_dtype=f32)
     errs = {"flash_fwd": float((o - ro).abs().max())}
     check(errs["flash_fwd"] <= O_F32_ATOL and
           float((lse - rl).abs().max()) <= LSE_ATOL and
@@ -4016,15 +4040,15 @@ def tp_kernel_phase(torch, fa, shape=TP_SHAPE, key="tp", label="(b)",
           f"flash_fwd at {shape}: o off by {errs['flash_fwd']}")
     delta = (do.float() * o).sum(-1, keepdim=True)
     args = (q, k, v, do, lse, delta)
-    ref = fa.flash_bwd_reference(*args)
+    ref = fa.flash_bwd_reference(*args, causal)
     # f32 gradients against the plain version (phase 2's tolerances); the
     # training path's bf16 gradients bitwise those cast.
     for name, f32_out, bf16_out, want, tols in (
-            ("flash_bwd_dq", (fa.flash_bwd_dq(*args),),
-             (fa.flash_bwd_dq(*args, out_dtype=bf16),), ref[:1],
+            ("flash_bwd_dq", (fa.flash_bwd_dq(*args, causal),),
+             (fa.flash_bwd_dq(*args, causal, out_dtype=bf16),), ref[:1],
              (BWD_REL_DQDK_BF16,)),
-            ("flash_bwd_dkv", fa.flash_bwd_dkv(*args),
-             fa.flash_bwd_dkv(*args, out_dtype=bf16), ref[1:],
+            ("flash_bwd_dkv", fa.flash_bwd_dkv(*args, causal),
+             fa.flash_bwd_dkv(*args, causal, out_dtype=bf16), ref[1:],
              (BWD_REL_DQDK_BF16, BWD_REL_DV_BF16))):
         errs[name] = 0.0
         for g, low, w, t in zip(f32_out, bf16_out, want, tols):
@@ -4034,27 +4058,31 @@ def tp_kernel_phase(torch, fa, shape=TP_SHAPE, key="tp", label="(b)",
                   torch.equal(low, g.to(bf16)),
                   f"{name} at {shape}: off by {err}, or its bf16 "
                   f"gradients are not its f32 ones cast")
-    pairs = float(b * h * sq * sk * d)
+    # The visible (q, k) pairs: under causal (sq == sk) the lower triangle.
+    pairs = float(b * h * d) * (sq * (sq + 1) / 2 if causal else sq * sk)
     ins = sum(x.numel() * x.element_size() for x in args)
     fwd_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, o, lse,
                                                           o_low))
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    sdpa_out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=causal)
     runs = {
         "flash_fwd": (
-            lambda: fa.flash_fwd(q, k, v, out_dtype=f32, with_lowp=True),
-            lambda: fa.flash_fwd_reference(q, k, v, out_dtype=f32),
-            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+            lambda: fa.flash_fwd(q, k, v, causal, out_dtype=f32,
+                                 with_lowp=True),
+            lambda: fa.flash_fwd_reference(q, k, v, causal, out_dtype=f32),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal),
             bound(4 * pairs, fwd_bytes), "the forward"),
         "flash_bwd_dq": (
-            lambda: fa.flash_bwd_dq(*args, out_dtype=bf16),
-            lambda: fa.flash_bwd_reference(*args),
+            lambda: fa.flash_bwd_dq(*args, causal, out_dtype=bf16),
+            lambda: fa.flash_bwd_reference(*args, causal),
             lambda: torch.autograd.grad(sdpa_out, leaves, do,
                                         retain_graph=True),
             bound(6 * pairs, ins + q.numel() * 2), "dq, dk and dv together"),
         "flash_bwd_dkv": (
-            lambda: fa.flash_bwd_dkv(*args, out_dtype=bf16),
-            lambda: fa.flash_bwd_reference(*args),
+            lambda: fa.flash_bwd_dkv(*args, causal, out_dtype=bf16),
+            lambda: fa.flash_bwd_reference(*args, causal),
             lambda: torch.autograd.grad(sdpa_out, leaves, do,
                                         retain_graph=True),
             bound(8 * pairs, ins + 2 * k.numel() * 2),
@@ -4417,17 +4445,18 @@ def update_errors(torch, got, ref, init):
 
 def _bmm_recorder(torch):
     """A dispatch mode recording every bmm's leading (expert) dim in its
-    ``lead`` list."""
+    ``lead`` list and its second operand's shape in ``shapes``."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Record(TorchDispatchMode):
         def __init__(self):
             super().__init__()
-            self.lead = []
+            self.lead, self.shapes = [], []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if func is torch.ops.aten.bmm.default:
                 self.lead.append(int(args[0].shape[0]))
+                self.shapes.append(list(args[1].shape))
             return func(*args, **(kwargs or {}))
     return Record()
 
@@ -4439,7 +4468,7 @@ def _ep_train(torch, fa, cfg, device, builder, params, batch, steps,
     ``make_callable(aot=True)``: the losses, host ms per step, flash
     launches over the steps, peak device memory, the runner, the state, the
     step function, the item's ``flops_estimate`` and, with ``record``, the
-    leading dims of step 1's bmms."""
+    leading dims of step 1's bmms and their weights' shapes."""
     from autodist_tpu_torch import AutoDist
     from autodist_tpu_torch import autodist as autodist_mod
     autodist_mod._reset_default()
@@ -4454,7 +4483,7 @@ def _ep_train(torch, fa, cfg, device, builder, params, batch, steps,
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     _flash_counts(fa, reset=True)  # this run's main path
-    losses, times, lead = [], [], []
+    losses, times, lead, shapes = [], [], [], []
     for i in range(steps):
         rec = _bmm_recorder(torch) if record and i == 0 else \
             contextlib.nullcontext()
@@ -4462,14 +4491,14 @@ def _ep_train(torch, fa, cfg, device, builder, params, batch, steps,
             (state, m), ms = _timed(torch, device, lambda: step_fn(
                 state, dbatch))
         if record and i == 0:
-            lead = rec.lead
+            lead, shapes = rec.lead, rec.shapes
         losses.append(float(m["loss"]))
         times.append(ms)
     return types.SimpleNamespace(
         losses=losses, times=times, launches=_flash_counts(fa),
         peak=torch.cuda.max_memory_allocated() if device == "cuda" else 0,
         runner=runner, state=state, step_fn=step_fn,
-        flops=item.flops_estimate(), lead=lead)
+        flops=item.flops_estimate(), lead=lead, shapes=shapes)
 
 
 def ep_train_rank(rank, world, port, spec):
@@ -4582,29 +4611,30 @@ def ep_train_rank(rank, world, port, spec):
     return 0
 
 
-def ep_ffn_timing(torch, card, cfg, tokens, ep):
+def ep_ffn_timing(torch, card, cfg, tokens, ep, model=1):
     """Prints the expert FFN's time (the two bmms and the GELU between
     them) on the card at its buffers' shapes: all E experts (one rank)
-    and E/ep (an expert-parallel rank), bf16, device ms against the bound
-    of its operations."""
+    and E/ep with h/``model`` hidden columns each (an expert-parallel
+    rank, over a model axis too where ``model`` > 1), bf16, device ms
+    against the bound of its operations."""
     import math
     import torch.nn.functional as F
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
     cap = min(tokens, max(1, math.ceil(tokens * cfg.top_k / cfg.num_experts *
                                        cfg.capacity_factor)))
-    for e in (cfg.num_experts, cfg.num_experts // ep):
+    for e, h in ((cfg.num_experts, cfg.d_hidden),
+                 (cfg.num_experts // ep, cfg.d_hidden // model)):
         buf, up, down = [torch.randn(shape, generator=gen, device=dev,
                                      dtype=torch.bfloat16) for shape in (
-            (e, cap, cfg.d_model), (e, cfg.d_model, cfg.d_hidden),
-            (e, cfg.d_hidden, cfg.d_model))]
+            (e, cap, cfg.d_model), (e, cfg.d_model, h), (e, h, cfg.d_model))]
         t = timed(torch, lambda: torch.bmm(F.gelu(torch.bmm(
             buf, up), approximate="tanh"), down))
-        flops = 2 * 2.0 * e * cap * cfg.d_model * cfg.d_hidden
+        flops = 2 * 2.0 * e * cap * cfg.d_model * h
         nbytes = 2 * (buf.numel() * 2 + up.numel() + down.numel())
         bnd = bound(flops, nbytes)
         print(f"  (c) expert FFN of {e} experts (buffer {e} x {cap} x "
-              f"{cfg.d_model}, h {cfg.d_hidden}, bf16): device ms "
+              f"{cfg.d_model}, h {h}, bf16): device ms "
               f"{t['ms']:.4f}, host-inclusive {t['host_ms']:.4f}; "
               f"{flops / 1e9:.1f} GFLOP, bound {bnd[0]:.4f} ms ({bnd[1]}); "
               f"bound / device {bnd[0] / t['ms']:.3f}; on {card}",
@@ -4612,7 +4642,7 @@ def ep_ffn_timing(torch, card, cfg, tokens, ep):
 
 
 def ep_phase(torch, fa, card, device, widths=None, batch_size=EP_BATCH,
-             seq=EP_SEQ, steps=EP_STEPS):
+             seq=EP_SEQ, steps=EP_STEPS, share=None):
     """Phase 12: (a) one rank trains the MoE model eagerly, again, and
     through make_callable(aot=True); (b) ``EP_WORLD`` gloo ranks (processes
     of this script) on the one card train it under
@@ -4624,7 +4654,10 @@ def ep_phase(torch, fa, card, device, widths=None, batch_size=EP_BATCH,
     E/ep experts; (c) memory, step and expert FFN times; (d) the AllReduce
     run's checkpoint restores into one rank bitwise and its forward gives
     the EP step's loss; (e) the phase's seconds. Returns {path: flash
-    launches} (none: the path has no attention)."""
+    launches} (none: the path has no attention). ``share`` ({"dir": a
+    directory}) receives the one-rank reference for phase 17:
+    ``share["ep_reference"]`` = (losses, (floor loss, floor update), path
+    of the final params)."""
     import tempfile
     from autodist_tpu_torch import AutoDist
     from autodist_tpu_torch import autodist as autodist_mod
@@ -4705,6 +4738,11 @@ def ep_phase(torch, fa, card, device, widths=None, batch_size=EP_BATCH,
     ref_path = os.path.join(tmp.name, "ref.pt")
     ckpt = os.path.join(tmp.name, "ep_ckpt")
     torch.save(ref_final, ref_path)
+    if share is not None:
+        shutil.copy(ref_path, os.path.join(share["dir"], "ep_ref.pt"))
+        share["ep_reference"] = (ref_losses, (floor["loss"],
+                                              floor["update"]),
+                                 os.path.join(share["dir"], "ep_ref.pt"))
     spec = json.dumps({"device": device, "widths": widths, "seq": seq,
                        "batch": batch_size, "steps": steps, "ref": ref_path,
                        "ckpt": ckpt})
@@ -5674,6 +5712,479 @@ def composed_pipeline_phase(torch, fa, card, device, reference,
 
 
 
+# Phase 17: one variable split over two mesh axes. Neither the port's
+# builders nor the JAX package's compose such a split (a builder's rules
+# replace a node's partitioner), so the phase runs it from a fixed builder,
+# :class:`TwoAxis`, as tests/test_torch_two_axis.py does. (a) Phase 13's LM
+# (lm1b uncut, stacked, bf16) and batch on four gloo ranks under
+# Pipeline(2, PP_MICRO) with every stacked Megatron weight also split over
+# model on its rule's dim + 1 and the embedding on its hidden dim
+# ({data: 1, pipe: 2, model: 2}: 8 layers, 8 heads and 2048 MLP columns a
+# rank), under shift and 1f1b, and shift with each fault of PPTP_FAULTS
+# (the copy-to-model backward without its all-reduce; the gradients that
+# pipe does not split averaged over the pipe group instead of summed):
+# held to phase 13's one-rank steps at PPTP_LOSS_RTOL / PPTP_UPDATE_RTOL,
+# each between the one-rank floor and the faults' least reading, 1f1b
+# bitwise shift. (b) Phase 12's MoE layer with up split
+# "0:2:expert,2:2:model" and down "0:2:expert,1:2:model" ({data: 1,
+# expert: 2, model: 2}: 4 experts x 1536 columns a rank), held to phase
+# 12's one-rank steps at EPTP_LOSS_RTOL / EPTP_UPDATE_RTOL (each param's
+# update) between the floor and the fault of EPTP_FAULTS (the partial
+# output summed over the expert group alone). A rank's partial expert
+# products are rounded to bf16 before the f32 sum over the model group,
+# where one rank rounds the whole product once, hence EP x TP's own
+# tolerances. Read on an H100 80GB HBM3 (700 W): floors 0 / 0 (both
+# one-rank steps bitwise repeatable); (a) 4.5e-6 (loss) / 7.7e-3 (update),
+# faults no_copy 7.9e-3 / 0.76, pipe_mean 2.4e-3 / 0.31; (b) 8.4e-6 /
+# 1.4e-3 (the up kernel), fault 7.7e-3 / 0.50.
+PPTP_SCHEDULES = ("shift", "1f1b")
+PPTP_FAULTS = ("no_copy", "pipe_mean")
+PPTP_LOSS_RTOL, PPTP_UPDATE_RTOL = 1e-4, 5e-2
+EPTP_FAULTS = ("expert_only",)
+EPTP_LOSS_RTOL, EPTP_UPDATE_RTOL = 1e-4, 1e-2
+# (a)'s attention on a rank: a microbatch of PP_BATCH / PP_MICRO rows, 8 of
+# lm1b's 16 heads, causal over PP_SEQ.
+PPTP_SHAPE = (PP_BATCH // PP_MICRO, 8, PP_SEQ, PP_SEQ, 64)
+# The stacked Megatron weights over model on their rule's dim + 1 (dim 0
+# holds the layers) and the embedding on its hidden dim; each expert's FFN
+# over model on up's hidden columns and down's rows.
+PPTP_RULES = (
+    (r"attn/(query|key|value)/kernel$", 2),
+    (r"attn/(query|key|value)/bias$", 1), (r"attn/out/kernel$", 1),
+    (r"mlp/up/kernel$", 2), (r"mlp/up/bias$", 1), (r"mlp/down/kernel$", 1),
+    (r"embed/embedding$", 1))
+EPTP_RULES = ((r"moe/up/kernel$", 2), (r"moe/down/kernel$", 1))
+
+
+class TwoAxis:
+    """A fixed strategy builder: ``base``'s strategy with the mesh axis
+    ``axis`` of ``size`` carved out of ``data``, and each variable that a
+    rule of ``rules`` ((regex, dim), the first match deciding) names also
+    split over it on that dim: its partitioner gains the entry
+    "dim:size:axis" after its own, automap's composed form."""
+
+    def __init__(self, base, axis, size, rules):
+        self.base, self.axis, self.size, self.rules = base, axis, size, rules
+
+    def build(self, item, spec):
+        from autodist_tpu_torch.strategy.base import carve_mesh_axis
+        s = self.base.build(item, spec)
+        carve_mesh_axis(s, spec, self.axis, self.size)
+        for node in s.node_config:
+            for pat, dim in self.rules:
+                if re.search(pat, node.var_name):
+                    entry = f"{dim}:{self.size}:{self.axis}"
+                    node.partitioner = (f"{node.partitioner},{entry}"
+                                        if node.partitioner else entry)
+                    break
+        return s
+
+
+def pp_tp_builder(S, micro=PP_MICRO):
+    """Pipeline(2, ``micro``) with the stacked Megatron weights split over
+    model too: {data, pipe: 2, model: 2}."""
+    return TwoAxis(S.Pipeline(num_stages=2, num_microbatches=micro),
+                   "model", 2, PPTP_RULES)
+
+
+def ep_tp_builder(S, moe):
+    """ModelParallel over expert with each expert's FFN split over model
+    too: {data, expert: 2, model: 2}."""
+    return TwoAxis(S.ModelParallel(S.AllReduce(), model_axis=2,
+                                   rules=moe.EXPERT_RULES,
+                                   mesh_axis="expert"),
+                   "model", 2, EPTP_RULES)
+
+
+def ta_train_rank(rank, world, port, spec):
+    """One rank of :func:`two_axis_phase`: a gloo world over ``localhost``
+    on device 0; the stacked LM (``spec["model"] == "lm"``) under
+    :func:`pp_tp_builder` or the MoE model under :func:`ep_tp_builder`
+    trains each run of ``spec["runs"]`` ([key, fault, schedule]) from the
+    seeded init, with its fault patched in. Prints {run: losses, launches,
+    ms, mesh, place, schedule, update error against the reference (the
+    LM's whole update; each MoE param's), digests of the whole params, of
+    the pieces and of the pipe-only pieces, stored and whole bytes, peak
+    memory, (MoE) step 1's expert bmms' weight shapes}, the first run's
+    logical digest per leaf and next loss (the LM's, after its checkpoint
+    is saved into ``spec["ckpt"]``), and the groups' collective ms."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.models import layers, lm
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.ops import build
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.parallel import context, moe
+    from autodist_tpu_torch.parallel.collectives import exchange
+    spec = json.loads(spec)
+    device = spec["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build.load_all()  # built by the parent: the same sources and flags
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    is_lm = spec["model"] == "lm"
+    if is_lm:
+        cfg = T.TransformerConfig(**dict(spec["config"], dtype=getattr(
+            torch, spec["dtype"])))
+        params, init = _lm_init(torch, cfg, device)
+        batch = (sp_tokens(cfg, spec["batch"], spec["seq"]).to(device),)
+        builder = pp_tp_builder(S, spec["micro"])
+    else:
+        cfg = ep_config(torch, **spec["config"])
+        params = ep_init(torch, cfg, device)
+        init = {n: t.detach().clone()
+                for n, t in flatten_params(params).items()}
+        batch = ep_batch(torch, cfg, spec["batch"], spec["seq"], device)
+        builder = ep_tp_builder(S, moe)
+    ref = torch.load(spec["ref"], map_location=device)
+    patches = {"no_copy": (layers._CopyToModel, "backward", staticmethod(
+                   lambda ctx, grad: (grad, None))),
+               "expert_only": (context.ParallelContext, "group_over",
+                               lambda self, axes: self.expert_group)}
+    prepares = {"pipe_mean": lambda r: setattr(r, "_pipe_sum",
+                                               lambda name: 1)}
+    out = {"rank": rank}
+    for key, fault, sched in spec["runs"]:
+        patch = patches.get(fault)
+        if patch is not None:
+            real = patch[0].__dict__[patch[1]]
+            setattr(patch[0], patch[1], patch[2])
+        os.environ["AUTODIST_PIPELINE_SCHEDULE"] = sched
+        try:
+            if is_lm:
+                run = _train(torch, fa, device, builder, lm.make_loss_fn(cfg),
+                             params, batch, spec["steps"], spec["lr"],
+                             prepare=prepares.get(fault))
+            else:
+                run = _ep_train(torch, fa, cfg, device, builder, params,
+                                batch, spec["steps"], record=True)
+        finally:
+            if patch is not None:
+                setattr(patch[0], patch[1], real)
+            del os.environ["AUTODIST_PIPELINE_SCHEDULE"]
+        runner = run.runner
+        kinds = runner.var_kinds
+        final = flatten_params(runner.logical_params(run.state))
+        stored = flatten_params(run.state.params)
+        mesh = runner.program.mesh
+        dims = runner.program.piece_dims()
+        out[key] = {
+            "losses": run.losses, "launches": run.launches, "ms": run.times,
+            "mesh": dict(mesh.shape),
+            "place": {a: mesh.axis_index(a) for a in mesh.axis_names},
+            "schedule": runner.program.parallel_context().pipeline_schedule,
+            "update_error": update_error(torch, final, ref, init) if is_lm
+            else max(update_errors(torch, final, ref, init).values()),
+            "whole": _digest(torch, (t for n, t in sorted(stored.items())
+                                     if n not in dims)),
+            "pieces": _digest(torch, (t for n, t in sorted(stored.items())
+                                      if n in dims)),
+            "one_axis": {a: _digest(torch, (
+                t for n, t in sorted(stored.items())
+                if tuple(x for x, _ in dims.get(n, ())) == (a,)))
+                for a in runner.program.piece_axes if any(
+                    tuple(x for x, _ in p) == (a,) for p in dims.values())},
+            "two_axes": sorted(n for n, p in dims.items() if len(p) == 2),
+            "stored_bytes": sum(t.numel() * t.element_size()
+                                for t in stored.values()),
+            "whole_bytes": sum(t.numel() * t.element_size()
+                               for t in final.values()),
+            "peak_bytes": run.peak,
+            "bmm": [] if is_lm else run.shapes}
+        if "logical" not in out:
+            out["logical"] = {n: _digest(torch, [t]) for n, t in
+                              final.items()}
+            if is_lm:
+                mgr = CheckpointManager(runner, spec["ckpt"])
+                mgr.save(spec["steps"], run.state, force=True)
+                mgr.wait_until_finished()
+                mgr.close()
+                run.state, m = run.step(run.state, run.batch)
+            else:
+                _, m = run.step_fn(run.state, runner.remapper.shard_batch(
+                    batch))
+            out["next_loss"] = float(m["loss"])
+            out["collectives"] = _ta_collectives(torch, dist, exchange, cfg,
+                                                 spec, mesh, device, is_lm)
+        del run, runner, final, stored
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _ta_collectives(torch, dist, exchange, cfg, spec, mesh, device, is_lm):
+    """Host-inclusive ms and bytes of one rank's collectives on ``mesh``
+    (every rank calls them): the LM's model all-reduce of a microbatch's
+    activation, pipe hop of it and output broadcast; the MoE's all-reduce
+    of the (T, d) f32 partial output over the expert x model group."""
+    out = {}
+    if not is_lm:
+        part = torch.zeros((spec["batch"] * spec["seq"], cfg.d_model),
+                           device=device)
+        group = mesh.group_over(("expert", "model"))
+        out["expert_model_all_reduce"] = (_collective_ms(
+            torch, device, lambda: dist.all_reduce(part, group=group)),
+            part.numel() * part.element_size())
+        return out
+    act = torch.zeros((spec["batch"] // spec["micro"], spec["seq"], cfg.dim),
+                      dtype=cfg.dtype, device=device)
+    group = mesh.group("model")
+    out["model_all_reduce"] = (_collective_ms(
+        torch, device, lambda: dist.all_reduce(act, group=group)),
+        act.numel() * act.element_size())
+    group, me = mesh.group("pipe"), mesh.axis_index("pipe")
+    recv = torch.empty_like(act)
+    out["pipe_hop"] = (_collective_ms(torch, device, lambda: exchange(
+        act, recv, group, dst=1 if me == 0 else None,
+        src=0 if me == 1 else None)), act.numel() * act.element_size())
+    outs = torch.zeros((spec["batch"], spec["seq"], cfg.dim),
+                       dtype=cfg.dtype, device=device)
+    out["pipe_broadcast"] = (_collective_ms(
+        torch, device, lambda: dist.broadcast(
+            outs, src=dist.get_global_rank(group, 1), group=group)),
+        outs.numel() * outs.element_size())
+    return out
+
+
+def _ta_report(card, label, runs, ref_losses, want_mesh, steps):
+    """Print one two-axis run of every rank and check what every such run
+    must show: the ranks' losses equal, the whole params bitwise equal,
+    the pieces one per rank, each one-axis piece equal across the ranks
+    that hold it, the mesh. Returns (loss reading, update reading)."""
+    r0 = runs[0]
+    rel = _rel(r0["losses"], ref_losses)
+    err = max(r["update_error"] for r in runs)
+    print(f"  {label} (mesh {r0['mesh']}): losses "
+          f"{', '.join(f'{x:.6f}' for x in r0['losses'])}; max rel. diff vs "
+          f"one rank {rel:.3e}; largest update error over the ranks "
+          f"{err:.3e}; whole params bitwise equal on every rank: "
+          f"{len({r['whole'] for r in runs}) == 1}; leaves split over two "
+          f"axes {len(r0['two_axes'])}; launches per rank and step "
+          f"{({k: v / steps for k, v in r0['launches'].items()})}",
+          flush=True)
+    for i, r in enumerate(runs):
+        print(f"    rank {i} {r['place']}: stores {r['stored_bytes']} of "
+              f"{r['whole_bytes']} parameter bytes "
+              f"({100 * r['stored_bytes'] / r['whole_bytes']:.1f}%); peak "
+              f"memory {r['peak_bytes'] / 2**30:.2f} GiB; ms per step "
+              f"(host-inclusive) {', '.join(f'{x:.1f}' for x in r['ms'])}; "
+              f"on {card}", flush=True)
+    check(all(r["losses"] == r0["losses"] for r in runs),
+          f"{label}: the ranks' losses differ")
+    check(len({r["whole"] for r in runs}) == 1,
+          f"{label}: the whole params differ across the ranks")
+    check(len({r["pieces"] for r in runs}) == len(runs),
+          f"{label}: two ranks hold the same pieces")
+    check(all(r["mesh"] == want_mesh for r in runs),
+          f"{label}: mesh {r0['mesh']}, expected {want_mesh}")
+    check(r0["two_axes"] and all(r["two_axes"] == r0["two_axes"]
+                                 for r in runs),
+          f"{label}: leaves split over two axes {r0['two_axes']}")
+    for axis in r0["one_axis"]:
+        # A leaf split over this axis alone: one copy a place on it.
+        by = {}
+        for r in runs:
+            by.setdefault(r["place"][axis], set()).add(r["one_axis"][axis])
+        check(all(len(v) == 1 for v in by.values()) and
+              len(set().union(*by.values())) == want_mesh[axis],
+              f"{label}: the leaves split over {axis} alone are not one "
+              f"copy a {axis} index")
+    return rel, err
+
+
+def two_axis_phase(torch, fa, card, device, pp_reference, ep_reference,
+                   vocab=32000, dim=1024, heads=16, layers=16,
+                   max_len=PP_SEQ, batch=PP_BATCH, steps=PP_STEPS,
+                   ep_widths=None, ep_batch_size=EP_BATCH, ep_seq=EP_SEQ,
+                   ep_steps=EP_STEPS):
+    """Phase 17: (a) the stacked LM under :func:`pp_tp_builder` on four
+    gloo ranks of the card, held to phase 13's one-rank steps
+    (``pp_reference``: (losses, (floor loss, floor update), path of the
+    final params)), its checkpoint restored on one rank ((d)); (b) the MoE
+    model under :func:`ep_tp_builder` on four, held to phase 12's
+    (``ep_reference``, the same form); (c) the flash kernels at (a)'s rank
+    shape. Returns ({path: launches, summed over the ranks}, (c)'s fields
+    by kernel)."""
+    import tempfile
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.models import lm
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.ops import build
+    t_phase = time.perf_counter()
+    cfg = T.TransformerConfig(vocab=vocab, dim=dim, num_heads=heads,
+                              num_layers=layers, max_len=max_len,
+                              causal=True, dtype=torch.bfloat16,
+                              scan_layers=True)
+    seq, per_stage = max_len, layers // 2
+    print(f"phase 17: one variable split over two mesh axes; (a) the LM at "
+          f"lm1b's widths (vocab {vocab}, dim {dim}, {heads} heads, {layers} "
+          f"layers, scan_layers=True), batch {batch} x {seq}, SGD {PP_LR}, "
+          f"{steps} steps, on 4 gloo ranks of one device under Pipeline(2, "
+          f"{PP_MICRO}) with the stacked Megatron weights split over model "
+          f"too (TwoAxis): {per_stage} layers, {heads // 2} heads and "
+          f"{cfg.mlp_dim // 2} MLP columns a rank", flush=True)
+    ref_losses, floor, ref_path = pp_reference
+    print(f"  one rank AllReduce() (phase 13's (a)): losses "
+          f"{', '.join(f'{x:.6f}' for x in ref_losses)}; floor loss "
+          f"{floor[0]:.3e}, update {floor[1]:.3e}", flush=True)
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
+    ckpt = os.path.join(tmp.name, "pp_tp_ckpt")
+    fields = {k: v for k, v in vars(cfg).items() if k != "dtype"}
+    runs = [[s, None, s] for s in PPTP_SCHEDULES] + \
+        [[f, f, "shift"] for f in PPTP_FAULTS]
+    spec = {"device": device, "model": "lm", "config": fields,
+            "dtype": "bfloat16", "seq": seq, "batch": batch,
+            "micro": PP_MICRO, "steps": steps, "lr": PP_LR, "ref": ref_path,
+            "ckpt": ckpt, "runs": runs}
+    paths = {}
+    try:
+        ranks = _spawn_ranks(4, "--ta-train", json.dumps(spec),
+                             "a phase 17 (a) rank")
+        faults = {f: (_rel(ranks[0][f]["losses"], ref_losses),
+                      max(r[f]["update_error"] for r in ranks))
+                  for f in PPTP_FAULTS}
+        print(f"  (a) planted faults (loss / update vs one rank): " +
+              "; ".join(f"{k}: {l:.3e} / {u:.3e}" for k, (l, u) in
+                        faults.items()) + f" (on {card})", flush=True)
+        _cp_tolerances("phase 17 (a)", floor, faults,
+                       (PPTP_LOSS_RTOL, PPTP_UPDATE_RTOL))
+        mesh = {"data": 1, "pipe": 2, "model": 2}
+        coll = ranks[0]["collectives"]
+        print("  (a) collectives (rank 0, gloo, host-inclusive): " + "; ".join(
+            f"{k} {ms:.2f} ms ({n / 2**20:.2f} MiB)" for k, (ms, n) in
+            coll.items()) + f"; on {card}", flush=True)
+        for sched in PPTP_SCHEDULES:
+            runs_k = [r[sched] for r in ranks]
+            rel, err = _ta_report(card, f"(a) '{sched}'", runs_k, ref_losses,
+                                  mesh, steps)
+            check(all(r["schedule"] == sched for r in runs_k),
+                  f"phase 17 (a): schedule {runs_k[0]['schedule']}")
+            check(rel <= PPTP_LOSS_RTOL, f"phase 17 (a) {sched}: loss "
+                  f"{rel:.3e} (tolerance {PPTP_LOSS_RTOL})")
+            check(err <= PPTP_UPDATE_RTOL, f"phase 17 (a) {sched}: update "
+                  f"{err:.3e} (tolerance {PPTP_UPDATE_RTOL})")
+            calls = per_stage * PP_MICRO * steps
+            want = {"flash_fwd": calls * (2 if sched == "1f1b" else 1),
+                    "flash_bwd_dq": calls, "flash_bwd_dkv": calls}
+            for r in runs_k:
+                check(r["launches"] == want, f"phase 17 (a) {sched}: "
+                      f"launches {r['launches']}, expected {want}")
+            if sched != "shift":
+                shift = [r["shift"] for r in ranks]
+                check(all(a["losses"] == b["losses"] and
+                          a["whole"] == b["whole"] and
+                          a["pieces"] == b["pieces"]
+                          for a, b in zip(runs_k, shift)),
+                      f"phase 17 (a): '{sched}' is not bitwise 'shift'")
+            paths[f"pp_tp_gloo4_{sched}"] = {
+                k: sum(r["launches"][k] for r in runs_k) for k in want}
+        print(f"  (a) '{PPTP_SCHEDULES[1]}' bitwise 'shift' (losses, whole "
+              f"params and pieces)", flush=True)
+
+        # (b) the MoE layer on {expert: 2, model: 2}.
+        ep_cfg = ep_config(torch, **(ep_widths or {}))
+        ep_losses, ep_floor, ep_path = ep_reference
+        print(f"  (b) phase 12's MoE layer (d_model {ep_cfg.d_model}, d_ff "
+              f"{ep_cfg.d_hidden}, {ep_cfg.num_experts} experts) on 4 gloo "
+              f"ranks of one device under ModelParallel(AllReduce(), 2, "
+              f"EXPERT_RULES, mesh_axis='expert') with each expert's FFN "
+              f"split over model too (TwoAxis): "
+              f"{ep_cfg.num_experts // 2} experts x {ep_cfg.d_hidden // 2} "
+              f"columns a rank; one rank (phase 12's (a)): losses "
+              f"{', '.join(f'{x:.6f}' for x in ep_losses)}, floor loss "
+              f"{ep_floor[0]:.3e}, update {ep_floor[1]:.3e}", flush=True)
+        spec = {"device": device, "model": "moe", "config": ep_widths or {},
+                "seq": ep_seq, "batch": ep_batch_size, "steps": ep_steps,
+                "lr": EP_LR, "ref": ep_path,
+                "runs": [["ep_tp", None, "shift"]] +
+                [[f, f, "shift"] for f in EPTP_FAULTS]}
+        ep_ranks = _spawn_ranks(4, "--ta-train", json.dumps(spec),
+                                "a phase 17 (b) rank")
+        faults = {f: (_rel(ep_ranks[0][f]["losses"], ep_losses),
+                      max(r[f]["update_error"] for r in ep_ranks))
+                  for f in EPTP_FAULTS}
+        print(f"  (b) planted fault (loss / update vs one rank): " +
+              "; ".join(f"{k}: {l:.3e} / {u:.3e}" for k, (l, u) in
+                        faults.items()) + f" (on {card})", flush=True)
+        _cp_tolerances("phase 17 (b)", ep_floor, faults,
+                       (EPTP_LOSS_RTOL, EPTP_UPDATE_RTOL))
+        runs_b = [r["ep_tp"] for r in ep_ranks]
+        rel, err = _ta_report(card, "(b) EP x TP", runs_b, ep_losses,
+                              {"data": 1, "expert": 2, "model": 2},
+                              ep_steps)
+        check(rel <= EPTP_LOSS_RTOL, f"phase 17 (b): loss {rel:.3e} "
+              f"(tolerance {EPTP_LOSS_RTOL})")
+        check(err <= EPTP_UPDATE_RTOL, f"phase 17 (b): update {err:.3e} "
+              f"(tolerance {EPTP_UPDATE_RTOL})")
+        local = [ep_cfg.num_experts // 2, ep_cfg.d_model,
+                 ep_cfg.d_hidden // 2]
+        for r in runs_b:
+            check(r["bmm"] and r["bmm"][0] == local, f"phase 17 (b): step "
+                  f"1's up product on {r['bmm']}, expected {local}")
+            check(not any(r["launches"].values()), f"phase 17 (b): flash "
+                  f"launches {r['launches']} on a path with none")
+        print(f"  (b) step 1's expert products on {runs_b[0]['bmm'][:2]} "
+              f"weights a rank; collectives (rank 0, gloo, "
+              f"host-inclusive): " + "; ".join(
+                  f"{k} {ms:.2f} ms ({n / 2**20:.2f} MiB)" for k, (ms, n) in
+                  ep_ranks[0]["collectives"].items()) + f"; on {card}",
+              flush=True)
+        if device == "cuda":
+            ep_ffn_timing(torch, card, ep_cfg, ep_batch_size * ep_seq, 2,
+                          model=2)
+        paths["ep_tp_gloo4"] = {k: sum(r["launches"][k] for r in runs_b)
+                                for k in runs_b[0]["launches"]}
+
+        # (d) (a)'s checkpoint restored on one rank.
+        autodist_mod._reset_default()
+        params, _ = _lm_init(torch, cfg, device)
+        tokens = sp_tokens(cfg, batch, seq)
+        ad = AutoDist(strategy_builder=S.AllReduce(), device=device)
+        runner = ad.create_distributed_session(ad.capture(
+            lm.make_loss_fn(cfg), params,
+            functools.partial(torch.optim.SGD, lr=PP_LR),
+            example_batch=(tokens,)))
+        del params
+        state = CheckpointManager(runner, ckpt).restore_or_init()
+        got = {n: _digest(torch, [t]) for n, t in
+               flatten_params(runner.logical_params(state)).items()}
+        r0 = ranks[0]
+        check(got == r0["logical"], f"(d) the restored leaves "
+              f"{sorted(n for n in got if got[n] != r0['logical'].get(n))[:5]}"
+              f" are not bitwise the two-axis run's logical params")
+        state, m = runner.step(state, (tokens,))
+        rel = abs(float(m["loss"]) - r0["next_loss"]) / abs(r0["next_loss"])
+        print(f"  (d) the {{pipe: 2, model: 2}} checkpoint (step {steps}) "
+              f"restored into a one-rank AllReduce() Runner: {len(got)} "
+              f"leaves bitwise; its next step's loss {float(m['loss']):.6f} "
+              f"vs the two-axis run's {r0['next_loss']:.6f} (rel. {rel:.3e}, "
+              f"tol {PPTP_LOSS_RTOL})", flush=True)
+        check(rel <= PPTP_LOSS_RTOL, f"(d) restored loss {float(m['loss'])} "
+              f"vs {r0['next_loss']}")
+        del state, runner
+    finally:
+        autodist_mod._reset_default()
+        tmp.cleanup()
+    kernels = {}
+    if device == "cuda":
+        kernels = tp_kernel_phase(
+            torch, fa, shape=PPTP_SHAPE, key="pp_tp", label="phase 17 (c)",
+            who="a PP x TP rank's 8 heads, causal", causal=True)
+    print(f"  (e) phase 17 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths, kernels
+
+
 # Phase 16 (``--cards 4``): the ported lowerings on four cards over NCCL.
 #
 # One process per card, started with torchrun's environment (RANK,
@@ -5713,6 +6224,10 @@ CARD_RUNS = (
     ("pp_sp", "c", "lm_pp",
      'SequenceParallel("ring", 2, base=Pipeline(num_stages=2, '
      'num_microbatches=4))', {"data": 1, "pipe": 2, "seq": 2}, "lm_pp"),
+    ("pp_tp", "d", "lm_pptp", "pp_tp_builder(S)",
+     {"data": 1, "pipe": 2, "model": 2}, "lm_pptp"),
+    ("ep_tp", "d", "ep_tp", "ep_tp_builder(S, moe)",
+     {"data": 1, "expert": 2, "model": 2}, "ep_tp"),
     ("dp_ar", "a", "bert_dp", "AllReduce()", {"data": 4}, "bert_dp"),
     ("dp_zero1", "a", "bert_dp", "PS()", {"data": 4}, "bert_dp"),
     ("dp_fsdp", "a", "bert_dp", "PartitionedPS()", {"data": 4}, "bert_dp"),
@@ -5728,8 +6243,10 @@ CARD_RUNS = (
 # one-rank run at twice the learning rate: a doubled gradient).
 CARD_TOLS = {"bert_dp": (1e-3, 5e-2), "bert_tp": (1e-3, 5e-2),
              "bert_cp": (1e-3, 5e-2), "lm_sp": (2e-4, 5e-2),
-             "lm_pp": (1e-4, 5e-2), "ep": (2e-5, 2e-3)}
-CARD_PARTS = ("a", "b", "c")
+             "lm_pp": (1e-4, 5e-2), "ep": (2e-5, 2e-3),
+             "lm_pptp": (PPTP_LOSS_RTOL, PPTP_UPDATE_RTOL),
+             "ep_tp": (EPTP_LOSS_RTOL, EPTP_UPDATE_RTOL)}
+CARD_PARTS = ("a", "b", "c", "d")
 
 
 def _card_launches(key, layers):
@@ -5746,6 +6263,8 @@ def _card_launches(key, layers):
         return _hop_launches(layers, 1, 4, ring=False)
     if key == "pp":
         return _hop_launches(layers // 4 * 8, 1, 1, ring=False)
+    if key == "pp_tp":
+        return _hop_launches(layers // 2 * 4, 1, 1, ring=False)
     if key == "tp_sp":
         return _hop_launches(layers, 1, 2)
     return _hop_launches(layers // 2 * 4, 1, 2)  # pp_sp
@@ -5863,7 +6382,9 @@ def card_run(torch, fa, spec, run, model, ref):
     key, _, name, expr, axes, _ = run
     device = spec["device"]
     rank = int(os.environ["RANK"])
-    builder = eval(expr, dict(vars(S), moe=moe))  # noqa: S307 - our table
+    builder = eval(expr, dict(  # noqa: S307 - our table
+        vars(S), moe=moe, S=S, pp_tp_builder=pp_tp_builder,
+        ep_tp_builder=ep_tp_builder))
     steps = CARD_DP_STEPS if name == "bert_dp" and key != "dp_stale2" \
         else CARD_STEPS
     batch = model[2]
@@ -6394,11 +6915,12 @@ def cards_report(torch, card, device, parts, tiny, ranks, one):
 
 
 def cards_main(torch, argv):
-    """``--cards 4 [--part a|b|c]``: phase 16 alone, on four cards."""
+    """``--cards 4 [--part a|b|c|d]``: phase 16 alone, on four cards."""
     parts = CARD_PARTS
     if "--part" in argv:
         parts = tuple(argv[argv.index("--part") + 1].split(","))
-        check(set(parts) <= set(CARD_PARTS), f"--part {parts}: one of a, b, c")
+        check(set(parts) <= set(CARD_PARTS), f"--part {parts}: of "
+              f"{', '.join(CARD_PARTS)}")
     n = int(argv[argv.index("--cards") + 1])
     check(n == CARDS, f"--cards {n}: this mode runs on {CARDS} cards")
     if not torch.cuda.is_available() or torch.cuda.device_count() < CARDS:
@@ -6449,6 +6971,8 @@ def main():
         return pp_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--cp-train":
         return cp_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--ta-train":
+        return ta_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--cards-rank":
         return cards_rank(sys.argv[2])
     if "--cards" in sys.argv:
@@ -6510,10 +7034,10 @@ def main():
     tp_kernels = tp_kernel_phase(torch, fa)
     zoo.update(tp_phase(torch, fa, card, bert.bert_base(max_len=512),
                         "cuda"))
-    zoo.update(ep_phase(torch, fa, card, "cuda"))
     import tempfile
     share = {"dir": tempfile.mkdtemp(dir=build.BUILD_DIR)}
     try:
+        zoo.update(ep_phase(torch, fa, card, "cuda", share=share))
         zoo.update(pipeline_phase(torch, fa, card, "cuda", share=share))
         print("phase 14 (c) / 15 (c): the kernels at the composed paths' "
               "shapes", flush=True)
@@ -6526,6 +7050,10 @@ def main():
                                        bert.bert_base(max_len=512), "cuda"))
         zoo.update(composed_pipeline_phase(torch, fa, card, "cuda",
                                            share["reference"]))
+        two_axis, pptp_kernels = two_axis_phase(
+            torch, fa, card, "cuda", share["reference"],
+            share["ep_reference"])
+        zoo.update(two_axis)
     finally:
         shutil.rmtree(share["dir"], ignore_errors=True)
     fwd["launches"] = served + trained["flash_fwd"]
@@ -6543,6 +7071,7 @@ def main():
         record["other_routes"] = routes[record["name"]]
         record.update(tp_kernels[record["name"]])
         record.update(ulysses_tp[record["name"]])
+        record.update(pptp_kernels[record["name"]])
     for record in hops:  # their main path: the ring's steps in phase 10
         record["launches"] = zoo[f"sp_gloo{SP_WORLD}_ring"][record["name"]]
         record["launches_by_path"] = {

@@ -27,7 +27,7 @@
   ``1f1b``): bitwise the eager steps and held to the JAX package's
   compiled step.
 * The composed builders' protos against the JAX builders', and what still
-  raises: expert with seq (10(i)), a composed group fed two batches (at
+  raises: expert with seq (10(i)-seq), a composed group fed two batches (at
   the graph paths' first call too), Ulysses on local heads the seq axis
   does not divide.
 
@@ -390,7 +390,7 @@ try:
 finally:
     schedule._Run.__init__ = real_init
 
-# Expert parallelism composes with no seq axis (10(i)).
+# Expert parallelism composes with no seq axis (10(i)-seq).
 res["expert_seq"] = raises(lambda: session(
     S.ModelParallel(S.SequenceParallel("ring", 2), model_axis=2,
                     rules=moe.EXPERT_RULES, mesh_axis="expert"),

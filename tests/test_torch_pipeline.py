@@ -41,8 +41,9 @@
     hops count per call of the graph step, and per replay under a
     (faked) capture;
   - a pipe group fed two batches raises (at the graph paths' first call
-    too), so does pipe with model or expert (item 10(j)); pipe with seq
-    trains (``tests/test_torch_composed.py``).
+    too), so does pipe with expert (item 10(j)-expert); pipe with seq
+    trains (``tests/test_torch_composed.py``), and so does pipe with model
+    (``tests/test_torch_two_axis.py``).
 """
 import fcntl
 import functools
@@ -650,16 +651,13 @@ res["user"] = train(PipeRules(), user_loss, inp["user"],
                     [inp["user_batch"]] * USER_STEPS, USER_STEPS,
                     mesh_axes={"data": 2, "pipe": 2})[2]
 
-# Pipe composed with model or expert.
-tokens = (inp["zoo_batches"][0][0][:2],)
-for key, base in (
-        ("model", S.ModelParallel(S.AllReduce(), model_axis=2)),
-        ("expert", S.ModelParallel(S.AllReduce(), model_axis=2,
-                                   rules=moe.EXPERT_RULES,
-                                   mesh_axis="expert"))):
-    res[f"compose_{key}"] = raises(lambda: session(
-        S.Pipeline(num_stages=2, num_microbatches=2, base=base),
-        lm.make_loss_fn(zcfg), inp["zoo"], SGD, tokens))
+# Pipe composed with expert (pipe with model trains:
+# tests/test_torch_two_axis.py).
+res["compose_expert"] = raises(lambda: session(
+    S.Pipeline(num_stages=2, num_microbatches=2, base=S.ModelParallel(
+        S.AllReduce(), model_axis=2, rules=moe.EXPERT_RULES,
+        mesh_axis="expert")),
+    lm.make_loss_fn(zcfg), inp["zoo"], SGD, (inp["zoo_batches"][0][0][:2],)))
 autodist_mod._reset_default()
 dist.destroy_process_group()
 with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
@@ -973,7 +971,6 @@ def test_two_stage_checkpoint_restores_on_one_process_and_continues(world):
     ("mismatch", "ValueError", "pipe group were fed different batches"),
     ("graph_mismatch", "ValueError",
      "pipe group were fed different batches"),
-    ("compose_model", "NotImplementedError", "item 10\\(j\\)"),
     ("compose_expert", "NotImplementedError", "item 10\\(j\\)")])
 def test_what_a_pipe_axis_refuses(world, case, kind, match):
     import re
