@@ -28,6 +28,10 @@ Ported so far:
 * pipeline parallelism: ``strategy.Pipeline`` carves a ``pipe`` axis and
   splits the stacked layers of ``ops.scan_blocks`` over it, each rank
   running its stage on the schedule of ``pipeline``;
+* the input pipeline: ``data.NativeDataLoader`` (the C++ loader of
+  ``data/native``, staging in pinned host memory from a ``BufferPool``),
+  ``data.BlockStacker`` and ``data.DevicePrefetcher``, which
+  ``Runner.run`` wires around a loader it is given;
 
 over the model zoo (``models``) whose attention runs the flash-attention
 kernels, forward and backward (``ops.flash_attention``). ``convert``
@@ -37,6 +41,7 @@ ROADMAP.md.
 Entry points take ``device=`` and default to ``"cuda"``; with no CUDA device
 they raise unless the caller asks for ``"cpu"``.
 """
-from autodist_tpu_torch.autodist import AutoDist  # noqa: E402
+from autodist_tpu_torch._version import __version__  # noqa: E402
+from autodist_tpu_torch.autodist import AutoDist, get_default_autodist  # noqa: E402
 
-__all__ = ["AutoDist"]
+__all__ = ["AutoDist", "get_default_autodist", "__version__"]

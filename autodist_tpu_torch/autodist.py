@@ -57,6 +57,11 @@ _default_autodist = None
 _ship_counter = itertools.count()
 
 
+def get_default_autodist():
+    """This process's :class:`AutoDist`, or None before one is made."""
+    return _default_autodist
+
+
 def _store_flake(exc):
     """A store fault worth retrying: transient (``resilience.retry``), and
     not a wait that ran out its own timeout (``DistStoreError``)."""
@@ -265,6 +270,13 @@ class AutoDist:
     def create_distributed_session(self, graph_item):
         """Alias keeping the reference's entry-point name."""
         return self.build(graph_item)
+
+    def build_strategy(self, graph_item):
+        """The strategy this process's builder makes for ``graph_item`` on
+        the resource spec, alone: no world, mesh or runner, nothing
+        serialized or shipped."""
+        return self._strategy_builder.build(graph_item,
+                                            self._cluster.resource_spec)
 
     def function(self, optimizer, aux_output=False, **capture_kwargs):
         """Decorator turning a single-device loss fn into a distributed step.

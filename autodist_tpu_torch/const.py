@@ -45,6 +45,8 @@ class ENV(enum.Enum):
     AUTODIST_RETRY_MAX_ATTEMPTS = ("AUTODIST_RETRY_MAX_ATTEMPTS", int, 4)  # transient-I/O retry budget (resilience/retry.py)
     AUTODIST_UNROLL = ("AUTODIST_UNROLL", int, 1)  # fused steps per dispatch (megastep: one CUDA graph of K steps; 1 => one step per dispatch)
     AUTODIST_PREFETCH_DEPTH = ("AUTODIST_PREFETCH_DEPTH", int, 2)  # DevicePrefetcher in-flight transfers (0 => passthrough)
+    AUTODIST_LOADER_RING = ("AUTODIST_LOADER_RING", int, 2)        # native async assembly ring depth (0 => synchronous)
+    AUTODIST_LOADER_POOL = ("AUTODIST_LOADER_POOL", int, 0)        # staging buffer pool size (0 => auto: ring + depth + 2)
     AUTODIST_SERVE_BUCKETS = ("AUTODIST_SERVE_BUCKETS", str, "")  # "8,32,128" or "8x128,32x128" for (rows, seq)
     AUTODIST_SERVE_MAX_WAIT_MS = ("AUTODIST_SERVE_MAX_WAIT_MS", int, 5)  # continuous-batching coalesce deadline (ms)
     AUTODIST_DECODE_SLOTS = ("AUTODIST_DECODE_SLOTS", int, 8)  # decode engine slot count per (slots, cache_len) bucket (a multiple of the per-replica device count)

@@ -82,3 +82,15 @@ def synthetic_batch(cfg, batch_size=8, seq_len=None, num_masked=4, seed=0):
             rng.randint(0, 2, (batch_size, s)).astype(np.int32),
             rng.randint(0, s, (batch_size, num_masked)).astype(np.int32),
             rng.randint(0, cfg.vocab, (batch_size, num_masked)).astype(np.int32))
+
+
+def tiny_fixture(seed=0, device="cuda"):
+    """(params, loss_fn, batch) for tests and the driver: the JAX
+    package's tiny fixture's configuration and numpy batch (bitwise), with
+    params drawn from ``torch.Generator().manual_seed(seed)`` on
+    ``device`` (``convert.params_from_jax`` carries the JAX package's own
+    across)."""
+    cfg = bert_tiny()
+    params = init(cfg, torch.Generator().manual_seed(seed), device=device)
+    return params, make_loss_fn(cfg), synthetic_batch(
+        cfg, batch_size=8, seq_len=16, seed=seed)

@@ -59,3 +59,17 @@ def synthetic_batch(cfg, batch_size=64, seq_len=128, seed=0):
     rng = np.random.RandomState(seed)
     return (rng.randint(0, cfg.vocab, (batch_size, seq_len)).astype(np.int32),
             rng.randint(0, cfg.num_classes, (batch_size,)).astype(np.int32))
+
+
+def tiny_fixture(seed=0, device="cuda"):
+    """(params, loss_fn, batch) for tests and the driver: the JAX
+    package's tiny fixture's configuration and numpy batch (bitwise), with
+    params drawn from ``torch.Generator().manual_seed(seed)`` on
+    ``device`` (``convert.params_from_jax`` carries the JAX package's own
+    across)."""
+    cfg = BiLSTMConfig(vocab=500, embed_dim=32, hidden=32)
+    params = init(cfg, torch.Generator().manual_seed(seed), device=device)
+    rng = np.random.RandomState(seed)
+    batch = (rng.randint(0, cfg.vocab, (8, 12)).astype(np.int32),
+             rng.randint(0, 2, (8,)).astype(np.int32))
+    return params, make_loss_fn(cfg), batch

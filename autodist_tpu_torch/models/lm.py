@@ -4,6 +4,7 @@ Counterpart of ``autodist_tpu/models/lm.py``, with the KV-cache decode
 entry points ``make_decode_fn`` and ``init_decode_cache``
 (``serve/decode.py`` serves them).
 """
+import numpy as np
 import torch
 
 from autodist_tpu_torch.models import layers as L
@@ -55,3 +56,24 @@ def make_decode_fn(cfg):
 
 def init_decode_cache(cfg, slots, cache_len, device="cuda"):
     return T.init_cache(cfg, slots, cache_len, device=device)
+
+
+def synthetic_batch(cfg, batch_size=8, seq_len=None, seed=0):
+    """``(tokens,)``: int32 (batch_size, seq_len + 1) from
+    ``np.random.RandomState(seed)``, the JAX package's values (the loss
+    reads inputs ``[:, :-1]`` and targets ``[:, 1:]``)."""
+    rng = np.random.RandomState(seed)
+    s = (seq_len or min(cfg.max_len, 64)) + 1
+    return (rng.randint(0, cfg.vocab, (batch_size, s)).astype(np.int32),)
+
+
+def tiny_fixture(seed=0, device="cuda"):
+    """(params, loss_fn, batch) for tests and the driver: the JAX
+    package's tiny fixture's configuration and numpy batch (bitwise), with
+    params drawn from ``torch.Generator().manual_seed(seed)`` on
+    ``device`` (``convert.params_from_jax`` carries the JAX package's own
+    across)."""
+    cfg = lm_tiny()
+    params = init(cfg, torch.Generator().manual_seed(seed), device=device)
+    return params, make_loss_fn(cfg), synthetic_batch(
+        cfg, batch_size=8, seq_len=16, seed=seed)

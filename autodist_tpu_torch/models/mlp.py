@@ -3,6 +3,7 @@
 Counterpart of ``autodist_tpu/models/mlp.py``, with the same param keys
 (``dense<i>/{kernel,bias}``) and layouts.
 """
+import numpy as np
 import torch
 
 from autodist_tpu_torch.models import layers as L
@@ -55,3 +56,17 @@ def make_loss_fn(cfg):
         x, labels = batch
         return L.softmax_xent(apply(params, cfg, x), labels)
     return loss_fn
+
+
+def tiny_fixture(seed=0, device="cuda"):
+    """(params, loss_fn, batch) for tests and the driver: the JAX
+    package's tiny fixture's configuration and numpy batch (bitwise), with
+    params drawn from ``torch.Generator().manual_seed(seed)`` on
+    ``device`` (``convert.params_from_jax`` carries the JAX package's own
+    across)."""
+    cfg = MLPConfig(in_dim=16, hidden=(32,), num_classes=4)
+    params = init(cfg, torch.Generator().manual_seed(seed), device=device)
+    rng = np.random.RandomState(seed)
+    batch = (rng.randn(8, 16).astype(np.float32),
+             rng.randint(0, 4, (8,)).astype(np.int32))
+    return params, make_loss_fn(cfg), batch

@@ -71,3 +71,19 @@ def synthetic_batch(cfg, batch_size=1024, seed=0):
     return (rng.randint(0, cfg.num_users, (batch_size,)).astype(np.int32),
             rng.randint(0, cfg.num_items, (batch_size,)).astype(np.int32),
             rng.randint(0, 2, (batch_size,)).astype(np.float32))
+
+
+def tiny_fixture(seed=0, device="cuda"):
+    """(params, loss_fn, batch) for tests and the driver: the JAX
+    package's tiny fixture's configuration and numpy batch (bitwise), with
+    params drawn from ``torch.Generator().manual_seed(seed)`` on
+    ``device`` (``convert.params_from_jax`` carries the JAX package's own
+    across)."""
+    cfg = NCFConfig(num_users=200, num_items=100, gmf_dim=16,
+                    mlp_dims=(32, 16, 8))
+    params = init(cfg, torch.Generator().manual_seed(seed), device=device)
+    rng = np.random.RandomState(seed)
+    batch = (rng.randint(0, cfg.num_users, (16,)).astype(np.int32),
+             rng.randint(0, cfg.num_items, (16,)).astype(np.int32),
+             rng.randint(0, 2, (16,)).astype(np.float32))
+    return params, make_loss_fn(cfg), batch

@@ -136,3 +136,17 @@ def synthetic_batch(batch_size=64, size=224, num_classes=1000, seed=0):
     rng = np.random.RandomState(seed)
     return (rng.randn(batch_size, size, size, 3).astype(np.float32),
             rng.randint(0, num_classes, (batch_size,)).astype(np.int32))
+
+
+def tiny_fixture(seed=0, device="cuda"):
+    """(params, loss_fn, batch) for tests and the driver: the JAX
+    package's tiny fixture's configuration and numpy batch (bitwise), with
+    params drawn from ``torch.Generator().manual_seed(seed)`` on
+    ``device`` (``convert.params_from_jax`` carries the JAX package's own
+    across)."""
+    cfg = cifar_resnet(depth=8, num_classes=10, dtype=torch.float32)
+    params = init(cfg, torch.Generator().manual_seed(seed), device=device)
+    rng = np.random.RandomState(seed)
+    batch = (rng.randn(8, 16, 16, 3).astype(np.float32),
+             rng.randint(0, 10, (8,)).astype(np.int32))
+    return params, make_loss_fn(cfg), batch

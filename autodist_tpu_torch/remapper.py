@@ -43,10 +43,21 @@ class Remapper:
         data-axis size. A leaf already on the target device is handed back
         untouched. ``non_blocking=True`` stages CPU leaves in pinned memory
         and copies asynchronously on the current stream; the caller orders
-        the consumer after it (``DevicePrefetcher`` records an event).
+        the consumer after it (``DevicePrefetcher`` records an event); a
+        leaf already in pinned memory (a CUDA loader's staging buffer) is
+        copied from where it is.
         """
         self._check_rows(batch, batch)
         return self._put(batch, non_blocking)
+
+    def shard_local_batch(self, batch, non_blocking=False):
+        """Per-host feeding: ``batch`` is this process's local shard (its
+        stripe of the global batch, e.g. from a ``per_host=True``
+        ``NativeDataLoader``). The JAX package assembles its global arrays
+        from such shards; here every batch is already process-local and
+        one process drives one device, so this places the same tensors as
+        :meth:`shard_batch`."""
+        return self.shard_batch(batch, non_blocking=non_blocking)
 
     def shard_block(self, block, non_blocking=False):
         """Put a K-stacked batch block (leaf shapes ``(K,) + batch``) on
@@ -81,11 +92,13 @@ class Remapper:
         leaves, treedef = flatten(tree)
 
         def put(leaf):
+            if isinstance(leaf, np.ndarray) and not leaf.flags.writeable:
+                return _put_read_only(leaf, device, non_blocking)
             t = torch.as_tensor(leaf)
             if t.device == device:
                 return t
             if device.type == "cuda" and non_blocking and \
-                    t.device.type == "cpu":
+                    t.device.type == "cpu" and not t.is_pinned():
                 t = t.pin_memory()
             return t.to(device, non_blocking=non_blocking)
         return unflatten(treedef, [put(l) for l in leaves])
@@ -155,6 +168,19 @@ def _place(t, placement, copy):
     if copy:
         return t.detach().to(device, copy=True)
     return t.to(device)
+
+
+def _put_read_only(leaf, device, non_blocking):
+    """A read-only array (a ``block_shuffle`` view into a loader's mmap)
+    on ``device``, through one copy: into pinned memory for an
+    asynchronous copy to the card, into a tensor of its own on the CPU
+    (``torch.as_tensor`` would alias the file mapping, and warns)."""
+    if device.type == "cuda" and non_blocking:
+        staged = torch.empty(leaf.shape, dtype=torch.from_numpy(
+            np.empty(0, leaf.dtype)).dtype, pin_memory=True)
+        staged.numpy()[...] = leaf
+        return staged.to(device, non_blocking=True)
+    return torch.from_numpy(np.array(leaf)).to(device)
 
 
 def _shape(leaf):

@@ -840,6 +840,30 @@ class Runner:
                 out.append(np.stack([np.asarray(p) for p in parts]))
         return unflatten(treedef, out)
 
+    def _wire_loader(self, data_iter, unroll):
+        """Compose a :class:`~autodist_tpu_torch.data.NativeDataLoader`
+        with the depth-N :class:`~autodist_tpu_torch.data.DevicePrefetcher`
+        (``AUTODIST_PREFETCH_DEPTH``) and, under ``unroll=K``, the
+        :class:`~autodist_tpu_torch.data.BlockStacker`, so the next batch
+        (K-block) is copied while the current step runs and the loader's
+        pinned buffers cycle. Returns ``(iterator, yields_blocks)``: with
+        ``yields_blocks`` it hands out placed K-blocks, one a megastep.
+        Any other iterator is returned as it is."""
+        from autodist_tpu_torch.data.loader import (BlockStacker,
+                                                    DevicePrefetcher,
+                                                    NativeDataLoader)
+        if not isinstance(data_iter, NativeDataLoader):
+            return data_iter, False
+        depth = max(0, const.ENV.AUTODIST_PREFETCH_DEPTH.val)
+        if unroll > 1:
+            stacker = BlockStacker(data_iter, unroll, recycle_to=data_iter,
+                                   device=data_iter.device)
+            return DevicePrefetcher(
+                stacker, self._remapper, depth=depth, loader=stacker,
+                shard_fn=self._remapper.shard_block), True
+        return DevicePrefetcher(data_iter, self._remapper, depth=depth,
+                                loader=data_iter), False
+
     def run(self, state, data_iter, num_steps, trace_dir=None,
             step_guard=None, unroll=None):
         """Drive ``num_steps`` steps from ``data_iter``; returns (state,
@@ -859,7 +883,13 @@ class Runner:
         rolls back to the last checkpoint instead), skipping the offending
         batches. The snapshot is a second resident copy of the params and
         the optimizer state. ``AUTODIST_CHAOS``'s ``nan_at`` / ``oom_at``
-        inject their faults here."""
+        inject their faults here.
+
+        A :class:`~autodist_tpu_torch.data.NativeDataLoader` passed as
+        ``data_iter`` is fed through :meth:`_wire_loader`: its batches (or,
+        under ``unroll=K``, its K-blocks, stacked in pinned buffers) are
+        copied to the device one step ahead; any other iterator's batches
+        are placed at each step (K-blocks stacked on the host first)."""
         if unroll is None:
             unroll = const.ENV.AUTODIST_UNROLL.val
         unroll = max(1, int(unroll))
@@ -868,6 +898,7 @@ class Runner:
                 f"autodist_tpu_torch: num_steps={num_steps} is not a "
                 f"multiple of unroll={unroll}; megasteps dispatch whole "
                 f"K-step blocks")
+        data_iter, yields_blocks = self._wire_loader(data_iter, unroll)
         chaos = None
         if const.ENV.AUTODIST_CHAOS.val:
             from autodist_tpu_torch.resilience import chaos
@@ -880,7 +911,8 @@ class Runner:
             profiler = profile(activities=activities)
         with profiler as prof:
             state, metrics = self._run_loop(state, data_iter, num_steps,
-                                            step_guard, chaos, unroll)
+                                            step_guard, chaos, unroll,
+                                            yields_blocks)
         if trace_dir:
             os.makedirs(trace_dir, exist_ok=True)
             rank = dist.get_rank() if dist.is_initialized() else 0
@@ -890,19 +922,20 @@ class Runner:
         return state, metrics
 
     def _run_loop(self, state, data_iter, num_steps, step_guard, chaos,
-                  unroll):
-        """One ``step`` a batch, or one ``megastep`` a K-block, with the
-        guard part of the JAX Runner's ``_run_observed``
-        (``autodist_tpu/runner.py:1529-1760``): chaos injection before each
-        dispatch, the flag read at the guard's cadence (K-block boundaries
-        under ``unroll=K``), snapshot on a healthy check, rollback on a
-        diverged one."""
+                  unroll, yields_blocks=False):
+        """One ``step`` a batch, or one ``megastep`` a K-block (pulled
+        whole from ``data_iter`` with ``yields_blocks``, else stacked from
+        K batches), with the guard part of the JAX Runner's
+        ``_run_observed`` (``autodist_tpu/runner.py:1529-1760``): chaos
+        injection before each dispatch, the flag read at the guard's
+        cadence (K-block boundaries under ``unroll=K``), snapshot on a
+        healthy check, rollback on a diverged one."""
         if step_guard is not None:
             step_guard.mark_good(0, state)
         metrics = None
         i = 0
         while i < num_steps:
-            if unroll == 1:
+            if unroll == 1 or yields_blocks:
                 batch = next(data_iter)
             else:
                 batch = self._next_block(data_iter, unroll)
@@ -1107,7 +1140,7 @@ class _GraphStep:
                     f"{t.dtype} != the captured {spec[0]} {spec[1]}: the "
                     f"graph is specialized on the example batch's shapes "
                     f"and dtypes")
-            if cuda and t.device.type == "cpu":
+            if cuda and t.device.type == "cpu" and not t.is_pinned():
                 t = t.pin_memory()
             buf.copy_(t, non_blocking=cuda)
 

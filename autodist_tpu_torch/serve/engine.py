@@ -195,18 +195,20 @@ class ReplicaRuntime:
         with torch.inference_mode():
             return self._apply(self.params, batch)
 
-    def warm_bucket(self, bucket, batch_struct):
-        """Capture the forward at one padded bucket: the counterpart of the
-        JAX package's AOT ``compile_bucket``. A static input buffer of the
-        bucket's shape (zeros) on the replica's device, and the forward over
-        it as a CUDA graph, after one eager warm-up forward (on the CPU:
-        the forward, called per dispatch). ``bucket`` is an int (batch
-        rows) or a tuple of leading dims — ``(rows, seq)`` buckets pad both
-        the batch and the sequence dimension of every leaf."""
+    def compile_bucket(self, bucket, batch_struct):
+        """Capture the forward at one padded bucket and return its
+        :class:`~autodist_tpu_torch.utils.cuda_graph.Graph` (the JAX
+        package's AOT ``compile_bucket`` returns its executable): a static
+        input buffer of the bucket's shape (zeros) on the replica's device,
+        and the forward over it as a CUDA graph, after one eager warm-up
+        forward (on the CPU: the forward, called per dispatch). ``bucket``
+        is an int (batch rows) or a tuple of leading dims — ``(rows, seq)``
+        buckets pad both the batch and the sequence dimension of every
+        leaf. A bucket already compiled returns its graph."""
         bucket = (int(bucket),) if not isinstance(bucket, (tuple, list)) \
             else tuple(int(x) for x in bucket)
         if bucket in self._graphs:
-            return
+            return self._graphs[bucket][1]
         _check_bucket_rows(bucket, self.program)
         rank = len(bucket)
         for s in tree_leaves(batch_struct):
@@ -230,12 +232,14 @@ class ReplicaRuntime:
                      (time.perf_counter() - t0) * 1e3)
         self._bucket_rank = rank
         self._graphs[bucket] = (static, graph)
+        return graph
 
     @property
-    def graphs(self):
-        """{bucket: the bucket's :class:`~autodist_tpu_torch.utils.
-        cuda_graph.Graph`}."""
-        return {b: g for b, (_, g) in self._graphs.items()}
+    def buckets_compiled(self):
+        """Compiled buckets, sorted: ints for batch-only buckets, tuples
+        for ``(rows, seq)`` ones (:meth:`compile_bucket` returns each
+        one's graph)."""
+        return sorted(b[0] if len(b) == 1 else b for b in self._graphs)
 
     def run_bucket(self, batch):
         """One dispatch of a placed, bucket-shaped batch: copied into its
@@ -382,7 +386,12 @@ class ServeEngine:
                          for i, program in enumerate(programs)]
         for rep in self.replicas:
             for b in self.buckets:
-                rep.warm_bucket(b, self.item.batch_struct)
+                rep.compile_bucket(b, self.item.batch_struct)
+
+    @property
+    def program(self):
+        """Replica 0's DistributedProgram."""
+        return self.replicas[0].program
 
     @property
     def max_rows(self):

@@ -273,7 +273,27 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    at (a)'s rank shape (b2 h8 s1024 d64, causal) against their plain
    versions, timed beside SDPA and the bound; (d) (a)'s checkpoint
    restores on one rank bitwise;
-18. output: one ``{"kernels": [...]}`` JSON line, then the last line
+18. the input pipeline (``data/``): (a) BERT-base MLM (32 x 128, 20
+   masked positions packed into one int32 record of 296 values, Adam
+   1e-4) 40 steps of ``Runner.run(loader, 40, unroll=4)`` over a
+   ``NativeDataLoader`` of 256 records (the native backend: the wired
+   ``BlockStacker`` -> ``DevicePrefetcher(shard_block)`` -> megastep
+   graph, the blocks stacked in pinned buffers and reaching the copy with
+   no ``pin_memory()`` call) and over a plain iterator of a second loader
+   of the same seed (the host-stacked path): step 1 bitwise, every loss
+   within phase 7's tolerance, 12 x 40 launches of each flash kernel a
+   path; prints both paths' steady ms per step with their spread; (b)
+   ResNet-50 at 64 x 224^2 from uint8 records (4 x 64 images,
+   normalized on the card in the loss): the wire alone, the wire behind
+   synchronous assembly, assembly alone, and the loader-fed
+   ``make_callable(aot=True)`` step through ``DevicePrefetcher(loader=)``
+   in turns with the same step on a placed batch (images/s, data wait),
+   no pool allocation after warm-up; (c) 32 batches of (b) with the
+   loader's ring on and depth 3, each copy held back 20 ms: every batch's
+   device checksum equals its host checksum, and recycling a staging
+   buffer at settle (the planted fault) must mismatch; (d) the phase's
+   seconds;
+19. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 On four cards, ``python3 chip_smoke.py --cards 4 [--part a|b|c|d]`` runs
@@ -308,6 +328,7 @@ shipped to all, the launches a rank and step as counted from the code
 bubble 3/11), peak memory and stored bytes. Its last line is the default
 run's, with the count of cards it drove.
 """
+import collections
 import contextlib
 import copy
 import functools
@@ -692,13 +713,9 @@ def timed(torch, fn, n=TIMED_CALLS, warmup=3):
     return {"ms": ms, "host_ms": host_ms, "timer": "events", "kernels": {}}
 
 
-def queued_ms(torch, fn, n, host_ms):
-    """Device ms per call of ``fn``: CUDA events around ``n`` calls that
-    the host queues while a sleep kernel holds the stream for twice the
-    time it took them to launch, plus 5 ms; the events then open on a
-    full queue and time the card's work alone (the queue drains back to
-    back). A call that waits on the card inside ``fn`` empties the queue,
-    and its time is then host-inclusive, as ``host_ms`` is."""
+def sleep_cycles_per_ms(torch):
+    """Clock cycles of ``torch.cuda._sleep`` per ms on this card (measured
+    once)."""
     if "sleep_cycles_per_ms" not in TIMINGS:
         cycles = 10 ** 7
         start = torch.cuda.Event(enable_timing=True)
@@ -709,11 +726,21 @@ def queued_ms(torch, fn, n, host_ms):
         end.record()
         end.synchronize()
         TIMINGS["sleep_cycles_per_ms"] = cycles / start.elapsed_time(end)
+    return TIMINGS["sleep_cycles_per_ms"]
+
+
+def queued_ms(torch, fn, n, host_ms):
+    """Device ms per call of ``fn``: CUDA events around ``n`` calls that
+    the host queues while a sleep kernel holds the stream for twice the
+    time it took them to launch, plus 5 ms; the events then open on a
+    full queue and time the card's work alone (the queue drains back to
+    back). A call that waits on the card inside ``fn`` empties the queue,
+    and its time is then host-inclusive, as ``host_ms`` is."""
     hold = 2 * n * host_ms + 5.0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(int(hold * TIMINGS["sleep_cycles_per_ms"]))
+    torch.cuda._sleep(int(hold * sleep_cycles_per_ms(torch)))
     start.record()
     for _ in range(n):
         fn()
@@ -1210,6 +1237,13 @@ def route_phase(torch, fa):
     return rows
 
 
+def bucket_graphs(engine, replica=0):
+    """{bucket: its CUDA graph} of one serving replica."""
+    rep = engine.replicas[replica]
+    return {b: rep.compile_bucket(b, engine.item.batch_struct)
+            for b in rep.buckets_compiled}
+
+
 def profile_dispatches(torch, srv, batch, n=6):
     """Where a dispatch's time goes: ``n`` sequential full-bucket requests
     under ``torch.profiler``; device time by kernel and the device's busy
@@ -1297,7 +1331,7 @@ def serve_phase(torch, fa, card, cfg, device):
         repeat = [srv.infer(requests[0], timeout=300) for _ in range(2)]
         stats = srv.stats()
         launches = fa.flash_fwd.launches
-        replays = sum(g.replays for g in srv.engine.replicas[0].graphs.values())
+        replays = sum(g.replays for g in bucket_graphs(srv.engine).values())
         if device == "cuda":
             profile_dispatches(torch, srv, (ids, seg))
     finally:
@@ -2529,7 +2563,7 @@ def graph_serve_phase(torch, fa, card, cfg, device, requests=16, clients=4):
                        max_wait_ms=5, device=device)
     try:
         replica = srv.engine.replicas[0]
-        graphs = replica.graphs
+        graphs = bucket_graphs(srv.engine)
         warmups = len(graphs)
         if device == "cuda":
             check(all(g.captured for g in graphs.values()),
@@ -3469,7 +3503,7 @@ def resilience_serve(torch, fa, card, cfg, device, params, want, request,
     with serve.Server(apply_fn, params, request, buckets=(rows,),
                       max_wait_ms=1, device=device) as srv:
         got = srv.infer(request, timeout=300)
-        graphs = srv.engine.replicas[0].graphs
+        graphs = bucket_graphs(srv.engine)
         dispatches = sum(r["dispatches"] for r in srv.stats()["replicas"])
     launches = _flash_counts(fa)["flash_fwd"]
     check(torch.equal(got, want), f"{label}: the served answer is not bitwise "
@@ -6185,6 +6219,464 @@ def two_axis_phase(torch, fa, card, device, pp_reference, ep_reference,
     return paths, kernels
 
 
+# -- phase 18: the input pipeline ---------------------------------------------
+#
+# (a) BERT-base MLM (batch 32 x 128, 20 masked positions packed into one
+# int32 record of 2 x 128 + 2 x 20 values, Adam 1e-4) for LOADER_STEPS steps
+# of Runner.run(..., unroll=4) fed by a NativeDataLoader (the wired path:
+# BlockStacker -> DevicePrefetcher(shard_block) -> the megastep graph) and
+# by a plain iterator over a second loader of the same seed (the host
+# _next_block path): step 1 bitwise, every loss within GRAPH_LOSS_RTOL (the
+# MLM gather's and the embedding's scatter-add atomics part the two
+# trajectories, as they part phase 7's). (b) ResNet-50 from uint8 records
+# (LOADER_IMAGE_BATCHES x 64 distinct 224^2 images, normalized on the card
+# in the loss), bench.py's four windows of LOADER_WINDOW transfers / steps.
+# (c) LOADER_CHECKED batches of (b) with the loader's async ring on and
+# depth 3, each copy held back LOADER_COPY_DELAY_MS by a sleep kernel on the
+# prefetcher's stream: every batch's device checksum must equal the host
+# checksum of its bytes (no mismatch), and recycling a staging buffer at
+# settle (the JAX package's timing; a planted fault) must mismatch.
+LOADER_STEPS = 40
+LOADER_RECORDS = 256
+LOADER_IMAGE_BATCHES = 4
+LOADER_WINDOW = 30
+LOADER_CHECKED = 32
+LOADER_COPY_DELAY_MS = 20.0
+
+
+def packed_mlm_loss(cfg, seq, num_masked):
+    """BERT's MLM loss over one packed int32 batch (ids, segment ids,
+    masked positions, labels side by side), sliced on the device: the
+    batch leaf stays the loader's buffer."""
+    from autodist_tpu_torch.models import bert
+    base = bert.make_loss_fn(cfg)
+    a, b, c = seq, 2 * seq, 2 * seq + num_masked
+
+    def loss_fn(params, batch):
+        return base(params, (batch[:, :a], batch[:, a:b], batch[:, b:c],
+                             batch[:, c:]))
+    return loss_fn
+
+
+def _record_megasteps(torch, runner, device, unroll):
+    """Wrap ``runner.megastep``: every step's loss and, per megastep after
+    the first, the host ms per step between the completions of
+    consecutive megasteps (the next block's feed included)."""
+    record = {"losses": [], "ms": [], "last": None}
+    inner = runner.megastep
+
+    def megastep(state, block, shard_inputs=True):
+        state, m = inner(state, block, shard_inputs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        if record["last"] is not None:
+            record["ms"].append((now - record["last"]) * 1e3 / unroll)
+        record["last"] = now
+        record["losses"] += [float(x) for x in m["loss"]]
+        return state, m
+    runner.megastep = megastep
+    return record
+
+
+def _spread(times):
+    """'median (min-max)' of the steady part (the first sample dropped)."""
+    steady = times[1:] if len(times) > 1 else times
+    return (float(np.median(steady)), min(steady), max(steady))
+
+
+def loader_bert_phase(torch, fa, card, cfg, device, directory, batch_size,
+                      seq, num_masked, steps, unroll):
+    """Phase 18 (a); returns {path: flash launches}."""
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.data import NativeDataLoader, write_record_file
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
+    from autodist_tpu_torch.utils.tree import leaves
+    t0 = time.perf_counter()
+    records = np.concatenate(bert.synthetic_batch(
+        cfg, LOADER_RECORDS, seq, num_masked, seed=0), axis=1)
+    width = records.shape[1]
+    check(width == 2 * seq + 2 * num_masked, f"record width {width}")
+    path = os.path.join(directory, "bert.rec")
+    write_record_file(path, records)
+    autodist_mod._reset_default()
+    ad = AutoDist(strategy_builder=AllReduce(), device=device)
+    runner = ad.create_distributed_session(ad.capture(
+        packed_mlm_loss(cfg, seq, num_masked),
+        bert.init(cfg, torch.Generator().manual_seed(0), device=device),
+        functools.partial(torch.optim.Adam, lr=1e-4),
+        example_batch=records[:batch_size]))
+    print(f"  (a) BERT set-up {time.perf_counter() - t0:.1f}s; {LOADER_RECORDS}"
+          f" records of {width} int32 ({records[0].nbytes} bytes), a batch "
+          f"{batch_size * records[0].nbytes} bytes", flush=True)
+
+    def loader():
+        return NativeDataLoader(path, (width,), np.int32, batch_size, seed=0,
+                                device=device)
+
+    # The host path: a plain iterator over a second loader, K batches
+    # stacked on the host (_next_block) and placed at each megastep.
+    host_loader = loader()
+
+    def plain():
+        while True:
+            b = next(host_loader)
+            out = np.array(b)
+            host_loader.recycle(b)
+            yield out
+    out = {}
+    runs = {}
+    for name in ("host", "loader"):
+        record = _record_megasteps(torch, runner, device, unroll)
+        blocks, pins = [], [0]
+        wired = loader() if name == "loader" else None
+        source = wired if name == "loader" else plain()
+        shard_block = runner.remapper.shard_block
+        pin_memory = torch.Tensor.pin_memory
+
+        def spy_shard(block, non_blocking=False):
+            blocks.append([(t.device.type, t.is_pinned() if t.device.type ==
+                            "cpu" and device == "cuda" else None,
+                            non_blocking) for t in
+                           (torch.as_tensor(x) for x in leaves(block))])
+            return shard_block(block, non_blocking=non_blocking)
+
+        def spy_pin(self, *args, **kwargs):
+            pins[0] += 1
+            return pin_memory(self, *args, **kwargs)
+        runner.remapper.shard_block = spy_shard
+        torch.Tensor.pin_memory = spy_pin
+        _flash_counts(fa, reset=True)  # this path's run
+        try:
+            t1 = time.perf_counter()
+            state, m = runner.run(runner.create_state(), source, steps,
+                                  unroll=unroll)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        finally:
+            torch.Tensor.pin_memory = pin_memory
+            del runner.remapper.shard_block
+            del runner.megastep
+        out[f"loader{'_host' if name == 'host' else ''}"] = counts = \
+            _flash_counts(fa)
+        check(int(state.step) == steps and len(record["losses"]) == steps,
+              f"(a) {name}: ended at step {int(state.step)} with "
+              f"{len(record['losses'])} losses")
+        del state, m
+        for kernel, n in counts.items():
+            check(n == cfg.num_layers * steps, f"(a) {name}: {kernel} "
+                  f"launched {n} times, expected {cfg.num_layers} x {steps}")
+        host_blocks = [b for b in blocks if b[0][0] == "cpu"]
+        runs[name] = dict(losses=record["losses"], ms=record["ms"],
+                          wall=wall, pins=pins[0], blocks=host_blocks,
+                          stats=(wired or host_loader).stats())
+        if name == "loader":
+            check(wired.backend == "native", f"(a) the loader's backend is "
+                  f"{wired.backend!r}, not the native one")
+            wired.close()
+    host_loader.close()
+    host, fed = runs["host"], runs["loader"]
+    check(all(np.isfinite(fed["losses"])),
+          f"(a) loader-fed losses {fed['losses']}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(fed["losses"],
+                                               host["losses"])]
+    check(fed["losses"][0] == host["losses"][0], f"(a) step-1 loss "
+          f"{fed['losses'][0]} vs the host path's {host['losses'][0]}")
+    check(max(rel) <= GRAPH_LOSS_RTOL, f"(a) loader-fed losses "
+          f"{fed['losses']} are off the host path's {host['losses']}")
+    check(fed["pins"] == 0, f"(a) {fed['pins']} pin_memory() copies on the "
+          f"loader-fed path")
+    if device == "cuda":
+        check(len(fed["blocks"]) >= steps // unroll and all(
+            pinned and non_blocking for b in fed["blocks"]
+            for _, pinned, non_blocking in b), f"(a) a host block reached "
+            f"the copy unpinned or blocking: {fed['blocks'][:3]}")
+    for name, run in (("host-stacked", host), ("loader-fed", fed)):
+        med, lo, hi = _spread(run["ms"])
+        print(f"  (a) {name}: {steps} steps of run(unroll={unroll}) "
+              f"{run['wall']:.2f}s with its capture; steady ms/step (synced "
+              f"per megastep, megasteps 3-{steps // unroll}) median "
+              f"{med:.3f} (min {lo:.3f}, max {hi:.3f}), {batch_size / med * 1e3:.1f}"
+              f" samples/s; losses {run['losses'][0]:.6f} ... "
+              f"{run['losses'][-1]:.6f}; pin_memory() calls {run['pins']}; "
+              f"loader stats {run['stats']} on {card}", flush=True)
+    print(f"  (a) step-1 loss bitwise equal; per-step loss rel. diff max "
+          f"{max(rel):.3e} (tol {GRAPH_LOSS_RTOL}); loader-fed / host-stacked"
+          f" steady step {_spread(fed['ms'])[0] / _spread(host['ms'])[0]:.4f};"
+          f" flash launches {out}", flush=True)
+    del runner
+    autodist_mod._reset_default()
+    return out
+
+
+def _u8_loss(cfg):
+    """bench.py's uint8 fixture: images shipped as bytes, normalized on the
+    device in the loss."""
+    import torch
+    from autodist_tpu_torch.models import resnet
+    base = resnet.make_loss_fn(cfg)
+
+    def loss_fn(params, batch):
+        images, labels = batch
+        return base(params, (images.to(torch.float32) / 255.0, labels))
+    return loss_fn
+
+
+def _host_checksum(img):
+    rows = img.reshape(img.shape[0], -1).sum(1, dtype=np.int64)
+    return int((rows * np.arange(1, img.shape[0] + 1, dtype=np.int64)).sum())
+
+
+def loader_integrity(torch, runner, step, state, path, shape, batch_size,
+                     labels, checked, fault):
+    """Phase 18 (c): ``checked`` loader-fed steps with the ring on, depth 3
+    and each copy held back on the prefetcher's stream; returns (state,
+    batches whose device checksum differs from their host checksum, the
+    loader's stats)."""
+    from autodist_tpu_torch.data import DevicePrefetcher, NativeDataLoader
+
+    class RecycleAtSettle(DevicePrefetcher):
+        """The planted fault: a staging buffer recycled when its batch is
+        handed out, before its copy may have read it."""
+
+        def __init__(self, *args, **kwargs):
+            self._at_settle = collections.deque()
+            super().__init__(*args, **kwargs)
+
+        def _retire(self, event, host_batch):
+            self._at_settle.append(host_batch)
+
+        def _settle(self, device_batch, event):
+            super()._settle(device_batch, event)
+            self._recycle(self._at_settle.popleft())
+
+    loader = NativeDataLoader(path, shape, np.uint8, batch_size, seed=2,
+                              num_threads=0, pipeline=True)
+    check(loader._ring_depth > 0, "(c) the loader's ring is off")
+    host = []
+
+    def source():
+        for img in loader:
+            host.append(_host_checksum(img))
+            yield img, labels
+    delay = int(LOADER_COPY_DELAY_MS * sleep_cycles_per_ms(torch))
+
+    def slow_shard(batch, non_blocking=False):
+        torch.cuda._sleep(delay)  # on the prefetcher's stream
+        return runner.remapper.shard_batch(batch, non_blocking=non_blocking)
+    cls = RecycleAtSettle if fault else DevicePrefetcher
+    feed = cls(source(), runner.remapper, depth=3, loader=loader,
+               shard_fn=slow_shard)
+    weights = torch.arange(1, batch_size + 1, dtype=torch.int64,
+                           device="cuda")
+    sums = torch.zeros(checked, dtype=torch.int64, device="cuda")
+    for i in range(checked):
+        db = next(feed)
+        state, _ = step(state, db)
+        sums[i] = (db[0].reshape(batch_size, -1).sum(1, dtype=torch.int64)
+                   * weights).sum()
+    got = sums.tolist()
+    stats = loader.stats()
+    loader.close()
+    bad = sum(g != h for g, h in zip(got, host[:checked]))
+    return state, bad, stats
+
+
+def loader_resnet_phase(torch, fa, card, cfg, device, directory, image,
+                        batch_size, window, checked):
+    """Phase 18 (b) and (c); returns {path: flash launches}."""
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.data import (DevicePrefetcher, NativeDataLoader,
+                                         write_record_file)
+    from autodist_tpu_torch.models import resnet
+    t0 = time.perf_counter()
+    n = LOADER_IMAGE_BATCHES * batch_size
+    shape = (image, image, 3)
+    images = np.random.RandomState(1).randint(0, 256, (n,) + shape,
+                                              dtype=np.uint8)
+    labels = np.random.RandomState(0).randint(
+        0, cfg.num_classes, (batch_size,)).astype(np.int32)
+    path = os.path.join(directory, "images.rec")
+    write_record_file(path, images)
+    example = (images[:batch_size], labels)
+    nbytes = images[:batch_size].nbytes
+    ad = _zoo_world(torch, device)
+    runner = ad.create_distributed_session(ad.capture(
+        _u8_loss(cfg), resnet.init(cfg, torch.Generator().manual_seed(0),
+                                   device=device),
+        functools.partial(torch.optim.SGD, lr=1e-3), example_batch=example))
+    step = runner.make_callable(example, aot=True)
+    state = runner.create_state()
+    labels_t = torch.from_numpy(labels)
+    cuda = device == "cuda"
+    if cuda:
+        labels_t = labels_t.pin_memory()
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    print(f"  (b) ResNet set-up {time.perf_counter() - t0:.1f}s; {n} uint8 "
+          f"records of {shape}, a batch {nbytes} bytes", flush=True)
+    out = {}
+    if cuda:
+        stream = torch.cuda.Stream()
+
+        def put(host):
+            with torch.cuda.stream(stream):
+                dev = host.to(device, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+            return dev, done
+
+        # 1. the wire alone: two copies of one pinned batch in flight.
+        src = torch.from_numpy(images[:batch_size]).pin_memory()
+        q = collections.deque(put(src) for _ in range(2))
+        for i in range(5 + window):
+            if i == 5:
+                t1 = time.perf_counter()
+            q.popleft()[1].synchronize()
+            q.append(put(src))
+        wire = (time.perf_counter() - t1) * 1e3 / window
+        for _, done in q:
+            done.synchronize()
+        # 2. the wire behind synchronous assembly into pinned buffers.
+        ld = NativeDataLoader(path, shape, np.uint8, batch_size,
+                              num_threads=0, pipeline=False)
+
+        def issue():
+            h = next(ld)
+            return h, put(torch.from_numpy(h))[1]
+        pend = issue()
+        for i in range(3 + window):
+            if i == 3:
+                t1 = time.perf_counter()
+            pend[1].synchronize()
+            ld.recycle(pend[0])
+            pend = issue()
+        wire_asm = (time.perf_counter() - t1) * 1e3 / window
+        pend[1].synchronize()
+        ld.close()
+        # 3. assembly alone, recycled: the memcpy, not an allocation.
+        ld = NativeDataLoader(path, shape, np.uint8, batch_size,
+                              num_threads=0, pipeline=False)
+        for i in range(3 + window):
+            if i == 3:
+                t1 = time.perf_counter()
+            ld.recycle(next(ld))
+        asm = (time.perf_counter() - t1) * 1e3 / window
+        ld.close()
+        print(f"  (b) windows of {window}: wire {wire:.4f} ms/batch "
+              f"({nbytes / wire / 1e6:.2f} GB/s, depth 2); wire + synchronous"
+              f" assembly {wire_asm:.4f} ms/batch; assembly alone {asm:.4f} "
+              f"ms/batch ({nbytes / asm / 1e6:.2f} GB/s) on {card}",
+              flush=True)
+
+    # 4. the loader-fed aot step against the same step on a placed batch,
+    # in turns: synthetic, loader, loader, synthetic.
+    synthetic = runner.remapper.shard_batch(example)
+    loader = NativeDataLoader(path, shape, np.uint8, batch_size, seed=0,
+                              device=device)
+    check(loader.backend == "native", f"(b) the loader's backend is "
+          f"{loader.backend!r}")
+    feed = DevicePrefetcher(((img, labels_t) for img in loader),
+                            runner.remapper, depth=2, loader=loader)
+    _flash_counts(fa, reset=True)
+    losses = []
+    for _ in range(3):
+        state, m = step(state, synthetic)
+        state, m = step(state, next(feed))
+        losses.append(m["loss"])
+    sync()
+    warm = loader.stats()["pool_fallback_allocs"]
+
+    def window_ms(fed):
+        nonlocal state
+        before = feed.stats()["data_wait_ms_total"]
+        sync()
+        t1 = time.perf_counter()
+        for _ in range(window):
+            state, m = step(state, next(feed) if fed else synthetic)
+            losses.append(m["loss"])
+        sync()
+        ms = (time.perf_counter() - t1) * 1e3 / window
+        return ms, (feed.stats()["data_wait_ms_total"] - before) / window
+    turns = [("synthetic", window_ms(False)), ("loader", window_ms(True)),
+             ("loader", window_ms(True)), ("synthetic", window_ms(False))]
+    out["loader_resnet"] = counts = _flash_counts(fa)
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"(b) a loss is not finite: {losses}")
+    check(not any(counts.values()), f"(b) flash kernels launched in a model "
+          f"without attention: {counts}")
+    stats = loader.stats()
+    check(stats["pool_fallback_allocs"] == warm, f"(b) the pool allocated "
+          f"{stats['pool_fallback_allocs'] - warm} buffers after warm-up")
+    loader.close()
+    for name, (ms, wait) in turns:
+        print(f"  (b) {name:9s}: aot step {ms:.3f} ms ({batch_size / ms * 1e3:.1f}"
+              f" images/s), data wait {wait:.4f} ms/step on {card}",
+              flush=True)
+    fed_ms = (turns[1][1][0] + turns[2][1][0]) / 2
+    syn_ms = (turns[0][1][0] + turns[3][1][0]) / 2
+    print(f"  (b) loader-fed / synthetic step {fed_ms / syn_ms:.4f}; loader "
+          f"stats {stats} (fallback allocations after warm-up "
+          f"{stats['pool_fallback_allocs'] - warm}); prefetcher "
+          f"{feed.stats()}", flush=True)
+
+    if cuda:
+        t1 = time.perf_counter()
+        state, bad, cstats = loader_integrity(
+            torch, runner, step, state, path, shape, batch_size, labels_t,
+            checked, fault=False)
+        state, fault, fstats = loader_integrity(
+            torch, runner, step, state, path, shape, batch_size, labels_t,
+            checked, fault=True)
+        print(f"  (c) {checked} batches, ring on, depth 3, copies held back "
+              f"{LOADER_COPY_DELAY_MS} ms: {bad} device checksums off the "
+              f"host's (limit 0; fallback allocations "
+              f"{cstats['pool_fallback_allocs']}); recycled at settle (the "
+              f"planted fault): {fault} off ({time.perf_counter() - t1:.1f}s)"
+              f" on {card}", flush=True)
+        check(bad == 0, f"(c) {bad} batches reached the step other than the "
+              f"loader assembled them")
+        check(fault > 0, "(c) recycling at settle read no mismatch: the "
+              "check cannot see the fault it guards against")
+    del runner, step, state, feed
+    autodist_mod._reset_default()
+    return out
+
+
+def loader_phase(torch, fa, card, bert_cfg, resnet_cfg, device,
+                 bert_batch=32, seq=128, num_masked=20, steps=LOADER_STEPS,
+                 unroll=GRAPH_UNROLL, image=224, resnet_batch=64,
+                 window=LOADER_WINDOW, checked=LOADER_CHECKED):
+    """Phase 18: the input pipeline ((a) BERT through the wired loader vs
+    the host-stacked feed, (b) ResNet-50 from uint8 records, (c) the
+    staging buffers' integrity); returns {path: flash launches}."""
+    import tempfile
+
+    from autodist_tpu_torch.ops import build
+    print(f"phase 18: the input pipeline; a {bert_cfg.num_layers}-layer BERT "
+          f"(MLM, batch {bert_batch} x {seq}, {num_masked} masked, Adam 1e-4)"
+          f" {steps} steps of run(unroll={unroll}) from a NativeDataLoader, "
+          f"and ResNet (stages {resnet_cfg.stage_sizes}, batch {resnet_batch}"
+          f" x {image}^2 uint8) through DevicePrefetcher(loader=)",
+          flush=True)
+    t0 = time.perf_counter()
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    directory = tempfile.mkdtemp(dir=build.BUILD_DIR)
+    try:
+        paths = loader_bert_phase(torch, fa, card, bert_cfg, device,
+                                  directory, bert_batch, seq, num_masked,
+                                  steps, unroll)
+        paths.update(loader_resnet_phase(torch, fa, card, resnet_cfg, device,
+                                         directory, image, resnet_batch,
+                                         window, checked))
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    print(f"phase 18: {time.perf_counter() - t0:.1f}s", flush=True)
+    return paths
+
+
 # Phase 16 (``--cards 4``): the ported lowerings on four cards over NCCL.
 #
 # One process per card, started with torchrun's environment (RANK,
@@ -7056,6 +7548,8 @@ def main():
         zoo.update(two_axis)
     finally:
         shutil.rmtree(share["dir"], ignore_errors=True)
+    zoo.update(loader_phase(torch, fa, card, bert.bert_base(max_len=128),
+                            resnet.resnet50(), "cuda"))
     fwd["launches"] = served + trained["flash_fwd"]
     fwd["launches_by_path"] = {"serve": served,
                                "train": trained["flash_fwd"],

@@ -434,7 +434,7 @@ def test_serving_answers_come_from_the_bucket_path_and_stay_owned():
                        max_wait_ms=0, device="cpu")
     try:
         replica = srv.engine.replicas[0]
-        assert sorted(replica.graphs) == [(4,), (8,)]
+        assert replica.buckets_compiled == [4, 8]
         answers, kept = [], []
         for rows in (3, 8, 1, 4):
             req = request(rows)
@@ -450,8 +450,9 @@ def test_serving_answers_come_from_the_bucket_path_and_stay_owned():
             kept.append(out.clone())
         for out, was in zip(answers, kept):   # later dispatches wrote none
             assert torch.equal(out, was)
-        assert all(not g.captured and g.replays == 0
-                   for g in replica.graphs.values())   # no card: no graph
+        assert all(not g.captured and g.replays == 0   # no card: no graph
+                   for g in (replica.compile_bucket(b, None)
+                             for b in replica.buckets_compiled))
         with pytest.raises(ValueError, match="matches no warmed bucket"):
             replica.run_bucket(tuple(torch.zeros((2, 16), dtype=torch.int32)
                                      for _ in range(2)))
@@ -480,8 +481,9 @@ def _graph_owners(kind):
                       device="cpu") as srv:
         srv.infer(request, timeout=60)
         replica = srv.engine.replicas[0]
-        graphs = list(replica.graphs.values())
-    assert replica.graphs == {}
+        graphs = [replica.compile_bucket(b, None)
+                  for b in replica.buckets_compiled]
+    assert replica.buckets_compiled == []
     return None, graphs
 
 

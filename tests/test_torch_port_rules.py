@@ -59,6 +59,7 @@ def test_port_imports_with_jax_made_unimportable():
             "import autodist_tpu_torch.models.lm, autodist_tpu_torch.models.mlp\n"
             "import autodist_tpu_torch.parallel.moe\n"
             "import autodist_tpu_torch.pipeline, autodist_tpu_torch.ops.blocks\n"
+            "import autodist_tpu_torch.data\n"
             "from autodist_tpu_torch.models import ZOO, bilstm, ncf, resnet\n"
             "import chip_smoke\n"
             "print('ok')\n")
@@ -193,3 +194,171 @@ def test_gitignore_lists_the_kernel_build_directory():
     assert os.path.relpath(build.BUILD_DIR, ROOT) + "/" in lines
     for name in build.KERNELS:
         assert os.path.exists(os.path.join(build.CSRC, name + ".cu"))
+
+
+# -- public names held to the JAX package's (ROADMAP A16) --------------------
+# These import JAX inside the test: the rest of this file runs without it.
+
+def test_package_exports_the_jax_packages_names():
+    import autodist_tpu
+
+    import autodist_tpu_torch
+    from autodist_tpu_torch import autodist as autodist_mod
+    assert autodist_tpu_torch.__all__ == autodist_tpu.__all__
+    assert autodist_tpu_torch.__version__ == autodist_tpu.__version__
+    autodist_mod._reset_default()
+    try:
+        assert autodist_tpu_torch.get_default_autodist() is None
+        ad = autodist_tpu_torch.AutoDist(device="cpu")
+        assert autodist_tpu_torch.get_default_autodist() is ad
+    finally:
+        autodist_mod._reset_default()
+    assert autodist_tpu_torch.get_default_autodist() is None
+
+
+SPEC_8_GPUS = """
+nodes:
+  - address: 10.0.0.1
+    gpus: [0, 1, 2, 3, 4, 5, 6, 7]
+    chief: true
+"""
+
+
+def test_build_strategy_matches_jax(tmp_path):
+    """``AutoDist.build_strategy`` on one spec file: the JAX package's
+    node configs, and no world started."""
+    import jax
+    import optax
+    from autodist_tpu import AutoDist as JAutoDist
+    from autodist_tpu import autodist as jautodist_mod
+    from autodist_tpu.models import bert as jbert
+    from autodist_tpu.strategy import AllReduce as JAllReduce
+
+    from autodist_tpu_torch import AutoDist, convert
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.strategy import AllReduce
+    spec = tmp_path / "spec.yml"
+    spec.write_text(SPEC_8_GPUS)
+    jparams, jloss, batch = jbert.tiny_fixture(seed=0)
+    jautodist_mod._reset_default()
+    jad = JAutoDist(resource_spec_file=str(spec),
+                    strategy_builder=JAllReduce(chunk_size=16))
+    want = jad.build_strategy(jad.capture(jloss, jparams, optax.sgd(0.1),
+                                          example_batch=batch))
+    jautodist_mod._reset_default()
+    autodist_mod._reset_default()
+    try:
+        ad = AutoDist(resource_spec_file=str(spec),
+                      strategy_builder=AllReduce(chunk_size=16),
+                      device="cpu")
+        item = ad.capture(bert.make_loss_fn(bert.bert_tiny()),
+                          convert.params_from_jax(jax.device_get(jparams),
+                                                  "cpu"),
+                          lambda ts: torch.optim.SGD(ts, lr=0.1),
+                          example_batch=batch)
+        got = ad.build_strategy(item)
+        assert not torch.distributed.is_initialized()
+    finally:
+        autodist_mod._reset_default()
+    assert [n.SerializeToString() for n in got.node_config] == \
+        [n.SerializeToString() for n in want.node_config]
+    assert list(got.graph_config.replicas) == \
+        list(want.graph_config.replicas)
+
+
+ZOO_NAMES = ("mlp", "resnet", "bert", "lm", "bilstm", "ncf")
+
+
+@pytest.mark.parametrize("model", ZOO_NAMES)
+def test_tiny_fixture_matches_jax(model):
+    """Each model's ``tiny_fixture``: the JAX batch bitwise, the JAX param
+    tree's names and shapes, params drawn from the seed, and the loss on
+    the JAX package's params carried across with ``convert`` at the zoo's
+    f32 tolerance (atol 2e-5 / rtol 1e-4, ``tests/test_torch_models.py``)."""
+    import importlib
+
+    import jax
+
+    from autodist_tpu_torch import convert
+    from autodist_tpu_torch.utils.tree import flatten_with_path, path_to_name
+    jmod = importlib.import_module(f"autodist_tpu.models.{model}")
+    mod = importlib.import_module(f"autodist_tpu_torch.models.{model}")
+    jparams, jloss, jbatch = jmod.tiny_fixture(seed=1)
+    params, loss, batch = mod.tiny_fixture(seed=1, device="cpu")
+    assert len(batch) == len(jbatch)
+    for a, b in zip(batch, jbatch):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+    def shapes(tree):
+        return {path_to_name(p): tuple(np.shape(t))
+                for p, t in flatten_with_path(tree)[0]}
+    jparams = jax.device_get(jparams)
+    assert shapes(params) == shapes(jparams)
+
+    def named(tree):
+        return {path_to_name(p): t for p, t in flatten_with_path(tree)[0]}
+    ours = named(params)
+    again = named(mod.tiny_fixture(seed=1, device="cpu")[0])
+    other = named(mod.tiny_fixture(seed=2, device="cpu")[0])
+    assert all(torch.equal(t, again[n]) for n, t in ours.items())
+    assert any(not torch.equal(t, other[n]) for n, t in ours.items())
+    got = loss(convert.params_from_jax(jparams, "cpu"),
+               tuple(torch.from_numpy(a) for a in batch))
+    np.testing.assert_allclose(float(got), float(jloss(jparams, jbatch)),
+                               rtol=1e-4, atol=2e-5)
+
+
+def test_lm_synthetic_batch_matches_jax():
+    from autodist_tpu.models import lm as jlm
+
+    from autodist_tpu_torch.models import lm
+    for kw in (dict(), dict(batch_size=4, seq_len=8, seed=3)):
+        (got,), (want,) = (lm.synthetic_batch(lm.lm_tiny(), **kw),
+                           jlm.synthetic_batch(jlm.lm_tiny(), **kw))
+        assert got.dtype == want.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("buckets", [(8, 16), ((8, 16), (16, 16))],
+                         ids=["rows", "rows_seq"])
+def test_serve_engine_program_and_compiled_buckets_match_jax(buckets):
+    """``ServeEngine.program`` (replica 0's) and ``ReplicaRuntime.
+    compile_bucket`` / ``buckets_compiled``: the JAX package's bucket list
+    for the same buckets; ``compile_bucket`` of a compiled bucket returns
+    its graph."""
+    import jax
+    from autodist_tpu.models import transformer as JT
+    from autodist_tpu.serve.engine import ServeEngine as JServeEngine
+
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.serve.engine import ServeEngine
+    cfg = bert.bert_tiny()
+    params = T.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    jcfg = JT.TransformerConfig(vocab=cfg.vocab, dim=cfg.dim,
+                                num_heads=cfg.num_heads,
+                                num_layers=cfg.num_layers,
+                                max_len=cfg.max_len, causal=False,
+                                num_segments=2)
+    jparams = JT.init(jax.random.PRNGKey(0), jcfg)
+    example = (np.zeros((8, 16), np.int32), np.zeros((8, 16), np.int32))
+    engine = ServeEngine(
+        lambda p, b: T.encode(p, cfg, b[0], segment_ids=b[1]), params,
+        example, buckets, device="cpu")
+    jengine = JServeEngine(
+        lambda p, b: JT.encode(p, jcfg, b[0], segment_ids=b[1]), jparams,
+        example, buckets)
+    try:
+        rep, jrep = engine.replicas[0], jengine.replicas[0]
+        assert engine.program is rep.program
+        assert jengine.program is jrep.program
+        assert rep.buckets_compiled == jrep.buckets_compiled
+        for b in rep.buckets_compiled:
+            graph = rep.compile_bucket(b, engine.item.batch_struct)
+            assert graph is rep.compile_bucket(b, engine.item.batch_struct)
+            assert not graph.captured  # no card: the forward, called
+    finally:
+        engine.close()
+        jengine.close()
