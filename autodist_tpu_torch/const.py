@@ -52,7 +52,7 @@ class ENV(enum.Enum):
     AUTODIST_DECODE_SLOTS = ("AUTODIST_DECODE_SLOTS", int, 8)  # decode engine slot count per (slots, cache_len) bucket (a multiple of the per-replica device count)
     AUTODIST_DECODE_CACHE_LEN = ("AUTODIST_DECODE_CACHE_LEN", int, 128)  # preallocated KV-cache length per slot (prompt + generated tokens must fit)
     # -- pipeline parallelism (pipeline/) -------------------------------------
-    AUTODIST_PIPELINE_STAGES = ("AUTODIST_PIPELINE_STAGES", int, 0)  # pipeline stage count S for Pipeline() with no explicit num_stages (0 => the spec's pipeline: mesh hint; the cost-based choice waits for ROADMAP item A4)
+    AUTODIST_PIPELINE_STAGES = ("AUTODIST_PIPELINE_STAGES", int, 0)  # pipeline stage count S for Pipeline() with no explicit num_stages (0 => the spec's pipeline: mesh hint, else the stage cutter's choice)
     AUTODIST_MICROBATCHES = ("AUTODIST_MICROBATCHES", int, 0)  # GPipe microbatch count M (0 => 2 * stages; bubble fraction (S-1)/(S+M-1))
     AUTODIST_PIPELINE_SCHEDULE = ("AUTODIST_PIPELINE_SCHEDULE", str, "shift")  # shift (pipelined) | sequential (the bitwise unpipelined control arm) | shift-noskip (idle slots compute on garbage) | 1f1b (shift order, the stage recomputed in the backward)
 

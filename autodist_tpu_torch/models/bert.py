@@ -7,6 +7,7 @@ import torch
 
 from autodist_tpu_torch.models import layers as L
 from autodist_tpu_torch.models import transformer as T
+from autodist_tpu_torch.utils.scope import named_scope
 
 
 def bert_base(vocab=30522, max_len=512, dtype=torch.bfloat16):
@@ -39,8 +40,9 @@ def make_loss_fn(cfg, attn_fn=None):
         hidden = T.encode(params, cfg, ids, segment_ids=seg, attn_fn=attn_fn)
         length = ids.shape[1]
         span = context.chunk(attn_fn, length) or (0, length)
-        return chunk_mlm_loss(params, cfg, hidden, positions, labels, span,
-                              length // span[1])
+        with named_scope("mlm_head"):
+            return chunk_mlm_loss(params, cfg, hidden, positions, labels,
+                                  span, length // span[1])
     return loss_fn
 
 

@@ -10,6 +10,7 @@ import torch
 
 from autodist_tpu_torch.models import layers as L
 from autodist_tpu_torch.utils.device import resolve_device
+from autodist_tpu_torch.utils.scope import named_scope
 from autodist_tpu_torch.utils.tree import tree_map
 
 
@@ -38,11 +39,17 @@ def init(cfg, generator=None, device="cuda"):
 
 
 def apply(params, cfg, ids):
-    x = L.embed(params["embed"], ids)
-    hf = L.lstm(params["fwd"], x, cfg.hidden, dtype=cfg.dtype)
-    hb = L.lstm(params["bwd"], x, cfg.hidden, reverse=True, dtype=cfg.dtype)
-    h = torch.cat([hf[:, -1], hb[:, 0]], dim=-1)  # final states
-    return L.dense(params["head"], h, dtype=torch.float32)
+    # Scopes mirror the param keys (embed / fwd / bwd / head).
+    with named_scope("embed"):
+        x = L.embed(params["embed"], ids)
+    with named_scope("fwd"):
+        hf = L.lstm(params["fwd"], x, cfg.hidden, dtype=cfg.dtype)
+    with named_scope("bwd"):
+        hb = L.lstm(params["bwd"], x, cfg.hidden, reverse=True,
+                    dtype=cfg.dtype)
+    with named_scope("head"):
+        h = torch.cat([hf[:, -1], hb[:, 0]], dim=-1)  # final states
+        return L.dense(params["head"], h, dtype=torch.float32)
 
 
 def make_loss_fn(cfg):

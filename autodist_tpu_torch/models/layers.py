@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from autodist_tpu_torch.parallel import context
 from autodist_tpu_torch.parallel.collectives import GatherShards
 from autodist_tpu_torch.utils import logging
+from autodist_tpu_torch.utils.scope import einsum
 
 
 # -- initializers ------------------------------------------------------------
@@ -303,11 +304,11 @@ def dot_product_attention(q, k, v, mask=None):
     """Reference attention: softmax(qk^T/sqrt(d))v with an f32 softmax;
     masked logits take ``finfo(float32).min``."""
     hd = q.shape[-1]
-    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() / math.sqrt(hd)
+    logits = einsum("bhqd,bhkd->bhqk", q, k).float() / math.sqrt(hd)
     if mask is not None:
         logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+    return einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
 
 
 def mha_decode(p, x, num_heads, k_cache, v_cache, pos, dtype=None):

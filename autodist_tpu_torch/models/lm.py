@@ -9,6 +9,7 @@ import torch
 
 from autodist_tpu_torch.models import layers as L
 from autodist_tpu_torch.models import transformer as T
+from autodist_tpu_torch.utils.scope import named_scope
 
 
 def lm1b(vocab=32000, dtype=torch.bfloat16):
@@ -38,11 +39,12 @@ def make_loss_fn(cfg, attn_fn=None):
         from autodist_tpu_torch.parallel import context
         (tokens,) = batch if isinstance(batch, (tuple, list)) else (batch,)
         hidden = T.encode(params, cfg, tokens[:, :-1], attn_fn=attn_fn)
-        targets = tokens[:, 1:]
-        span = context.chunk(attn_fn, targets.shape[1])
-        if span is not None:
-            targets = targets[:, span[0]:span[0] + span[1]]
-        return L.softmax_xent(T.logits(params, cfg, hidden), targets)
+        with named_scope("lm_head"):
+            targets = tokens[:, 1:]
+            span = context.chunk(attn_fn, targets.shape[1])
+            if span is not None:
+                targets = targets[:, span[0]:span[0] + span[1]]
+            return L.softmax_xent(T.logits(params, cfg, hidden), targets)
     return loss_fn
 
 

@@ -8,6 +8,7 @@ import torch
 
 from autodist_tpu_torch.models import layers as L
 from autodist_tpu_torch.utils.device import resolve_device
+from autodist_tpu_torch.utils.scope import named_scope
 
 
 def linreg_init(device="cuda"):
@@ -45,10 +46,13 @@ def init(cfg, generator=None, device="cuda"):
 
 
 def apply(params, cfg, x):
+    # Scopes mirror the param keys (dense<i>).
     n = len(cfg.hidden)
     for i in range(n):
-        x = torch.relu(L.dense(params[f"dense{i}"], x, dtype=cfg.dtype))
-    return L.dense(params[f"dense{n}"], x, dtype=torch.float32)
+        with named_scope(f"dense{i}"):
+            x = torch.relu(L.dense(params[f"dense{i}"], x, dtype=cfg.dtype))
+    with named_scope(f"dense{n}"):
+        return L.dense(params[f"dense{n}"], x, dtype=torch.float32)
 
 
 def make_loss_fn(cfg):

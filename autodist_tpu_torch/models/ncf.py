@@ -9,6 +9,7 @@ import torch
 
 from autodist_tpu_torch.models import layers as L
 from autodist_tpu_torch.utils.device import resolve_device
+from autodist_tpu_torch.utils.scope import named_scope
 from autodist_tpu_torch.utils.tree import tree_map
 
 
@@ -45,15 +46,22 @@ def init(cfg, generator=None, device="cuda"):
 
 
 def apply(params, cfg, users, items):
-    """One logit per (user, item) pair: (batch,) f32."""
-    gmf = (L.embed(params["embed_user_gmf"], users) *
-           L.embed(params["embed_item_gmf"], items))
-    h = torch.cat([L.embed(params["embed_user_mlp"], users),
-                   L.embed(params["embed_item_mlp"], items)], dim=-1)
+    """One logit per (user, item) pair: (batch,) f32. Scopes mirror the
+    param keys (``embed_*``, ``mlp<i>``, ``head``)."""
+    with named_scope("embed_user_gmf"):
+        ug = L.embed(params["embed_user_gmf"], users)
+    with named_scope("embed_item_gmf"):
+        gmf = ug * L.embed(params["embed_item_gmf"], items)
+    with named_scope("embed_user_mlp"):
+        um = L.embed(params["embed_user_mlp"], users)
+    with named_scope("embed_item_mlp"):
+        h = torch.cat([um, L.embed(params["embed_item_mlp"], items)], dim=-1)
     for i in range(len(cfg.mlp_dims) - 1):
-        h = torch.relu(L.dense(params[f"mlp{i}"], h, dtype=cfg.dtype))
-    return L.dense(params["head"], torch.cat([gmf, h], dim=-1),
-                   dtype=torch.float32)[..., 0]
+        with named_scope(f"mlp{i}"):
+            h = torch.relu(L.dense(params[f"mlp{i}"], h, dtype=cfg.dtype))
+    with named_scope("head"):
+        return L.dense(params["head"], torch.cat([gmf, h], dim=-1),
+                       dtype=torch.float32)[..., 0]
 
 
 def make_loss_fn(cfg):

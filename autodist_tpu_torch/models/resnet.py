@@ -12,6 +12,7 @@ import torch
 
 from autodist_tpu_torch.models import layers as L
 from autodist_tpu_torch.utils.device import resolve_device
+from autodist_tpu_torch.utils.scope import named_scope
 from autodist_tpu_torch.utils.tree import tree_map
 
 
@@ -105,20 +106,24 @@ def init(cfg, generator=None, device="cuda", input_ch=3):
 
 
 def apply(params, cfg, images):
-    """NHWC images -> f32 logits (batch, num_classes)."""
+    """NHWC images -> f32 logits (batch, num_classes). Scopes mirror the
+    param keys (``stem``, ``stage<s>/block<b>``, ``head``)."""
     x = images.to(cfg.dtype)
-    x = L.conv(params["stem"]["conv"], x, 1 if cfg.cifar_stem else 2,
-               dtype=cfg.dtype)
-    x = torch.relu(L.batchnorm(params["stem"]["bn"], x))
-    if not cfg.cifar_stem:
-        x = L.max_pool(x, 3, 2)
+    with named_scope("stem"):
+        x = L.conv(params["stem"]["conv"], x, 1 if cfg.cifar_stem else 2,
+                   dtype=cfg.dtype)
+        x = torch.relu(L.batchnorm(params["stem"]["bn"], x))
+        if not cfg.cifar_stem:
+            x = L.max_pool(x, 3, 2)
     blk = _bottleneck if cfg.bottleneck else _basic_block
     for s, n_blocks in enumerate(cfg.stage_sizes):
         for b in range(n_blocks):
             stride = 2 if (b == 0 and s > 0) else 1
-            x = blk(params[f"stage{s}/block{b}"], x, stride, cfg.dtype)
-    x = x.mean(dim=(1, 2))  # global average pool, in the compute dtype
-    return L.dense(params["head"], x, dtype=torch.float32)
+            with named_scope(f"stage{s}/block{b}"):
+                x = blk(params[f"stage{s}/block{b}"], x, stride, cfg.dtype)
+    with named_scope("head"):
+        x = x.mean(dim=(1, 2))  # global average pool, in the compute dtype
+        return L.dense(params["head"], x, dtype=torch.float32)
 
 
 def make_loss_fn(cfg):

@@ -8,7 +8,10 @@ whose leaves carry a leading layer dim, applied through
 schedule under the ``Pipeline`` strategy). Ported: ``TransformerConfig``,
 ``block_init``, ``init``, ``block_apply``, ``encode`` (with the
 sequence-parallel attention hook), ``logits`` and the KV-cache decode
-functions ``init_cache``, ``block_decode`` and ``decode_step``.
+functions ``init_cache``, ``block_decode`` and ``decode_step``. The
+forward runs under the JAX package's named scopes (``embed``,
+``layer<i>`` or ``blocks``, ``attn`` / ``mlp``, ``ln_f``, ``logits``),
+which ``GraphItem.op_provenance`` and the stage cutter read.
 """
 import torch
 import torch.nn.functional as F
@@ -16,6 +19,7 @@ import torch.nn.functional as F
 from autodist_tpu_torch.models import layers as L
 from autodist_tpu_torch.parallel import context
 from autodist_tpu_torch.utils.device import resolve_device
+from autodist_tpu_torch.utils.scope import named_scope
 from autodist_tpu_torch.utils.tree import tree_map
 
 
@@ -50,18 +54,21 @@ def block_init(generator, cfg):
 def block_apply(p, x, cfg, mask=None, attn_fn=None):
     """One block. Under ``ModelParallel`` the attention and the MLP take
     this rank's Megatron pieces (``layers.mha``; the MLP's up projection
-    column-parallel, its down projection row-parallel)."""
-    h = L.layernorm(p["ln1"], x)
-    x = x + L.mha(p["attn"], h, cfg.num_heads, mask=mask, dtype=cfg.dtype,
-                  attn_fn=attn_fn)
-    h = L.layernorm(p["ln2"], x)
-    tp = context.megatron(p["mlp"]["up"]["kernel"], 1, cfg.mlp_dim)
-    group = None if tp is None else tp.model_group
-    if group is not None:
-        h = L.copy_to_model(h, group)
-    # jax.nn.gelu's default is the tanh approximation.
-    h = F.gelu(L.dense(p["mlp"]["up"], h, cfg.dtype), approximate="tanh")
-    return x + L.dense(p["mlp"]["down"], h, cfg.dtype, row_group=group)
+    column-parallel, its down projection row-parallel). The ``attn`` and
+    ``mlp`` scopes nest under the caller's layer scope."""
+    with named_scope("attn"):
+        h = L.layernorm(p["ln1"], x)
+        x = x + L.mha(p["attn"], h, cfg.num_heads, mask=mask,
+                      dtype=cfg.dtype, attn_fn=attn_fn)
+    with named_scope("mlp"):
+        h = L.layernorm(p["ln2"], x)
+        tp = context.megatron(p["mlp"]["up"]["kernel"], 1, cfg.mlp_dim)
+        group = None if tp is None else tp.model_group
+        if group is not None:
+            h = L.copy_to_model(h, group)
+        # jax.nn.gelu's default is the tanh approximation.
+        h = F.gelu(L.dense(p["mlp"]["up"], h, cfg.dtype), approximate="tanh")
+        return x + L.dense(p["mlp"]["down"], h, cfg.dtype, row_group=group)
 
 
 def init(cfg, generator=None, device="cuda"):
@@ -121,25 +128,30 @@ def encode(params, cfg, ids, segment_ids=None, attn_fn=None):
     else:
         mask = L.causal_mask(s, device=ids.device) if cfg.causal else None
     # Embedding sum in f32; cast to the compute dtype after all three.
-    x = L.embed(params["embed"], ids) + params["pos_embed"][off:off + s]
-    if cfg.num_segments and segment_ids is not None:
-        x = x + params["seg_embed"][segment_ids]
-    x = x.to(cfg.dtype)
+    with named_scope("embed"):
+        x = L.embed(params["embed"], ids) + params["pos_embed"][off:off + s]
+        if cfg.num_segments and segment_ids is not None:
+            x = x + params["seg_embed"][segment_ids]
+        x = x.to(cfg.dtype)
     if cfg.scan_layers:
         from autodist_tpu_torch.ops.blocks import scan_blocks
-        x = scan_blocks(params["blocks"],
-                        lambda bp, a: block_apply(bp, a, cfg, mask=mask,
-                                                  attn_fn=attn_fn), x)
+        with named_scope("blocks"):
+            x = scan_blocks(params["blocks"],
+                            lambda bp, a: block_apply(bp, a, cfg, mask=mask,
+                                                      attn_fn=attn_fn), x)
     else:
         for i in range(cfg.num_layers):
-            x = block_apply(params[f"layer{i}"], x, cfg, mask=mask,
-                            attn_fn=attn_fn)
-    return L.layernorm(params["ln_f"], x)
+            with named_scope(f"layer{i}"):
+                x = block_apply(params[f"layer{i}"], x, cfg, mask=mask,
+                                attn_fn=attn_fn)
+    with named_scope("ln_f"):
+        return L.layernorm(params["ln_f"], x)
 
 
 def logits(params, cfg, hidden):
     """Tied-embedding output projection, in f32."""
-    return hidden.float() @ params["embed"]["embedding"].T.float()
+    with named_scope("logits"):
+        return hidden.float() @ params["embed"]["embedding"].T.float()
 
 
 # -- autoregressive decode (KV cache) ----------------------------------------
@@ -164,14 +176,18 @@ def init_cache(cfg, slots, cache_len, dtype=None, device="cuda"):
 
 
 def block_decode(p, x, cfg, k_cache, v_cache, pos):
-    """One transformer block for a single decode token per slot."""
-    h = L.layernorm(p["ln1"], x)
-    a, k_cache, v_cache = L.mha_decode(p["attn"], h, cfg.num_heads, k_cache,
-                                       v_cache, pos, dtype=cfg.dtype)
-    x = x + a
-    h = L.layernorm(p["ln2"], x)
-    h = F.gelu(L.dense(p["mlp"]["up"], h, cfg.dtype), approximate="tanh")
-    return x + L.dense(p["mlp"]["down"], h, cfg.dtype), k_cache, v_cache
+    """One transformer block for a single decode token per slot (under
+    :func:`block_apply`'s scopes)."""
+    with named_scope("attn"):
+        h = L.layernorm(p["ln1"], x)
+        a, k_cache, v_cache = L.mha_decode(p["attn"], h, cfg.num_heads,
+                                           k_cache, v_cache, pos,
+                                           dtype=cfg.dtype)
+        x = x + a
+    with named_scope("mlp"):
+        h = L.layernorm(p["ln2"], x)
+        h = F.gelu(L.dense(p["mlp"]["up"], h, cfg.dtype), approximate="tanh")
+        return x + L.dense(p["mlp"]["down"], h, cfg.dtype), k_cache, v_cache
 
 
 def decode_step(params, cfg, cache, tokens, pos):
@@ -191,12 +207,15 @@ def decode_step(params, cfg, cache, tokens, pos):
             "decode_step does not support scan_layers layouts; build the "
             "serving config with scan_layers=False")
     tokens, pos = tokens.long(), pos.long()
-    x = L.embed(params["embed"], tokens[:, None]) + \
-        params["pos_embed"][pos][:, None, :]
-    x = x.to(cfg.dtype)
+    with named_scope("embed"):
+        x = L.embed(params["embed"], tokens[:, None]) + \
+            params["pos_embed"][pos][:, None, :]
+        x = x.to(cfg.dtype)
     for i in range(cfg.num_layers):
-        lc = cache[f"layer{i}"]
-        x, _, _ = block_decode(params[f"layer{i}"], x, cfg, lc["k"], lc["v"],
-                               pos)
-    x = L.layernorm(params["ln_f"], x)
+        with named_scope(f"layer{i}"):
+            lc = cache[f"layer{i}"]
+            x, _, _ = block_decode(params[f"layer{i}"], x, cfg, lc["k"],
+                                   lc["v"], pos)
+    with named_scope("ln_f"):
+        x = L.layernorm(params["ln_f"], x)
     return logits(params, cfg, x)[:, 0, :], cache

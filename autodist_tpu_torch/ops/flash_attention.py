@@ -26,6 +26,7 @@ import math
 import torch
 
 from autodist_tpu_torch.utils import cuda_graph
+from autodist_tpu_torch.utils.scope import einsum
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -51,7 +52,7 @@ def flash_fwd_reference(q, k, v, causal=False, q_offset=0, k_offset=0,
     """
     out_dtype = out_dtype or q.dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    s = einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if causal:
         s = s + causal_bias(q.shape[2], k.shape[2], q_offset, k_offset,
                             device=q.device)
@@ -59,7 +60,7 @@ def flash_fwd_reference(q, k, v, causal=False, q_offset=0, k_offset=0,
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     lse = m + torch.log(l)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l
+    o = einsum("bhqk,bhkd->bhqd", p, v.float()) / l
     if causal:
         empty = lse <= _NEG_INF / 2
         o = torch.where(empty, 0.0, o)

@@ -9,8 +9,9 @@ with a hop a tick. Pieces:
   ``torch.autograd.Function`` a call (``pipeline_apply``), with the
   bitwise sequential control schedule and ``1f1b``;
 * :mod:`~autodist_tpu_torch.pipeline.cutter` — stage and microbatch
-  counts and the stacked layout's cut (the cost-based choice waits for
-  ROADMAP.md item A4).
+  counts, and the balanced cut from the per-scope predicted costs
+  (``GraphItem.op_provenance``), which also picks the stage count when
+  nothing else fixes it.
 
 Not ported: ``observe.py``, the ``pipeline.*`` gauges and monitor section
 (ROADMAP.md, Queue A item A11). The user-facing entry point is the

@@ -75,6 +75,7 @@ from autodist_tpu_torch import const
 from autodist_tpu_torch.parallel import context as parallel_context
 from autodist_tpu_torch.parallel.collectives import exchange
 from autodist_tpu_torch.utils import cuda_graph
+from autodist_tpu_torch.utils.scope import named_scope
 from autodist_tpu_torch.utils.tree import flatten, unflatten
 
 #: ``shift`` — the pipelined schedule; ``sequential`` — the bitwise
@@ -166,9 +167,11 @@ class _Run:
         self.ctx = parallel_context.current()
 
     def _apply(self, leaves, inp):
-        """The stage on ``inp``: the leaves' leading (stage) dim taken."""
-        params = unflatten(self.treedef, [l[0] for l in leaves])
-        y = self.stage_fn(params, inp)
+        """The stage on ``inp``: the leaves' leading (stage) dim taken,
+        under the ``stage`` scope (the JAX schedule's)."""
+        with named_scope("stage"):
+            params = unflatten(self.treedef, [l[0] for l in leaves])
+            y = self.stage_fn(params, inp)
         if y.shape != inp.shape or y.dtype != inp.dtype:
             raise ValueError(
                 f"pipeline stage maps {tuple(inp.shape)} {inp.dtype} to "
@@ -219,14 +222,16 @@ class _Run:
                 self.saved[m] = (inp, y) if self.keep else inp.detach()
                 y = y.detach()
                 if me == p - 1:
-                    outs[m].copy_(y)
+                    with named_scope("shift"):
+                        outs[m].copy_(y)
                 send = y
             elif not self.skip_idle:
                 # The idle slot computes on garbage; its output goes
                 # nowhere.
                 with torch.no_grad():
                     self._apply(self.leaves, torch.zeros_like(x_micro[0]))
-            recv = self._hop(t, send, x_micro[0], backward=False)
+            with named_scope("shift"):
+                recv = self._hop(t, send, x_micro[0], backward=False)
         cuda_graph.count_item(self.counts, "forward_ticks", self.ticks)
         if p > 1:
             dist.broadcast(outs, src=dist.get_global_rank(self.group, p - 1),
@@ -330,7 +335,8 @@ def run_stage(local_params, stage_fn, x, num_microbatches, mesh,
     run = _Run(stage_fn, treedef, num_microbatches, group,
                mesh.axis_index(axis_name), p_size, schedule, skip_idle,
                counts)
-    return _Pipeline.apply(run, x, *leaves)
+    with named_scope("pipeline"):
+        return _Pipeline.apply(run, x, *leaves)
 
 
 def pipeline_apply(stage_params, stage_fn, x, num_microbatches, mesh=None,

@@ -11,16 +11,17 @@ carries to ``scan_blocks``, which then runs the same model on the
 pipeline schedule (``pipeline/schedule.py``).
 
 Stage-count resolution: an explicit ``num_stages`` wins, then
-``AUTODIST_PIPELINE_STAGES``, then the spec's ``pipeline:`` mesh hint; the
-stage cutter's cost-based choice waits for the per-scope cost model
-(ROADMAP.md, Queue A item A4) and raises. The microbatch count defaults to
+``AUTODIST_PIPELINE_STAGES``, then the spec's ``pipeline:`` mesh hint,
+then the stage cutter's own choice from the model's per-scope predicted
+FLOPs (``pipeline/cutter.py``). The microbatch count defaults to
 ``AUTODIST_MICROBATCHES``, else ``2 * num_stages``. The JAX builder's
-observability event is a log line here (A11).
+observability event is a log line here.
 
 Usage::
 
     ad = AutoDist(strategy_builder=Pipeline(
         num_stages=4, num_microbatches=8, base=AllReduce()))
+    ad = AutoDist(strategy_builder=Pipeline())   # the cutter decides S
 """
 import re
 
@@ -40,8 +41,8 @@ class Pipeline(StrategyBuilder):
     Args:
         num_stages: size of the ``pipe`` mesh axis (stage count). The
             model's stacked layer count must be a multiple of it. ``None``
-            resolves via ``AUTODIST_PIPELINE_STAGES``, then the spec's
-            ``pipeline:`` mesh hint.
+            resolves via ``AUTODIST_PIPELINE_STAGES``, the spec's
+            ``pipeline:`` mesh hint, then the stage cutter.
         num_microbatches: GPipe microbatch count M (bubble fraction
             (P-1)/(M+P-1)); defaults to ``AUTODIST_MICROBATCHES``, else
             2 * num_stages.

@@ -293,7 +293,30 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    device checksum equals its host checksum, and recycling a staging
    buffer at settle (the planted fault) must mismatch; (d) the phase's
    seconds;
-19. output: one ``{"kernels": [...]}`` JSON line, then the last line
+19. per-scope program costs (``GraphItem.op_provenance`` / ``scope_costs``
+   / ``activation_live_bytes`` and the stage cutter): (a) BERT-base (phase
+   4's MLM batch, 32 x 128, bf16) and lm1b (phase 13's, stacked, 8 x
+   1024): ``top_level_costs`` and ``cut_stages(item, 4)``, the stages'
+   FLOPs summing exactly to ``flops_estimate()``, lm1b's cut four
+   ``blocks[i]`` a stage at imbalance 0, each model's three largest scopes
+   by FLOPs and by bytes; (b) each model's forward under ``no_grad`` on
+   the card through the attention's plain version (the program the trace
+   describes): its peak allocated bytes above the allocation before it
+   against ``activation_live_bytes()``, within COST_LIVE_RTOL, which must
+   lie between a second forward's reading (the floor) and a scan that
+   never frees (the planted fault: the sum of every op's outputs); the
+   flash path's peak beside it, and the gap against the (b, h, s, s)
+   scores the kernel never writes; (c) four gloo ranks of the card
+   (processes of this script) build ``Pipeline()`` with no arguments on a
+   spec of four devices: ``resolve_stages`` gives (4, "auto"),
+   ``resolve_microbatches`` 8, the proto that of ``Pipeline(4, 8)``; then
+   3 SGD 0.1 steps of lm1b on ``{data: 1, pipe: 4}``, held to phase 13's
+   one-rank steps between its floor and the planted fault (the whole
+   gradients not summed over the pipe group), the ranks' whole params
+   bitwise equal, 32 launches of each flash kernel a rank and step;
+   prints the cut, stored bytes and peak a rank, and the step ms; (d)
+   the phase's seconds;
+20. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 On four cards, ``python3 chip_smoke.py --cards 4 [--part a|b|c|d]`` runs
@@ -6677,6 +6700,306 @@ def loader_phase(torch, fa, card, bert_cfg, resnet_cfg, device,
     return paths
 
 
+# -- phase 19: per-scope program costs ----------------------------------------
+#
+# (b) holds activation_live_bytes() to the forward's measured peak within
+# COST_LIVE_RTOL (|estimate / measured - 1|); (c) trains under Pipeline()
+# on COST_WORLD gloo ranks, held to phase 13's one-rank steps at
+# PP_LOSS_RTOL / PP_UPDATE_RTOL.
+COST_LIVE_RTOL = 0.5
+COST_WORLD = 4
+
+
+@contextlib.contextmanager
+def plain_attention(fa):
+    """The flash forward's plain version in place of its kernel: the
+    program ``GraphItem``'s trace on ``meta`` tensors describes."""
+    real = fa.flash_fwd
+
+    def plain(q, k, v, causal=False, q_offset=0, k_offset=0, out_dtype=None,
+              with_lowp=False):
+        return fa.flash_fwd_reference(q, k, v, causal, q_offset, k_offset,
+                                      out_dtype, with_lowp)
+    fa.flash_fwd = plain
+    try:
+        yield
+    finally:
+        fa.flash_fwd = real
+
+
+def forward_peak(torch, loss_fn, params, batch, device):
+    """Peak allocated bytes of one forward under ``no_grad`` above the
+    allocation before it (0 off the card)."""
+    if device != "cuda":
+        with torch.no_grad():
+            loss_fn(params, batch)
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out = loss_fn(params, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def _largest(costs, key, n=3):
+    top = sorted(costs.items(), key=lambda kv: -kv[1][key])[:n]
+    return ", ".join(f"{k or '(none)'} {v[key]:.4g}" for k, v in top)
+
+
+def cost_models_phase(torch, fa, card, device, bert_cfg, lm_cfg, bert_batch,
+                      lm_tokens):
+    """Phase 19 (a) and (b) on BERT (``bert_batch``: its MLM batch) and
+    the stacked LM (``lm_tokens``)."""
+    from autodist_tpu_torch.graph_item import GraphItem
+    from autodist_tpu_torch.models import bert, lm
+    from autodist_tpu_torch.pipeline import cutter
+    rows = []
+    for name, mod, cfg, batch in (("BERT", bert, bert_cfg, bert_batch),
+                                  ("lm1b", lm, lm_cfg, (lm_tokens,))):
+        params = mod.init(cfg, torch.Generator().manual_seed(0),
+                          device=device)
+        loss_fn = mod.make_loss_fn(cfg)
+        item = GraphItem.capture(loss_fn, params, None, example_batch=batch)
+        t0 = time.perf_counter()
+        records = item.op_provenance()
+        trace_s = time.perf_counter() - t0
+        groups = cutter.top_level_costs(item)
+        cut = cutter.cut_stages(item, 4)
+        total = sum(st["flops"] for st in cut.stages)
+        costs = item.scope_costs()
+        print(f"  (a) {name}: {len(records)} ops traced on meta in "
+              f"{trace_s:.2f} s; flops_estimate {item.flops_estimate():.6g};"
+              f" top_level_costs " + ", ".join(
+                  f"{g} {f:.6g}" for g, f, _ in groups), flush=True)
+        print(f"    cut_stages(item, 4): {json.dumps(cut.to_json())}",
+              flush=True)
+        print(f"    largest scopes by FLOPs: {_largest(costs, 'flops')}; by "
+              f"bytes: {_largest(costs, 'bytes')}", flush=True)
+        check(total == cut.total_flops == item.flops_estimate(),
+              f"(a) {name}: the stages sum to {total}, the cut's total is "
+              f"{cut.total_flops}, flops_estimate() {item.flops_estimate()}")
+        if name == "lm1b":
+            per = cfg.num_layers // 4
+            check([len([sc for sc in st["scopes"] if sc.startswith(
+                "blocks[")]) for st in cut.stages] == [per] * 4 and
+                  cut.imbalance == 0.0, f"(a) lm1b: the cut "
+                  f"{[st['scopes'] for st in cut.stages]}, imbalance "
+                  f"{cut.imbalance}")
+        # (b) the estimate against the card.
+        estimate = item.activation_live_bytes()
+        never_freed = sum(r["bytes"] for r in records)
+        placed = tuple(torch.as_tensor(np.asarray(b)).to(device)
+                       for b in batch)
+        with plain_attention(fa):
+            peaks = [forward_peak(torch, loss_fn, params, placed, device)
+                     for _ in range(2)]
+        flash = forward_peak(torch, loss_fn, params, placed, device)
+        b, s = placed[0].shape[0], placed[0].shape[1] - (name == "lm1b")
+        scores = b * cfg.num_heads * s * s * 4
+        rows.append((name, estimate, never_freed, peaks, flash, scores))
+        del params, item, placed
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    for name, estimate, never_freed, (peak, again), flash, scores in rows:
+        ratio = estimate / peak if peak else float("nan")
+        floor = abs(again / peak - 1) if peak else 0.0
+        fault = abs(never_freed / peak - 1) if peak else float("inf")
+        print(f"  (b) {name}: activation_live_bytes {estimate / 2**20:.1f} "
+              f"MiB; the forward's measured peak (plain attention) "
+              f"{peak / 2**20:.1f} MiB, again {again / 2**20:.1f} MiB; "
+              f"estimate / measured {ratio:.4f} (|1 - ratio| tolerance "
+              f"{COST_LIVE_RTOL}; floor {floor:.3e}, the never-freeing "
+              f"scan {never_freed / 2**20:.1f} MiB: {fault:.3f}); the flash "
+              f"path's peak {flash / 2**20:.1f} MiB, gap "
+              f"{(peak - flash) / 2**20:.1f} MiB beside one (b, h, s, s) f32"
+              f" score tensor of {scores / 2**20:.1f} MiB; on {card}",
+              flush=True)
+        if device == "cuda":
+            check(floor < COST_LIVE_RTOL < fault, f"(b) {name}: the "
+                  f"tolerance {COST_LIVE_RTOL} does not lie between the "
+                  f"floor {floor} and the fault's reading {fault}")
+            check(abs(ratio - 1) <= COST_LIVE_RTOL, f"(b) {name}: "
+                  f"activation_live_bytes {estimate} vs the measured peak "
+                  f"{peak} ({ratio:.4f})")
+    return rows
+
+
+def pp_auto_rank(rank, world, port, spec):
+    """One rank of :func:`cost_phase` (c): a gloo world over ``localhost``
+    on device 0. Builds ``Pipeline()`` and ``Pipeline(4, 8)`` on this
+    rank's spec of ``world`` devices, then trains the stacked LM under
+    ``Pipeline()`` ``spec["steps"]`` SGD steps, and again with the whole
+    gradients summed over the data group alone (the planted fault).
+    Prints {the resolved stage and microbatch counts, the protos' equality,
+    the cut, run: losses, launches, ms, mesh, update error against the
+    reference, digest of the whole params, stored bytes, peak memory}."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch import strategy as S
+    from autodist_tpu_torch.graph_item import GraphItem
+    from autodist_tpu_torch.models import lm
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.ops import build
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.pipeline import cutter
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    spec = json.loads(spec)
+    device = spec["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build.load_all()  # built by the parent: the same sources and flags
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    for knob in ("AUTODIST_PIPELINE_STAGES", "AUTODIST_MICROBATCHES",
+                 "AUTODIST_PIPELINE_SCHEDULE"):
+        os.environ.pop(knob, None)
+    cfg = T.TransformerConfig(**dict(spec["config"], dtype=getattr(
+        torch, spec["dtype"])))
+    params, init = _lm_init(torch, cfg, device)
+    tokens = sp_tokens(cfg, spec["batch"], spec["seq"])
+    ref = torch.load(spec["ref"], map_location=device)
+    sgd = functools.partial(torch.optim.SGD, lr=spec["lr"])
+    item = GraphItem.capture(lm.make_loss_fn(cfg), params, sgd,
+                             example_batch=(tokens,))
+    rspec = ResourceSpec.world(torch.device(device), rank, world)
+    out = {"rank": rank,
+           "resolved": list(cutter.resolve_stages(item, rspec)),
+           "micro": cutter.resolve_microbatches(item, world)}
+    auto = S.Pipeline().build(item, rspec)
+    out["cut"] = cutter.last_cut().to_json()
+    fixed = S.Pipeline(world, 2 * world).build(item, rspec)
+    auto.proto.id = fixed.proto.id = ""
+    out["proto_equal"] = (auto.proto.SerializeToString() ==
+                          fixed.proto.SerializeToString())
+    del item
+
+    def data_only(runner):  # whole gradients over the data group alone
+        runner._grad_group = runner.program.mesh.group("data")
+
+    for key in ("auto", "data_only"):
+        run = _train(torch, fa, device, S.Pipeline(), lm.make_loss_fn(cfg),
+                     params, (tokens,), spec["steps"], spec["lr"],
+                     prepare=data_only if key == "data_only" else None)
+        kinds = run.runner.var_kinds
+        final = flatten_params(run.runner.logical_params(run.state))
+        stored = flatten_params(run.state.params)
+        out[key] = {
+            "losses": run.losses, "launches": run.launches, "ms": run.times,
+            "mesh": dict(run.runner.program.mesh.shape),
+            "micro": run.runner.program.parallel_context()
+            .pipeline_microbatches,
+            "update_error": update_error(torch, final, ref, init),
+            "whole": _digest(torch, (t for n, t in sorted(stored.items())
+                                     if kinds[n][0] != "tp")),
+            "stored_bytes": sum(t.numel() * t.element_size()
+                                for t in stored.values()),
+            "whole_bytes": sum(t.numel() * t.element_size()
+                               for t in final.values()),
+            "peak_bytes": run.peak}
+        del run, final, stored
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def cost_phase(torch, fa, card, device, reference, bert_cfg, vocab=32000,
+               dim=1024, heads=16, layers=16, max_len=PP_SEQ, batch=PP_BATCH,
+               steps=PP_STEPS, bert_batch=32, bert_seq=128, num_masked=20):
+    """Phase 19: per-scope program costs, (a) and (b) on BERT (``bert_cfg``,
+    phase 4's MLM batch) and the stacked LM (phase 13's), (c) ``Pipeline()``
+    choosing its own stage count on ``COST_WORLD`` gloo ranks, held to one
+    rank's steps (``reference``: phase 13's (losses, floor, path of the
+    final params)). Returns {path: flash launches, summed over the
+    ranks}."""
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    cfg = T.TransformerConfig(vocab=vocab, dim=dim, num_heads=heads,
+                              num_layers=layers, max_len=max_len,
+                              causal=True, dtype=torch.bfloat16,
+                              scan_layers=True)
+    seq = max_len
+    tokens = sp_tokens(cfg, batch, seq)
+    print(f"phase 19: per-scope program costs; BERT (width {bert_cfg.dim}, "
+          f"{bert_cfg.num_layers} layers, MLM {bert_batch} x {bert_seq}, "
+          f"{num_masked} masked) and the LM at lm1b's widths (vocab {vocab}, "
+          f"dim {dim}, {heads} heads, {layers} layers, scan_layers=True, "
+          f"{batch} x {seq})", flush=True)
+    cost_models_phase(torch, fa, card, device, bert_cfg, cfg,
+                      bert.synthetic_batch(bert_cfg, bert_batch, bert_seq,
+                                           num_masked), tokens)
+    ref_losses, floor, ref_path = reference
+    fields = {k: v for k, v in vars(cfg).items() if k != "dtype"}
+    spec = {"device": device, "config": fields, "dtype": "bfloat16",
+            "seq": seq, "batch": batch, "steps": steps, "lr": PP_LR,
+            "ref": ref_path}
+    ranks = _spawn_ranks(COST_WORLD, "--pp-auto", json.dumps(spec),
+                         "a phase 19 rank")
+    r0 = ranks[0]
+    auto = [r["auto"] for r in ranks]
+    fault = (_rel(r0["data_only"]["losses"], ref_losses),
+             max(r["data_only"]["update_error"] for r in ranks))
+    rel = _rel(auto[0]["losses"], ref_losses)
+    err = max(r["update_error"] for r in auto)
+    micro = 2 * COST_WORLD
+    per_rank = layers // COST_WORLD * micro
+    want = {k: per_rank * steps for k in ("flash_fwd", "flash_bwd_dq",
+                                          "flash_bwd_dkv")}
+    print(f"  (c) {COST_WORLD} gloo ranks on one device, Pipeline() with no "
+          f"arguments: resolve_stages {r0['resolved']}, "
+          f"resolve_microbatches {r0['micro']}, the proto "
+          f"{'equals' if r0['proto_equal'] else 'differs from'} "
+          f"Pipeline({COST_WORLD}, {micro})'s; the cut "
+          f"{json.dumps(r0['cut'])}", flush=True)
+    print(f"    mesh {auto[0]['mesh']}, {auto[0]['micro']} microbatches: "
+          f"losses {', '.join(f'{x:.6f}' for x in auto[0]['losses'])}; vs "
+          f"phase 13's one rank: loss {rel:.3e} (tol {PP_LOSS_RTOL}), update "
+          f"{err:.3e} (tol {PP_UPDATE_RTOL}); floor {floor[0]:.3e} / "
+          f"{floor[1]:.3e}; planted fault (whole gradients over the data "
+          f"group alone) {fault[0]:.3e} / {fault[1]:.3e}; whole params equal "
+          f"on every rank: {len({r['whole'] for r in auto}) == 1}; flash "
+          f"launches per rank {auto[0]['launches']}", flush=True)
+    for i, r in enumerate(auto):
+        print(f"    rank {i}: stores {r['stored_bytes']} of "
+              f"{r['whole_bytes']} bytes "
+              f"({100 * r['stored_bytes'] / r['whole_bytes']:.1f}%); peak "
+              f"memory {r['peak_bytes'] / 2**30:.2f} GiB; ms per step "
+              f"(host-inclusive) {', '.join(f'{x:.1f}' for x in r['ms'])}; "
+              f"on {card}", flush=True)
+    check(all(r["resolved"] == [COST_WORLD, "auto"] and r["micro"] == micro
+              and r["proto_equal"] for r in ranks), f"(c) resolve_stages "
+          f"{[r['resolved'] for r in ranks]}, resolve_microbatches "
+          f"{[r['micro'] for r in ranks]}, protos equal "
+          f"{[r['proto_equal'] for r in ranks]}")
+    _cp_tolerances("phase 19 (c)", floor, {"data_only": fault},
+                   (PP_LOSS_RTOL, PP_UPDATE_RTOL))
+    check(rel <= PP_LOSS_RTOL, f"(c) losses {auto[0]['losses']} vs one "
+          f"rank's {ref_losses} ({rel:.3e})")
+    check(err <= PP_UPDATE_RTOL, f"(c) update error {err:.3e}")
+    check(all(r["losses"] == auto[0]["losses"] for r in auto),
+          "(c) the ranks' losses differ")
+    check(len({r["whole"] for r in auto}) == 1,
+          "(c) the whole params differ across the ranks")
+    check(all(r["mesh"] == {"data": 1, "pipe": COST_WORLD} and
+              r["micro"] == micro for r in auto),
+          f"(c) mesh {auto[0]['mesh']}, microbatches {auto[0]['micro']}")
+    for r in auto:
+        check(r["launches"] == want, f"(c) launches {r['launches']}, "
+              f"expected {want}")
+    print(f"  (d) phase 19 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {f"pp_auto_gloo{COST_WORLD}": {
+        k: sum(r["launches"][k] for r in auto) for k in want}}
+
+
 # Phase 16 (``--cards 4``): the ported lowerings on four cards over NCCL.
 #
 # One process per card, started with torchrun's environment (RANK,
@@ -7465,6 +7788,8 @@ def main():
         return cp_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--ta-train":
         return ta_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--pp-auto":
+        return pp_auto_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--cards-rank":
         return cards_rank(sys.argv[2])
     if "--cards" in sys.argv:
@@ -7546,10 +7871,12 @@ def main():
             torch, fa, card, "cuda", share["reference"],
             share["ep_reference"])
         zoo.update(two_axis)
+        zoo.update(loader_phase(torch, fa, card, bert.bert_base(max_len=128),
+                                resnet.resnet50(), "cuda"))
+        zoo.update(cost_phase(torch, fa, card, "cuda", share["reference"],
+                              bert.bert_base(max_len=128)))
     finally:
         shutil.rmtree(share["dir"], ignore_errors=True)
-    zoo.update(loader_phase(torch, fa, card, bert.bert_base(max_len=128),
-                            resnet.resnet50(), "cuda"))
     fwd["launches"] = served + trained["flash_fwd"]
     fwd["launches_by_path"] = {"serve": served,
                                "train": trained["flash_fwd"],

@@ -7,9 +7,16 @@
   differ from the JAX count only where the JAX executor runs its sharded
   conveyor (M % S == 0, S > 2).
 * ``Pipeline``'s proto equals the JAX builder's byte for byte on
-  ``lm_tiny(scan_layers=True)`` under an explicit, an env and a hint stage
-  count; its ``ValueError``s are the JAX ones; the cost-based ``auto``
-  choice raises naming A4.
+  ``lm_tiny(scan_layers=True)`` under an explicit, an env, a hint and the
+  cutter's own (``auto``) stage count, ``Pipeline()`` with no arguments on
+  specs of 2, 4 and 8 devices too; its ``ValueError``s are the JAX ones.
+* The cutter against the JAX one: ``top_level_costs``, ``cut_stages``
+  (S = 1-4, the stacked and the indexed layout, with and without a
+  duck-typed calibration; ``to_json()`` with scopes and boundaries exact,
+  FLOPs at rtol 1e-12) and ``resolve_stages``; and
+  ``tests/test_pipeline_subsystem.py``'s cutter tests as parity cases
+  (scope-less ops rolled into the nearest stage, determinism, the stacked
+  layout, the precedence of the stage-count sources).
 * ``TransformerConfig(scan_layers=True)``: the port's ``encode`` equals the
   JAX one through ``convert`` (the stacked tree carried across and back),
   and the unstacked model bitwise; ``decode_step`` raises; ``scan_blocks``
@@ -78,6 +85,7 @@ from autodist_tpu_torch.models import transformer as T
 from autodist_tpu_torch.pipeline import cutter, schedule
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.utils import cuda_graph
+from autodist_tpu_torch.utils.scope import named_scope
 from autodist_tpu_torch.utils.tree import flatten_with_path, path_to_name
 from test_torch_ps_strategies import (GRAPH_PATHS, held_graph_paths,
                                       jax_graph_paths)
@@ -282,7 +290,7 @@ def _items(scan=True):
                               example_batch=batch))
 
 
-@pytest.mark.parametrize("how", ["explicit", "env", "hint"])
+@pytest.mark.parametrize("how", ["explicit", "env", "hint", "auto"])
 @pytest.mark.parametrize("base", ["AllReduce", "PS"])
 def test_pipeline_proto_matches_jax(monkeypatch, tmp_path, how, base):
     jitem, item = _items()
@@ -333,18 +341,186 @@ def test_pipeline_value_errors_are_the_jax_ones(tmp_path, case):
                 lambda: strategy.Pipeline(**kwargs).build(item, spec))
 
 
-def test_pipeline_auto_stage_choice_raises_naming_a4(tmp_path):
+@pytest.mark.parametrize("devices", [2, 4, 8])
+def test_pipeline_with_no_arguments_builds_the_jax_proto(tmp_path, devices):
+    """``Pipeline()``: the cutter's own stage count (8 stacked layers:
+    the largest divisor of the devices, the least step share)."""
+    jitem, item = _cut_pair("stacked", 8)
     path = tmp_path / "spec.yml"
-    path.write_text(_spec_text(8))
-    _, item = _items()
-    with pytest.raises(NotImplementedError, match="item A4"):
-        strategy.Pipeline().build(item, ResourceSpec(str(path)))
-    with pytest.raises(NotImplementedError, match="A4"):
-        cutter.top_level_costs(item)
+    path.write_text(_spec_text(devices))
+    want = jstrategy.Pipeline().build(jitem, jrs.ResourceSpec(str(path)))
+    got = strategy.Pipeline().build(item, ResourceSpec(str(path)))
+    assert dict(got.graph_config.mesh_axes) == {
+        "data": 1, "pipe": devices}
+    assert cutter.last_cut().source == "auto"
+    assert cutter.last_cut().num_stages == devices
+    got.proto.id = want.proto.id = ""
+    assert got.proto.SerializeToString() == want.proto.SerializeToString()
+
+
+# -- the cutter ---------------------------------------------------------------
+
+CUT_RTOL = 1e-12
+SGD = functools.partial(torch.optim.SGD, lr=0.1)
+
+
+class _Calibration:
+    """A duck-typed calibration: ``scope_scales()`` as the JAX
+    ``Calibration`` returns it."""
+
+    def scope_scales(self):
+        return {"layer1": {"compute": 2.0}, "blocks": {"compute": 0.5},
+                "embed": {"compute": 3.0}, "lm_head": {"compute": 1.5}}
+
+
+def _cut_pair(layout, layers=4):
+    """(JAX GraphItem, port GraphItem) of lm_tiny with ``layers`` layers
+    in the ``stacked`` or the ``indexed`` layout, batch 8 x 16."""
+    cfg, pcfg = _zoo_cfg(scan=layout == "stacked"), \
+        _port_cfg(scan=layout == "stacked")
+    cfg.num_layers = pcfg.num_layers = layers
+    params = jax.device_get(jlm.init(jax.random.PRNGKey(0), cfg))
+    batch = jlm.synthetic_batch(cfg, batch_size=8, seq_len=16)
+    return (JGraphItem.capture(jlm.make_loss_fn(cfg), params, optax.sgd(0.1),
+                               example_batch=batch),
+            GraphItem.capture(lm.make_loss_fn(pcfg),
+                              convert.params_from_jax(params, "cpu"), SGD,
+                              example_batch=batch))
+
+
+def _same_cut(got, want):
+    """``to_json()`` equal: scopes and boundaries exact, FLOPs at
+    ``CUT_RTOL``."""
+    g, w = got.to_json(), want.to_json()
+    flops = lambda d: [d["total_flops"]] + [  # noqa: E731
+        s["flops"] for s in d["stages"]]
+    np.testing.assert_allclose(flops(g), flops(w), rtol=CUT_RTOL)
+    for d in (g, w):
+        d.pop("total_flops")
+        for st in d["stages"]:
+            st.pop("flops")
+    assert g == w
+
+
+@pytest.mark.parametrize("calibrated", [False, True])
+@pytest.mark.parametrize("num_stages", [1, 2, 3, 4])
+@pytest.mark.parametrize("layout", ["stacked", "indexed"])
+def test_cutter_matches_jax(layout, num_stages, calibrated):
+    jitem, item = _cut_pair(layout)
+    calib = _Calibration() if calibrated else None
+    want = jcutter.top_level_costs(jitem, calib)
+    got = cutter.top_level_costs(item, calib)
+    assert [g[0] for g in got] == [w[0] for w in want]
+    # The port's blocks group holds its L layers; the JAX scan body once.
+    np.testing.assert_allclose(
+        [g[1] for g in got],
+        [w[1] * (4 if w[0] == "blocks" else 1) for w in want],
+        rtol=CUT_RTOL)
+    cut = cutter.cut_stages(item, num_stages, calibration=calib)
+    _same_cut(cut, jcutter.cut_stages(jitem, num_stages, calibration=calib))
+    if not calibrated:
+        assert sum(st["flops"] for st in cut.stages) == \
+            cut.total_flops == item.flops_estimate()
+
+
+@pytest.mark.parametrize("layers", [4, 8])
+@pytest.mark.parametrize("devices", [2, 4, 8])
+def test_resolve_stages_matches_jax(tmp_path, monkeypatch, devices, layers):
+    monkeypatch.delenv("AUTODIST_PIPELINE_STAGES", raising=False)
+    jitem, item = _cut_pair("stacked", layers)
+    path = tmp_path / "spec.yml"
+    path.write_text(_spec_text(devices))
+    got = cutter.resolve_stages(item, ResourceSpec(str(path)))
+    assert got == jcutter.resolve_stages(jitem, jrs.ResourceSpec(str(path)))
+    assert got == (min(devices, layers), "auto")
+
+
+def _indexed_layer_models():
+    """``tests/test_pipeline_subsystem.py::_indexed_layer_model`` in both
+    packages: three indexed layer scopes, a scope-less matmul between them
+    and an unscoped prelude."""
+    params = {"layer0": {"w": np.ones((8, 8), np.float32)},
+              "mid": np.ones((8, 8), np.float32),
+              "layer1": {"w": np.ones((8, 32), np.float32)},
+              "layer2": {"w": np.ones((32, 8), np.float32)},
+              "pre": np.ones((8, 8), np.float32)}
+
+    def jloss(p, b):
+        x = b @ p["pre"]
+        with jax.named_scope("layer0"):
+            x = jnp.tanh(x @ p["layer0"]["w"])
+        x = x @ p["mid"]
+        with jax.named_scope("layer1"):
+            x = jnp.tanh(x @ p["layer1"]["w"])
+        with jax.named_scope("layer2"):
+            x = jnp.tanh(x @ p["layer2"]["w"])
+        return jnp.mean(x ** 2)
+
+    def loss(p, b):
+        x = b @ p["pre"]
+        with named_scope("layer0"):
+            x = torch.tanh(x @ p["layer0"]["w"])
+        x = x @ p["mid"]
+        with named_scope("layer1"):
+            x = torch.tanh(x @ p["layer1"]["w"])
+        with named_scope("layer2"):
+            x = torch.tanh(x @ p["layer2"]["w"])
+        return torch.mean(x ** 2)
+    batch = np.ones((4, 8), np.float32)
+    return (JGraphItem.capture(jloss, params, optax.sgd(0.1),
+                               example_batch=batch),
+            GraphItem.capture(loss, convert.params_from_jax(params, "cpu"),
+                              SGD, example_batch=batch))
+
+
+@pytest.mark.parametrize("num_stages", [2, 3])
+def test_cutter_rolls_unattributed_into_the_nearest_stage(num_stages):
+    jitem, item = _indexed_layer_models()
+    cut = cutter.cut_stages(item, num_stages)
+    _same_cut(cut, jcutter.cut_stages(jitem, num_stages))
+    total = sum(st["flops"] for st in cut.stages)
+    assert total == item.flops_estimate() == jitem.flops_estimate()
+    scoped = sum(r["flops"] for r in item.op_provenance() if r["scope"])
+    assert total > scoped  # the scope-less matmuls landed in a stage
+    assert "layer0" in cut.stages[0]["scopes"]
+
+
+def test_cutter_is_deterministic():
+    jitem, item = _indexed_layer_models()
+    a = cutter.cut_stages(item, 2).to_json()
+    assert a == cutter.cut_stages(item, 2).to_json() == \
+        cutter.cut_stages(_indexed_layer_models()[1], 2).to_json()
+    _same_cut(cutter.cut_stages(item, 3), jcutter.cut_stages(jitem, 3))
+
+
+def test_cutter_stacked_blocks_layout():
+    jitem, item = _cut_pair("stacked")
     cut = cutter.cut_stages(item, 2)
-    assert [s["scopes"] for s in cut.stages] == [
-        ("blocks[0]",), ("blocks[1]",)]
+    _same_cut(cut, jcutter.cut_stages(jitem, 2))
+    assert cut.num_layers == 4 and cut.num_stages == 2
     assert cut.imbalance == 0.0
+    assert [st["scopes"] for st in cut.stages] == [
+        ("embed", "blocks[0]", "blocks[1]"),
+        ("blocks[2]", "blocks[3]", "ln_f", "lm_head")]
+
+
+def test_resolve_stages_precedence(tmp_path, monkeypatch):
+    jitem, item = _cut_pair("stacked")
+    path = tmp_path / "spec.yml"
+    path.write_text(_spec_text(4))
+    spec, jspec = ResourceSpec(str(path)), jrs.ResourceSpec(str(path))
+    monkeypatch.setenv("AUTODIST_PIPELINE_STAGES", "2")
+    assert cutter.resolve_stages(item, spec) == \
+        jcutter.resolve_stages(jitem, jspec) == (2, "env")
+    monkeypatch.delenv("AUTODIST_PIPELINE_STAGES")
+    assert cutter.resolve_stages(item, spec) == \
+        jcutter.resolve_stages(jitem, jspec) == (4, "auto")
+    assert cutter.resolve_stages(item, spec, explicit=2) == \
+        jcutter.resolve_stages(jitem, jspec, explicit=2) == (2, "explicit")
+    path.write_text(_spec_text(4, hint=2))
+    assert cutter.resolve_stages(item, ResourceSpec(str(path))) == \
+        jcutter.resolve_stages(jitem, jrs.ResourceSpec(str(path))) == \
+        (2, "hint")
 
 
 def test_pipeline_name_resolves():
