@@ -39,7 +39,7 @@ import itertools
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch import const
+from autodist_tpu_torch import const, observability
 from autodist_tpu_torch.cluster import Cluster
 from autodist_tpu_torch.graph_item import GraphItem
 from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
@@ -137,8 +137,9 @@ class AutoDist:
                 **kwargs):
         """Capture the single-device program into a GraphItem.
         ``optimizer``: trainable_tensors -> ``torch.optim.Optimizer``."""
-        return GraphItem.capture(loss_fn, params, optimizer,
-                                 example_batch=example_batch, **kwargs)
+        with observability.span("capture"):
+            return GraphItem.capture(loss_fn, params, optimizer,
+                                     example_batch=example_batch, **kwargs)
 
     # -- the strategy: built, loaded or shipped ------------------------------
 
@@ -209,20 +210,28 @@ class AutoDist:
         if dist.get_rank() == 0:
             strategy = self._build_local(graph_item)
             blob = strategy.proto.SerializeToString()
-            retry.retry_call(store.set, key, blob,
-                             describe="strategy KV publish")
-            retry.retry_call(store.set, key + "/id", strategy.id,
-                             describe="strategy id publish")
+            with observability.span("strategy-ship", bytes=len(blob)):
+                retry.retry_call(store.set, key, blob,
+                                 describe="strategy KV publish")
+                retry.retry_call(store.set, key + "/id", strategy.id,
+                                 describe="strategy id publish")
+            if observability.enabled():
+                observability.registry().gauge(
+                    "strategy.ship_bytes").set(len(blob))
+                observability.record_event(
+                    "strategy-ship", f"published {strategy.id} "
+                    f"({len(blob)} bytes)")
             logging.info("shipped strategy %s (%d bytes) as %s",
                          strategy.id, len(blob), key)
             return strategy
         chaos.maybe_delay_kv_fetch()
         timeout_ms = const.strategy_ship_timeout_ms()
         try:
-            retry.retry_call(store.wait, [key, key + "/id"],
-                             datetime.timedelta(milliseconds=timeout_ms),
-                             is_retryable=_store_flake,
-                             describe="strategy KV fetch")
+            with observability.span("strategy-ship", side="fetch"):
+                retry.retry_call(store.wait, [key, key + "/id"],
+                                 datetime.timedelta(milliseconds=timeout_ms),
+                                 is_retryable=_store_flake,
+                                 describe="strategy KV fetch")
         except RuntimeError as e:
             raise RuntimeError(
                 f"autodist_tpu_torch: no strategy was shipped under {key} "
@@ -231,8 +240,8 @@ class AutoDist:
                 f"capture or build sequence: the fingerprint differs), or "
                 f"it is slower than the timeout") from e
         proto = strategy_pb2.Strategy()
-        proto.ParseFromString(retry.retry_call(
-            store.get, key, describe="strategy KV fetch"))
+        blob = retry.retry_call(store.get, key, describe="strategy KV fetch")
+        proto.ParseFromString(blob)
         strategy = Strategy(proto)
         want_id = retry.retry_call(
             store.get, key + "/id", describe="strategy id fetch").decode(
@@ -249,21 +258,25 @@ class AutoDist:
                 f"autodist_tpu_torch: shipped strategy {strategy.id} "
                 f"configures variables this rank never captured "
                 f"({sorted(unknown)[:5]})")
+        observability.record_event(
+            "strategy-ship", f"fetched {strategy.id} ({len(blob)} bytes)")
         logging.info("fetched strategy %s (%s)", strategy.id, key)
         return strategy
 
     def build(self, graph_item):
         """World -> strategy -> compile -> transform -> Runner."""
         device = self._cluster.start(resolve_device(self._device))
-        strategy = self._build_or_load_strategy(graph_item)
+        with observability.span("strategy-build"):
+            strategy = self._build_or_load_strategy(graph_item)
         logging.info("strategy %s on %s", strategy.id, device)
         mesh_axes = self._mesh_axes
         if mesh_axes is None and strategy.graph_config.mesh_axes:
             mesh_axes = dict(strategy.graph_config.mesh_axes)
         mesh = self._cluster.build_mesh(mesh_axes)
-        compiled = StrategyCompiler(graph_item, mesh).compile(strategy)
-        program = GraphTransformer(compiled, self._cluster,
-                                   graph_item).transform()
+        with observability.span("transform"):
+            compiled = StrategyCompiler(graph_item, mesh).compile(strategy)
+            program = GraphTransformer(compiled, self._cluster,
+                                       graph_item).transform()
         self._runner = Runner(program)
         return self._runner
 

@@ -46,12 +46,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch import const
+from autodist_tpu_torch import const, observability
 from autodist_tpu_torch.checkpoint import manifest as manifest_mod
 from autodist_tpu_torch.checkpoint.manifest import ManifestMismatchError
 from autodist_tpu_torch.resilience.retry import (retry_call,
                                                  transient_runtime_error)
-from autodist_tpu_torch.runner import TrainState
+from autodist_tpu_torch.runner import (DispatchClock, TrainState,
+                                       flush_cadence)
 from autodist_tpu_torch.utils import logging
 from autodist_tpu_torch.utils.tree import flatten_with_path, path_to_name
 
@@ -260,14 +261,20 @@ def _reshard_restore(runner, manifest, raw, where="", into=None):
     from autodist_tpu_torch import resilience
     world = manifest.get("world", {})
     t0 = time.perf_counter()
-    state = reshard_state(runner, raw, into=into)
+    with observability.span("restore", where=str(where), reshard=True):
+        state = reshard_state(runner, raw, into=into)
     dt_ms = (time.perf_counter() - t0) * 1e3
     live = manifest_mod.live_world(runner)
     detail = (f"step {int(state.step)}: world {world.get('devices')}d/"
               f"{world.get('processes')}p -> {live['devices']}d/"
               f"{live['processes']}p in {dt_ms:.0f}ms")
     resilience.record_event("reshard", detail)
+    observability.record_event("checkpoint-restore", f"resharded: {detail}")
     logging.info("cross-shape restore (%s): %s", where, detail)
+    if observability.enabled():
+        reg = observability.registry()
+        reg.gauge("checkpoint.reshard_ms").set(round(dt_ms, 3))
+        reg.gauge("cluster.world_size").set(live["processes"])
     return state
 
 
@@ -288,7 +295,8 @@ def _restore(runner, raw, manifest, where, into):
     if manifest is not None and manifest_mod.world_changed(manifest, runner):
         return _reshard_restore(runner, manifest, raw, where=where,
                                 into=into)
-    return runner.from_logical(_as_logical(raw), into=into)
+    with observability.span("restore", where=str(where)):
+        return runner.from_logical(_as_logical(raw), into=into)
 
 
 class Saver:
@@ -305,16 +313,18 @@ class Saver:
         Transient filesystem faults retry with backoff. TrainState saves
         get a manifest sidecar (``<path>.manifest.json``)."""
         path = os.path.abspath(str(path))
-        tree, logical = _logical_tree(self._runner, state)
-        if manifest_mod.is_chief():
-            retry_call(write_tree, path, tree, force=force,
-                       is_retryable=transient_runtime_error,
-                       describe="checkpoint save")
-            if logical is not None:
-                manifest_mod.write_manifest(
-                    self._runner, int(logical.step),
-                    manifest_mod.sidecar_path(path), logical)
-        _barrier()
+        with observability.span("checkpoint-save", path=path):
+            tree, logical = _logical_tree(self._runner, state)
+            if manifest_mod.is_chief():
+                retry_call(write_tree, path, tree, force=force,
+                           is_retryable=transient_runtime_error,
+                           describe="checkpoint save")
+                if logical is not None:
+                    manifest_mod.write_manifest(
+                        self._runner, int(logical.step),
+                        manifest_mod.sidecar_path(path), logical)
+            _barrier()
+        observability.record_event("checkpoint-save", path)
         logging.info("saved checkpoint %s", path)
         return path
 
@@ -333,6 +343,7 @@ class Saver:
             manifest_mod.validate_manifest(man, self._runner, where=path)
         state = _restore(self._runner, _read(path, "checkpoint restore"),
                          man, path, into)
+        observability.record_event("checkpoint-restore", path)
         logging.info("restored checkpoint %s", path)
         return state
 
@@ -346,7 +357,10 @@ class Saver:
         tensors, with NO optimizer required or reconstructed. Works on
         training checkpoints and params-only saves alike; the result feeds
         ``serve.Server``, which places it. Needs no Runner."""
-        params = _params_subtree(self.restore_raw(path))
+        with observability.span("restore", path=path, params_only=True):
+            params = _params_subtree(self.restore_raw(path))
+        observability.record_event("checkpoint-restore",
+                                   f"params-only {path}")
         logging.info("restored params-only checkpoint %s", path)
         return params
 
@@ -427,20 +441,30 @@ class CheckpointManager:
             return False
         if step in self._steps:
             return False
-        self.wait_until_finished()  # one write at a time: it owns the buffer
-        tree, logical = _logical_tree(self._runner, state)
-        self._steps = sorted(self._steps + [step])
-        pruned = self._prune()
-        self._unsynced = True
-        if manifest_mod.is_chief():
-            staged = _stage(tree, self._buffer)
-            self._buffer = staged.buffer
-            manifest = None if logical is None else \
-                manifest_mod.build_manifest(self._runner, step, logical)
-            self._writer = threading.Thread(
-                target=self._write, args=(step, staged, manifest, pruned),
-                name=f"checkpoint-step-{step}")
-            self._writer.start()
+        t0 = time.perf_counter()
+        with observability.span("checkpoint-save", step=step):
+            # One write at a time: it owns the buffer.
+            self.wait_until_finished()
+            tree, logical = _logical_tree(self._runner, state)
+            self._steps = sorted(self._steps + [step])
+            pruned = self._prune()
+            self._unsynced = True
+            if manifest_mod.is_chief():
+                staged = _stage(tree, self._buffer)
+                self._buffer = staged.buffer
+                manifest = None if logical is None else \
+                    manifest_mod.build_manifest(self._runner, step, logical)
+                self._writer = threading.Thread(
+                    target=self._write,
+                    args=(step, staged, manifest, pruned),
+                    name=f"checkpoint-step-{step}")
+                self._writer.start()
+        if observability.enabled():
+            reg = observability.registry()
+            reg.counter("checkpoint.saves").inc()
+            reg.gauge("checkpoint.last_save_ms").set(
+                round((time.perf_counter() - t0) * 1e3, 3))
+            observability.record_event("checkpoint-save", f"step {step}")
         return True
 
     def _write(self, step, staged, manifest, pruned):
@@ -483,7 +507,11 @@ class CheckpointManager:
             raise ValueError(
                 f"no checkpoint steps under {self._dir}; nothing to "
                 f"restore params from")
-        raw = _read(self._step_dir(step), f"params-only restore (step {step})")
+        with observability.span("restore", step=step, params_only=True):
+            raw = _read(self._step_dir(step),
+                        f"params-only restore (step {step})")
+        observability.record_event("checkpoint-restore",
+                                   f"params-only step {step}")
         logging.info("restored params-only checkpoint step %d", step)
         return _params_subtree(raw)
 
@@ -548,6 +576,10 @@ class CheckpointManager:
                                 "falling back to the previous retained step",
                                 step, e)
                 continue
+            if observability.enabled():
+                observability.registry().counter("checkpoint.restores").inc()
+                observability.record_event("checkpoint-restore",
+                                           f"resumed step {step}")
             logging.info("resumed from checkpoint step %d", step)
             return state
         if steps:
@@ -578,9 +610,11 @@ class CheckpointManager:
         ``unroll=K`` (env ``AUTODIST_UNROLL``) runs K steps per CUDA graph
         (``Runner.megastep``); saves, preemption polls and guard checks
         land on megastep boundaries. A resume whose start step is not
-        K-aligned single-steps up to the next boundary first. The JAX
-        package's coordinator, elastic drain and re-tuning hooks are not
-        ported (ROADMAP.md)."""
+        K-aligned single-steps up to the next boundary first. With
+        telemetry on, the loop records ``step.latency_ms`` and
+        ``step.count`` in a ``step-loop`` span and finalizes the goodput
+        ledger, as the JAX package's does. Its coordinator, elastic drain
+        and re-tuning hooks are not ported (ROADMAP.md)."""
         from autodist_tpu_torch.resilience import PreemptionHandler
         runner = self._runner
         metrics = None
@@ -594,42 +628,76 @@ class CheckpointManager:
         if handler is True:
             handler = PreemptionHandler().install()
             installed = True
+        # Same telemetry discipline as Runner.run: one clock mark per
+        # dispatch (DispatchClock: a CUDA event on the card), the registry
+        # flushed on the guard's cadence; zero telemetry calls when
+        # AUTODIST_TELEMETRY=0.
+        obs = runner._obs
+        cadence = flush_cadence(step_guard, unroll)
+        clock = DispatchClock(runner.remapper.device) \
+            if obs is not None else None
+        # Same step-loop span Runner.run opens: the goodput ledger keys its
+        # in-loop accounting (captures and saves billed into step latency)
+        # on it.
+        span = (obs.span("step-loop", steps=num_steps, unroll=unroll)
+                if obs is not None else observability.tracing.NULL_SPAN)
         try:
-            i = int(state.step)
-            while i < num_steps:
-                k = (unroll if unroll > 1 and i % unroll == 0
-                     and num_steps - i >= unroll else 1)
-                if k > 1:
-                    batch = runner._next_block(data_iter, k)
-                else:
-                    batch = next(data_iter)
-                if chaos is not None:
-                    batch = chaos.maybe_poison_batch(i + 1, batch)
-                if k > 1:
-                    state, metrics = runner.megastep(state, batch)
-                else:
-                    state, metrics = runner.step(state, batch)
-                i += k
-                # The flag is read before any save, the emergency one
-                # included: a diverged state is rolled back, never saved.
-                preempted = bool(handler) and handler.preempted
-                checked = step_guard is not None and (
-                    step_guard.due(i, unroll) or i >= num_steps
-                    or self.should_save(i) or preempted)
-                diverged = checked and step_guard.diverged(metrics)
-                if diverged:
-                    i, state = step_guard.rollback(i, manager=self,
-                                                   state=state)
-                elif checked:
-                    step_guard.progressed()
-                if handler:
-                    handler.check(self, i, state)  # raises Preempted
-                if not diverged:
-                    self.save(i, state)
-            self.wait_until_finished()
+            with span:
+                i = int(state.step)
+                if clock is not None:
+                    clock.start()
+                while i < num_steps:
+                    k = (unroll if unroll > 1 and i % unroll == 0
+                         and num_steps - i >= unroll else 1)
+                    if k > 1:
+                        batch = runner._next_block(data_iter, k)
+                    else:
+                        batch = next(data_iter)
+                    if chaos is not None:
+                        batch = chaos.maybe_poison_batch(i + 1, batch)
+                    if k > 1:
+                        state, metrics = runner.megastep(state, batch)
+                    else:
+                        state, metrics = runner.step(state, batch)
+                    i += k
+                    if clock is not None:
+                        clock.mark(k, 0.0)
+                        if i % cadence == 0 or i >= num_steps:
+                            clock.flush(obs.registry(),
+                                        final=i >= num_steps)
+                    # The flag is read before any save, the emergency one
+                    # included: a diverged state is rolled back, never
+                    # saved.
+                    preempted = bool(handler) and handler.preempted
+                    checked = step_guard is not None and (
+                        step_guard.due(i, unroll) or i >= num_steps
+                        or self.should_save(i) or preempted)
+                    diverged = checked and step_guard.diverged(metrics)
+                    if diverged:
+                        i, state = step_guard.rollback(i, manager=self,
+                                                       state=state)
+                        if clock is not None:
+                            clock.start()  # don't bill rollback as steps
+                    elif checked:
+                        step_guard.progressed()
+                    if handler:
+                        handler.check(self, i, state)  # raises Preempted
+                    if not diverged:
+                        self.save(i, state)
+                if clock is not None:
+                    clock.flush(obs.registry(), final=True)
+                self.wait_until_finished()
         finally:
             if installed:
                 handler.uninstall()
+        if obs is not None:
+            try:
+                # The run-level goodput/MFU ledger: the same cold-path
+                # finalize Runner.run makes.
+                from autodist_tpu_torch.observability import goodput
+                goodput.finalize(runner, obs.registry(), unroll=unroll)
+            except Exception as e:  # noqa: BLE001
+                logging.debug("goodput not recorded: %s", e)
         return state, metrics
 
     def close(self):

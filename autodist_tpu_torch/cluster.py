@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch import const
+from autodist_tpu_torch import const, observability
 from autodist_tpu_torch.resource_spec import DeviceType, ResourceSpec
 from autodist_tpu_torch.utils import logging
 
@@ -228,14 +228,16 @@ class Cluster:
             torch.cuda.set_device(device)
         if not dist.is_initialized():
             backend = "nccl" if device.type == "cuda" else "gloo"
-            if all(k in os.environ for k in _TORCHRUN_ENV):
-                dist.init_process_group(
-                    backend, init_method="env://",
-                    rank=int(os.environ["RANK"]),
-                    world_size=int(os.environ["WORLD_SIZE"]))
-            else:
-                dist.init_process_group(backend, store=dist.HashStore(),
-                                        rank=0, world_size=1)
+            with observability.span("distributed-init", backend=backend):
+                if all(k in os.environ for k in _TORCHRUN_ENV):
+                    dist.init_process_group(
+                        backend, init_method="env://",
+                        rank=int(os.environ["RANK"]),
+                        world_size=int(os.environ["WORLD_SIZE"]))
+                else:
+                    dist.init_process_group(backend,
+                                            store=dist.HashStore(), rank=0,
+                                            world_size=1)
             self._owns_group = True
             logging.info("started a %s world: rank %d of %d on %s", backend,
                          dist.get_rank(), dist.get_world_size(), device)
@@ -269,6 +271,13 @@ class Cluster:
             self._mesh = Mesh(grid.reshape(shape), names)
         logging.info("Built mesh %s over %d devices",
                      dict(zip(names, shape)), n)
+        observability.record_event(
+            "mesh-built", f"{dict(zip(names, shape))} over {n} devices")
+        if observability.enabled():
+            # World-size gauge (elasticity trail): the processes the mesh
+            # spans.
+            observability.registry().gauge("cluster.world_size").set(
+                self._mesh.process_count)
         return self._mesh
 
     @property

@@ -11,6 +11,7 @@ import tempfile
 DEFAULT_WORKING_DIR = os.environ.get(
     "AUTODIST_WORKING_DIR", os.path.join(tempfile.gettempdir(), "autodist_tpu"))
 DEFAULT_LOG_DIR = os.path.join(DEFAULT_WORKING_DIR, "logs")
+DEFAULT_TRACE_DIR = os.path.join(DEFAULT_WORKING_DIR, "traces")
 DEFAULT_GRAPH_DUMP_DIR = os.path.join(DEFAULT_WORKING_DIR, "graphs")
 DEFAULT_SERIALIZATION_DIR = os.path.join(DEFAULT_WORKING_DIR, "strategies")
 DEFAULT_CHECKPOINT_DIR = os.path.join(DEFAULT_WORKING_DIR, "checkpoints")
@@ -55,6 +56,20 @@ class ENV(enum.Enum):
     AUTODIST_PIPELINE_STAGES = ("AUTODIST_PIPELINE_STAGES", int, 0)  # pipeline stage count S for Pipeline() with no explicit num_stages (0 => the spec's pipeline: mesh hint, else the stage cutter's choice)
     AUTODIST_MICROBATCHES = ("AUTODIST_MICROBATCHES", int, 0)  # GPipe microbatch count M (0 => 2 * stages; bubble fraction (S-1)/(S+M-1))
     AUTODIST_PIPELINE_SCHEDULE = ("AUTODIST_PIPELINE_SCHEDULE", str, "shift")  # shift (pipelined) | sequential (the bitwise unpipelined control arm) | shift-noskip (idle slots compute on garbage) | 1f1b (shift order, the stage recomputed in the backward)
+    # -- tuner (tuner/calibration.py, tuner/cost_model.py) -------------------
+    AUTODIST_TUNER_CALIBRATION = ("AUTODIST_TUNER_CALIBRATION", str, "")  # calibration file override (default <working_dir>/tuner_calibration.json)
+    # -- goodput / run-level accounting (observability/goodput.py) -----------
+    AUTODIST_RUN_ID = ("AUTODIST_RUN_ID", str, "")  # run identity carried across elastic re-exec generations (minted by the chief when unset)
+    AUTODIST_RUN_GENERATION = ("AUTODIST_RUN_GENERATION", int, 0)  # process-generation index within a run
+    AUTODIST_PEAK_TFLOPS = ("AUTODIST_PEAK_TFLOPS", float, 0.0)  # per-device peak TFLOP/s override for MFU (0 => built-in per-device table)
+    # -- HBM memory ledger (observability/memory.py) --------------------------
+    AUTODIST_HBM_GB = ("AUTODIST_HBM_GB", float, 0.0)  # per-device HBM capacity override in GiB (0 => the built-in per-device table)
+    AUTODIST_MEM_HEADROOM = ("AUTODIST_MEM_HEADROOM", float, 0.9)  # feasibility fraction of HBM capacity a candidate's predicted peak may use
+    # -- observability (observability/) ---------------------------------------
+    AUTODIST_TELEMETRY = ("AUTODIST_TELEMETRY", bool, True)  # master switch: metrics + spans + flight recorder
+    AUTODIST_TRACE = ("AUTODIST_TRACE", str, "chrome")       # chrome | profiler (adds the torch.profiler bridge) | 0 (off)
+    AUTODIST_METRICS_WINDOW = ("AUTODIST_METRICS_WINDOW", int, 256)  # histogram window (last-N observations)
+    AUTODIST_FLIGHT_MAX_MB = ("AUTODIST_FLIGHT_MAX_MB", int, 64)  # total on-disk cap across logs/flight_*.jsonl (oldest-file eviction)
 
     def __init__(self, var_name, var_type, default):
         self.var_name = var_name
@@ -79,5 +94,5 @@ def strategy_ship_timeout_ms():
 
 def ensure_working_dirs():
     for d in (DEFAULT_WORKING_DIR, DEFAULT_SERIALIZATION_DIR,
-              DEFAULT_LOG_DIR, DEFAULT_GRAPH_DUMP_DIR):
+              DEFAULT_LOG_DIR, DEFAULT_TRACE_DIR, DEFAULT_GRAPH_DUMP_DIR):
         os.makedirs(d, exist_ok=True)

@@ -351,5 +351,10 @@ class GraphTransformer:
                 f.write(str(self.strategy.proto))
         logging.info("GraphTransformer: %d vars, mesh=%s",
                      len(synchronizers), mesh.shape)
+        from autodist_tpu_torch import observability
+        observability.record_event(
+            "transform", f"{len(synchronizers)} vars, "
+            f"path={'explicit' if use_explicit else 'gspmd'}, "
+            f"mesh={dict(mesh.shape)}")
         return DistributedProgram(self.graph_item, self.strategy, mesh,
                                   synchronizers, use_explicit)

@@ -13,8 +13,11 @@ with a hop a tick. Pieces:
   (``GraphItem.op_provenance``), which also picks the stage count when
   nothing else fixes it.
 
-Not ported: ``observe.py``, the ``pipeline.*`` gauges and monitor section
-(ROADMAP.md, Queue A item A11). The user-facing entry point is the
+* :mod:`~autodist_tpu_torch.pipeline.observe` — the ``pipeline.*``
+  gauges (bubble accounting) the Runner's observed loop publishes.
+
+Not ported: the monitor's pipeline section (ROADMAP.md, A11b). The
+user-facing entry point is the
 :class:`~autodist_tpu_torch.strategy.Pipeline` strategy builder.
 """
 from autodist_tpu_torch.pipeline.cutter import (StageCut, cut_stages,  # noqa: F401

@@ -12,7 +12,8 @@ Counterpart of ``autodist_tpu/resilience/``:
 * :mod:`~autodist_tpu_torch.resilience.chaos`: deterministic fault
   injection (``AUTODIST_CHAOS``), so every recovery path can be driven.
 
-Every recovery action is recorded with :func:`record_event`. The JAX
+Every recovery action is recorded with :func:`record_event` (and on the
+flight recorder, ``observability.recorder``). The JAX
 package's ``supervision`` (worker-death policies) waits for
 ``coordinator.py`` (ROADMAP.md).
 """
@@ -27,9 +28,17 @@ def record_event(kind, detail=""):
     """Append a resilience event (rollback, retry, preemption save, ...).
 
     Kept tiny: called from retry loops and after signals, so no
-    logging-module machinery and no allocation beyond the tuple."""
+    logging-module machinery and no allocation beyond the tuple. Events
+    also forward onto the observability flight recorder (the unified,
+    bounded, JSONL-backed bus) when telemetry is on; this list stays as
+    the always-on in-process trail."""
     with _events_lock:
         _events.append((time.time(), str(kind), str(detail)))
+    try:
+        from autodist_tpu_torch import observability
+        observability.record_event(kind, detail, source="resilience")
+    except Exception:  # noqa: BLE001 - called after signals; never raise
+        pass
 
 
 def events():

@@ -74,13 +74,17 @@ class PreemptionHandler:
         ``state`` and raise :class:`Preempted`."""
         if not self.preempted:
             return
-        from autodist_tpu_torch import resilience
+        from autodist_tpu_torch import observability, resilience
         signame = signal.Signals(self.signum).name \
             if self.signum is not None else "?"
         logging.warning("preemption (%s) at step %d: writing emergency "
                         "checkpoint", signame, step)
-        saved = manager.save(step, state, force=True)
-        manager.wait_until_finished()
+        # Emergency-save span: the goodput ledger prices drain-path saves
+        # as their own badput class, not as periodic checkpoint time.
+        with observability.span("emergency-save", step=step,
+                                why="preemption"):
+            saved = manager.save(step, state, force=True)
+            manager.wait_until_finished()
         resilience.record_event(
             "preemption", f"{signame} at step {step}: emergency checkpoint "
                           f"{'written' if saved else 'skipped (dup)'}")

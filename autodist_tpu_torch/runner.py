@@ -153,12 +153,28 @@ every ``check_every`` steps (rounded up to a multiple of K under
 diverged one copies the snapshot back into the state's own tensors (so a
 graph bound to them stays bound) and skips the offending batches.
 
-Not ported yet (ROADMAP.md): the native loader's ``BlockStacker`` wiring
-(``_wire_loader``), the overlap scheduler and the observability hooks.
+Telemetry (``observability/``, on unless ``AUTODIST_TELEMETRY=0``):
+``run`` records the JAX Runner's step metrics (``step.latency_ms``,
+``step.data_wait_ms``, ``step.count``, ``step.examples``,
+``step.examples_per_sec``, ``step.unroll``), the ``step-loop`` span, and
+the attribution, memory, pipeline and goodput ledgers, finalized after the
+loop, then gathers the ranks' snapshots on the chief and flushes the
+trace; a graph step's capture runs in a ``compile`` span. One difference:
+on CUDA a dispatch returns once its work is queued, so each dispatch's
+wall time is the interval between ``torch.cuda.Event``s recorded after
+consecutive dispatches (read without a sync at the guard's cadence, and
+after one sync at the loop's end), not the host clock's delta; the data
+wait stays on the host clock. With telemetry off the loop makes no
+telemetry call at all.
+
+Not ported yet (ROADMAP.md): the overlap scheduler, the online re-tuning
+controller, the per-layer profile, the skew ring, ``write_report`` and
+``dump_compiled``.
 """
 import contextlib
 import math
 import os
+import time
 import weakref
 from typing import Any, NamedTuple
 
@@ -166,7 +182,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch import const
+from autodist_tpu_torch import const, observability
 from autodist_tpu_torch.kernel.synchronization.all_reduce_synchronizer import \
     reduce_bucket
 from autodist_tpu_torch.kernel.synchronization.compressor import \
@@ -231,6 +247,7 @@ class Runner:
             if self._periods else 1
         self._shards = weakref.WeakKeyDictionary()  # optimizer -> zero1
         self._graphs = {}  # megastep graphs by block structure and phase
+        self._captures = 0  # graph captures timed as compiles (telemetry)
         # The axes whose groups share a rank's batch rows: seq (each rank
         # its chunk of the sequence) and the piece axes, model, expert or
         # pipe (each rank its pieces of the tp variables), alone or
@@ -263,6 +280,18 @@ class Runner:
         self._moe_group = self._mesh.group_over(both) if set(both) <= set(
             program.piece_axes) else None
         self._buckets = self.bucket_plan()
+        # Telemetry handle resolved ONCE at construction: the step loop
+        # gates on one attribute, so AUTODIST_TELEMETRY=0 means zero
+        # telemetry calls on the hot path.
+        self._obs = observability if observability.enabled() else None
+        if self._obs is not None:
+            pad_bytes = 0
+            for name, (_dim, logical, padded) in program.paddings().items():
+                v = self._item.var_by_name(name)
+                if logical:
+                    pad_bytes += int(v.size_bytes * (padded - logical)
+                                     / logical)
+            self._obs.registry().gauge("padding.bytes").set(pad_bytes)
 
     def _split_axes(self, name):
         """The piece axes that split variable ``name`` (none: whole)."""
@@ -899,6 +928,13 @@ class Runner:
                 f"multiple of unroll={unroll}; megasteps dispatch whole "
                 f"K-step blocks")
         data_iter, yields_blocks = self._wire_loader(data_iter, unroll)
+        obs = self._obs
+        if trace_dir is None and obs is not None and \
+                observability.tracing._mode() == "profiler":
+            # AUTODIST_TRACE=profiler: the device timeline without the
+            # caller having to plumb a trace_dir.
+            const.ensure_working_dirs()
+            trace_dir = const.DEFAULT_TRACE_DIR
         chaos = None
         if const.ENV.AUTODIST_CHAOS.val:
             from autodist_tpu_torch.resilience import chaos
@@ -921,40 +957,308 @@ class Runner:
             logging.info("profiler trace: %s", path)
         return state, metrics
 
+    def _held_tensors(self, state, data_iter=None, step_guard=None):
+        """The tensors the loop holds, for the memory ledger's samples off
+        the card: the state's params and optimizer state (and the tensors
+        the optimizer updates: zero1 shards), the graphs' static batch
+        buffers, the prefetcher's in-flight batches and the guard's
+        snapshot."""
+        out = list(leaves(state.params))
+        opt = state.opt_state
+        for group in getattr(opt, "param_groups", ()):
+            out += list(group["params"])
+        for st in getattr(opt, "state", {}).values():
+            out += [v for v in st.values() if isinstance(v, torch.Tensor)]
+        for graph in list(self._graphs.values()):
+            out += list(getattr(graph, "_static", ()))
+        for batch, _ in list(getattr(data_iter, "_inflight", ())):
+            out += [t for t in leaves(batch) if isinstance(t, torch.Tensor)]
+        snap = getattr(step_guard, "_snapshot", None)
+        if snap is not None:
+            out += [c for _, c in snap.tensors]
+            out += [c for _, entries in snap.states if entries
+                    for _, _, c in entries]
+        return out
+
+    def _oom_forensics(self, exc, unroll, context, held=None):
+        """On a device OOM (``memory.is_oom``), write the post-mortem report
+        and the ``oom`` flight event. Any other exception, and any failure
+        inside the forensics themselves, is left alone; the caller
+        re-raises either way."""
+        try:
+            from autodist_tpu_torch.observability import memory as memory_mod
+            if not memory_mod.is_oom(exc):
+                return
+            memory_mod.oom_report(
+                exc, predicted=memory_mod.predicted_for_runner(
+                    self, unroll=unroll),
+                context=context, knobs={"unroll": unroll}, held=held)
+        except Exception as e:  # noqa: BLE001 - forensics degrade silently
+            logging.debug("oom forensics failed: %s", e)
+
     def _run_loop(self, state, data_iter, num_steps, step_guard, chaos,
                   unroll, yields_blocks=False):
-        """One ``step`` a batch, or one ``megastep`` a K-block (pulled
-        whole from ``data_iter`` with ``yields_blocks``, else stacked from
-        K batches), with the guard part of the JAX Runner's
-        ``_run_observed`` (``autodist_tpu/runner.py:1529-1760``): chaos
-        injection before each dispatch, the flag read at the guard's
-        cadence (K-block boundaries under ``unroll=K``), snapshot on a
-        healthy check, rollback on a diverged one."""
-        if step_guard is not None:
-            step_guard.mark_good(0, state)
+        """The step loop of every run: one ``step`` a batch, or one
+        ``megastep`` a K-block (pulled whole from ``data_iter`` with
+        ``yields_blocks``, else stacked from K batches). The JAX Runner's
+        ``_run_observed``
+        (``autodist_tpu/runner.py:1529-1852``) less its re-tuning,
+        per-layer profile and skew parts: chaos injection before each
+        dispatch, the flag read at the guard's cadence (K-block boundaries
+        under ``unroll=K``), snapshot on a healthy check, rollback on a
+        diverged one; and with telemetry on, per dispatch one clock mark
+        (:class:`DispatchClock`) and a host data-wait read, flushed into
+        the registry and the attribution ledger on the same cadence, and
+        the ledgers finalized after the loop (cold path). With telemetry
+        off every telemetry touch is skipped: no clock, registry or span
+        call."""
+        obs = self._obs
+        reg = obs.registry() if obs is not None else None
+        k = unroll
+        cadence = flush_cadence(step_guard, k)
+        ledger = mem_ledger = clock = None
+        batch_examples = 0
+
+        def held():
+            return self._held_tensors(state, data_iter, step_guard)
+        if obs is not None:
+            from autodist_tpu_torch.observability import attribution
+            from autodist_tpu_torch.observability import memory as memory_mod
+            clock = DispatchClock(self._remapper.device)
+            try:
+                ledger = attribution.Ledger(unroll=k)
+            except Exception as e:  # noqa: BLE001 - must not kill runs
+                logging.debug("attribution ledger unavailable: %s", e)
+            try:
+                # The predicted breakdown is priced ONCE here (cold path);
+                # samples ride the flush cadence and the loop's ends.
+                mem_ledger = memory_mod.MemoryLedger(
+                    predicted=memory_mod.predicted_for_runner(self,
+                                                              unroll=k),
+                    unroll=k,
+                    resident_copies=2 if step_guard is not None else 1,
+                    held=held)
+                mem_ledger.sample("loop-start")
+            except Exception as e:  # noqa: BLE001 - must not kill runs
+                logging.debug("memory ledger unavailable: %s", e)
+
+        def flush(final=False):
+            done = clock.flush(reg, final)
+            if not done:
+                return
+            if ledger is not None:
+                for dt, st, wait_s, compiled in done:
+                    # A dispatch that captured its graph is the port's
+                    # compile (goodput's compile class), not a step.
+                    if not compiled:
+                        ledger.observe(dt * 1e3, wait_s * 1e3, st)
+            reg.histogram("step.data_wait_ms").observe_many(
+                [wait_s * 1e3 for _, _, wait_s, _ in done])
+            steps_done = sum(st for _, st, _, _ in done)
+            reg.counter("host_transfer.batches").inc(len(done))
+            if batch_examples:
+                total = sum(dt for dt, _, _, _ in done)
+                reg.counter("step.examples").inc(batch_examples * steps_done)
+                if total > 0:
+                    reg.gauge("step.examples_per_sec").set(
+                        round(batch_examples * steps_done / total, 1))
+            if mem_ledger is not None:
+                mem_ledger.sample("flush")
+
         metrics = None
-        i = 0
-        while i < num_steps:
-            if unroll == 1 or yields_blocks:
-                batch = next(data_iter)
-            else:
-                batch = self._next_block(data_iter, unroll)
-            if chaos is not None:
-                batch = chaos.maybe_poison_batch(i + 1, batch)
-                chaos.maybe_oom(i + 1)
-            if unroll == 1:
-                state, metrics = self.step(state, batch)
-            else:
-                state, metrics = self.megastep(state, batch)
-            i += unroll
-            if step_guard is not None and (step_guard.due(i, unroll)
-                                           or i >= num_steps):
-                if step_guard.diverged(metrics):
-                    i, state = step_guard.rollback(i)
+        span = (obs.span("step-loop", steps=num_steps, unroll=k)
+                if obs is not None else observability.tracing.NULL_SPAN)
+        with span:
+            if obs is not None and k > 1:
+                # Unroll badge: step.latency_ms is per-dispatch/K.
+                reg.gauge("step.unroll").set(k)
+            if step_guard is not None:
+                step_guard.mark_good(0, state)
+            if clock is not None:
+                clock.start()
+            i = 0
+            while i < num_steps:
+                if obs is not None:
+                    t_fetch = clock.now()
+                if k == 1 or yields_blocks:
+                    batch = next(data_iter)
                 else:
-                    step_guard.progressed()
-                    step_guard.mark_good(i, state)
+                    batch = self._next_block(data_iter, k)
+                if obs is not None:
+                    wait_s = clock.now() - t_fetch
+                    if not batch_examples:
+                        first = next(iter(leaves(batch)), None)
+                        if getattr(first, "ndim", 0) > (1 if k > 1 else 0):
+                            # Under unroll the leading dim is the block's.
+                            batch_examples = int(
+                                first.shape[1 if k > 1 else 0])
+                if chaos is not None:
+                    batch = chaos.maybe_poison_batch(i + 1, batch)
+                captures = self._captures
+                try:
+                    if chaos is not None:
+                        chaos.maybe_oom(i + 1)
+                    if k == 1:
+                        state, metrics = self.step(state, batch)
+                    else:
+                        state, metrics = self.megastep(state, batch)
+                except Exception as e:
+                    # Device OOM forensics: the post-mortem, then re-raise
+                    # (the failure itself is never swallowed).
+                    if obs is not None:
+                        self._oom_forensics(e, k, f"step-loop step {i + 1}",
+                                            held=held)
+                    raise
+                i += k
+                at_boundary = i % cadence == 0
+                if obs is not None:
+                    clock.mark(k, wait_s, self._captures != captures)
+                    if at_boundary or i >= num_steps:
+                        flush(final=i >= num_steps)
+                if step_guard is not None and (at_boundary
+                                               or i >= num_steps):
+                    if step_guard.diverged(metrics):
+                        i, state = step_guard.rollback(i)
+                        if obs is not None:
+                            clock.start()  # don't bill rollback as steps
+                    else:
+                        step_guard.progressed()
+                        step_guard.mark_good(i, state)
+            if obs is not None:
+                flush(final=True)
+        if obs is not None:
+            self._finalize_telemetry(reg, ledger, mem_ledger, k)
         return state, metrics
+
+    def _finalize_telemetry(self, reg, ledger, mem_ledger, unroll):
+        """End-of-loop bookkeeping on the cold path, each part fail-open:
+        the attribution ledger (model terms priced here, not in the loop),
+        the pipeline bubble gauges, the goodput segment, the memory ledger,
+        then the ranks' snapshots gathered on the chief and the trace
+        flushed."""
+        obs = self._obs
+        from autodist_tpu_torch.observability import attribution
+        from autodist_tpu_torch.observability import goodput as goodput_mod
+        from autodist_tpu_torch.observability import memory as memory_mod
+        from autodist_tpu_torch.pipeline import observe as pipe_observe
+        from autodist_tpu_torch.tuner import calibration
+        try:
+            cal_path = calibration.path_for(self, unroll)
+        except Exception as e:  # noqa: BLE001
+            logging.debug("calibration path unavailable: %s", e)
+            cal_path = None
+        try:
+            if ledger is not None and ledger.steps:
+                ledger.terms = attribution.terms_for_runner(self,
+                                                            unroll=unroll)
+                attribution.finalize(ledger, reg, calibration_path=cal_path)
+        except Exception as e:  # noqa: BLE001
+            logging.debug("attribution not recorded: %s", e)
+        try:
+            pipe_observe.finalize(self, reg)
+        except Exception as e:  # noqa: BLE001
+            logging.debug("pipeline bubble not recorded: %s", e)
+        try:
+            goodput_mod.finalize(self, reg, unroll=unroll)
+        except Exception as e:  # noqa: BLE001
+            logging.debug("goodput not recorded: %s", e)
+        try:
+            if mem_ledger is not None:
+                mem_ledger.sample("loop-end")
+                memory_mod.finalize(mem_ledger, reg,
+                                    calibration_path=cal_path)
+        except Exception as e:  # noqa: BLE001
+            logging.debug("memory ledger not recorded: %s", e)
+        try:
+            obs.sync_cluster()
+            obs.flush_trace()
+        except Exception as e:  # noqa: BLE001
+            logging.warning("telemetry flush failed: %s", e)
+
+
+def flush_cadence(step_guard, unroll):
+    """Steps between the observed loops' guard checks and telemetry
+    flushes: the guard's ``check_every``, else
+    ``AUTODIST_GUARD_CHECK_EVERY``, rounded up to a multiple of ``unroll``
+    (the flag aggregates per dispatch, so checks land on K-block
+    boundaries)."""
+    cadence = (step_guard.check_every if step_guard is not None
+               else max(1, const.ENV.AUTODIST_GUARD_CHECK_EVERY.val))
+    return -(-cadence // unroll) * unroll
+
+
+class DispatchClock:
+    """Per-dispatch wall time for the observed step loops.
+
+    On the CPU a dispatch runs to its end before it returns, and its wall
+    time is the host clock's delta between consecutive dispatch ends (the
+    JAX package's reading). On CUDA a dispatch (an eager step, a graph
+    replay) returns once its work is queued, so the host delta would time
+    the enqueue; instead :meth:`mark` records one ``torch.cuda.Event`` on
+    the current stream after each dispatch (no sync), and a dispatch's
+    wall time is the interval between the completions of the previous
+    dispatch's event (or the loop's start event) and its own: the
+    device's inter-completion time, idle gaps included. :meth:`drain`
+    reads the dispatches whose events have completed without waiting, or
+    with ``final`` after one synchronize. Marks are host-side and never
+    run inside a graph capture (the loop marks after a dispatch returns).
+    """
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        # (event or host end time, steps, wait_s, compiled)
+        self._pending = []
+        self._prev = None   # the last drained mark (event or host time)
+
+    @staticmethod
+    def now():
+        return time.perf_counter()
+
+    def _stamp(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return self.now()
+
+    def start(self):
+        """Begin (or begin again, dropping the undrained marks)."""
+        self._pending.clear()
+        self._prev = self._stamp()
+
+    def mark(self, steps, wait_s, compiled=False):
+        """One dispatch of ``steps`` steps, after ``wait_s`` s of host data
+        wait; ``compiled`` when it captured its graph."""
+        self._pending.append((self._stamp(), steps, wait_s, compiled))
+
+    def drain(self, final=False):
+        """``[(wall_s, steps, wait_s, compiled)]`` of the completed
+        dispatches since the last drain, oldest first."""
+        out = []
+        if self.cuda:
+            if final and self._pending:
+                self._pending[-1][0].synchronize()
+            while self._pending and self._pending[0][0].query():
+                ev, *rest = self._pending.pop(0)
+                out.append((self._prev.elapsed_time(ev) / 1e3, *rest))
+                self._prev = ev
+            return out
+        for t, *rest in self._pending:
+            out.append((t - self._prev, *rest))
+            self._prev = t
+        self._pending.clear()
+        return out
+
+    def flush(self, reg, final=False):
+        """:meth:`drain` into ``reg``'s ``step.latency_ms`` (per step) and
+        ``step.count``; returns the drained dispatches for the caller's
+        own accounting."""
+        done = self.drain(final)
+        if done:
+            reg.histogram("step.latency_ms").observe_many(
+                [dt * 1e3 / st for dt, st, _, _ in done])
+            reg.counter("step.count").inc(sum(st for _, st, _, _ in done))
+        return done
 
 
 def _leaf_spec(leaf):
@@ -1091,6 +1395,7 @@ class _GraphStep:
         self._params = self._opt = self._leaves = None
         self._checked = False  # the first call's batch checked
         self.graphs = {}  # phase -> Graph
+        self._built = set()  # phases whose capture ran (telemetry)
 
     def _graph(self, phase):
         graph = self.graphs.get(phase)
@@ -1157,6 +1462,7 @@ class _GraphStep:
             # state from before its first step): capture anew over the
             # state tensors the next step creates.
             self.graphs = {}
+            self._built = set()
             self._bind(state)
         if not self._checked:
             # Once, not per replay: the check's all-gathers and host read
@@ -1164,7 +1470,24 @@ class _GraphStep:
             self._runner._check_shared_batch(batch)
             self._checked = True
         self._copy_in(batch)
-        graph = self._graph(int(state.step) % self._runner._period)
+        phase = int(state.step) % self._runner._period
+        graph = self._graph(phase)
+        obs = self._runner._obs
+        if obs is not None and phase not in self._built:
+            # The capture (its warm-up step included) is the counterpart
+            # of the JAX step's compile: timed in a span around it, never
+            # inside it.
+            t0 = time.perf_counter()
+            with obs.span("compile", path="graph", unroll=self.k or 1):
+                out = graph()
+            dt_ms = (time.perf_counter() - t0) * 1e3
+            self._built.add(phase)
+            self._runner._captures += 1
+            obs.registry().gauge("compile.ms").set(round(dt_ms, 3))
+            obs.record_event("compile", f"graph step unroll={self.k or 1} "
+                             f"captured in {dt_ms:.0f}ms")
+        else:
+            out = graph()
         metrics = tree_map(lambda t: t.clone() if isinstance(
-            t, torch.Tensor) else t, graph())
+            t, torch.Tensor) else t, out)
         return self._runner._advance(state, self.k or 1), metrics

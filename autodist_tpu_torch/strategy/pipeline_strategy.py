@@ -14,8 +14,8 @@ Stage-count resolution: an explicit ``num_stages`` wins, then
 ``AUTODIST_PIPELINE_STAGES``, then the spec's ``pipeline:`` mesh hint,
 then the stage cutter's own choice from the model's per-scope predicted
 FLOPs (``pipeline/cutter.py``). The microbatch count defaults to
-``AUTODIST_MICROBATCHES``, else ``2 * num_stages``. The JAX builder's
-observability event is a log line here.
+``AUTODIST_MICROBATCHES``, else ``2 * num_stages``. The builder records
+a ``pipeline`` flight event, as the JAX builder does.
 
 Usage::
 
@@ -105,10 +105,14 @@ class Pipeline(StrategyBuilder):
 
         cut = cutter.cut_stages(graph_item, num_stages, source=source)
         cutter.set_last_cut(cut)
+        from autodist_tpu_torch import observability
         from autodist_tpu_torch.pipeline.schedule import bubble_fraction
-        logging.info("Pipeline: %d-stage (%s) x %d microbatches: bubble "
-                     "%.3f, imbalance %.3f, %d stacked variables split "
-                     "over '%s'", num_stages, source, num_microbatches,
-                     bubble_fraction(num_stages, num_microbatches),
-                     cut.imbalance, n_sharded, const.MESH_AXIS_PIPELINE)
+        observability.record_event(
+            "pipeline",
+            f"{num_stages}-stage ({source}) x {num_microbatches} "
+            f"microbatches: bubble "
+            f"{bubble_fraction(num_stages, num_microbatches):.3f}, "
+            f"imbalance {cut.imbalance:.3f}, "
+            f"{n_sharded} stacked vars over "
+            f"'{const.MESH_AXIS_PIPELINE}'")
         return strategy

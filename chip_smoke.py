@@ -314,9 +314,39 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    one-rank steps between its floor and the planted fault (the whole
    gradients not summed over the pipe group), the ranks' whole params
    bitwise equal, 32 launches of each flash kernel a rank and step;
-   prints the cut, stored bytes and peak a rank, and the step ms; (d)
-   the phase's seconds;
-20. output: one ``{"kernels": [...]}`` JSON line, then the last line
+   prints the cut, stored bytes and peak a rank, and the step ms, and,
+   after two more ``Runner.run`` steps, rank 0's gathered telemetry
+   snapshots (one a rank) and the ``pipeline.*`` gauges; (d) the phase's
+   seconds;
+20. in-process observability on BERT-base MLM training (32 x 128, bf16
+   compute, Adam 1e-4, ``AllReduce()``, a ``NativeDataLoader`` of phase
+   18's records): (a) ``CheckpointManager.run`` for OBS_STEPS steps under
+   ``unroll=4`` with a save every 20 steps, telemetry on, then the same
+   run with ``AUTODIST_TELEMETRY=0`` in the same process (both under
+   ``torch.use_deterministic_algorithms``, which makes the embedding
+   gradient's scatter deterministic): the params bitwise equal, the flash
+   launches equal (12 x OBS_STEPS each), the flushed Chrome trace holds
+   ``capture``, ``strategy-build``, ``transform``, ``compile``,
+   ``step-loop`` and ``checkpoint-save``, and the telemetry-off run writes
+   no trace, flight, goodput or calibration file; (b) ``Runner.run(
+   unroll=4)`` (its capture in a first run fed by the loader) on
+   device-resident batches: the attribution's components sum to
+   ``wall_ms``, and ``wall_ms`` agrees with the graph step timed by CUDA
+   events here within OBS_WALL_RTOL, which lies above the floor (two such
+   timings) and below the planted fault (the loop's clock on the host
+   with no event, which times the enqueue); the steady step with
+   telemetry on and off; a loader-fed run's wall and data wait, printed;
+   (c) the goodput ledger's ``hfu`` (model FLOPs over productive step
+   time at 989 TFLOP/s) against the same ratio from (b)'s timing, within
+   OBS_MFU_RTOL; (d) ``AUTODIST_TRACE=profiler``: every
+   flash kernel of a ``Runner.run`` in the ``torch.profiler`` trace
+   written to ``DEFAULT_TRACE_DIR`` launched inside its ``step-loop``
+   range (profiled again while the trace lacks some of the launches);
+   (e) ``AUTODIST_CHAOS=oom_at`` writes ``oom_report.json`` and an
+   ``oom`` flight event and still raises, and ``memory.is_oom`` is true
+   for a real ``torch.OutOfMemoryError`` from an allocation above the
+   card's capacity; (f) the phase's seconds;
+21. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 On four cards, ``python3 chip_smoke.py --cards 4 [--part a|b|c|d]`` runs
@@ -6904,6 +6934,18 @@ def pp_auto_rank(rank, world, port, spec):
             "whole_bytes": sum(t.numel() * t.element_size()
                                for t in final.values()),
             "peak_bytes": run.peak}
+        if key == "auto":
+            # Two more steps through Runner.run, whose end gathers every
+            # rank's telemetry snapshot on the chief over the c10d store
+            # and publishes the pipeline.* gauges.
+            from autodist_tpu_torch import observability
+            run.runner.run(run.state, itertools.repeat(run.batch), 2)
+            gauges = observability.registry().snapshot()["gauges"]
+            out["gathered"] = sorted(
+                s["host"] for s in observability.cluster.gathered())
+            out["pipeline"] = {k: v for k, v in gauges.items()
+                               if k.startswith("pipeline.")}
+            out["imbalance"] = cutter.last_cut().imbalance
         del run, final, stored
     dist.destroy_process_group()
     print(json.dumps(out), flush=True)
@@ -6967,6 +7009,19 @@ def cost_phase(torch, fa, card, device, reference, bert_cfg, vocab=32000,
           f"group alone) {fault[0]:.3e} / {fault[1]:.3e}; whole params equal "
           f"on every rank: {len({r['whole'] for r in auto}) == 1}; flash "
           f"launches per rank {auto[0]['launches']}", flush=True)
+    print(f"    telemetry after two more Runner.run steps: rank 0 gathered "
+          f"the snapshots of ranks {r0['gathered']} (the others their own: "
+          f"{[r['gathered'] for r in ranks[1:]]}); pipeline gauges "
+          f"{r0['pipeline']}, the cut's imbalance {r0['imbalance']:.4f}",
+          flush=True)
+    check(r0["gathered"] == list(range(COST_WORLD)) and all(
+        len(r["gathered"]) == 1 for r in ranks[1:]), f"(c) gathered "
+        f"{[r['gathered'] for r in ranks]}")
+    check(r0["pipeline"].get("pipeline.stages") == COST_WORLD and
+          r0["pipeline"].get("pipeline.microbatches") == micro and
+          r0["pipeline"].get("pipeline.bubble_fraction") == round(
+              (COST_WORLD - 1) / (micro + COST_WORLD - 1), 4),
+          f"(c) pipeline gauges {r0['pipeline']}")
     for i, r in enumerate(auto):
         print(f"    rank {i}: stores {r['stored_bytes']} of "
               f"{r['whole_bytes']} bytes "
@@ -6998,6 +7053,474 @@ def cost_phase(torch, fa, card, device, reference, bert_cfg, vocab=32000,
           flush=True)
     return {f"pp_auto_gloo{COST_WORLD}": {
         k: sum(r["launches"][k] for r in auto) for k in want}}
+
+
+# Phase 20: in-process observability on BERT-base training.
+OBS_STEPS = 40
+OBS_SAVE_EVERY = 20
+OBS_UNROLL = 4
+OBS_TIMED = 10          # megasteps a timing of the graph step replays
+OBS_PROFILED = 8        # steps of the AUTODIST_TRACE=profiler run
+OBS_OOM_AT = 5          # chaos oom_at: the second megastep's first step
+# wall_ms against the graph step's CUDA-event time, and the goodput
+# ledger's hfu against the MFU from that time: each must lie above its
+# floor (two timings of the step) and the wall's below the planted fault
+# (the loop's clock on the host, with no event).
+OBS_WALL_RTOL = 0.03
+OBS_MFU_RTOL = 0.03
+OBS_SPANS = ("capture", "strategy-build", "transform", "compile",
+             "step-loop", "checkpoint-save")
+
+
+def _obs_session(torch, cfg, device, records, batch_size, seq, num_masked):
+    """A fresh one-rank ``AllReduce()`` BERT world (phase 18's packed MLM
+    loss, Adam 1e-4, the seeded init), built under the telemetry setting
+    of the moment (a Runner resolves it at construction)."""
+    from autodist_tpu_torch import AutoDist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
+    autodist_mod._reset_default()
+    ad = AutoDist(strategy_builder=AllReduce(), device=device)
+    return ad.create_distributed_session(ad.capture(
+        packed_mlm_loss(cfg, seq, num_masked),
+        bert.init(cfg, torch.Generator().manual_seed(0), device=device),
+        functools.partial(torch.optim.Adam, lr=1e-4),
+        example_batch=records[:batch_size]))
+
+
+def _fed(loader):
+    """A loader's batches as owned host arrays, each buffer recycled."""
+    while True:
+        b = next(loader)
+        out = np.array(b)
+        loader.recycle(b)
+        yield out
+
+
+def _telemetry_files():
+    """{path: (size, mtime)} of every file telemetry writes: traces, flight
+    and goodput files, the memory / OOM reports and the calibration files,
+    one per card and program (the log_*.txt files are the logger's)."""
+    from autodist_tpu_torch import const
+    from autodist_tpu_torch.tuner import calibration
+    out = {}
+    for d in (const.DEFAULT_TRACE_DIR, const.DEFAULT_LOG_DIR,
+              os.path.dirname(calibration.default_path("key"))):
+        if os.path.isdir(d):
+            for f in os.listdir(d):
+                if not f.startswith("log_"):
+                    st = os.stat(os.path.join(d, f))
+                    out[os.path.join(d, f)] = (st.st_size, st.st_mtime_ns)
+    cal = calibration.default_path()
+    if os.path.exists(cal):
+        st = os.stat(cal)
+        out[cal] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def _set_telemetry(**knobs):
+    """Set (value) or drop (None) AUTODIST_* knobs and re-read them."""
+    from autodist_tpu_torch import observability
+    for name, value in knobs.items():
+        if value is None:
+            os.environ.pop(f"AUTODIST_{name}", None)
+        else:
+            os.environ[f"AUTODIST_{name}"] = str(value)
+    observability.refresh()
+
+
+def _graph_step_ms(torch, runner, state, block, n=OBS_TIMED):
+    """ms per step of the runner's captured K-step graph on a placed block:
+    the median interval between CUDA events recorded after each of ``n``
+    replays (the state keeps training)."""
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    events[0].record()
+    for ev in events[1:]:
+        state, _ = runner.megastep(state, block, shard_inputs=False)
+        ev.record()
+    return state, _steady_ms(events)
+
+
+def _dispatch_events(torch, runner):
+    """Record a CUDA event after each of the runner's megasteps (a wrapper:
+    ``del runner.megastep`` removes it); returns the list they go to."""
+    events = []
+    inner = runner.megastep
+
+    def megastep(state, block, shard_inputs=True):
+        out = inner(state, block, shard_inputs)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return out
+    runner.megastep = megastep
+    return events
+
+
+def _steady_ms(events):
+    """Median ms per step between consecutive dispatches' events."""
+    events[-1].synchronize()
+    return float(np.median([a.elapsed_time(b) / OBS_UNROLL
+                            for a, b in zip(events, events[1:])]))
+
+
+def _flash_in_loop(torch, path, want):
+    """Phase 20 (d): the flash kernels of the torch.profiler trace at
+    ``path``, each held to the ``step-loop`` range by its launch (the
+    runtime call of the same correlation id). Returns (per kernel count,
+    count launched inside the range, step-loop ranges)."""
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    loops = [(e["ts"], e["ts"] + e["dur"]) for e in evs
+             if e.get("name") == "step-loop" and e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"]
+    launch = {e["args"]["correlation"]: e["ts"] for e in evs
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in (e.get("args") or {})}
+    counts = dict.fromkeys(want, 0)
+    inside = 0
+    for e in evs:
+        if e.get("cat") != "kernel":
+            continue
+        name = next((k for k in want if k in e.get("name", "")), None)
+        if name is None:
+            continue
+        counts[name] += 1
+        ts = launch.get((e.get("args") or {}).get("correlation"))
+        if ts is not None and any(a <= ts <= b for a, b in loops):
+            inside += 1
+    return counts, inside, loops
+
+
+def observe_phase(torch, fa, card, cfg, device, directory, batch_size=32,
+                  seq=128, num_masked=20, steps=OBS_STEPS):
+    """Phase 20; returns {path: flash launches}."""
+    import warnings
+    from autodist_tpu_torch import const, observability
+    from autodist_tpu_torch import runner as runner_mod
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.data import NativeDataLoader, write_record_file
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.observability import attribution, goodput, memory
+    from autodist_tpu_torch.tuner import calibration
+    t_phase = time.perf_counter()
+    records = np.concatenate(bert.synthetic_batch(
+        cfg, LOADER_RECORDS, seq, num_masked, seed=0), axis=1)
+    width = records.shape[1]
+    path = os.path.join(directory, "obs.rec")
+    write_record_file(path, records)
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    want = {k: cfg.num_layers * steps for k in names}
+
+    def loader():
+        return NativeDataLoader(path, (width,), np.int32, batch_size, seed=0,
+                                device=device)
+
+    print(f"phase 20: in-process observability; BERT-base MLM {batch_size} x"
+          f" {seq}, {num_masked} masked, Adam 1e-4, {steps} steps of "
+          f"unroll={OBS_UNROLL} from a NativeDataLoader", flush=True)
+    saved_knobs = {k: os.environ.get(f"AUTODIST_{k}")
+                   for k in ("TELEMETRY", "TRACE", "CHAOS")}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    out = {}
+    try:
+        # (a) CheckpointManager.run, telemetry on then off, in one process.
+        warnings.filterwarnings("ignore", message=".*deterministic.*")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        runs = {}
+        for label, on in (("on", 1), ("off", 0)):
+            _set_telemetry(TELEMETRY=on, TRACE=None, CHAOS=None)
+            observability.reset()
+            files = _telemetry_files()
+            t0 = time.perf_counter()
+            runner = _obs_session(torch, cfg, device, records, batch_size,
+                                  seq, num_masked)
+            check((runner._obs is not None) == bool(on),
+                  f"(a) telemetry {label}: the runner's handle is "
+                  f"{runner._obs}")
+            feed = loader()
+            mgr = CheckpointManager(runner, os.path.join(directory,
+                                                         f"ckpt_{label}"),
+                                    save_interval_steps=OBS_SAVE_EVERY,
+                                    max_to_keep=1)
+            _flash_counts(fa, reset=True)
+            t1 = time.perf_counter()
+            state, m = mgr.run(runner.create_state(), _fed(feed), steps,
+                               unroll=OBS_UNROLL)
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t1
+            counts = _flash_counts(fa)
+            out[f"obs_ckpt_{label}"] = counts
+            params = {n: t.detach().clone() for n, t in
+                      flatten_params(state.params).items()}
+            run = dict(counts=counts, params=params, loop_s=loop_s,
+                       total_s=time.perf_counter() - t0,
+                       saves=mgr.all_steps(),
+                       loss=float(m["loss"][-1]), files=files)
+            if on:
+                trace = observability.flush_trace(
+                    os.path.join(directory, "obs_trace.json"))
+                with open(trace) as f:
+                    spans = {e["name"] for e in json.load(f)["traceEvents"]
+                             if e.get("ph") == "X"}
+                snap = observability.registry().snapshot()
+                run.update(spans=spans, hist=snap["histograms"].get(
+                    "step.latency_ms", {}), goodput=goodput.last_summary(),
+                    n_saves=snap["counters"].get("checkpoint.saves"),
+                    events=sorted({e["kind"] for e in
+                                   observability.recorder.events()}))
+            else:
+                run["written"] = sorted(
+                    p for p, st in _telemetry_files().items()
+                    if files.get(p) != st)
+            mgr.close()
+            feed.close()
+            runs[label] = run
+            del runner, state, m, mgr
+        torch.use_deterministic_algorithms(deterministic)
+        on, off = runs["on"], runs["off"]
+        same = [n for n in on["params"]
+                if torch.equal(on["params"][n], off["params"][n])]
+        diff = max(float((on["params"][n].float() - off["params"][n].float())
+                         .abs().max()) for n in on["params"])
+        hist = on["hist"]
+        print(f"  (a) CheckpointManager.run: telemetry on {on['loop_s']:.2f} "
+              f"s ({on['total_s']:.2f} s with the session), off "
+              f"{off['loop_s']:.2f} s ({off['total_s']:.2f} s); "
+              f"{on['n_saves']} saves (the first boundary's, as no "
+              f"checkpoint exists yet, then every {OBS_SAVE_EVERY} steps), "
+              f"kept {on['saves']} / {off['saves']}; last loss {on['loss']:.6f} / "
+              f"{off['loss']:.6f}; params bitwise equal {len(same)} of "
+              f"{len(on['params'])} (max |diff| {diff:.3e}); flash launches "
+              f"{on['counts']} / {off['counts']}; step.latency_ms p50 "
+              f"{hist.get('p50', float('nan')):.3f} over {hist.get('count')}"
+              f" dispatches; spans {sorted(on['spans'])}; flight events "
+              f"{on['events']}; goodput {on['goodput']['goodput_pct']}% of "
+              f"{on['goodput']['wall_ms']:.0f} ms, classes "
+              f"{on['goodput']['classes']}; files written with telemetry "
+              f"off: {off['written']}", flush=True)
+        n_diff = len(on["params"]) - len(same)
+        check(n_diff == 0, f"(a) {n_diff} params differ between telemetry "
+              f"on and off (max |diff| {diff:.3e})")
+        for label, run in runs.items():
+            check(run["counts"] == want, f"(a) telemetry {label}: launches "
+                  f"{run['counts']}, expected {want}")
+        check(set(OBS_SPANS) <= on["spans"], f"(a) the trace lacks "
+              f"{sorted(set(OBS_SPANS) - on['spans'])}")
+        check(off["written"] == [], f"(a) telemetry off wrote "
+              f"{off['written']}")
+        check(hist.get("count") == steps // OBS_UNROLL and
+              on["goodput"]["steps"] == steps,
+              f"(a) step.latency_ms count {hist.get('count')}, goodput steps"
+              f" {on['goodput']['steps']}")
+
+        # (b) + (c) Runner.run(unroll=4), the capture in a first run fed by
+        # the loader. The measured runs take device-resident batches: the
+        # step is then the graph step's device time, which two timings of
+        # its replays bracket, and the host runs ahead of the device (the
+        # planted fault's clock reads the enqueue). A loader-fed run after
+        # them shows the input pipeline's exposed start-up.
+        _set_telemetry(TELEMETRY=1)
+        observability.reset()
+        runner = _obs_session(torch, cfg, device, records, batch_size, seq,
+                              num_masked)
+        feed = loader()
+        state, _ = runner.run(runner.create_state(), feed, 2 * OBS_UNROLL,
+                              unroll=OBS_UNROLL)
+        placed = [runner.remapper.shard_batch(
+            records[i * batch_size:(i + 1) * batch_size])
+            for i in range(OBS_UNROLL)]
+        block = torch.stack(placed)
+        state, timed0 = _graph_step_ms(torch, runner, state, block)
+        observability.reset()  # this run's registry, spans, goodput clock
+        events = _dispatch_events(torch, runner)
+        state, _ = runner.run(state, itertools.cycle(placed), steps,
+                              unroll=OBS_UNROLL)
+        steady_on = _steady_ms(events)
+        attr = attribution.last_summary()
+        gp = goodput.last_summary()
+        mem = memory.last_summary()
+        state, timed1 = _graph_step_ms(torch, runner, state, block)
+        # The same loop with the telemetry handle a Runner built under
+        # AUTODIST_TELEMETRY=0 holds: no clock, no registry, no span.
+        obs_handle, runner._obs = runner._obs, None
+        events.clear()
+        try:
+            state, _ = runner.run(state, itertools.cycle(placed), steps,
+                                  unroll=OBS_UNROLL)
+        finally:
+            runner._obs = obs_handle
+            del runner.megastep
+        steady_off = _steady_ms(events)
+        orig = runner_mod.DispatchClock.__init__
+        runner_mod.DispatchClock.__init__ = \
+            lambda self, device: orig(self, "cpu")
+        try:
+            state, _ = runner.run(state, itertools.cycle(placed), steps,
+                                  unroll=OBS_UNROLL)
+            fault = attribution.last_summary()["wall_ms"]
+        finally:
+            runner_mod.DispatchClock.__init__ = orig
+        state, _ = runner.run(state, feed, steps, unroll=OBS_UNROLL)
+        fed = attribution.last_summary()
+        cal_path = calibration.path_for(runner, OBS_UNROLL)
+        cal = calibration.Calibration.load(cal_path)
+        timed = 0.5 * (timed0 + timed1)
+        floor = abs(timed0 - timed1) / timed
+        wall_rel = abs(attr["wall_ms"] - timed) / timed
+        fault_rel = abs(fault - timed) / timed
+        total = sum(attr[c] for c in attribution.COMPONENTS)
+        flops = 3.0 * runner.program.graph_item.flops_estimate()
+        mfu = flops / (timed / 1e3) / PEAK_BF16_FLOPS
+        mfu0 = flops / (timed0 / 1e3) / PEAK_BF16_FLOPS
+        mfu1 = flops / (timed1 / 1e3) / PEAK_BF16_FLOPS
+        mfu_floor = abs(mfu0 - mfu1) / mfu
+        mfu_rel = abs(gp["hfu"] - mfu) / mfu
+        print(f"  (b) attribution over {attr['steps']} steps "
+              f"({attr['dispatches']} dispatches): " + ", ".join(
+                  f"{c} {attr[c]:.4f}" for c in attribution.COMPONENTS) +
+              f" = {total:.5f} vs wall_ms {attr['wall_ms']:.5f}; raw "
+              f"compute {attr['raw_compute_ms']:.4f} ms, raw comms "
+              f"{attr['raw_comms_ms']:.4f} ms; sources {attr['sources']}; "
+              f"calibration {os.path.basename(cal_path)}: compute scale "
+              f"{cal.compute_scale:.4f} after {len(cal.samples)} samples",
+              flush=True)
+        print(f"    wall_ms {attr['wall_ms']:.4f} vs the graph step by CUDA "
+              f"events {timed0:.4f} / {timed1:.4f} ms (floor {floor:.3e}): "
+              f"rel {wall_rel:.3e} (tol {OBS_WALL_RTOL}); planted fault "
+              f"(the host clock, no event) {fault:.4f} ms, rel "
+              f"{fault_rel:.3e}; steady step (events after each "
+              f"dispatch) telemetry on {steady_on:.4f} / off "
+              f"{steady_off:.4f} ms = {steady_on / steady_off:.4f}; fed by "
+              f"the loader: wall_ms {fed['wall_ms']:.4f}, data_wait_ms "
+              f"{fed['data_wait_ms']:.4f}", flush=True)
+        print(f"  (c) goodput: hfu {gp['hfu']:.5f}, mfu {gp['mfu']:.5f} "
+              f"(run-level, {gp['wall_ms']:.1f} ms since the reset, "
+              f"{gp['goodput_pct']}% productive); 3 x flops_estimate "
+              f"{flops:.6g} / the CUDA-event step / {PEAK_BF16_FLOPS:.4g}: "
+              f"{mfu:.5f} (floor {mfu_floor:.3e}); rel {mfu_rel:.3e} (tol "
+              f"{OBS_MFU_RTOL})", flush=True)
+        pred = mem.get("predicted", {})
+        ratio = mem.get("predicted_peak_gb", 0) / max(
+            1e-12, mem.get("measured_peak_gb", 0))
+        print(f"    memory ledger: predicted peak "
+              f"{mem.get('predicted_peak_gb', 0):.4f} GiB = " + " + ".join(
+                  f"{c.replace('_bytes', '')} {v / 2**30:.4f}"
+                  for c, v in pred.items()) +
+              f"; measured peak {mem.get('measured_peak_gb', 0):.4f} GiB "
+              f"({mem.get('measured_source')}); predicted / measured "
+              f"{ratio:.4f}; resident error {mem.get('prediction_error_pct')}% on "
+              f"{card}", flush=True)
+        check(abs(total - attr["wall_ms"]) <= 5e-5 * len(
+            attribution.COMPONENTS), f"(b) components sum {total} != "
+            f"wall_ms {attr['wall_ms']}")
+        # The calibrated terms are the program's own (its file, fed by its
+        # own steady runs): none can exceed the wall it is a part of.
+        over = {c: attr[c] for c in ("host_dispatch_ms", "device_compute_ms",
+                                     "exposed_comms_ms")
+                if attr[c] > attr["wall_ms"] * (1 + OBS_WALL_RTOL)}
+        check(not over, f"(b) calibrated terms {over} exceed wall_ms "
+              f"{attr['wall_ms']} (+{OBS_WALL_RTOL})")
+        check(floor < OBS_WALL_RTOL < fault_rel, f"(b) tolerance "
+              f"{OBS_WALL_RTOL} not between the floor {floor:.3e} and the "
+              f"planted fault {fault_rel:.3e}")
+        check(wall_rel <= OBS_WALL_RTOL, f"(b) wall_ms {attr['wall_ms']} "
+              f"vs the CUDA-event step {timed} ({wall_rel:.3e})")
+        check(mfu_floor < OBS_MFU_RTOL and mfu_rel <= OBS_MFU_RTOL,
+              f"(c) hfu {gp['hfu']} vs {mfu} ({mfu_rel:.3e}, floor "
+              f"{mfu_floor:.3e})")
+        predicted_sum = sum(pred.values())
+        check(pred and abs(predicted_sum - mem["predicted_peak_bytes"]) <= 0,
+              f"(b) predicted classes sum {predicted_sum} != peak "
+              f"{mem.get('predicted_peak_bytes')}")
+
+        # (d) AUTODIST_TRACE=profiler: the kernels inside step-loop.
+        _set_telemetry(TRACE="profiler")
+        trace = os.path.join(const.DEFAULT_TRACE_DIR, "trace-rank0.json")
+        want_d = {k: cfg.num_layers * OBS_PROFILED for k in names}
+        # A profile can come back short of device events (a traced graph
+        # replay's kernel now and then, or all of them): profile again, up
+        # to PROFILE_ATTEMPTS times, until every launch is in the trace.
+        # Every traced flash kernel must have been launched inside the
+        # step-loop range.
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            _flash_counts(fa, reset=True)
+            state, _ = runner.run(state, feed, OBS_PROFILED,
+                                  unroll=OBS_UNROLL)
+            launched = _flash_counts(fa)
+            counts, inside, loops = _flash_in_loop(
+                torch, trace, [k + "_" for k in ("flash_fwd", "flash_bwd_dq",
+                                                  "flash_bwd_dkv")])
+            if list(counts.values()) == list(want_d.values()):
+                break
+            if not sum(counts.values()):
+                TIMINGS["empty"] += 1
+        TIMINGS["profiles"] += attempt
+        _set_telemetry(TRACE=None)
+        print(f"  (d) AUTODIST_TRACE=profiler: {trace} ({attempt} "
+              f"profile(s)); step-loop ranges {len(loops)}; flash kernels in"
+              f" the trace {counts}, {inside} launched inside step-loop; "
+              f"launches counted {launched}", flush=True)
+        check(launched == want_d, f"(d) launches {launched}, expected "
+              f"{want_d}")
+        check(len(loops) == 1 and inside == sum(counts.values()) and all(
+            0 < n <= w for n, w in zip(counts.values(), want_d.values())),
+              f"(d) {inside} of {sum(counts.values())} flash kernels inside "
+              f"{len(loops)} step-loop range(s); per kernel {counts}")
+
+        # (e) OOM forensics: chaos oom_at, then a real allocator OOM.
+        report = os.path.join(const.DEFAULT_LOG_DIR, "oom_report.json")
+        if os.path.exists(report):
+            os.remove(report)
+        _set_telemetry(CHAOS=f"oom_at={OBS_OOM_AT}")
+        raised = None
+        try:
+            runner.run(state, feed, 2 * OBS_UNROLL, unroll=OBS_UNROLL)
+        except RuntimeError as e:
+            raised = e
+        finally:
+            _set_telemetry(CHAOS=None)
+        oom_events = [e for e in observability.recorder.events()
+                      if e["kind"] == "oom"]
+        with open(report) as f:
+            rep = json.load(f)
+        real = None
+        try:
+            torch.empty(2 * torch.cuda.get_device_properties(0).total_memory,
+                        dtype=torch.uint8, device=device)
+        except torch.OutOfMemoryError as e:
+            real = e
+        torch.cuda.empty_cache()
+        print(f"  (e) chaos oom_at={OBS_OOM_AT}: raised "
+              f"{type(raised).__name__}: {str(raised)[:60]}...; "
+              f"oom_report.json context {rep.get('context')!r}, dominant "
+              f"class {rep.get('dominant_class')}, suggestion "
+              f"{rep.get('suggestion')}, {len(rep.get('top_live_buffers', []))}"
+              f" live buffers (largest "
+              f"{rep.get('top_live_buffers', [{}])[0].get('nbytes')} bytes); "
+              f"oom events {len(oom_events)}; a real over-capacity "
+              f"allocation raised {type(real).__name__}, is_oom "
+              f"{memory.is_oom(real) if real is not None else None}",
+              flush=True)
+        check(raised is not None and memory.is_oom(raised),
+              f"(e) chaos oom_at raised {raised!r}")
+        check(rep.get("context") == f"step-loop step {OBS_OOM_AT}" and
+              rep.get("predicted") and oom_events,
+              f"(e) report {rep}, oom events {oom_events}")
+        check(real is not None and memory.is_oom(real),
+              f"(e) the real OOM {real!r}")
+        feed.close()
+        del runner, state, block
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+        for k, v in saved_knobs.items():
+            _set_telemetry(**{k: v})
+        from autodist_tpu_torch import autodist as autodist_mod
+        autodist_mod._reset_default()
+    print(f"  (f) phase 20 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
 
 
 # Phase 16 (``--cards 4``): the ported lowerings on four cards over NCCL.
@@ -7875,6 +8398,8 @@ def main():
                                 resnet.resnet50(), "cuda"))
         zoo.update(cost_phase(torch, fa, card, "cuda", share["reference"],
                               bert.bert_base(max_len=128)))
+        zoo.update(observe_phase(torch, fa, card, bert.bert_base(max_len=128),
+                                 "cuda", share["dir"]))
     finally:
         shutil.rmtree(share["dir"], ignore_errors=True)
     fwd["launches"] = served + trained["flash_fwd"]
