@@ -686,7 +686,12 @@ class CheckpointManager:
                         self.save(i, state)
                 if clock is not None:
                     clock.flush(obs.registry(), final=True)
-                self.wait_until_finished()
+                # The writer's last wait: never a step, a save's own time
+                # (goodput's checkpoint class).
+                with (obs.span("checkpoint-wait") if obs is not None
+                      and self._writer is not None
+                      else observability.tracing.NULL_SPAN):
+                    self.wait_until_finished()
         finally:
             if installed:
                 handler.uninstall()

@@ -65,11 +65,20 @@ class ENV(enum.Enum):
     # -- HBM memory ledger (observability/memory.py) --------------------------
     AUTODIST_HBM_GB = ("AUTODIST_HBM_GB", float, 0.0)  # per-device HBM capacity override in GiB (0 => the built-in per-device table)
     AUTODIST_MEM_HEADROOM = ("AUTODIST_MEM_HEADROOM", float, 0.9)  # feasibility fraction of HBM capacity a candidate's predicted peak may use
+    # -- per-layer profile (observability/profile.py) --------------------------
+    AUTODIST_PROFILE = ("AUTODIST_PROFILE", bool, True)  # per-layer device-time profiler (finalize-only cost; telemetry off => provably zero calls)
+    AUTODIST_PROFILE_TOPK = ("AUTODIST_PROFILE_TOPK", int, 5)  # top-K scopes surfaced on the monitor / gauges
+    # -- cluster timeline / straggler forensics (observability/skew.py) -------
+    AUTODIST_CLOCK_SYNC = ("AUTODIST_CLOCK_SYNC", bool, True)  # cross-rank clock-offset ping over the c10d store (0 => no pings; traces still carry the local epoch anchor)
+    AUTODIST_SKEW_RING = ("AUTODIST_SKEW_RING", int, 256)  # per-dispatch window ring for the skew decomposition (entries; 0 => no ring, no decomposition)
     # -- observability (observability/) ---------------------------------------
     AUTODIST_TELEMETRY = ("AUTODIST_TELEMETRY", bool, True)  # master switch: metrics + spans + flight recorder
     AUTODIST_TRACE = ("AUTODIST_TRACE", str, "chrome")       # chrome | profiler (adds the torch.profiler bridge) | 0 (off)
     AUTODIST_METRICS_WINDOW = ("AUTODIST_METRICS_WINDOW", int, 256)  # histogram window (last-N observations)
+    AUTODIST_MONITOR_PORT = ("AUTODIST_MONITOR_PORT", int, 0)  # chief HTTP monitor (/metrics + /status); 0 => no server, no thread
+    AUTODIST_ANOMALY_ZSCORE = ("AUTODIST_ANOMALY_ZSCORE", float, 3.0)  # per-host latency z-score threshold for the anomaly detector
     AUTODIST_FLIGHT_MAX_MB = ("AUTODIST_FLIGHT_MAX_MB", int, 64)  # total on-disk cap across logs/flight_*.jsonl (oldest-file eviction)
+    AUTODIST_SERVE_SLO_MS = ("AUTODIST_SERVE_SLO_MS", int, 50)  # serving p99 SLO target (the serve.slo_burn gauge)
 
     def __init__(self, var_name, var_type, default):
         self.var_name = var_name

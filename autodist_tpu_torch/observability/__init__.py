@@ -29,12 +29,21 @@ On top of the pillars:
   re-exec generations through ``AUTODIST_RUN_ID``);
 * :mod:`~autodist_tpu_torch.observability.memory` — the HBM ledger:
   predicted per-device peak by class (``tuner/cost_model.strategy_memory``)
-  against allocator samples, feasibility, and OOM forensics (``mem.*``
-  gauges, ``logs/oom_report.json``).
+  against allocator samples, feasibility (the serving engines' bucket
+  refusal), and OOM forensics (``mem.*`` gauges, ``logs/oom_report.json``);
+* :mod:`~autodist_tpu_torch.observability.profile` — the per-layer
+  profile: the ledger's device terms split per model scope, measured from
+  the ``torch.profiler`` trace under ``AUTODIST_TRACE=profiler``
+  (``profile.*`` gauges);
+* :mod:`~autodist_tpu_torch.observability.skew` — the cross-rank clock
+  sync over the c10d store and the wire-vs-skew-wait split of exposed
+  comms (``skew.*`` gauges);
+* :mod:`~autodist_tpu_torch.observability.monitor` — the chief's live
+  ``/metrics`` + ``/status`` endpoint (``AUTODIST_MONITOR_PORT``) and the
+  rolling anomaly detector :func:`sync_cluster` feeds.
 
-Not ported yet (ROADMAP.md, A11b): the live monitor, the per-layer
-profiler, the cross-host clock sync and skew decomposition, and the
-report that renders all of this.
+Not ported yet (ROADMAP.md, A11b (ii)): the report that renders all of
+this, and the offline timeline and trend tools.
 
 Contract: **off-path cheap** (the Runner's loop records one CUDA event or
 clock read and a list append per dispatch and flushes on the StepGuard
@@ -43,7 +52,8 @@ cadence; with telemetry disabled the loop makes ZERO telemetry calls) and
 """
 from autodist_tpu_torch import const
 from autodist_tpu_torch.observability import (attribution, cluster, goodput,
-                                              memory, metrics, recorder,
+                                              memory, metrics, monitor,
+                                              profile, recorder, skew,
                                               tracing)
 
 _enabled_cache = None
@@ -99,13 +109,18 @@ def flush_trace(path=None):
 
 def sync_cluster(timeout_ms=None):
     """Exchange per-rank snapshots (the chief gathers); fail-open. Every
-    rank reaches this at the same point (the end of ``Runner.run``). The
-    JAX package also pings the clock-sync layer first and feeds the
-    gathered set to the monitor's anomaly detector and the skew
-    decomposition; those modules are not ported yet (ROADMAP.md, A11b)."""
+    rank reaches this at the same point (the end of ``Runner.run``), so
+    the clock-sync ping runs first; then the chief decomposes the
+    gathered dispatch windows into wire vs skew-wait (``skew``) and feeds
+    the set to the rolling anomaly detector (``monitor``), whose newly
+    raised anomalies land on the flight recorder."""
     if not enabled():
         return []
-    return cluster.sync(timeout_ms=timeout_ms)
+    skew.maybe_sync_clocks()
+    snaps = cluster.sync(timeout_ms=timeout_ms)
+    skew.update_from_snapshots(snaps)
+    monitor.observe_cluster(snaps)
+    return snaps
 
 
 def snapshot():
@@ -120,13 +135,16 @@ def reset():
     recorder.clear()
     cluster._ingest([])
     attribution.reset()
+    profile.reset()
     goodput.reset()
     memory.reset()
+    skew.reset()
+    monitor.reset_detector()
 
 
 __all__ = [
     "enabled", "refresh", "span", "record_event", "registry",
     "phase_timings", "flush_trace", "sync_cluster", "snapshot", "reset",
-    "metrics", "tracing", "recorder", "cluster", "attribution", "goodput",
-    "memory",
+    "metrics", "tracing", "recorder", "cluster", "attribution", "monitor",
+    "profile", "goodput", "memory", "skew",
 ]

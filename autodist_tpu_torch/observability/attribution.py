@@ -202,7 +202,9 @@ def feed_calibration(summary, calibration=None, path=None):
     * comms: only when the exposed-comms term came from the scheduled
       HLO (a measurement) does it refine the comms scale against the raw
       model sync estimate — a model-vs-itself comparison would teach
-      nothing.
+      nothing.  The measured side is **skew-corrected**: the barrier
+      wait the skew decomposition attributed to a straggler rank
+      (``skew.local_skew_wait_ms``) is subtracted first.
     """
     if not summary:
         return None
@@ -212,9 +214,16 @@ def feed_calibration(summary, calibration=None, path=None):
                             summary["exposed_comms_ms"])
         feed_compute = (summary.get("raw_compute_ms", 0) > 0
                         and measured_compute > 0)
-        # The JAX package first subtracts the skew layer's straggler wait
-        # (observability/skew.py, not ported: ROADMAP.md A11b).
-        measured_comms = max(0.0, summary.get("exposed_comms_ms", 0))
+        # Skew-corrected: the barrier wait the skew decomposition put on
+        # a straggler rank is not wire time (observability/skew.py).
+        skew_wait = 0.0
+        try:
+            from autodist_tpu_torch.observability import skew
+            skew_wait = float(skew.local_skew_wait_ms() or 0.0)
+        except Exception:  # noqa: BLE001 - correction is best-effort
+            pass
+        measured_comms = max(
+            0.0, summary.get("exposed_comms_ms", 0) - skew_wait)
         feed_comms = (summary.get("raw_comms_ms", 0) > 0
                       and measured_comms > 0
                       and (summary.get("sources") or {}).get(

@@ -44,6 +44,15 @@ def local_snapshot():
     except Exception:  # noqa: BLE001 - snapshot must always assemble
         pass
     try:
+        from autodist_tpu_torch.observability import skew
+        payload = skew.local_payload()
+        if payload:
+            # The clock estimate + dispatch-window ring: the chief
+            # decomposes every rank's exposed comms into wire vs skew-wait.
+            snap["skew"] = payload
+    except Exception:  # noqa: BLE001 - snapshot must always assemble
+        pass
+    try:
         from autodist_tpu_torch.observability import goodput
         g = goodput.last_summary()
         if g:
@@ -148,3 +157,74 @@ def _ingest(snapshots):
     global _gathered
     _gathered = list(snapshots)
 
+
+def aggregate(snapshots, now=None, straggler_factor=1.25,
+              heartbeat_stale_s=120.0):
+    """Cluster-wide view over per-host snapshots (pure function).
+
+    Returns::
+
+        {"hosts": {host: {"step_ms": {...}, "steps", "examples_per_sec",
+                          "age_s", "pid"}},
+         "cluster_step_ms_median": float | None,
+         "warnings": ["host 2 straggling: ...", ...]}
+
+    A host whose median step time exceeds ``straggler_factor`` x the
+    cluster median of medians is flagged; a snapshot older than
+    ``heartbeat_stale_s`` (against ``now``) flags a heartbeat warning —
+    in an SPMD job a silent host is a hung host.
+    """
+    now = time.time() if now is None else now
+    hosts, medians = {}, {}
+    for snap in snapshots:
+        host = snap.get("host", 0)
+        hist = (snap.get("histograms") or {}).get("step.latency_ms") or {}
+        dwait = (snap.get("histograms") or {}).get("step.data_wait_ms") or {}
+        gauges = snap.get("gauges") or {}
+        counters = snap.get("counters") or {}
+        # Input-bound vs compute-bound: a step whose median data-wait
+        # (host time blocked fetching the next batch) exceeds a third of
+        # its median latency is starved by the input pipeline, not the
+        # device: the label says which layer tuning starts in.
+        bound = None
+        if hist.get("p50") and dwait.get("p50") is not None:
+            bound = ("input" if dwait["p50"] > 0.33 * hist["p50"]
+                     else "compute")
+        hosts[host] = {
+            "pid": snap.get("pid"),
+            "step_ms": hist,
+            "data_wait_ms": dwait,
+            "bound": bound,
+            "steps": counters.get("step.count", hist.get("count", 0)),
+            "examples_per_sec": gauges.get("step.examples_per_sec"),
+            "age_s": round(max(0.0, now - snap.get("time", now)), 1),
+            "phases": snap.get("phases") or {},
+            "attribution": snap.get("attribution"),
+        }
+        if hist.get("p50") is not None:
+            medians[host] = hist["p50"]
+    cluster_median = None
+    if medians:
+        vals = sorted(medians.values())
+        cluster_median = vals[len(vals) // 2]
+    warnings = []
+    for host, info in sorted(hosts.items()):
+        med = medians.get(host)
+        if (cluster_median and med is not None
+                and med > straggler_factor * cluster_median):
+            warnings.append(
+                f"host {host} straggling: median step "
+                f"{med:.2f}ms vs cluster {cluster_median:.2f}ms "
+                f"({med / cluster_median:.2f}x)")
+        if info.get("bound") == "input":
+            dw = info["data_wait_ms"].get("p50")
+            warnings.append(
+                f"host {host} input-bound: median data-wait {dw:.2f}ms "
+                f"of {med:.2f}ms step — raise prefetch depth / loader "
+                f"ring, or check the record-file storage (docs/data.md)")
+        if info["age_s"] > heartbeat_stale_s:
+            warnings.append(
+                f"host {host} heartbeat stale: last snapshot "
+                f"{info['age_s']:.0f}s ago")
+    return {"hosts": hosts, "cluster_step_ms_median": cluster_median,
+            "warnings": warnings}

@@ -13,9 +13,13 @@ for the *run*: what fraction of total wall-clock was productive training
          + reexec_gap + data_wait + other
 
 * ``goodput_ms`` — productive step time: the billed step wall-clock
-  minus measured data-wait and minus any compile/save work that ran
-  *inside* a step-loop span (those are billed into step latency but are
-  not training);
+  minus measured data-wait, minus any compile work that ran *inside* a
+  step-loop span, and minus the part of each save that overlapped the
+  loop's billed dispatch windows (those are billed into step latency but
+  are not training). The JAX package subtracts every save inside the
+  step-loop span: a save after the loop's last dispatch, and the
+  asynchronous writer's final wait (``checkpoint-wait``), were never
+  billed, so that arithmetic took them off twice;
 * ``startup_ms`` — capture + strategy build/ship + transform +
   distributed init (the cost of getting to the first step);
 * ``compile_ms`` — jit + AOT (+ serving bucket) compiles;
@@ -61,7 +65,8 @@ stepping).  ``note_mfu`` feeds the tuner calibration as a sanity input
 (``AUTODIST_RUN_ID``, minted by the chief) and the generation index
 (``AUTODIST_RUN_GENERATION``). The JAX package's ``stitch_run`` /
 ``priced_downtime`` / ``reexec_env``, which read them across elastic
-re-exec generations, come with their callers (ROADMAP.md, A11b / A12).
+re-exec generations, come with their callers (ROADMAP.md, A5 + A9 and
+A12).
 
 Cost discipline: everything here runs on the cold finalize path (once
 per ``Runner.run`` / ``CheckpointManager.run``); with
@@ -349,6 +354,17 @@ def collect(runner=None, now=None):
     # Emergency saves nest a checkpoint-save span; count the outer one.
     inside_saves = max(inside.get("checkpoint-save", 0.0),
                        inside.get("emergency-save", 0.0))
+    # A save leaves the billed step time only where it overlapped the
+    # loops' billed dispatch windows (``step-dispatches``, recorded by
+    # ``runner.DispatchClock``): its stall. A save after a loop's last
+    # dispatch, and the writer's final wait, were never billed as steps
+    # (the JAX package subtracts every in-loop save). Without windows the
+    # step-loop spans stand in, as in the JAX package.
+    billed_saves = inside_saves
+    if _Spans(events, "step-dispatches"):
+        billed_saves = max(
+            _contained_named_ms(events, "step-dispatches", (name,))
+            for name in ("checkpoint-save", "emergency-save"))
     # Retune switch downtime (docs/retuning.md): the retune-switch spans
     # wrap the re-lowered program's own compile span, so the nested
     # compile time stays with the retune class and leaves the generic
@@ -360,7 +376,7 @@ def collect(runner=None, now=None):
                             ("compile", "aot-compile"))) if retune_ms \
         else 0.0
     inside_nonstep = (inside.get("compile", 0.0)
-                      + inside.get("aot-compile", 0.0) + inside_saves
+                      + inside.get("aot-compile", 0.0) + billed_saves
                       + max(0.0, inside.get("retune-switch", 0.0)
                             - compile_in_retune))
     goodput_ms = max(0.0, step_wall - data_wait - inside_nonstep)
@@ -371,8 +387,11 @@ def collect(runner=None, now=None):
     reshard = min(reshard, restore_phase) if restore_phase else reshard
     loop_phase = _phase_total(phases, ("step-loop",))
     # Step-loop time the histogram never billed: rolled-back dispatches
-    # and the guard's restore work (the restore part keeps its class).
-    rollback = max(0.0, loop_phase - step_wall - inside.get("restore", 0.0))
+    # and the guard's restore work (the restore part keeps its class, and
+    # so do the unbilled saves and the writer's final wait).
+    rollback = max(0.0, loop_phase - step_wall - inside.get("restore", 0.0)
+                   - (inside_saves - billed_saves)
+                   - inside.get("checkpoint-wait", 0.0))
 
     classes = {
         "startup_ms": _phase_total(phases, _STARTUP_PHASES),
@@ -381,7 +400,8 @@ def collect(runner=None, now=None):
         "restore_ms": max(0.0, restore_phase - reshard),
         "reshard_ms": reshard,
         "checkpoint_save_ms": max(
-            0.0, _phase_total(phases, ("checkpoint-save",)) - emergency),
+            0.0, _phase_total(phases, ("checkpoint-save", "checkpoint-wait"))
+            - emergency),
         "emergency_save_ms": emergency,
         "rollback_ms": rollback,
         "retune_switch_ms": retune_ms,

@@ -23,9 +23,10 @@ HBM go, and will this candidate even fit?**  Three pieces (docs/memory.md):
   is reconciled with the residual *surfaced* and the worst-offender class fed to
   per-term tuner calibration under a ``mem:`` context.
 * **Forensics** — the summary says whether the predicted peak fits
-  ``capacity x AUTODIST_MEM_HEADROOM`` (the JAX package's feasibility
-  refusal, ``check_feasible``, comes with its callers: the tuner's search
-  and the serve engine's bucket check, ROADMAP.md A11b / A12); a real
+  ``capacity x AUTODIST_MEM_HEADROOM``; :func:`check_feasible` refuses a
+  serving bucket that does not (``InfeasibleMemoryError``, raised by the
+  serve and decode engines before any placement or capture; the tuner's
+  search that also calls it in the JAX package is ROADMAP.md A12); a real
   device OOM at capture/dispatch produces an ``oom``
   flight event plus ``logs/oom_report.json`` naming the dominant class,
   the largest live buffers, and the nearest feasible knob.
@@ -63,8 +64,15 @@ _last_summary = None
 _last_oom_report = None
 
 
+class InfeasibleMemoryError(MemoryError):
+    """A bucket whose predicted peak memory exceeds ``capacity x
+    AUTODIST_MEM_HEADROOM``, refused *before* any placement or capture —
+    the named failure the serve engines' bucket check raises instead of
+    an out-of-memory error inside a CUDA graph capture."""
+
+
 # ---------------------------------------------------------------------------
-# capacity + fallback
+# capacity + feasibility + fallback
 
 def headroom():
     """Fraction of HBM capacity a predicted peak may use and still count
@@ -75,6 +83,33 @@ def headroom():
     except Exception:  # noqa: BLE001 - a garbled knob falls to the default
         h = 0.9
     return h if h > 0 else 0.9
+
+
+def check_feasible(breakdown, capacity_bytes=None):
+    """Refusal reason for an infeasible breakdown, ``None`` when it fits
+    (or when nothing can be said: no breakdown / no known capacity —
+    the check is fail-open, it must never invent refusals). Capacity:
+    ``capacity_bytes``, else the breakdown's own, else
+    ``goodput.peak_hbm_bytes_per_device()``."""
+    if breakdown is None:
+        return None
+    cap = float(capacity_bytes or breakdown.get("capacity_bytes") or 0.0)
+    if cap <= 0:
+        try:
+            from autodist_tpu_torch.observability import goodput
+            cap = float(goodput.peak_hbm_bytes_per_device())
+        except Exception:  # noqa: BLE001 - unknown capacity: cannot refuse
+            return None
+    if cap <= 0:
+        return None
+    peak = float(getattr(breakdown, "peak_bytes", 0.0) or
+                 sum(breakdown.get(c, 0.0) for c in CLASSES))
+    limit = cap * headroom()
+    if peak <= limit:
+        return None
+    return (f"memory: predicted {peak / _GB:.4g}GiB > "
+            f"{limit / _GB:.4g}GiB ({headroom():.0%} of "
+            f"{cap / _GB:.4g}GiB HBM)")
 
 
 def suggest_fallback(breakdown, knobs=None):

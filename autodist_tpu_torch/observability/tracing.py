@@ -15,8 +15,9 @@ Overhead discipline: a span costs two ``time.perf_counter()`` calls and
 one deque append (no device work, so a span may enclose a CUDA graph
 capture); the ring is bounded; flushing is explicit (end of
 ``Runner.run``, ``flush()``) plus a best-effort ``atexit``; everything is
-fail-open. The JAX package stamps each flush with the skew layer's clock
-offset; that layer is not ported yet (ROADMAP.md, A11b).
+fail-open. Each flush is stamped with the skew layer's clock offset
+against the chief (``clock_offset_ms``, ``observability/skew.py``), so
+per-rank files align on one clock.
 """
 import atexit
 import json
@@ -68,6 +69,11 @@ def _now_us():
 def perf_to_epoch(t_perf):
     """A ``perf_counter`` reading -> wall-clock epoch seconds."""
     return _origin_epoch + (t_perf - _origin)
+
+
+def perf_to_us(t_perf):
+    """A ``perf_counter`` reading -> trace microseconds (a span's ``ts``)."""
+    return (t_perf - _origin) * 1e6
 
 
 def epoch_anchor_us():
@@ -215,6 +221,15 @@ def flush(path=None):
     path = path or default_trace_path()
     meta = {"epoch_anchor_us": round(epoch_anchor_us(), 1),
             "pid": os.getpid(), "host": process_index()}
+    try:
+        # The skew layer's offset vs the chief, when a ping exchange ran.
+        from autodist_tpu_torch.observability import skew
+        est = skew.local_offset()
+        if est is not None:
+            meta["clock_offset_ms"] = est.get("offset_ms", 0.0)
+            meta["clock_uncertainty_ms"] = est.get("uncertainty_ms", 0.0)
+    except Exception:  # noqa: BLE001 - the stamp is best-effort
+        pass
     try:
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path, "w") as f:

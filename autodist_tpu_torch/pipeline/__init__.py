@@ -14,10 +14,10 @@ with a hop a tick. Pieces:
   nothing else fixes it.
 
 * :mod:`~autodist_tpu_torch.pipeline.observe` — the ``pipeline.*``
-  gauges (bubble accounting) the Runner's observed loop publishes.
+  gauges (bubble accounting) the Runner's observed loop publishes, and
+  the monitor's ``/status`` pipeline section over them.
 
-Not ported: the monitor's pipeline section (ROADMAP.md, A11b). The
-user-facing entry point is the
+The user-facing entry point is the
 :class:`~autodist_tpu_torch.strategy.Pipeline` strategy builder.
 """
 from autodist_tpu_torch.pipeline.cutter import (StageCut, cut_stages,  # noqa: F401

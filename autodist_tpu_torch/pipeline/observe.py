@@ -10,8 +10,9 @@ profiler story stays closed: the Runner's cold-path finalize calls
 :func:`finalize` once per observed step loop, which prices the measured
 step p50 into a bubble share using the schedule model
 (``(S-1)/(S+M-1)``) and publishes the ``pipeline.*``
-gauges (the monitor and report that read them in the JAX package are
-not ported yet).  Telemetry off
+gauges the monitor's ``/status`` pipeline section reads
+(:func:`status_section`; the report that also reads them is ROADMAP.md
+A11b (ii)).  Telemetry off
 (``AUTODIST_TELEMETRY=0``) never reaches this module — the zero-call
 contract test spies on it.
 """

@@ -167,9 +167,17 @@ after one sync at the loop's end), not the host clock's delta; the data
 wait stays on the host clock. With telemetry off the loop makes no
 telemetry call at all.
 
-Not ported yet (ROADMAP.md): the overlap scheduler, the online re-tuning
-controller, the per-layer profile, the skew ring, ``write_report`` and
-``dump_compiled``.
+With telemetry on, ``run`` also folds each dispatch's window into the
+skew ring (``observability/skew.py``; on CUDA anchored from the CUDA
+events at the loop's final drain) and finalizes the per-layer profile
+(``observability/profile.py``): from the ``torch.profiler`` trace under
+``AUTODIST_TRACE=profiler``, after the profiler stops, else from the
+model's costs. The chief starts the live monitor
+(``observability/monitor.py``) when ``AUTODIST_MONITOR_PORT`` is set.
+
+Not ported yet (ROADMAP.md): the overlap scheduler (A9b), the online
+re-tuning controller (A12), ``write_report`` and ``dump_compiled`` (A11b
+(ii)).
 """
 import contextlib
 import math
@@ -284,6 +292,15 @@ class Runner:
         # gates on one attribute, so AUTODIST_TELEMETRY=0 means zero
         # telemetry calls on the hot path.
         self._obs = observability if observability.enabled() else None
+        if self._obs is not None:
+            # The live monitor: opt-in chief HTTP endpoint; with no
+            # AUTODIST_MONITOR_PORT (or telemetry off) one int check, no
+            # thread, no port.
+            try:
+                from autodist_tpu_torch.observability import monitor
+                monitor.ensure_started()
+            except Exception as e:  # noqa: BLE001 - must never kill a run
+                logging.debug("monitor not started: %s", e)
         if self._obs is not None:
             pad_bytes = 0
             for name, (_dim, logical, padded) in program.paddings().items():
@@ -946,15 +963,20 @@ class Runner:
                 activities.append(ProfilerActivity.CUDA)
             profiler = profile(activities=activities)
         with profiler as prof:
+            # The per-layer profile reads the trace, which exists only once
+            # the profiler stops: the loop's finalize leaves it to us.
             state, metrics = self._run_loop(state, data_iter, num_steps,
                                             step_guard, chaos, unroll,
-                                            yields_blocks)
+                                            yields_blocks,
+                                            profiled=bool(trace_dir))
         if trace_dir:
             os.makedirs(trace_dir, exist_ok=True)
             rank = dist.get_rank() if dist.is_initialized() else 0
             path = os.path.join(trace_dir, f"trace-rank{rank}.json")
             prof.export_chrome_trace(path)
             logging.info("profiler trace: %s", path)
+            if obs is not None:
+                self._finalize_profile(unroll, trace=path, steps=num_steps)
         return state, metrics
 
     def _held_tensors(self, state, data_iter=None, step_guard=None):
@@ -997,21 +1019,22 @@ class Runner:
             logging.debug("oom forensics failed: %s", e)
 
     def _run_loop(self, state, data_iter, num_steps, step_guard, chaos,
-                  unroll, yields_blocks=False):
+                  unroll, yields_blocks=False, profiled=False):
         """The step loop of every run: one ``step`` a batch, or one
         ``megastep`` a K-block (pulled whole from ``data_iter`` with
         ``yields_blocks``, else stacked from K batches). The JAX Runner's
         ``_run_observed``
-        (``autodist_tpu/runner.py:1529-1852``) less its re-tuning,
-        per-layer profile and skew parts: chaos injection before each
+        (``autodist_tpu/runner.py:1529-1852``) less its re-tuning: chaos
+        injection before each
         dispatch, the flag read at the guard's cadence (K-block boundaries
         under ``unroll=K``), snapshot on a healthy check, rollback on a
         diverged one; and with telemetry on, per dispatch one clock mark
         (:class:`DispatchClock`) and a host data-wait read, flushed into
-        the registry and the attribution ledger on the same cadence, and
-        the ledgers finalized after the loop (cold path). With telemetry
-        off every telemetry touch is skipped: no clock, registry or span
-        call."""
+        the registry, the attribution ledger and the skew ring on the same
+        cadence, and the ledgers and the per-layer profile finalized after
+        the loop (cold path; ``profiled``: the caller finalizes the profile
+        from its profiler's trace). With telemetry off every telemetry
+        touch is skipped: no clock, registry or span call."""
         obs = self._obs
         reg = obs.registry() if obs is not None else None
         k = unroll
@@ -1021,10 +1044,21 @@ class Runner:
 
         def held():
             return self._held_tensors(state, data_iter, step_guard)
+        skew_mod = None
         if obs is not None:
             from autodist_tpu_torch.observability import attribution
             from autodist_tpu_torch.observability import memory as memory_mod
-            clock = DispatchClock(self._remapper.device)
+            # The skew ring: dispatch windows fold in on the flush cadence
+            # (on CUDA at the final drain, anchored after its sync); off
+            # (AUTODIST_SKEW_RING=0) it costs nothing.
+            try:
+                from autodist_tpu_torch.observability import skew
+                if skew.ring_enabled():
+                    skew_mod = skew
+            except Exception as e:  # noqa: BLE001 - must not kill runs
+                logging.debug("skew ring unavailable: %s", e)
+            clock = DispatchClock(self._remapper.device,
+                                  windows=skew_mod is not None)
             try:
                 ledger = attribution.Ledger(unroll=k)
             except Exception as e:  # noqa: BLE001 - must not kill runs
@@ -1044,6 +1078,8 @@ class Runner:
 
         def flush(final=False):
             done = clock.flush(reg, final)
+            if skew_mod is not None:  # anchored by a final drain, if any
+                skew_mod.observe_dispatches(clock.take_windows())
             if not done:
                 return
             if ledger is not None:
@@ -1127,10 +1163,11 @@ class Runner:
             if obs is not None:
                 flush(final=True)
         if obs is not None:
-            self._finalize_telemetry(reg, ledger, mem_ledger, k)
+            self._finalize_telemetry(reg, ledger, mem_ledger, k, profiled)
         return state, metrics
 
-    def _finalize_telemetry(self, reg, ledger, mem_ledger, unroll):
+    def _finalize_telemetry(self, reg, ledger, mem_ledger, unroll,
+                            profiled=False):
         """End-of-loop bookkeeping on the cold path, each part fail-open:
         the attribution ledger (model terms priced here, not in the loop),
         the pipeline bubble gauges, the goodput segment, the memory ledger,
@@ -1154,6 +1191,10 @@ class Runner:
                 attribution.finalize(ledger, reg, calibration_path=cal_path)
         except Exception as e:  # noqa: BLE001
             logging.debug("attribution not recorded: %s", e)
+        if not profiled and ledger is not None and ledger.steps:
+            # Without a profiler trace the profile is the model's; with
+            # one, run() finalizes it once the trace exists.
+            self._finalize_profile(unroll)
         try:
             pipe_observe.finalize(self, reg)
         except Exception as e:  # noqa: BLE001
@@ -1174,6 +1215,29 @@ class Runner:
             obs.flush_trace()
         except Exception as e:  # noqa: BLE001
             logging.warning("telemetry flush failed: %s", e)
+
+
+    def _finalize_profile(self, unroll, trace=None, steps=None):
+        """The per-layer profile (``observability/profile.py``): the
+        ledger's device terms split per model scope, reconciled to the
+        last attribution summary; measured from the ``torch.profiler``
+        ``trace`` of ``steps`` steps when there is one. One cold-path
+        pass; ``AUTODIST_PROFILE=0`` makes no profiling call."""
+        try:
+            from autodist_tpu_torch.observability import attribution
+            from autodist_tpu_torch.observability import profile as profile_mod
+            from autodist_tpu_torch.tuner import calibration
+            if not profile_mod.enabled() or \
+                    attribution.last_summary() is None:
+                return None
+            prof = profile_mod.profile_runner(self, unroll=unroll,
+                                              trace=trace, steps=steps)
+            return profile_mod.finalize(
+                prof, attribution.last_summary(), self._obs.registry(),
+                calibration_path=calibration.path_for(self, unroll))
+        except Exception as e:  # noqa: BLE001
+            logging.debug("per-layer profile not recorded: %s", e)
+            return None
 
 
 def flush_cadence(step_guard, unroll):
@@ -1202,13 +1266,30 @@ class DispatchClock:
     reads the dispatches whose events have completed without waiting, or
     with ``final`` after one synchronize. Marks are host-side and never
     run inside a graph capture (the loop marks after a dispatch returns).
+
+    Two by-products for the telemetry above the registry:
+
+    * the billed windows: the host span from each :meth:`start` to its
+      last mark is recorded as a ``step-dispatches`` trace span when the
+      window closes (the next :meth:`start`, or a final drain), so the
+      goodput ledger bills a checkpoint save into step time only where it
+      overlapped dispatches;
+    * with ``windows=True``, every drained dispatch's ``(end, dur, steps,
+      wait)`` on the host's ``perf_counter`` clock, for the skew ring
+      (:meth:`take_windows`). On CUDA the events' chain is anchored to
+      one host reading taken right after a synchronize (the final drain,
+      or a restart after a rollback): each end is that reading less the
+      event time to the last event. No dispatch adds a sync.
     """
 
-    def __init__(self, device):
+    def __init__(self, device, windows=False):
         self.cuda = torch.device(device).type == "cuda"
         # (event or host end time, steps, wait_s, compiled)
         self._pending = []
         self._prev = None   # the last drained mark (event or host time)
+        self._span = None   # host [start, last mark] of the open window
+        self._windows = [] if windows else None
+        self._unanchored = []   # CUDA: (event, dur_s, steps, wait_s)
 
     @staticmethod
     def now():
@@ -1223,13 +1304,39 @@ class DispatchClock:
 
     def start(self):
         """Begin (or begin again, dropping the undrained marks)."""
+        self._close_window()
+        self._anchor()
         self._pending.clear()
         self._prev = self._stamp()
+        self._span = [self.now(), None]
 
     def mark(self, steps, wait_s, compiled=False):
         """One dispatch of ``steps`` steps, after ``wait_s`` s of host data
         wait; ``compiled`` when it captured its graph."""
         self._pending.append((self._stamp(), steps, wait_s, compiled))
+        if self._span is not None:
+            self._span[1] = self.now()
+
+    def _close_window(self):
+        """Record the open window's host span (``step-dispatches``)."""
+        span, self._span = self._span, None
+        if span is None or span[1] is None:
+            return
+        from autodist_tpu_torch.observability import tracing
+        tracing.record_complete("step-dispatches", tracing.perf_to_us(
+            span[0]), (span[1] - span[0]) * 1e6)
+
+    def _anchor(self):
+        """CUDA: turn the drained, unanchored events into host windows."""
+        if not self._unanchored:
+            return
+        last = self._unanchored[-1][0]
+        last.synchronize()
+        t_last = self.now()
+        for ev, dur, steps, wait in self._unanchored:
+            self._windows.append((t_last - ev.elapsed_time(last) / 1e3, dur,
+                                  steps, wait))
+        self._unanchored.clear()
 
     def drain(self, final=False):
         """``[(wall_s, steps, wait_s, compiled)]`` of the completed
@@ -1241,12 +1348,29 @@ class DispatchClock:
             while self._pending and self._pending[0][0].query():
                 ev, *rest = self._pending.pop(0)
                 out.append((self._prev.elapsed_time(ev) / 1e3, *rest))
+                if self._windows is not None:
+                    self._unanchored.append((ev, out[-1][0], rest[0],
+                                             rest[1]))
                 self._prev = ev
-            return out
-        for t, *rest in self._pending:
-            out.append((t - self._prev, *rest))
-            self._prev = t
-        self._pending.clear()
+        else:
+            for t, *rest in self._pending:
+                out.append((t - self._prev, *rest))
+                if self._windows is not None:
+                    self._windows.append((t, out[-1][0], rest[0], rest[1]))
+                self._prev = t
+            self._pending.clear()
+        if final:
+            self._anchor()
+            self._close_window()
+        return out
+
+    def take_windows(self):
+        """The anchored ``(end_perf, dur_s, steps, wait_s)`` windows since
+        the last call (``[]`` without ``windows=True``)."""
+        if not self._windows:
+            return []
+        out = list(self._windows)
+        self._windows.clear()
         return out
 
     def flush(self, reg, final=False):

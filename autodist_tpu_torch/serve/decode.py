@@ -27,10 +27,24 @@ in-flight batch at every decode step.
   in submission order. Greedy continuation re-prefills prompt + generated,
   so a scale event drops no request and changes no token.
 
-Not ported yet (ROADMAP.md): the bucket memory pre-check
-(``_validate_bucket_memory``: an over-capacity bucket fails at cache
-allocation with PyTorch's own out-of-memory error), OOM forensics, the
-``decode.*`` metrics and ``serve.slo_burn`` gauge, and the autoscaler.
+* **A bucket that cannot fit is refused by name.** Before any parameter
+  placement, cache allocation or capture, each (slots, cache_len)
+  bucket's predicted peak — the forward's footprint at
+  ``batch_rows=slots`` plus its KV cache as the ledger's own
+  ``kv_cache_bytes`` class — is held to the card's capacity x
+  ``AUTODIST_MEM_HEADROOM`` (``InfeasibleMemoryError``); a capture or a
+  step that dies of memory writes the OOM forensics first.
+
+Telemetry (off under ``AUTODIST_TELEMETRY=0``): the ``capture`` /
+``strategy-build`` spans (``kind="decode"``), one ``serve-aot-compile``
+span and ``serve.aot_compile.ms`` gauge per lane capture, the
+``serve-start`` / ``serve-scale`` / ``serve-stop`` events, the
+``decode.*`` counters (``requests``, ``steps``, ``tokens``,
+``scale_events``), gauges (``queue_depth``, ``active_slots``,
+``replicas``, ``tokens_per_sec``) and ``decode.latency_ms`` histogram,
+and the ``serve.slo_burn`` gauge the one-shot server also keeps.
+
+Not ported yet (ROADMAP.md): the autoscaler.
 """
 import itertools
 import threading
@@ -41,14 +55,16 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
-from autodist_tpu_torch import const
+from autodist_tpu_torch import const, observability
 from autodist_tpu_torch.cluster import local_devices
 from autodist_tpu_torch.graph_item import GraphItem
 from autodist_tpu_torch.serve.buckets import normalize_buckets
 from autodist_tpu_torch.serve.engine import (ReplicaRuntime,
+                                             _oom_forensics,
                                              _resolve_serve_builder,
+                                             bucket_memory_model,
                                              build_replica_programs,
-                                             serve_spec)
+                                             refuse_infeasible, serve_spec)
 from autodist_tpu_torch.utils import cuda_graph, logging
 from autodist_tpu_torch.utils.device import resolve_device
 from autodist_tpu_torch.utils.tree import leaves
@@ -236,8 +252,8 @@ class DecodeReplica(ReplicaRuntime):
     whose programs are decode lanes. The base class's dispatch queue is
     unused: lanes step synchronously on the engine's replica thread."""
 
-    def __init__(self, index, program, decode_fn):
-        super().__init__(index, program, decode_fn)
+    def __init__(self, index, program, decode_fn, obs=None):
+        super().__init__(index, program, decode_fn, obs=obs)
         self.lanes = []
 
     def compile_decode(self, bucket, init_cache_fn, decode_fn):
@@ -246,13 +262,24 @@ class DecodeReplica(ReplicaRuntime):
         captured as a CUDA graph). ``slots`` must divide by the replica's
         data-axis size, as a request batch must."""
         slots, cache_len = int(bucket[0]), int(bucket[1])
+        obs = self._obs
         t0 = time.perf_counter()
-        cache = init_cache_fn(slots, cache_len, device=self.remapper.device)
-        lane = _Lane(self, slots, cache_len, decode_fn, cache)
+        with (obs.span("serve-aot-compile", bucket=f"{slots}x{cache_len}",
+                       replica=self.index) if obs is not None
+              else observability.tracing.NULL_SPAN):
+            cache = init_cache_fn(slots, cache_len,
+                                  device=self.remapper.device)
+            lane = _Lane(self, slots, cache_len, decode_fn, cache)
+        dt_ms = (time.perf_counter() - t0) * 1e3
         logging.info("decode: replica %d built bucket %dx%d (%s, %.0fms)",
                      self.index, slots, cache_len,
                      "CUDA graph" if lane.graph is not None else "eager",
-                     (time.perf_counter() - t0) * 1e3)
+                     dt_ms)
+        if obs is not None:
+            obs.registry().gauge("serve.aot_compile.ms").set(round(dt_ms, 3))
+            obs.record_event("serve-compile",
+                             f"decode replica {self.index} bucket "
+                             f"{slots}x{cache_len} ({dt_ms:.0f}ms)")
         self.lanes.append(lane)
         return lane
 
@@ -300,13 +327,17 @@ class DecodeEngine:
         self._init_cache = init_cache_fn
         # The strategy machinery carves the FORWARD program; decode reuses
         # its placement and device carving.
-        self.item = GraphItem.capture(apply_fn, params, None,
-                                      example_batch=example_batch)
+        with observability.span("capture", kind="decode"):
+            self.item = GraphItem.capture(apply_fn, params, None,
+                                          example_batch=example_batch)
         self._spec = serve_spec(resource_spec, device)
         builder = _resolve_serve_builder(strategy_builder)
-        self.strategy = builder.build(self.item, self._spec)
+        with observability.span("strategy-build", kind="decode"):
+            self.strategy = builder.build(self.item, self._spec)
         logging.info("decode: strategy %s via %s", self.strategy.id,
                      type(builder).__name__)
+        self._validate_bucket_memory(self._spec)
+        self._obs = observability if observability.enabled() else None
         self._queue = deque()
         self._cv = threading.Condition()
         self._pause = False
@@ -316,6 +347,38 @@ class DecodeEngine:
         self.scale_events = 0
         self.replicas = []
         self._build_fleet(int(replicas))
+        observability.record_event(
+            "serve-start", f"decode engine: {len(self.replicas)} "
+            f"replica(s), buckets "
+            f"{['x'.join(map(str, b)) for b in self.buckets]}, "
+            f"strategy {self.strategy.id}")
+
+    def bucket_memory(self, spec, bucket):
+        """The predicted ``MemoryBreakdown`` of one (slots, cache_len)
+        bucket: the forward's footprint at ``batch_rows=slots`` and the
+        lane's KV cache as its own class."""
+        slots, cache_len = bucket
+        return bucket_memory_model(spec).strategy_memory(
+            self.strategy, self.item, batch_rows=slots,
+            kv_cache_bytes=self.cache_bytes(slots, cache_len))
+
+    def _validate_bucket_memory(self, spec):
+        """Refuse over-capacity decode buckets before any placement,
+        cache allocation or capture: the KV cache is priced as its own
+        ledger class (``kv_cache_bytes``) on top of the forward's
+        footprint at ``batch_rows=slots``. Fail-open: only a positive
+        refusal propagates, and a check that cannot evaluate logs why."""
+        for slots, cache_len in self.buckets:
+            try:
+                mem = self.bucket_memory(spec, (slots, cache_len))
+            except Exception as e:  # noqa: BLE001 - advisory check only
+                logging.warning("decode bucket %dx%d memory check failed: "
+                                "%s", slots, cache_len, e)
+                continue
+            refuse_infeasible(
+                f"decode bucket {slots}x{cache_len}", mem,
+                "shrink AUTODIST_DECODE_SLOTS / AUTODIST_DECODE_CACHE_LEN "
+                "or raise AUTODIST_HBM_GB")
 
     def cache_bytes(self, slots, cache_len):
         """Total KV-cache bytes of one (slots, cache_len) lane."""
@@ -344,9 +407,14 @@ class DecodeEngine:
                     f"per-replica device count")
         self.replicas = []
         for i, program in enumerate(programs):
-            rep = DecodeReplica(i, program, self._decode)
+            rep = DecodeReplica(i, program, self._decode, obs=self._obs)
             for b in self.buckets:
-                rep.compile_decode(b, self._init_cache, self._decode)
+                try:
+                    rep.compile_decode(b, self._init_cache, self._decode)
+                except Exception as e:  # noqa: BLE001 - forensics, re-raise
+                    _oom_forensics(
+                        e, f"decode aot-compile bucket {b} replica {i}")
+                    raise
             self.replicas.append(rep)
 
     @property
@@ -404,9 +472,18 @@ class DecodeEngine:
         self._build_fleet(replicas)
         self._start_threads()
         self.scale_events += 1
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        observability.record_event(
+            "serve-scale", f"decode fleet {old} -> {replicas} replica(s): "
+            f"{len(inflight)} in-flight re-dispatched, 0 dropped "
+            f"({dt_ms:.0f}ms)")
+        if self._obs is not None:
+            reg = self._obs.registry()
+            reg.gauge("decode.replicas").set(replicas)
+            reg.counter("decode.scale_events").inc()
         logging.info("decode: scaled %d -> %d replicas (%d in-flight "
                      "re-dispatched, %.0fms)", old, replicas, len(inflight),
-                     (time.perf_counter() - t0) * 1e3)
+                     dt_ms)
         return len(inflight)
 
     # -- admission + step loop -----------------------------------------------
@@ -454,14 +531,21 @@ class DecodeEngine:
                 if lane.active == 0:
                     continue
                 try:
-                    completed, _ = lane.step()
+                    completed, generated = lane.step()
                 except Exception as e:  # noqa: BLE001 - fail lane occupants
                     logging.error("decode: step failed on replica %d: %s",
                                   rep.index, e)
+                    _oom_forensics(e, f"decode step replica {rep.index}")
                     for req in lane.evict_all():
                         if not req.future.done():
                             req.future.set_exception(e)
                     continue
+                if self._obs is not None:
+                    reg = self._obs.registry()
+                    reg.counter("decode.steps").inc()
+                    if generated:
+                        reg.counter("decode.tokens").inc(generated)
+                    reg.gauge("decode.active_slots").set(self.in_flight)
                 for req in completed:
                     if self._on_complete is not None:
                         self._on_complete(req)
@@ -510,12 +594,17 @@ class DecodeServer:
             buckets=buckets, resource_spec=resource_spec,
             strategy_builder=strategy_builder, replicas=replicas,
             device=device)
+        self._obs = observability if observability.enabled() else None
         self._seq = itertools.count()
         self._closed = False
         self._lock = threading.Lock()
         self._requests = 0
         self._completed = 0
         self._tokens = 0
+        self._t0 = time.perf_counter()
+        if self._obs is not None:
+            self._obs.registry().gauge("decode.replicas").set(
+                len(self._engine.replicas))
         self._engine.start(self._finished)
         logging.info(
             "decode: server up, %d replica(s), buckets %s",
@@ -550,6 +639,10 @@ class DecodeServer:
         with self._lock:
             self._requests += 1
         self._engine.enqueue(req)
+        if self._obs is not None:
+            reg = self._obs.registry()
+            reg.counter("decode.requests").inc()
+            reg.gauge("decode.queue_depth").set(self._engine.queue_depth())
         return req.future
 
     def generate(self, prompt, max_new_tokens=16, eos=None, timeout=None):
@@ -578,6 +671,9 @@ class DecodeServer:
             return
         self._closed = True
         self._engine.close()
+        observability.record_event(
+            "serve-stop", f"decode: {self._completed}/{self._requests} "
+            f"requests, {self._tokens} tokens")
 
     def __enter__(self):
         return self
@@ -589,9 +685,23 @@ class DecodeServer:
     def _finished(self, req):
         """Completion, on a replica thread: counted once, then the future
         resolves (a drain race never resolves it twice)."""
+        now = time.perf_counter()
         with self._lock:
             if req.future.done():
                 return
             self._completed += 1
             self._tokens += len(req.generated)
+            tokens = self._tokens
             req.future.set_result(np.asarray(req.generated, np.int32))
+        if self._obs is not None:
+            reg = self._obs.registry()
+            hist = reg.histogram("decode.latency_ms")
+            hist.observe((now - req.t_submit) * 1e3)
+            reg.gauge("decode.tokens_per_sec").set(
+                round(tokens / max(1e-9, now - self._t0), 2))
+            reg.gauge("decode.queue_depth").set(self._engine.queue_depth())
+            # The same pager gauge the one-shot server keeps.
+            p99 = hist.summary().get("p99")
+            if p99 is not None:
+                slo = max(1, const.ENV.AUTODIST_SERVE_SLO_MS.val)
+                reg.gauge("serve.slo_burn").set(round(p99 / slo, 4))

@@ -26,9 +26,21 @@ Multi-replica: ``replicas=R`` carves the spec's devices into R contiguous
 data-only groups, each with its own mesh, program and placed params. A
 replica spans one device: the engine is one process, and the port places
 one process on one device (training spans devices with one process per
-device, ``cluster.py``). Observability spans and
-gauges, the bucket memory pre-check, OOM forensics, the tuner and
-replica removal are not ported yet (ROADMAP.md).
+device, ``cluster.py``).
+
+Telemetry (``observability/``, off under ``AUTODIST_TELEMETRY=0``): the
+``capture`` / ``strategy-build`` spans (``kind="serve"``), one
+``serve-aot-compile`` span, ``serve.aot_compile.ms`` gauge and
+``serve-compile`` event per bucket capture, and the ``serve-start``
+event. Before any parameter placement or capture, every bucket's
+predicted peak (``CostModel.strategy_memory(batch_rows=)``) is held to
+the card's capacity x ``AUTODIST_MEM_HEADROOM``: a bucket that cannot fit
+raises :class:`~autodist_tpu_torch.observability.memory.
+InfeasibleMemoryError` naming it. The prediction traces the attention's
+plain version, so it counts the (b, h, s, s) scores the flash kernel
+never writes: it over-predicts a flash bucket (ROADMAP.md, Queue C). A
+capture or dispatch that dies of memory writes the OOM forensics first.
+The tuner and replica removal are not ported yet (ROADMAP.md).
 """
 import queue
 import threading
@@ -38,7 +50,7 @@ import types
 import numpy as np
 import torch
 
-from autodist_tpu_torch import const
+from autodist_tpu_torch import const, observability
 from autodist_tpu_torch.cluster import Cluster, Mesh, local_devices
 from autodist_tpu_torch.data.loader import DevicePrefetcher
 from autodist_tpu_torch.graph_item import GraphItem
@@ -52,6 +64,46 @@ from autodist_tpu_torch.utils.device import resolve_device
 from autodist_tpu_torch.utils.tree import flatten
 from autodist_tpu_torch.utils.tree import leaves as tree_leaves
 from autodist_tpu_torch.utils.tree import tree_map, unflatten
+
+
+def _oom_forensics(exc, context):
+    """Serve-side OOM hook: when a bucket capture or a dispatch dies with
+    a device allocation failure, write the forensics report
+    (``logs/oom_report.json`` + the ``oom`` flight event) before the
+    caller re-raises or fails the request futures. Fail-open, and no
+    call at all with telemetry off."""
+    if not observability.enabled():
+        return
+    try:
+        from autodist_tpu_torch.observability import memory as memory_mod
+        if memory_mod.is_oom(exc):
+            memory_mod.oom_report(exc, context=context)
+    except Exception as e:  # noqa: BLE001 - diagnostics only
+        logging.debug("serve oom forensics failed: %s", e)
+
+
+def bucket_memory_model(spec):
+    """The cost model a serving engine prices its buckets with: the
+    spec's devices, the card's capacity (``Topology.hbm_capacity_bytes``),
+    and the default calibration file."""
+    from autodist_tpu_torch.tuner.calibration import Calibration
+    from autodist_tpu_torch.tuner.cost_model import CostModel, Topology
+    cal = Calibration.load()
+    return CostModel(Topology(max(1, len(local_devices(spec)))), cal)
+
+
+def refuse_infeasible(label, mem, advice):
+    """Raise the named refusal for one bucket when ``mem`` (a
+    ``MemoryBreakdown``) does not fit; the ``oom`` flight event first."""
+    from autodist_tpu_torch.observability import memory as memory_mod
+    reason = memory_mod.check_feasible(mem)
+    if not reason:
+        return
+    observability.record_event(
+        "oom", f"{label} refused at engine build: {reason}")
+    raise memory_mod.InfeasibleMemoryError(
+        f"{label} refused: {reason}; dominant class "
+        f"{mem.dominant_class()} — {advice}")
 
 
 def build_replica_programs(item, strategy, spec, replicas, one_device=False):
@@ -169,7 +221,7 @@ class ReplicaRuntime:
     """One model replica: a mesh slice, resident (never-written) params,
     and the buckets it has warmed up (one captured forward each)."""
 
-    def __init__(self, index, program, apply_fn):
+    def __init__(self, index, program, apply_fn, obs=None):
         if program.paddings():
             raise NotImplementedError(
                 "uneven parameter shards (padded storage) are not ported "
@@ -178,6 +230,7 @@ class ReplicaRuntime:
         self.program = program
         self.remapper = Remapper(program)
         self._apply = apply_fn
+        self._obs = obs
         self._graphs = {}   # bucket -> (static input leaves, Graph)
         self._bucket_rank = None
         self._source = None
@@ -224,12 +277,21 @@ class ReplicaRuntime:
         graph = cuda_graph.Graph(cuda_graph.weak_call(
             self, lambda r: r._forward(unflatten(treedef, static))),
             self.remapper.device)
+        obs = self._obs
         t0 = time.perf_counter()
-        self.remapper.fetch(graph())
+        with (obs.span("serve-aot-compile", bucket=str(bucket),
+                       replica=self.index) if obs is not None
+              else observability.tracing.NULL_SPAN):
+            self.remapper.fetch(graph())
+        dt_ms = (time.perf_counter() - t0) * 1e3
         logging.info("serve: replica %d warmed bucket %s (%s, %.0fms)",
                      self.index, bucket,
-                     "CUDA graph" if graph.captured else "eager",
-                     (time.perf_counter() - t0) * 1e3)
+                     "CUDA graph" if graph.captured else "eager", dt_ms)
+        if obs is not None:
+            obs.registry().gauge("serve.aot_compile.ms").set(round(dt_ms, 3))
+            obs.record_event("serve-compile",
+                             f"replica {self.index} bucket {bucket} "
+                             f"({dt_ms:.0f}ms)")
         self._bucket_rank = rank
         self._graphs[bucket] = (static, graph)
         return graph
@@ -301,6 +363,7 @@ class ReplicaRuntime:
             try:
                 host = self.run_bucket(db)
             except Exception as e:  # noqa: BLE001 - per-batch failure
+                _oom_forensics(e, f"serve dispatch replica {self.index}")
                 for r in group:
                     if not r.future.done():
                         r.future.set_exception(e)
@@ -370,11 +433,13 @@ class ServeEngine:
                 f"serve buckets pad at most (rows, seq); got rank-"
                 f"{self.bucket_rank} buckets {self.buckets}")
         self._apply = apply_fn
-        self.item = GraphItem.capture(apply_fn, params, None,
-                                      example_batch=example_batch)
+        with observability.span("capture", kind="serve"):
+            self.item = GraphItem.capture(apply_fn, params, None,
+                                          example_batch=example_batch)
         spec = serve_spec(resource_spec, device)
         builder = _resolve_serve_builder(strategy_builder)
-        self.strategy = builder.build(self.item, spec)
+        with observability.span("strategy-build", kind="serve"):
+            self.strategy = builder.build(self.item, spec)
         logging.info("serve: strategy %s via %s", self.strategy.id,
                      type(builder).__name__)
         programs = list(build_replica_programs(
@@ -382,11 +447,50 @@ class ServeEngine:
         for program in programs:  # before any placement
             for b in self.buckets:
                 _check_bucket_rows(b, program)
-        self.replicas = [ReplicaRuntime(i, program, apply_fn)
+        self._validate_bucket_memory(spec)
+        self._obs = observability if observability.enabled() else None
+        self.replicas = [ReplicaRuntime(i, program, apply_fn, obs=self._obs)
                          for i, program in enumerate(programs)]
         for rep in self.replicas:
             for b in self.buckets:
-                rep.compile_bucket(b, self.item.batch_struct)
+                try:
+                    rep.compile_bucket(b, self.item.batch_struct)
+                except Exception as e:  # noqa: BLE001 - forensics, re-raise
+                    _oom_forensics(e, f"serve aot-compile bucket {b} "
+                                      f"replica {rep.index}")
+                    raise
+        observability.record_event(
+            "serve-start", f"{len(self.replicas)} replica(s), buckets "
+            f"{[(b[0] if len(b) == 1 else b) for b in self.buckets]}, "
+            f"strategy {self.strategy.id}")
+
+    def bucket_memory(self, spec, bucket):
+        """The predicted ``MemoryBreakdown`` of one bucket: the captured
+        forward's footprint at ``batch_rows=bucket[0]``."""
+        return bucket_memory_model(spec).strategy_memory(
+            self.strategy, self.item, batch_rows=bucket[0])
+
+    def _validate_bucket_memory(self, spec):
+        """Refuse over-capacity buckets at engine build, BEFORE any
+        parameter placement or capture: a bucket whose predicted peak
+        exceeds capacity x ``AUTODIST_MEM_HEADROOM`` raises
+        :class:`~autodist_tpu_torch.observability.memory.
+        InfeasibleMemoryError` naming it, instead of dying of memory
+        inside its CUDA graph capture. The check itself is fail-open:
+        only a positive refusal propagates, and a check that cannot
+        evaluate logs why."""
+        for b in self.buckets:
+            label = b[0] if len(b) == 1 else b
+            try:
+                mem = self.bucket_memory(spec, b)
+            except Exception as e:  # noqa: BLE001 - advisory check only
+                logging.warning("serve bucket %s memory check failed: %s",
+                                label, e)
+                continue
+            refuse_infeasible(
+                f"serve bucket {label}", mem,
+                "drop the bucket from AUTODIST_SERVE_BUCKETS or raise "
+                "AUTODIST_HBM_GB if this card really has more memory")
 
     @property
     def program(self):

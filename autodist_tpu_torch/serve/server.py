@@ -15,8 +15,14 @@ Counterpart of ``autodist_tpu/serve/server.py``. Request lifecycle::
       -> de-padding: each request's exact rows are sliced back out, in
          submission order, and resolve its Future.
 
-Answers are CPU tensors. Telemetry, tuner feedback and replica removal are
-not ported yet (ROADMAP.md).
+Answers are CPU tensors. Telemetry (off under ``AUTODIST_TELEMETRY=0``):
+``serve.requests``, ``serve.batches``, ``serve.padded_rows`` (counters),
+``serve.queue_depth``, ``serve.replicas``, ``serve.slo_burn`` (the
+windowed p99 over ``AUTODIST_SERVE_SLO_MS``; above 1 the p99 misses the
+target) and ``serve.replica{i}.outstanding`` / ``.utilization``
+(gauges), ``serve.replica{i}.dispatches`` and the ``serve.latency_ms``
+histogram (submit to answer). Tuner feedback and replica removal are not
+ported yet (ROADMAP.md).
 """
 import collections
 import itertools
@@ -27,7 +33,8 @@ from concurrent.futures import Future
 
 import numpy as np
 
-from autodist_tpu_torch import const
+from autodist_tpu_torch import const, observability
+from autodist_tpu_torch.observability.metrics import _quantile
 from autodist_tpu_torch.serve.buckets import buckets_from_env, pick_bucket
 from autodist_tpu_torch.serve.engine import ServeEngine
 from autodist_tpu_torch.utils import logging
@@ -83,6 +90,7 @@ class Server:
                                    resource_spec=resource_spec,
                                    strategy_builder=strategy_builder,
                                    replicas=replicas, device=device)
+        self._obs = observability if observability.enabled() else None
         self._buckets = self._engine.buckets
         self._bucket_rank = self._engine.bucket_rank
         self._max_rows = self._engine.max_rows
@@ -102,6 +110,9 @@ class Server:
         self._struct = [(tuple(s.shape), s.dtype) for s in
                         leaves(self._engine.item.batch_struct)]
         self._treedef = flatten(example_batch)[1]
+        if self._obs is not None:
+            self._obs.registry().gauge("serve.replicas").set(
+                len(self._engine.replicas))
         self._engine.start(self._complete, depth=prefetch_depth)
         self._dispatcher = threading.Thread(
             target=self._dispatch_loop, daemon=True,
@@ -155,6 +166,10 @@ class Server:
         with self._stats_lock:
             self._requests += 1
         self._rq.put(req)
+        if self._obs is not None:
+            reg = self._obs.registry()
+            reg.counter("serve.requests").inc()
+            reg.gauge("serve.queue_depth").set(self._rq.qsize())
         return req.future
 
     def infer(self, batch, timeout=None):
@@ -164,9 +179,9 @@ class Server:
     def stats(self):
         """Counters, per-replica dispatch accounting, and the p50/p99 of
         the last ``_LATENCY_WINDOW`` request latencies (submit to answer,
-        ms)."""
+        ms; nearest rank, as the registry's histograms read theirs)."""
         with self._stats_lock:
-            lat = list(self._latencies_ms)
+            lat = sorted(self._latencies_ms)
             out = {
                 "requests": self._requests,
                 "completed": self._completed,
@@ -176,9 +191,8 @@ class Server:
         out.update({
             "queue_depth": self._rq.qsize(),
             "buckets": [b[0] for b in self._buckets],
-            "latency_ms": {
-                "p50": float(np.percentile(lat, 50)) if lat else None,
-                "p99": float(np.percentile(lat, 99)) if lat else None},
+            "latency_ms": {"p50": _quantile(lat, 0.50),
+                           "p99": _quantile(lat, 0.99)},
             "replicas": [{
                 "index": r.index,
                 "dispatches": r.dispatches,
@@ -292,6 +306,13 @@ class Server:
             self._batches += 1
             self._padded_rows += bucket[0] - rows
         replica.enqueue(batch, group, rows)
+        if self._obs is not None:
+            reg = self._obs.registry()
+            reg.counter("serve.batches").inc()
+            reg.counter("serve.padded_rows").inc(bucket[0] - rows)
+            reg.gauge("serve.queue_depth").set(self._rq.qsize())
+            reg.gauge(f"serve.replica{replica.index}.outstanding").set(
+                replica.outstanding)
 
     # -- completion (called on replica executor threads) ---------------------
 
@@ -301,10 +322,26 @@ class Server:
         now = time.perf_counter()
         # Count before resolving: a caller that reads stats() right after
         # its answer arrives sees it counted.
+        lat_ms = [(now - r.t_submit) * 1e3 for r in group]
         with self._stats_lock:
             self._completed += len(group)
-            self._latencies_ms.extend((now - r.t_submit) * 1e3
-                                      for r in group)
+            self._latencies_ms.extend(lat_ms)
+        if self._obs is not None:
+            reg = self._obs.registry()
+            hist = reg.histogram("serve.latency_ms")
+            hist.observe_many(lat_ms)
+            # SLO burn: the windowed p99 over the target; above 1 the p99
+            # misses it (the pager gauge the autoscaler reads).
+            p99 = hist.summary().get("p99")
+            if p99 is not None:
+                slo = max(1, const.ENV.AUTODIST_SERVE_SLO_MS.val)
+                reg.gauge("serve.slo_burn").set(round(p99 / slo, 4))
+            i = replica.index
+            reg.counter(f"serve.replica{i}.dispatches").inc()
+            reg.gauge(f"serve.replica{i}.outstanding").set(
+                replica.outstanding)
+            reg.gauge(f"serve.replica{i}.utilization").set(
+                round(replica.utilization, 4))
         lo = 0
         for r in group:
             hi = lo + r.rows

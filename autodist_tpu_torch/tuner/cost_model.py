@@ -490,7 +490,8 @@ class CostModel:
 
     # -- whole-candidate memory ----------------------------------------------
 
-    def strategy_memory(self, strategy, graph_item, unroll=1):
+    def strategy_memory(self, strategy, graph_item, unroll=1,
+                        batch_rows=None, kv_cache_bytes=0):
         """Predicted peak per-device HBM of ``strategy`` — the companion
         to :meth:`strategy_cost` the memory ledger
         (observability/memory.py) consumes.
@@ -514,8 +515,15 @@ class CostModel:
         * ``staging_bytes``   — host->device input staging (``unroll=K``
           stacks K batches per dispatch, prefetch holds more) plus the
           largest in-flight all-reduce fusion bucket;
-        * ``kv_cache_bytes``  — 0: the decode engine's KV cache class,
-          which its serving telemetry fills in the JAX package (A11b).
+        * ``kv_cache_bytes``  — the decode engine's preallocated KV cache
+          (``kv_cache_bytes``: the total bytes of one (slots, cache_len)
+          lane, sharded over the data axis like any batch operand, so
+          ``kv_cache_bytes / n_data`` per device).
+
+        ``batch_rows`` rescales the batch-proportional classes (the
+        activations and the input staging) to a different leading
+        dimension (the serve engines' bucket check); default is the
+        captured batch.
 
         The classes sum exactly to ``peak_bytes`` — no hidden terms.
         """
@@ -596,8 +604,10 @@ class CostModel:
             grads += size
 
         # Activation live set at the per-device batch shard.
-        rows = max(1, graph_item.batch_size or 1)
-        acts = graph_item.activation_live_bytes() / n_data
+        captured = max(1, graph_item.batch_size or 1)
+        rows = max(1, int(batch_rows) if batch_rows else captured)
+        row_scale = rows / captured
+        acts = graph_item.activation_live_bytes() * row_scale / n_data
         detail = {}
         mb = int(strategy.graph_config.pipeline_microbatches or 0)
         if n_pipe > 1:
@@ -620,7 +630,7 @@ class CostModel:
 
         # Input staging: K unrolled batches per dispatch, plus the
         # prefetch pipeline's in-flight copies, at the per-device shard.
-        batch_dev = _batch_bytes(graph_item) / n_data
+        batch_dev = _batch_bytes(graph_item) * row_scale / n_data
         prefetch = max(0, int(const.ENV.AUTODIST_PREFETCH_DEPTH.val))
         staging = batch_dev * unroll * (1 + prefetch)
         # Largest in-flight collective staging buffer: one fusion bucket.
@@ -634,7 +644,7 @@ class CostModel:
             sync_state_bytes=sync_state,
             activations_bytes=acts,
             staging_bytes=staging,
-            kv_cache_bytes=0.0,
+            kv_cache_bytes=max(0.0, float(kv_cache_bytes or 0)) / n_data,
             unroll=unroll,
             data_axis=n_data,
             batch_rows=rows,

@@ -2,10 +2,13 @@
 
 ``with named_scope("layer0"):`` pushes a name onto a thread-local stack
 and pops it on exit; :func:`current_scope` is the ``/``-joined stack
-(``"layer0/attn"``). Nothing else happens: no ``record_function``, no
-device work, so a forward with scopes computes the same bits as one
-without, and a replayed CUDA graph (which runs no Python) is unchanged.
-``GraphItem.op_provenance`` reads the stack at every op it records.
+(``"layer0/attn"``). ``GraphItem.op_provenance`` reads the stack at every
+op it records. Under ``AUTODIST_TRACE=profiler`` the scope also opens a
+``torch.profiler.record_function`` named ``scope:<path>``, the bridge
+the per-layer profile (``observability/profile.py``) follows kernels
+through; otherwise nothing else happens. Either way there is no device
+work, so a forward with scopes computes the same bits as one without,
+and a replayed CUDA graph (which runs no Python) is unchanged.
 """
 import contextlib
 import threading
@@ -25,9 +28,21 @@ def named_scope(name):
     """Run the body under scope ``name`` (nested inside the current one)."""
     names = _names()
     names.append(str(name))
+    annotation = None
+    try:
+        from autodist_tpu_torch.observability import tracing
+        if tracing._mode() == "profiler":
+            import torch
+            annotation = torch.profiler.record_function(
+                "scope:" + "/".join(names))
+            annotation.__enter__()
+    except Exception:  # noqa: BLE001 - a scope never fails the forward
+        annotation = None
     try:
         yield
     finally:
+        if annotation is not None:
+            annotation.__exit__(None, None, None)
         names.pop()
 
 

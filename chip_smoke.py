@@ -345,8 +345,48 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    (e) ``AUTODIST_CHAOS=oom_at`` writes ``oom_report.json`` and an
    ``oom`` flight event and still raises, and ``memory.is_oom`` is true
    for a real ``torch.OutOfMemoryError`` from an allocation above the
-   card's capacity; (f) the phase's seconds;
-21. output: one ``{"kernels": [...]}`` JSON line, then the last line
+   card's capacity; (f) the phase's seconds. (a) also runs telemetry on a
+   second time: each on-run's goodput must read above 0 and agree with
+   the phase's own figure (the CUDA-event dispatch intervals less the
+   data wait, the host-timed save stalls before the last dispatch and the
+   capture) within OBS_GOODPUT_RTOL, above the floor (the two runs'
+   ratios) and below the planted fault (the old arithmetic, which took
+   every in-loop save off the billed steps);
+21. the rest of the in-process observability: (a) BERT-base serving at
+   seq 512 (buckets 4 and 8, bf16 compute, OBS21_REQUESTS requests of
+   1-8 rows from 4 client threads, no coalescing wait,
+   ``AUTODIST_SERVE_SLO_MS=50``), telemetry on then off in one process:
+   answers bitwise equal, ``serve.requests`` and the ``serve.latency_ms``
+   count = the requests with p50 / p99 = ``Server.stats()``'s,
+   ``serve.batches`` = the replica's dispatches, ``serve.padded_rows`` =
+   the dispatch log's padding, ``serve.slo_burn`` = p99 / 50, one
+   ``serve-aot-compile`` span and ``serve-compile`` event a bucket, 12
+   flash launches a dispatch, and nothing recorded with telemetry off;
+   (b) a bucket the ledger's own prediction puts above capacity x
+   headroom is refused by name (``InfeasibleMemoryError``) with
+   ``torch.cuda.memory_allocated`` unchanged and no capture span; each
+   real bucket's predicted peak beside the allocator's peak over a
+   dispatch; the same for lm1b's ``DecodeServer`` (a planted lane whose KV
+   cache alone exceeds the limit), whose real lane then decodes
+   OBS21_DECODE_TOKENS tokens for each of OBS21_DECODE_REQUESTS requests
+   (``decode.tokens``, ``decode.latency_ms``); (c) BERT-base MLM (32 x
+   128) through an eager ``Runner.run`` of OBS21_PROFILED steps under
+   ``AUTODIST_TRACE=profiler``: the profile's compute source is
+   ``torch-profiler``, its rows sum to ``attr.device_compute_ms``, the
+   attributed + unattributed kernel time is the trace's, and every flash
+   launch (forward and both backward kernels) lands in a
+   ``layer{i}/attn`` row, which the same trace attributed without the
+   backward linking must fail; then ``unroll=4`` runs, their source
+   printed; (d) two gloo ranks of this script (``--obs-skew``) train
+   BERT-base MLM on ``{data: 2}`` twice, rank 1's data iterator sleeping
+   in the second run, rank 0 serving the monitor: the clock offset within
+   its uncertainty, a planted clock shift read back, both rings on the
+   same dispatch indices, ``wire + skew_wait == exposed_comms`` per rank
+   and window, rank 1 labelled input-bound by ``cluster.aggregate`` and
+   its input-bound flip raised once (a flight event), ``/metrics`` and
+   ``/status`` parsed, ``stop()`` freeing the port, 12 launches a step of
+   each flash kernel on each rank; (e) the phase's seconds;
+22. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 On four cards, ``python3 chip_smoke.py --cards 4 [--part a|b|c|d]`` runs
@@ -7070,6 +7110,11 @@ OBS_WALL_RTOL = 0.03
 OBS_MFU_RTOL = 0.03
 OBS_SPANS = ("capture", "strategy-build", "transform", "compile",
              "step-loop", "checkpoint-save")
+# CheckpointManager.run's goodput against the phase's own figure (the
+# CUDA-event intervals less the data wait, the timed save stalls before
+# the last dispatch and the capture): above the floor (two runs' ratios)
+# and below the planted fault (the old arithmetic: every in-loop save).
+OBS_GOODPUT_RTOL = 0.02
 
 
 def _obs_session(torch, cfg, device, records, batch_size, seq, num_masked):
@@ -7165,6 +7210,35 @@ def _steady_ms(events):
                             for a, b in zip(events, events[1:])]))
 
 
+def _goodput_figure(snap, evs, saves_timed, steps):
+    """Phase 20 (a): goodput of a CheckpointManager.run as the phase
+    reckons it: the billed CUDA-event dispatch intervals less the data
+    wait, the host-timed save calls before the last dispatch (a save at
+    the last step comes after it) and the capture; beside it, the old
+    arithmetic, which subtracted every save inside the step loop."""
+    hists, counters = snap["histograms"], snap["counters"]
+    lat = hists["step.latency_ms"]
+    billed = lat["total"] * counters["step.count"] / lat["count"]
+    wait = (hists.get("step.data_wait_ms") or {}).get("total", 0.0)
+    stalls = 1e3 * sum(dt for step, dt, started in saves_timed
+                       if started and step < steps)
+    loops = [(e["ts"], e["ts"] + e["dur"]) for e in evs
+             if e["name"] == "step-loop"]
+
+    def inside(name):
+        return sum(max(0.0, min(b, e["ts"] + e["dur"]) - max(a, e["ts"]))
+                   for e in evs if e["name"] == name
+                   for a, b in loops) / 1e3
+    capture = inside("compile")
+    loop_saves = inside("checkpoint-save")
+    return {"billed_ms": billed, "data_wait_ms": wait, "stalls_ms": stalls,
+            "capture_ms": capture, "loop_saves_ms": loop_saves,
+            "saves": [(st, round(dt * 1e3, 3)) for st, dt, ok in saves_timed
+                      if ok],
+            "expected_ms": billed - wait - stalls - capture,
+            "old_ms": max(0.0, billed - wait - loop_saves - capture)}
+
+
 def _flash_in_loop(torch, path, want):
     """Phase 20 (d): the flash kernels of the torch.profiler trace at
     ``path``, each held to the ``step-loop`` range by its launch (the
@@ -7229,7 +7303,7 @@ def observe_phase(torch, fa, card, cfg, device, directory, batch_size=32,
         warnings.filterwarnings("ignore", message=".*deterministic.*")
         torch.use_deterministic_algorithms(True, warn_only=True)
         runs = {}
-        for label, on in (("on", 1), ("off", 0)):
+        for label, on in (("on", 1), ("off", 0), ("on2", 1)):
             _set_telemetry(TELEMETRY=on, TRACE=None, CHAOS=None)
             observability.reset()
             files = _telemetry_files()
@@ -7244,6 +7318,16 @@ def observe_phase(torch, fa, card, cfg, device, directory, batch_size=32,
                                                          f"ckpt_{label}"),
                                     save_interval_steps=OBS_SAVE_EVERY,
                                     max_to_keep=1)
+            saves_timed = []   # (step, host s, started)
+            inner_save = mgr.save
+
+            def timed_save(step, state, force=False, _inner=inner_save,
+                           _log=saves_timed):
+                t = time.perf_counter()
+                started = _inner(step, state, force)
+                _log.append((step, time.perf_counter() - t, started))
+                return started
+            mgr.save = timed_save
             _flash_counts(fa, reset=True)
             t1 = time.perf_counter()
             state, m = mgr.run(runner.create_state(), _fed(feed), steps,
@@ -7260,16 +7344,19 @@ def observe_phase(torch, fa, card, cfg, device, directory, batch_size=32,
                        loss=float(m["loss"][-1]), files=files)
             if on:
                 trace = observability.flush_trace(
-                    os.path.join(directory, "obs_trace.json"))
+                    os.path.join(directory, f"obs_trace_{label}.json"))
                 with open(trace) as f:
-                    spans = {e["name"] for e in json.load(f)["traceEvents"]
-                             if e.get("ph") == "X"}
+                    evs = [e for e in json.load(f)["traceEvents"]
+                           if e.get("ph") == "X"]
+                spans = {e["name"] for e in evs}
                 snap = observability.registry().snapshot()
                 run.update(spans=spans, hist=snap["histograms"].get(
                     "step.latency_ms", {}), goodput=goodput.last_summary(),
                     n_saves=snap["counters"].get("checkpoint.saves"),
                     events=sorted({e["kind"] for e in
                                    observability.recorder.events()}))
+                run["goodput_check"] = _goodput_figure(
+                    snap, evs, saves_timed, steps)
             else:
                 run["written"] = sorted(
                     p for p, st in _telemetry_files().items()
@@ -7280,6 +7367,31 @@ def observe_phase(torch, fa, card, cfg, device, directory, batch_size=32,
             del runner, state, m, mgr
         torch.use_deterministic_algorithms(deterministic)
         on, off = runs["on"], runs["off"]
+        gc, gc2 = on["goodput_check"], runs["on2"]["goodput_check"]
+        gp_ms = [r["goodput"]["goodput_ms"] for r in (on, runs["on2"])]
+        gp_rel = [abs(g - c["expected_ms"]) / c["expected_ms"]
+                  for g, c in zip(gp_ms, (gc, gc2))]
+        gp_floor = abs(gp_ms[0] / gc["expected_ms"] -
+                       gp_ms[1] / gc2["expected_ms"])
+        gp_fault = abs(gc["old_ms"] - gc["expected_ms"]) / gc["expected_ms"]
+        print(f"  (a) goodput of CheckpointManager.run: {gp_ms[0]:.3f} / "
+              f"{gp_ms[1]:.3f} ms ({on['goodput']['goodput_pct']}% / "
+              f"{runs['on2']['goodput']['goodput_pct']}% of the segment) vs "
+              f"the phase's figure {gc['expected_ms']:.3f} / "
+              f"{gc2['expected_ms']:.3f} ms = billed {gc['billed_ms']:.3f} "
+              f"- data wait {gc['data_wait_ms']:.3f} - timed save stalls "
+              f"before the last dispatch {gc['stalls_ms']:.3f} (saves "
+              f"{gc['saves']}) - capture {gc['capture_ms']:.3f}; rel "
+              f"{gp_rel[0]:.3e} / {gp_rel[1]:.3e} (tol {OBS_GOODPUT_RTOL}; "
+              f"floor {gp_floor:.3e}); the old arithmetic (every in-loop "
+              f"save, {gc['loop_saves_ms']:.3f} ms) reads "
+              f"{gc['old_ms']:.3f} ms: rel {gp_fault:.3e}", flush=True)
+        check(min(gp_ms) > 0, f"(a) goodput {gp_ms} not above 0")
+        check(gp_floor < OBS_GOODPUT_RTOL < gp_fault, f"(a) the goodput "
+              f"tolerance {OBS_GOODPUT_RTOL} not between the floor "
+              f"{gp_floor:.3e} and the old arithmetic {gp_fault:.3e}")
+        check(max(gp_rel) <= OBS_GOODPUT_RTOL, f"(a) goodput {gp_ms} vs "
+              f"the phase's figures ({gp_rel})")
         same = [n for n in on["params"]
                 if torch.equal(on["params"][n], off["params"][n])]
         diff = max(float((on["params"][n].float() - off["params"][n].float())
@@ -7355,7 +7467,7 @@ def observe_phase(torch, fa, card, cfg, device, directory, batch_size=32,
         steady_off = _steady_ms(events)
         orig = runner_mod.DispatchClock.__init__
         runner_mod.DispatchClock.__init__ = \
-            lambda self, device: orig(self, "cpu")
+            lambda self, device, **kw: orig(self, "cpu", **kw)
         try:
             state, _ = runner.run(state, itertools.cycle(placed), steps,
                                   unroll=OBS_UNROLL)
@@ -7519,6 +7631,686 @@ def observe_phase(torch, fa, card, cfg, device, directory, batch_size=32,
         from autodist_tpu_torch import autodist as autodist_mod
         autodist_mod._reset_default()
     print(f"  (f) phase 20 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+# Phase 21: the rest of the in-process observability, on BERT-base serving
+# and training and lm1b decode.
+OBS21_REQUESTS = 32
+OBS21_SLO_MS = 50
+OBS21_DECODE_REQUESTS, OBS21_DECODE_TOKENS = 8, 16
+OBS21_DECODE_BUCKET = (8, 256)
+OBS21_PROFILED = 4
+OBS21_SKEW_STEPS = 3
+OBS21_SKEW_SHIFT_MS = 25.0
+# rank 1's data wait in the planted run: this many times its first run's
+# median step, so the wait dominates its step (the detector's flip needs
+# more than half the step, the aggregate's label a third).
+OBS21_SLEEP_FACTOR = 1.5
+OBS21_EXACT = 1e-9      # wire + skew_wait against exposed_comms
+OBS21_RECONCILE = 1e-6  # the profile's sums against the ledger / trace
+_ATTN_ROW = re.compile(r"^layer\d+/attn$")
+
+
+def _obs21_serve_run(torch, fa, serve, cfg, params, example, requests,
+                     device, label):
+    """One telemetry setting's ``serve.Server`` (buckets 4 and 8, no
+    coalescing wait): each bucket's allocator peak over its first
+    dispatch (a full bucket straight through the replica, which warms it
+    up and leaves the server's counts alone), then the traffic's answers,
+    stats, dispatch log, registry snapshot, flash launches, and the run's
+    phase totals and flight event kinds."""
+    from autodist_tpu_torch import observability
+    from autodist_tpu_torch.models import transformer as T
+
+    def apply_fn(p, batch):
+        ids, seg = batch
+        return T.encode(p, cfg, ids, segment_ids=seg).float()
+
+    t0 = time.perf_counter()
+    srv = serve.Server(apply_fn, params, example, buckets=(4, 8),
+                       max_wait_ms=0, device=device)
+    build_s = time.perf_counter() - t0
+    log = []
+    inner = srv._dispatch
+
+    def logged(group, rows):
+        log.append((srv._group_bucket(group, rows)[0], rows))
+        return inner(group, rows)
+    srv._dispatch = logged
+    answers = [None] * len(requests)
+    peaks = {}
+    try:
+        rep = srv.engine.replicas[0]
+        for b in (4, 8):
+            batch = tuple(a[:1].repeat(b, 0) for a in example)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            rep.run_bucket(rep.remapper.shard_batch(batch))
+            if device == "cuda":
+                torch.cuda.synchronize()
+                peaks[b] = (torch.cuda.max_memory_allocated(), base)
+        _flash_counts(fa, reset=True)
+
+        def client(c):
+            for i in range(c, len(requests), 4):
+                answers[i] = srv.submit(requests[i]).result(timeout=300) \
+                    .clone()
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in threads), f"(a) {label}: "
+              f"clients hung")
+        launches = _flash_counts(fa)
+        stats = srv.stats()
+        snap = observability.registry().snapshot()
+        phases = observability.phase_timings()
+        kinds = [e["kind"] for e in observability.recorder.events()]
+        engine = srv.engine
+    finally:
+        srv.close()
+    return types.SimpleNamespace(
+        answers=answers, stats=stats, log=list(log), snap=snap,
+        phases=phases, kinds=kinds, launches=launches, build_s=build_s,
+        engine=engine, apply_fn=apply_fn, peaks=peaks)
+
+
+def _device_bytes(torch, device, peak=False):
+    """The allocator's bytes in use, after a collection (what earlier
+    phases dropped is freed first) and with the peak reset; with
+    ``peak``, ``(in use, the peak since the last call)``, without a new
+    collection. 0 off the card."""
+    if device != "cuda":
+        return (0, 0) if peak else 0
+    torch.cuda.synchronize()
+    if peak:
+        return torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _obs21_serve(torch, fa, card, cfg, device, requests_n):
+    """Phase 21 (a) and (b)'s serving half; returns {path: launches}."""
+    from autodist_tpu_torch import observability, serve
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.observability import memory
+    seq = cfg.max_len
+    params = bert.init(cfg, torch.Generator().manual_seed(0), device=device)
+    ids, seg, _, _ = bert.synthetic_batch(cfg, 8, seq, seed=0)
+    example = (ids, seg)
+    rng = np.random.RandomState(21)
+    requests = []
+    for _ in range(requests_n):
+        rows = int(rng.randint(1, 9))
+        requests.append((rng.randint(0, cfg.vocab, (rows, seq)).astype(
+            np.int32), rng.randint(0, 2, (rows, seq)).astype(np.int32)))
+    runs = {}
+    for label, on in (("on", 1), ("off", 0)):
+        _set_telemetry(TELEMETRY=on, SERVE_SLO_MS=OBS21_SLO_MS)
+        observability.reset()
+        runs[label] = _obs21_serve_run(
+            torch, fa, serve, cfg, params, example, requests, device, label)
+    on, off = runs["on"], runs["off"]
+    peaks = on.peaks
+    same = sum(torch.equal(a, b) for a, b in zip(on.answers, off.answers))
+    lat = on.snap["histograms"].get("serve.latency_ms", {})
+    counters, gauges = on.snap["counters"], on.snap["gauges"]
+    dispatches = sum(r["dispatches"] for r in on.stats["replicas"])
+    padded = sum(b - r for b, r in on.log)
+    compiled = (on.phases.get("serve-aot-compile") or {}).get("count")
+    print(f"  (a) serve.Server, BERT-base at seq {seq}, buckets (4, 8), "
+          f"{requests_n} requests from 4 clients, no coalescing wait: "
+          f"built in {on.build_s:.1f} / {off.build_s:.1f} s; answers "
+          f"bitwise equal {same} of {requests_n}; p50 / p99 telemetry on "
+          f"{on.stats['latency_ms']['p50']:.3f} / "
+          f"{on.stats['latency_ms']['p99']:.3f} ms, off "
+          f"{off.stats['latency_ms']['p50']:.3f} / "
+          f"{off.stats['latency_ms']['p99']:.3f} ms; serve.requests "
+          f"{counters.get('serve.requests')}, serve.latency_ms count "
+          f"{lat.get('count')} p50 {lat.get('p50')} p99 {lat.get('p99')}; "
+          f"serve.batches {counters.get('serve.batches')} vs dispatches "
+          f"{dispatches}; serve.padded_rows "
+          f"{counters.get('serve.padded_rows')} vs the log's {padded}; "
+          f"serve.slo_burn {gauges.get('serve.slo_burn')}; "
+          f"serve-aot-compile spans {compiled}, serve.aot_compile.ms "
+          f"{gauges.get('serve.aot_compile.ms')}, "
+          f"serve.replicas {gauges.get('serve.replicas')}; "
+          f"flash launches "
+          f"{on.launches['flash_fwd']} / {off.launches['flash_fwd']}; "
+          f"telemetry off recorded {off.snap}", flush=True)
+    check(same == requests_n, f"(a) {requests_n - same} answers differ "
+          f"between telemetry on and off")
+    check(counters.get("serve.requests") == requests_n and
+          lat.get("count") == requests_n, f"(a) serve.requests "
+          f"{counters.get('serve.requests')}, latency count {lat.get('count')}")
+    check((lat.get("p50"), lat.get("p99")) ==
+          (on.stats["latency_ms"]["p50"], on.stats["latency_ms"]["p99"]),
+          f"(a) histogram p50/p99 {lat} vs stats {on.stats['latency_ms']}")
+    check(counters.get("serve.batches") == dispatches == len(on.log),
+          f"(a) serve.batches {counters.get('serve.batches')}, dispatches "
+          f"{dispatches}, logged {len(on.log)}")
+    check(counters.get("serve.padded_rows") == padded, f"(a) padded rows "
+          f"{counters.get('serve.padded_rows')} vs {padded}")
+    check(gauges.get("serve.slo_burn") == round(lat["p99"] / OBS21_SLO_MS, 4),
+          f"(a) serve.slo_burn {gauges.get('serve.slo_burn')} vs p99 "
+          f"{lat['p99']} / {OBS21_SLO_MS}")
+    check(compiled == 2 and on.kinds.count("serve-compile") == 2 and
+          "serve.aot_compile.ms" in gauges and
+          gauges.get("serve.replicas") == 1 and
+          "serve-start" in on.kinds, f"(a) bucket capture spans "
+          f"{compiled}, events {on.kinds}, gauges {gauges}")
+    check(off.snap == {"counters": {}, "gauges": {}, "histograms": {}},
+          f"(a) telemetry off recorded {off.snap}")
+    if device == "cuda":
+        for label, run in runs.items():
+            d = len(run.log)
+            check(run.launches["flash_fwd"] == cfg.num_layers * d,
+                  f"(a) telemetry {label}: flash_fwd launched "
+                  f"{run.launches['flash_fwd']} times in {d} dispatches")
+
+    # (b) the bucket memory check: a bucket the ledger's own prediction
+    # puts over capacity x headroom.
+    spec = serve.engine.serve_spec(None, torch.device(device))
+    pred = {b: on.engine.bucket_memory(spec, (b,)) for b in (4, 8)}
+    cap = pred[8]["capacity_bytes"]
+    limit = cap * memory.headroom()
+    slope = (pred[8].peak_bytes - pred[4].peak_bytes) / 4
+    base = pred[8].peak_bytes - 8 * slope
+    planted = int((limit - base) // slope) + 1
+    planted_peak = on.engine.bucket_memory(spec, (planted,)).peak_bytes
+    _set_telemetry(TELEMETRY=1)
+    spans0 = (observability.phase_timings().get("serve-aot-compile") or
+              {}).get("count", 0)
+    before, refused = _device_bytes(torch, device), None
+    try:
+        serve.ServeEngine(on.apply_fn, params, example, (4, 8, planted),
+                          device=device)
+    except memory.InfeasibleMemoryError as e:
+        refused = e
+    after = _device_bytes(torch, device, peak=True)
+    spans1 = (observability.phase_timings().get("serve-aot-compile") or
+              {}).get("count", 0)
+    print(f"  (b) bucket check: predicted peak 4 rows "
+          f"{pred[4].peak_bytes / 2**30:.4f} GiB, 8 rows "
+          f"{pred[8].peak_bytes / 2**30:.4f} GiB ({slope / 2**20:.2f} MiB a "
+          f"row); capacity {cap / 2**30:.2f} GiB x headroom "
+          f"{memory.headroom()} = {limit / 2**30:.2f} GiB; planted bucket "
+          f"{planted} rows, predicted {planted_peak / 2**30:.3f} GiB: "
+          f"{type(refused).__name__}: {str(refused)[:160]}; "
+          f"memory_allocated {before} -> {after[0]} (peak during the build "
+          f"{after[1]}); serve-aot-compile spans {spans0} -> {spans1}",
+          flush=True)
+    check(refused is not None and f"serve bucket {planted}" in str(refused),
+          f"(b) the planted bucket {planted} was not refused: {refused!r}")
+    check(planted_peak > limit, f"(b) the planted bucket's prediction "
+          f"{planted_peak} is not above {limit}")
+    check(after == (before, before) and spans1 == spans0, f"(b) the "
+          f"refused build allocated (memory_allocated {before} -> "
+          f"{after}, the peak during it) or captured ({spans0} -> "
+          f"{spans1} spans)")
+    for b, (peak, resident) in sorted(peaks.items()):
+        print(f"      bucket {b}: predicted peak "
+              f"{pred[b].peak_bytes / 2**30:.4f} GiB (activations "
+              f"{pred[b]['activations_bytes'] / 2**30:.4f}, the (b, h, s, s)"
+              f" scores the flash kernel never writes included) vs the "
+              f"allocator's peak over a dispatch {peak / 2**30:.4f} GiB "
+              f"({resident / 2**30:.4f} GiB resident before it: params and"
+              f" the bucket graphs' pools); predicted / measured "
+              f"{pred[b].peak_bytes / peak:.4f}; on {card}", flush=True)
+    del params
+    return {"obs21_serve_on": {"flash_fwd": on.launches["flash_fwd"],
+                               "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+            "obs21_serve_off": {"flash_fwd": off.launches["flash_fwd"],
+                                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}}
+
+
+def _obs21_decode(torch, fa, card, cfg, device, requests_n, tokens,
+                  bucket=OBS21_DECODE_BUCKET):
+    """Phase 21 (b)'s decode half: a planted lane whose KV cache alone
+    exceeds capacity x headroom is refused before any capture; the real
+    lane decodes ``tokens`` tokens for each of ``requests_n`` requests."""
+    from autodist_tpu_torch import observability, serve
+    from autodist_tpu_torch.models import lm
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.observability import memory
+    from autodist_tpu_torch.utils.tree import leaves
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device=device)
+
+    def apply_fn(p, batch):
+        (toks,) = batch
+        return T.logits(p, cfg, T.encode(p, cfg, toks))
+
+    def cache_bytes(slots, cache_len):
+        cache = lm.init_decode_cache(cfg, slots, cache_len, device="meta")
+        return float(sum(t.numel() * t.element_size()
+                         for t in leaves(cache)))
+    spec = serve.engine.serve_spec(None, torch.device(device))
+    cap = serve.engine.bucket_memory_model(spec).topology.hbm_capacity_bytes
+    limit = cap * memory.headroom()
+    cache_len = cfg.max_len
+    slots = int(limit // cache_bytes(1, cache_len)) + 1
+    kv = cache_bytes(slots, cache_len)
+    example = (np.zeros((8, 16), np.int32),)
+    _set_telemetry(TELEMETRY=1, SERVE_SLO_MS=OBS21_SLO_MS)
+    observability.reset()
+    before, refused = _device_bytes(torch, device), None
+    try:
+        serve.DecodeServer(apply_fn, lm.make_decode_fn(cfg),
+                           functools.partial(lm.init_decode_cache, cfg),
+                           params, example, device=device,
+                           buckets=(bucket, (slots, cache_len)))
+    except memory.InfeasibleMemoryError as e:
+        refused = e
+    after = _device_bytes(torch, device, peak=True)
+    spans = observability.phase_timings().get("serve-aot-compile")
+    rng = np.random.RandomState(21)
+    prompts = [rng.randint(1, cfg.vocab, int(rng.randint(8, 33)))
+               for _ in range(requests_n)]
+    _flash_counts(fa, reset=True)
+    srv = serve.DecodeServer(apply_fn, lm.make_decode_fn(cfg),
+                             functools.partial(lm.init_decode_cache, cfg),
+                             params, example, buckets=(bucket,),
+                             device=device)
+    try:
+        outs = [f.result(timeout=600) for f in
+                [srv.submit(p, max_new_tokens=tokens) for p in prompts]]
+        stats = srv.stats()
+    finally:
+        srv.close()
+    snap = observability.registry().snapshot()
+    launches = _flash_counts(fa)
+    lat = snap["histograms"].get("decode.latency_ms", {})
+    print(f"  (b) lm1b DecodeServer: planted lane {slots} x {cache_len}, KV "
+          f"cache {kv / 2**30:.2f} GiB alone over {limit / 2**30:.2f} GiB: "
+          f"{type(refused).__name__}: {str(refused)[:160]}; "
+          f"memory_allocated {before} -> {after[0]} (peak during the build "
+          f"{after[1]}); serve-aot-compile spans before the real lane "
+          f"{spans}; the real lane "
+          f"{bucket}: {stats['completed']} requests, "
+          f"decode.tokens {snap['counters'].get('decode.tokens')} (= "
+          f"{tokens} x {requests_n}?), decode.latency_ms count "
+          f"{lat.get('count')} p50 {lat.get('p50')} p99 {lat.get('p99')}, "
+          f"decode.steps {snap['counters'].get('decode.steps')}, "
+          f"serve.slo_burn {snap['gauges'].get('serve.slo_burn')}; flash "
+          f"launches {launches}", flush=True)
+    check(refused is not None and f"decode bucket {slots}x{cache_len}" in
+          str(refused), f"(b) the planted lane was not refused: {refused!r}")
+    check(after == (before, before) and not spans, f"(b) the refused "
+          f"decode build allocated ({before} -> {after}) or captured "
+          f"({spans})")
+    check(all(len(o) == tokens for o in outs) and
+          snap["counters"].get("decode.tokens") == tokens * requests_n and
+          snap["counters"].get("decode.requests") == requests_n and
+          lat.get("count") == requests_n, f"(b) decode counts "
+          f"{snap['counters']}, latency count {lat.get('count')}")
+    del params
+    return {"obs21_decode": launches}
+
+
+def _obs21_profile(torch, fa, card, cfg, device, batch_size, seq, masked,
+                   steps):
+    """Phase 21 (c): the per-layer profile from ``torch.profiler``."""
+    from autodist_tpu_torch import AutoDist, const, observability
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.observability import attribution, profile
+    from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
+    batch = bert.synthetic_batch(cfg, batch_size, seq, masked, seed=0)
+    _set_telemetry(TELEMETRY=1, TRACE="profiler")
+    observability.reset()
+    autodist_mod._reset_default()
+    ad = AutoDist(strategy_builder=AllReduce(), device=device)
+    runner = ad.create_distributed_session(ad.capture(
+        bert.make_loss_fn(cfg),
+        bert.init(cfg, torch.Generator().manual_seed(0), device=device),
+        functools.partial(torch.optim.Adam, lr=1e-4), example_batch=batch))
+    state = runner.create_state()
+    path = os.path.join(const.DEFAULT_TRACE_DIR, "trace-rank0.json")
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    want = cfg.num_layers * steps
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        _flash_counts(fa, reset=True)
+        state, _ = runner.run(state, itertools.repeat(batch), steps)
+        launched = _flash_counts(fa)
+        summ, attr = profile.last_profile(), attribution.last_summary()
+        with open(path) as f:
+            trace = json.load(f)
+        kernels = [e for e in trace["traceEvents"]
+                   if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        per = {n: {} for n in names}
+        for kname, rows in (summ.get("trace") or {}).get(
+                "by_kernel", {}).items():
+            for n in names:
+                if n + "_" in kname:
+                    for row, c in rows.items():
+                        per[n][row] = per[n].get(row, 0) + c
+        if device != "cuda" or all(sum(per[n].values()) == want
+                                   for n in names):
+            break
+        if not kernels:
+            TIMINGS["empty"] += 1
+    TIMINGS["profiles"] += attempt
+    info = summ.get("trace") or {}
+    trace_ms = sum(float(e.get("dur", 0.0)) for e in kernels) / 1e3 / steps
+    covered = info.get("kernel_ms", 0.0) + info.get("graph_replay_ms", 0.0) \
+        + info.get("comms_kernel_ms", 0.0)
+    rows_sum = sum(r["compute_ms"] for r in summ["scopes"].values()) + \
+        summ["unattributed"]["compute_ms"]
+    known = profile.model_scope_costs(runner)[1]
+    _, planted = profile.trace_scope_costs(trace, known, steps=steps,
+                                           link_backward=False)
+    planted_per = {n: {} for n in names}
+    for kname, rows in planted["by_kernel"].items():
+        for n in names:
+            if n + "_" in kname:
+                for row, c in rows.items():
+                    planted_per[n][row] = planted_per[n].get(row, 0) + c
+
+    def in_attn(counts):
+        return all(_ATTN_ROW.match(r) for n in names for r in counts[n])
+    top = [(s, round(summ["scopes"][s]["compute_ms"], 4))
+           for s in summ["top"][:5]]
+    print(f"  (c) profiled eager Runner.run, BERT-base MLM {batch_size} x "
+          f"{seq}, {steps} steps ({attempt} profile(s)): compute source "
+          f"{summ['sources'].get('compute')}; coverage "
+          f"{summ['coverage_pct']}%; top 5 {top}; rows sum "
+          f"{rows_sum:.6f} vs attr.device_compute_ms "
+          f"{attr['device_compute_ms']:.6f}; kernel ms a step: attributed "
+          f"{info.get('attributed_ms', 0):.4f} + unattributed "
+          f"{info.get('unattributed_ms', 0):.4f} ({info.get('unattributed')}"
+          f" units, {info.get('unlinked')} unlinked, {info.get('no_launch')}"
+          f" without a launch) + graph replays "
+          f"{info.get('graph_replay_ms', 0):.4f} + collectives "
+          f"{info.get('comms_kernel_ms', 0):.4f} = {covered:.6f} vs the "
+          f"trace's {trace_ms:.6f}; flash launches {launched}, in the trace"
+          f" by row {per} (dropped by the profiler: "
+          f"{ {n: want - sum(per[n].values()) for n in names} }); planted "
+          f"(no backward linking): {planted_per}", flush=True)
+    check(summ["sources"].get("compute") == "torch-profiler", f"(c) the "
+          f"profile's source {summ['sources']}")
+    # Each row is rounded to 1e-6 ms (the JAX package's reconcile).
+    nrows = len(summ["scopes"]) + 1
+    check(abs(rows_sum - attr["device_compute_ms"]) <= max(
+        OBS21_RECONCILE * attr["device_compute_ms"], nrows * 5e-7),
+          f"(c) rows sum {rows_sum} vs {attr['device_compute_ms']}")
+    if info.get("mode") == "kernels":
+        check(abs(covered - trace_ms) <= OBS21_RECONCILE * trace_ms,
+              f"(c) attributed + unattributed {covered} vs the trace "
+              f"{trace_ms}")
+    if device == "cuda":
+        check(launched == {n: want for n in names}, f"(c) launches "
+              f"{launched}, expected {want} each")
+        # Every traced flash launch in an attention row. A profile can
+        # come back short of kernel events (profiled again up to
+        # PROFILE_ATTEMPTS times, as phase 20 (d)); the counters hold
+        # the launches themselves.
+        check(all(0 < sum(per[n].values()) <= want for n in names) and
+              in_attn(per), f"(c) flash launches by row {per}")
+        check(not in_attn(planted_per), f"(c) the planted unlinked "
+              f"attribution put every flash launch in an attention row: "
+              f"{planted_per}")
+    # The graph step: its capture outside the profiler (as phase 20 (b)
+    # captures; the capture's dispatch is left out of the ledger, so a
+    # replay follows it), then a profiled run of replays alone.
+    _set_telemetry(TRACE=None)
+    profile.reset()
+    state, _ = runner.run(state, itertools.repeat(batch), 8, unroll=4)
+    captured = (profile.last_profile() or {}).get("sources")
+    _set_telemetry(TRACE="profiler")
+    state, _ = runner.run(state, itertools.repeat(batch), 4, unroll=4)
+    replayed = profile.last_profile()
+    print(f"  (c) unroll=4: the capture run (not profiled) took the "
+          f"profile source {captured}; the profiled replay run "
+          f"{replayed['sources']} ("
+          f"{(replayed.get('trace') or {}).get('graph_replay_kernels')} "
+          f"kernels under graph launches)", flush=True)
+    _set_telemetry(TRACE=None)
+    del runner, state
+    autodist_mod._reset_default()
+    return {"obs21_profile": launched}
+
+
+def obs_skew_rank(rank, world, port, spec):
+    """One rank of phase 21 (d): a gloo world over ``localhost`` on
+    device 0 trains BERT-base MLM on ``{data: 2}`` (``AllReduce()``, Adam
+    1e-4) twice through ``Runner.run``, the second time with rank 1's data
+    iterator sleeping; rank 0 serves the monitor on ``spec["port"]`` and
+    scrapes it. Prints {ring indices, runs' flash launches, the chief's
+    skew summary, aggregate, anomalies, events, endpoints, the planted
+    clock shift's estimate}."""
+    import datetime
+    import urllib.request
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch import AutoDist, observability
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.observability import cluster, monitor, skew
+    from autodist_tpu_torch.ops import build
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
+    spec = json.loads(spec)
+    device = spec["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build.load_all()  # built by the parent: the same sources and flags
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    os.environ["AUTODIST_TELEMETRY"] = "1"
+    for knob in ("AUTODIST_TRACE", "AUTODIST_SKEW_RING",
+                 "AUTODIST_CLOCK_SYNC"):
+        os.environ.pop(knob, None)
+    if rank == 0:
+        os.environ["AUTODIST_MONITOR_PORT"] = str(spec["monitor_port"])
+    observability.refresh()
+    cfg = T.TransformerConfig(**dict(spec["config"], dtype=getattr(
+        torch, spec["dtype"])))
+    full = bert.synthetic_batch(cfg, spec["batch"], spec["seq"],
+                                spec["masked"], seed=0)
+    local = spec["batch"] // world
+    mine = tuple(a[rank * local:(rank + 1) * local] for a in full)
+    ad = AutoDist(strategy_builder=AllReduce(), device=device)
+    runner = ad.create_distributed_session(ad.capture(
+        bert.make_loss_fn(cfg),
+        bert.init(cfg, torch.Generator().manual_seed(0), device=device),
+        functools.partial(torch.optim.Adam, lr=1e-4), example_batch=mine))
+    state = runner.create_state()
+    out = {"rank": rank, "launches": [], "step_p50": [], "wait_p50": []}
+    sleep_s = 0.0
+
+    def batches():
+        while True:
+            if sleep_s:
+                time.sleep(sleep_s)
+            yield mine
+    for run in range(2):
+        observability.registry().reset()
+        _flash_counts(fa, reset=True)
+        state, _ = runner.run(state, batches(), spec["steps"])
+        out["launches"].append(_flash_counts(fa))
+        hists = observability.registry().snapshot()["histograms"]
+        out["step_p50"].append(hists["step.latency_ms"]["p50"])
+        out["wait_p50"].append(hists["step.data_wait_ms"]["p50"])
+        if rank == 0:
+            out.setdefault("summaries", []).append(skew.last_summary())
+            out.setdefault("aggregate", []).append(
+                cluster.aggregate(cluster.gathered()))
+        if rank == 1:  # the planted straggler: a slow input pipeline
+            sleep_s = spec["sleep_factor"] * out["step_p50"][0] / 1e3
+        out["sleep_s"] = sleep_s
+    out["ring"] = [r["i"] for r in skew.ring()]
+    out["offset"] = skew.local_offset()
+    # The planted clock shift, on one more exchange.
+    if rank == 1:
+        skew._wall = lambda: time.time() + spec["shift_ms"] / 1e3
+    shifted = skew.maybe_sync_clocks()
+    if rank == 0:
+        out["shifted"] = shifted
+        out["anomalies"] = monitor.detector().anomalies()
+        out["events"] = [(e["kind"], e.get("detail"), e.get("kind_detail"))
+                         for e in observability.recorder.events()
+                         if e["kind"] in ("anomaly", "straggler")]
+        url = f"http://127.0.0.1:{monitor.port()}"
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+            out["metrics"] = r.read().decode("utf-8")
+        with urllib.request.urlopen(url + "/status", timeout=30) as r:
+            out["status"] = json.loads(r.read().decode("utf-8"))
+        port_was = monitor.port()
+        monitor.stop()
+        import socket
+        with socket.socket() as sock:
+            # As an HTTP server binds (the scrapes' TIME_WAIT aside).
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                sock.bind(("0.0.0.0", port_was))
+                sock.listen(1)
+                out["port_freed"] = True
+            except OSError:
+                out["port_freed"] = False
+    del runner, state
+    dist.destroy_process_group()
+    print(json.dumps(out, default=str), flush=True)
+    return 0
+
+
+_PROM_LINE = re.compile(
+    r"^(#\s(HELP|TYPE)\s.*|[a-zA-Z_:][a-zA-Z0-9_:]*"
+    r"(\{[^}]*\})?\s[-+0-9.eE]+)$")   # one Prometheus exposition line
+OBS21_STATUS = ("time", "hosts_reporting", "run", "step", "attribution",
+                "profile", "pipeline", "skew", "memory", "goodput", "hosts",
+                "serve", "decode", "warnings", "anomalies")
+
+
+def _obs21_skew(torch, fa, card, cfg, device, batch_size, seq, masked,
+                steps):
+    """Phase 21 (d): two gloo ranks, skew, the aggregate and the monitor."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        monitor_port = sock.getsockname()[1]
+    fields = {k: v for k, v in vars(cfg).items() if k != "dtype"}
+    spec = json.dumps({
+        "device": device, "config": fields,
+        "dtype": str(cfg.dtype).split(".")[-1], "batch": batch_size,
+        "seq": seq, "masked": masked, "steps": steps,
+        "monitor_port": monitor_port, "shift_ms": OBS21_SKEW_SHIFT_MS,
+        "sleep_factor": OBS21_SLEEP_FACTOR})
+    r0, r1 = _spawn_ranks(2, "--obs-skew", spec, "phase 21 (d) rank")
+    first, planted = r0["summaries"]
+    agg = r0["aggregate"][1]
+    agg["hosts"] = {int(h): i for h, i in agg["hosts"].items()}
+    est = {int(h): row for h, row in planted["hosts"].items()}
+    shifted = {int(h): v for h, v in (r0.get("shifted") or {}).items()}
+    lines = [l for l in r0["metrics"].splitlines() if l.strip()]
+    bad = [l for l in lines if not _PROM_LINE.match(l)]
+    status = r0["status"]
+    split = [abs(w["wire_ms"] + w["skew_wait_ms"] - w["exposed_comms_ms"])
+             for summ in (first, planted)
+             for row in summ["hosts"].values() for w in row["windows"]]
+    split += [abs(row["wire_ms"] + row["skew_wait_ms"] -
+                  row["exposed_comms_ms"])
+              for summ in (first, planted) for row in summ["hosts"].values()]
+    flips = [e for e in r0["events"] if e[2] == "input-bound-flip"]
+    print(f"  (d) two gloo ranks, BERT-base MLM {batch_size} x {seq} on "
+          f"{{data: 2}}, {steps} steps a run: step p50 rank 0 "
+          f"{r0['step_p50']}, rank 1 {r1['step_p50']} ms; data wait p50 "
+          f"rank 1 {r1['wait_p50']} ms (sleeping {r1['sleep_s']:.3f} s a "
+          f"batch in the second run); rings {r0['ring']} / {r1['ring']}; "
+          f"rank 1's clock offset {est[1]['offset_ms']} ms +- "
+          f"{est[1]['uncertainty_ms']} ms (drift {est[1]['drift_ppm']} "
+          f"ppm); the planted +{OBS21_SKEW_SHIFT_MS} ms reads "
+          f"{shifted.get(1)}; max |wire + skew_wait - exposed| "
+          f"{max(split):.3e} over {len(split)} rows and windows", flush=True)
+    print(f"      straggler verdict (planted run): {planted['straggler']}, "
+          f"significant {planted['significant']}, max skew wait "
+          f"{planted['max_skew_wait_ms']} ms, per rank "
+          f"{ {h: (r['skew_wait_ms'], r['wire_ms'], r['exposed_comms_ms'], r['exposed_comms_source']) for h, r in est.items()} }"
+          f" (skew_wait, wire, exposed ms a step; exposed_comms is the cost "
+          f"model's estimate, the same on both ranks, so the split cannot "
+          f"exceed it); aggregate labels "
+          f"{ {h: i['bound'] for h, i in agg['hosts'].items()} }, warnings "
+          f"{agg['warnings']}; anomaly events {r0['events']}; /metrics "
+          f"{len(lines)} lines ({len(bad)} unparsed), /status sections "
+          f"{sorted(status)}; port freed {r0['port_freed']}; flash "
+          f"launches {r0['launches']} / {r1['launches']}", flush=True)
+    check(abs(est[1]["offset_ms"]) <= est[1]["uncertainty_ms"] + 1e-9,
+          f"(d) one host, yet rank 1's offset {est[1]}")
+    check(1 in shifted and abs(shifted[1]["offset_ms"] - OBS21_SKEW_SHIFT_MS)
+          <= shifted[1]["uncertainty_ms"] + 1e-9, f"(d) the planted shift "
+          f"of {OBS21_SKEW_SHIFT_MS} ms read {shifted.get(1)}")
+    check(r0["ring"] == r1["ring"] and planted["windows"] ==
+          len(r0["ring"]) == 2 * steps, f"(d) rings {r0['ring']} / "
+          f"{r1['ring']}, {planted['windows']} windows")
+    check(max(split) <= OBS21_EXACT, f"(d) wire + skew_wait differs from "
+          f"exposed_comms by {max(split)}")
+    check(agg["hosts"][1]["bound"] == "input" and
+          agg["hosts"][0]["bound"] == "compute",
+          f"(d) aggregate labels {agg['hosts']}")
+    check(len(flips) == 1 and "host 1" in flips[0][1], f"(d) input-bound "
+          f"flip events {r0['events']}")
+    check(not bad and "autodist_step_latency_ms_count" in r0["metrics"] and
+          "autodist_skew_wait_ms_per_step" in r0["metrics"] and
+          "autodist_host_skew_wait_ms" in r0["metrics"],
+          f"(d) /metrics: unparsed {bad[:3]}")
+    check(set(OBS21_STATUS) <= set(status) and status["skew"]["windows"]
+          == 2 * steps, f"(d) /status sections {sorted(status)}")
+    check(r0["port_freed"], "(d) monitor.stop() left the port bound")
+    if device == "cuda":
+        for r in (r0, r1):
+            for run in r["launches"]:
+                check(run == {n: cfg.num_layers * steps for n in run},
+                      f"(d) rank {r['rank']} launches {run}")
+    return {f"obs21_skew_rank{r['rank']}": {
+        n: sum(run[n] for run in r["launches"]) for n in r["launches"][0]}
+        for r in (r0, r1)}
+
+
+def obs21_phase(torch, fa, card, device, serve_cfg, train_cfg, lm_cfg,
+                requests=OBS21_REQUESTS, batch_size=32, seq=128, masked=20,
+                profiled=OBS21_PROFILED, skew_steps=OBS21_SKEW_STEPS,
+                decode_requests=OBS21_DECODE_REQUESTS,
+                decode_tokens=OBS21_DECODE_TOKENS,
+                decode_bucket=OBS21_DECODE_BUCKET):
+    """Phase 21; returns {path: flash launches}."""
+    t_phase = time.perf_counter()
+    print(f"phase 21: the rest of the in-process observability: serving "
+          f"telemetry and the bucket memory check (BERT-base at seq "
+          f"{serve_cfg.max_len}, lm1b decode), the per-layer profile and "
+          f"the skew split, aggregate and monitor (BERT-base MLM "
+          f"{batch_size} x {seq})", flush=True)
+    saved = {k: os.environ.get(f"AUTODIST_{k}")
+             for k in ("TELEMETRY", "TRACE", "SERVE_SLO_MS")}
+    out = {}
+    try:
+        out.update(_obs21_serve(torch, fa, card, serve_cfg, device,
+                                requests))
+        out.update(_obs21_decode(torch, fa, card, lm_cfg, device,
+                                 decode_requests, decode_tokens,
+                                 decode_bucket))
+        out.update(_obs21_profile(torch, fa, card, train_cfg, device,
+                                  batch_size, seq, masked, profiled))
+        out.update(_obs21_skew(torch, fa, card, train_cfg, device,
+                               batch_size, seq, masked, skew_steps))
+    finally:
+        for k, v in saved.items():
+            _set_telemetry(**{k: v})
+        from autodist_tpu_torch import autodist as autodist_mod
+        autodist_mod._reset_default()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    print(f"  (e) phase 21 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return out
 
@@ -8313,6 +9105,8 @@ def main():
         return ta_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--pp-auto":
         return pp_auto_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--obs-skew":
+        return obs_skew_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--cards-rank":
         return cards_rank(sys.argv[2])
     if "--cards" in sys.argv:
@@ -8400,6 +9194,9 @@ def main():
                               bert.bert_base(max_len=128)))
         zoo.update(observe_phase(torch, fa, card, bert.bert_base(max_len=128),
                                  "cuda", share["dir"]))
+        zoo.update(obs21_phase(torch, fa, card, "cuda",
+                               bert.bert_base(max_len=512),
+                               bert.bert_base(max_len=128), lm.lm1b()))
     finally:
         shutil.rmtree(share["dir"], ignore_errors=True)
     fwd["launches"] = served + trained["flash_fwd"]

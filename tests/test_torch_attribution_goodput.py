@@ -22,6 +22,7 @@ priced part of its cost model, against the JAX package.
 import functools
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -464,6 +465,8 @@ def _feed(tracing_mod, reg, loop=True):
     if loop:
         tracing_mod.record_complete("step-loop", 0.0, 25_000.0)
         tracing_mod.record_complete("compile", 1_000.0, 3_000.0)
+        # The dispatches end at 12 ms: half of the 4 ms save after them.
+        tracing_mod.record_complete("step-dispatches", 0.0, 12_000.0)
         tracing_mod.record_complete("checkpoint-save", 10_000.0, 4_000.0)
     tracing_mod.record_complete("compile", 100_000.0, 50_000.0)
     tracing_mod.record_complete("restore", 160_000.0, 7_000.0)
@@ -474,6 +477,14 @@ def _feed(tracing_mod, reg, loop=True):
 
 @pytest.mark.parametrize("loop", [True, False])
 def test_goodput_collect_matches_jax(monkeypatch, loop):
+    """The same spans, metrics and clock through both packages. Inside a
+    step loop they differ by design: the JAX package subtracts every save
+    in the step-loop span from the billed step time, the port only the
+    part that overlapped the loop's billed dispatch windows
+    (``step-dispatches``): here 2 of the save's 4 ms came after the last
+    dispatch. Those 2 ms were never billed, so the port's goodput is 2 ms
+    higher and its rollback class (loop time the steps did not bill) 2 ms
+    lower; every other class, and the residual, agree exactly."""
     monkeypatch.setenv("AUTODIST_RUN_ID", "parity")
     start = 1_000_000.0
     out = []
@@ -487,7 +498,19 @@ def test_goodput_collect_matches_jax(monkeypatch, loop):
         s.pop("pid")
         out.append(s)
     got, want = out
-    assert got == want
+    if loop:
+        unbilled = 2.0
+        assert got["goodput_ms"] == want["goodput_ms"] + unbilled == 10.0
+        assert got["classes"]["rollback_ms"] == \
+            want["classes"]["rollback_ms"] - unbilled == 3.0
+        differ = ("goodput_ms", "goodput_pct", "hfu", "classes")
+        assert {k: v for k, v in got.items() if k not in differ} == \
+            {k: v for k, v in want.items() if k not in differ}
+        assert {k: v for k, v in got["classes"].items()
+                if k != "rollback_ms"} == \
+            {k: v for k, v in want["classes"].items() if k != "rollback_ms"}
+    else:
+        assert got == want
     assert got["goodput_ms"] + sum(got["classes"].values()) == \
         pytest.approx(got["wall_ms"], abs=0.05)
     assert goodput.BADPUT_CLASSES == jgoodput.BADPUT_CLASSES
@@ -599,3 +622,73 @@ def test_goodput_json_sidecar_under_dump_graphs(monkeypatch, tmp_path):
     goodput.finalize(runner, observability.registry())
     doc = json.load(open(tmp_path / "graphs" / "goodput.json"))
     assert doc["steps"] == 2 and "classes" in doc
+
+
+WRITER_SLEEP_S = 0.6
+
+
+def test_checkpoint_manager_run_bills_only_the_save_stalls(monkeypatch,
+                                                           tmp_path):
+    """A ``CheckpointManager.run`` whose last step saves, with a writer
+    slow enough (a filesystem that sleeps) that each save's span, which
+    waits for the previous write, outlasts the steps between saves. Only
+    the stall of the mid-loop save was billed to a dispatch; the last
+    save and the writer's final wait came after the last dispatch. The
+    JAX arithmetic on the same spans (every in-loop save subtracted) reads
+    0; the port's goodput is the billed step time less the billed stall,
+    which is the steps' own time, and the unbilled save time keeps its
+    checkpoint class instead of landing in rollback."""
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.checkpoint import saver as saver_mod
+    inner = saver_mod._write_staged
+
+    def slow_write(*args, **kwargs):
+        time.sleep(WRITER_SLEEP_S)
+        return inner(*args, **kwargs)
+    monkeypatch.setattr(saver_mod, "_write_staged", slow_write)
+    runner, batch = _build()
+    step_s = []
+    step = runner.step
+
+    def timed_step(state, b):
+        t0 = time.perf_counter()
+        out = step(state, b)
+        step_s.append(time.perf_counter() - t0)
+        return out
+    runner.step = timed_step
+    mgr = CheckpointManager(runner, tmp_path / "ckpt", save_interval_steps=4)
+    mgr.run(runner.create_state(), _repeat(batch), 8, unroll=1)
+    mgr.close()
+    s = goodput.last_summary()
+    assert s["steps"] == 8 and mgr.all_steps() == [1, 4, 8]
+    snap = observability.registry().snapshot()
+    lat = snap["histograms"]["step.latency_ms"]
+    billed = lat["total"]
+    phases = observability.phase_timings()
+    saves = phases["checkpoint-save"]["total_ms"]
+    wait = phases["checkpoint-wait"]["total_ms"]
+    # The writer outlasts the steps: the save at 4 stalls for the write of
+    # step 1, the one at 8 for that of step 4, and the final wait for 8.
+    assert saves > WRITER_SLEEP_S * 1e3 and wait > 0.5 * WRITER_SLEEP_S * 1e3
+    assert saves + wait > billed
+    steps_ms = 1e3 * sum(step_s)
+    # Billed = the steps + the host's loop overhead + the one billed stall.
+    assert s["goodput_ms"] >= 0.9 * steps_ms
+    assert s["goodput_ms"] <= billed - 0.5 * WRITER_SLEEP_S * 1e3
+    assert s["classes"]["checkpoint_save_ms"] == pytest.approx(
+        saves + wait, abs=0.01)
+    assert s["classes"]["rollback_ms"] < 0.25 * WRITER_SLEEP_S * 1e3
+    assert s["goodput_ms"] + sum(s["classes"].values()) == pytest.approx(
+        s["wall_ms"], abs=0.05)
+    # The JAX package's arithmetic on the same spans and metrics.
+    for e in observability.tracing.events():
+        if e.get("ph") == "X":
+            jobs.tracing.record_complete(e["name"], e["ts"], e["dur"])
+    jreg = jobs.registry()
+    jreg.histogram("step.latency_ms").observe_many(
+        [billed / lat["count"]] * lat["count"])
+    jreg.counter("step.count").inc(snap["counters"]["step.count"])
+    monkeypatch.setattr(jgoodput, "_process_start", goodput._process_start)
+    j = jgoodput.collect(now=s["end"])
+    assert j["goodput_ms"] == 0.0 and j["goodput_pct"] == 0.0
+    assert s["goodput_pct"] > 0

@@ -483,3 +483,121 @@ def test_graph_replay_is_bitwise_the_eager_step_on_card(weights):
             np.testing.assert_array_equal(ids, eager_ids.cpu().numpy())
             np.testing.assert_array_equal(ids,
                                           logits.cpu().numpy().argmax(-1))
+
+
+# -- telemetry, the KV-cache class and the bucket memory check ----------------
+
+from autodist_tpu_torch import observability as tobs  # noqa: E402
+from autodist_tpu_torch.observability import memory as tmemory  # noqa: E402
+
+
+@pytest.fixture
+def port_telemetry(monkeypatch, tmp_path):
+    from autodist_tpu_torch import const
+    for name in ("AUTODIST_TELEMETRY", "AUTODIST_SERVE_SLO_MS",
+                 "AUTODIST_HBM_GB"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("AUTODIST_WORKING_DIR", str(tmp_path))
+    monkeypatch.setattr(const, "DEFAULT_LOG_DIR", str(tmp_path / "logs"))
+    tobs.refresh()
+    tobs.reset()
+    yield
+    tobs.refresh()
+    tobs.reset()
+
+
+def test_decode_over_capacity_bucket_refused_like_jax(weights, monkeypatch,
+                                                      port_telemetry):
+    """``tests/test_decode.py:198``: a toy ~1 MiB card refuses the
+    (4096, 64) lane's KV cache by name on both engines, before any
+    placement, cache allocation or capture. A lane's predicted peak holds
+    its cache as the ``kv_cache_bytes`` class."""
+    from autodist_tpu.observability.memory import \
+        InfeasibleMemoryError as JInfeasible
+    jparams, params = weights
+    monkeypatch.setenv("AUTODIST_HBM_GB", "0.001")
+    jex = (np.zeros((8, 16), np.int32),)
+    with pytest.raises(JInfeasible, match="decode bucket 4096x64"):
+        jserve.DecodeEngine(_japply, jlm.make_decode_fn(JCFG),
+                            lambda s, l: jlm.init_decode_cache(JCFG, s, l),
+                            jparams, jex, buckets=((4096, 64),))
+    allocated = []
+    monkeypatch.setattr(serve.decode.DecodeReplica, "compile_decode",
+                        lambda *a, **k: allocated.append(1))
+    with pytest.raises(tmemory.InfeasibleMemoryError,
+                       match="decode bucket 4096x64") as e:
+        serve.DecodeEngine(_apply, lm.make_decode_fn(CFG),
+                           functools.partial(lm.init_decode_cache, CFG),
+                           params, EXAMPLE, buckets=((4096, 64),),
+                           device="cpu")
+    assert "AUTODIST_DECODE" in str(e.value) and "kv_cache" in str(e.value)
+    assert allocated == []
+    assert "serve-aot-compile" not in tobs.phase_timings()
+    monkeypatch.undo()
+    eng = serve.DecodeEngine(_apply, lm.make_decode_fn(CFG),
+                             functools.partial(lm.init_decode_cache, CFG),
+                             params, EXAMPLE, buckets=((8, 32),),
+                             device="cpu")
+    spec = serve.engine.serve_spec(None, torch.device("cpu"))
+    mem = eng.bucket_memory(spec, (8, 32))
+    assert mem["kv_cache_bytes"] == eng.cache_bytes(8, 32)
+    eng.close()
+
+
+def test_kv_cache_is_a_memory_ledger_class_like_jax(tmp_path):
+    """``tests/test_decode.py:392``, and ``strategy_memory``'s
+    ``batch_rows`` / ``kv_cache_bytes`` against the JAX package's on the
+    tiny BERT and the same 8-GPU spec: every class at COST_RTOL but the
+    activations (the port's own aten live set, at the same scaling)."""
+    from autodist_tpu.observability import memory as jmemory
+    from autodist_tpu.strategy import AllReduce as JAllReduce
+    from autodist_tpu.tuner import cost_model as jcm
+    from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
+    from autodist_tpu_torch.tuner import cost_model as cm
+    from test_torch_attribution_goodput import (COST_RTOL, _bert_items,
+                                                _close, _specs, _topologies)
+    assert "kv_cache_bytes" in cm.MemoryBreakdown.CLASSES
+    assert tmemory.CLASSES == cm.MemoryBreakdown.CLASSES == \
+        jcm.MemoryBreakdown.CLASSES == jmemory.CLASSES
+    assert "kv_cache_bytes" in tmemory.RESIDENT_CLASSES
+    spec, jspec = _specs(tmp_path)
+    jitem, item = _bert_items()
+    topology, jtopology = _topologies(8, 1)
+    for rows, kv in ((None, 0), (64, 3.5e6), (3, 1e9)):
+        got = cm.CostModel(topology).strategy_memory(
+            AllReduce().build(item, spec), item, batch_rows=rows,
+            kv_cache_bytes=kv)
+        want = jcm.CostModel(jtopology).strategy_memory(
+            JAllReduce().build(jitem, jspec), jitem, batch_rows=rows,
+            kv_cache_bytes=kv)
+        _close(got, want, skip=("activations_bytes",))
+        assert got["kv_cache_bytes"] == kv / 8
+        scale = (rows or item.batch_size) / item.batch_size
+        assert got["activations_bytes"] == pytest.approx(
+            item.activation_live_bytes() * scale / 8, rel=COST_RTOL)
+
+
+def test_decode_metrics(weights, port_telemetry, monkeypatch):
+    monkeypatch.setenv("AUTODIST_SERVE_SLO_MS", "1000")
+    _, params = weights
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, CFG.vocab, n) for n in (3, 5, 2, 7, 4, 6)]
+    with _server(params) as srv:
+        outs = [f.result(timeout=120) for f in
+                [srv.submit(p, max_new_tokens=4 + i)
+                 for i, p in enumerate(prompts)]]
+    snap = tobs.registry().snapshot()
+    tokens = sum(len(o) for o in outs)
+    assert tokens == sum(4 + i for i in range(len(prompts)))
+    assert snap["counters"]["decode.tokens"] == tokens
+    assert snap["counters"]["decode.requests"] == len(prompts)
+    assert snap["histograms"]["decode.latency_ms"]["count"] == len(prompts)
+    assert snap["counters"]["decode.steps"] > 0
+    p99 = snap["histograms"]["decode.latency_ms"]["p99"]
+    assert snap["gauges"]["serve.slo_burn"] == round(p99 / 1000, 4)
+    assert snap["gauges"]["decode.replicas"] == 1
+    phases = tobs.phase_timings()
+    assert phases["serve-aot-compile"]["count"] == 1
+    assert phases["capture"]["count"] == 1
+    kinds = [e["kind"] for e in tobs.recorder.events()]
+    assert "serve-start" in kinds and "serve-stop" in kinds

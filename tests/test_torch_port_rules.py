@@ -60,6 +60,8 @@ def test_port_imports_with_jax_made_unimportable():
             "import autodist_tpu_torch.parallel.moe\n"
             "import autodist_tpu_torch.pipeline, autodist_tpu_torch.ops.blocks\n"
             "import autodist_tpu_torch.data\n"
+            "from autodist_tpu_torch.observability import (monitor, profile,\n"
+            "                                              skew)\n"
             "from autodist_tpu_torch.models import ZOO, bilstm, ncf, resnet\n"
             "import chip_smoke\n"
             "print('ok')\n")

@@ -330,3 +330,140 @@ def test_device_prefetcher_fills_to_depth_from_a_plain_iterator():
     assert next(pf) == 0
     assert remapper.issued == [0, 1, 2]
     assert list(pf) == [1, 2, 3, 4]
+
+
+# -- telemetry and the bucket memory check (against the JAX package's) -------
+
+from autodist_tpu.models import mlp as jmlp  # noqa: E402
+from autodist_tpu_torch import observability as tobs  # noqa: E402
+from autodist_tpu_torch.models import mlp  # noqa: E402
+from autodist_tpu_torch.observability import memory as tmemory  # noqa: E402
+
+MLP_CFG, JMLP_CFG = (m.MLPConfig(in_dim=16, hidden=(32,), num_classes=4)
+                     for m in (mlp, jmlp))
+
+
+@pytest.fixture
+def port_telemetry(monkeypatch, tmp_path):
+    """The port's telemetry on and empty, its files under tmp_path."""
+    from autodist_tpu_torch import const
+    for name in ("AUTODIST_TELEMETRY", "AUTODIST_SERVE_SLO_MS",
+                 "AUTODIST_HBM_GB"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("AUTODIST_WORKING_DIR", str(tmp_path))
+    monkeypatch.setattr(const, "DEFAULT_LOG_DIR", str(tmp_path / "logs"))
+    tobs.refresh()
+    tobs.reset()
+    yield
+    tobs.refresh()
+    tobs.reset()
+
+
+def _mlp_pair():
+    jparams = jax.device_get(jmlp.init(jax.random.PRNGKey(0), JMLP_CFG))
+    example = np.random.RandomState(0).randn(8, 16).astype(np.float32)
+    return (jparams, lambda p, x: jmlp.apply(p, JMLP_CFG, x),
+            convert.params_from_jax(jparams, "cpu"),
+            lambda p, x: mlp.apply(p, MLP_CFG, x), example)
+
+
+def test_over_capacity_bucket_refused_like_jax(monkeypatch, port_telemetry):
+    """``tests/test_serve.py:246``'s case through both engines: a toy
+    ~100 KiB card takes the 8-row bucket and refuses the 4096-row one by
+    name, before any placement or capture."""
+    from autodist_tpu.observability.memory import \
+        InfeasibleMemoryError as JInfeasible
+    jparams, japply, params, apply, example = _mlp_pair()
+    monkeypatch.setenv("AUTODIST_HBM_GB", "0.0001")
+    jserve.ServeEngine(japply, jparams, example, (8,))
+    eng = serve.ServeEngine(apply, params, example, (8,), device="cpu")
+    assert tobs.phase_timings()["serve-aot-compile"]["count"] == 1
+    tobs.reset()
+    placed = []
+    monkeypatch.setattr(serve.engine.Remapper, "place_params",
+                        lambda self, p: placed.append(1))
+    for buckets in ((8, 4096), (4096,)):
+        with pytest.raises(JInfeasible, match="serve bucket 4096"):
+            jserve.ServeEngine(japply, jparams, example, buckets)
+        with pytest.raises(tmemory.InfeasibleMemoryError,
+                           match="serve bucket 4096") as e:
+            serve.ServeEngine(apply, params, example, buckets, device="cpu")
+        assert "dominant class" in str(e.value)
+        assert "AUTODIST_SERVE_BUCKETS" in str(e.value)
+    assert issubclass(tmemory.InfeasibleMemoryError, MemoryError)
+    assert placed == [] and "serve-aot-compile" not in tobs.phase_timings()
+    assert [e["kind"] for e in tobs.recorder.events()].count("oom") == 2
+    # The prediction grows with the bucket's rows; params stay.
+    spec = serve.engine.serve_spec(None, torch.device("cpu"))
+    small, big = (eng.bucket_memory(spec, (b,)) for b in (8, 4096))
+    assert big["params_bytes"] == small["params_bytes"]
+    assert big["activations_bytes"] == pytest.approx(
+        small["activations_bytes"] * 512)
+    eng.close()
+
+
+def test_check_feasible_matches_jax(monkeypatch):
+    from autodist_tpu.observability import memory as jmemory
+    from autodist_tpu.tuner.cost_model import MemoryBreakdown as JMB
+    from autodist_tpu_torch.tuner.cost_model import MemoryBreakdown
+    for cap, head in ((1 << 30, "0.9"), (1 << 20, "0.5"), (0, "0.9")):
+        monkeypatch.setenv("AUTODIST_MEM_HEADROOM", head)
+        kw = dict(params_bytes=4e5, activations_bytes=3e5, staging_bytes=1e3,
+                  capacity_bytes=float(cap))
+        assert tmemory.check_feasible(MemoryBreakdown(**kw)) == \
+            jmemory.check_feasible(JMB(**kw))
+    assert tmemory.check_feasible(None) is None
+
+
+def test_serving_counts_match_jax_server(port_telemetry, monkeypatch):
+    """``tests/test_serve.py:324``'s counts that do not depend on timing:
+    one request at a time with no coalescing wait, so each request is
+    its own batch on both servers."""
+    monkeypatch.setenv("AUTODIST_SERVE_SLO_MS", "7")
+    jparams, japply, params, apply, example = _mlp_pair()
+    rng = np.random.RandomState(3)
+    inputs = [rng.randn(r, 16).astype(np.float32) for r in ROWS]
+    snaps = []
+    for obs_mod, make in (
+            (observability, lambda: jserve.Server(
+                japply, jparams, example, buckets=(8, 32), max_wait_ms=0)),
+            (tobs, lambda: serve.Server(apply, params, example,
+                                        buckets=(8, 32), max_wait_ms=0,
+                                        device="cpu"))):
+        with make() as srv:
+            for x in inputs:
+                srv.infer(x, timeout=60)
+            stats = srv.stats()
+        snaps.append((obs_mod.registry().snapshot(), stats))
+    (jsnap, _), (snap, stats) = snaps
+    for name in ("serve.requests", "serve.batches", "serve.padded_rows",
+                 "serve.replica0.dispatches"):
+        assert snap["counters"][name] == jsnap["counters"][name], name
+    assert snap["counters"]["serve.requests"] == len(ROWS)
+    assert snap["counters"]["serve.padded_rows"] == sum(8 - r for r in ROWS)
+    lat = snap["histograms"]["serve.latency_ms"]
+    assert lat["count"] == jsnap["histograms"]["serve.latency_ms"]["count"] \
+        == len(ROWS)
+    assert (lat["p50"], lat["p99"]) == (stats["latency_ms"]["p50"],
+                                        stats["latency_ms"]["p99"])
+    assert snap["gauges"]["serve.slo_burn"] == round(lat["p99"] / 7, 4)
+    assert snap["gauges"]["serve.replicas"] == 1
+    phases = tobs.phase_timings()
+    assert phases["serve-aot-compile"]["count"] == 2   # one a bucket
+    assert phases["capture"]["count"] == 1
+    assert "serve.aot_compile.ms" in snap["gauges"]
+    kinds = [e["kind"] for e in tobs.recorder.events()]
+    assert kinds.count("serve-compile") == 2 and "serve-start" in kinds
+
+
+def test_serving_telemetry_off_records_nothing(monkeypatch, port_telemetry):
+    monkeypatch.setenv("AUTODIST_TELEMETRY", "0")
+    tobs.refresh()
+    _, _, params, apply, example = _mlp_pair()
+    with serve.Server(apply, params, example, buckets=(8,), max_wait_ms=0,
+                      device="cpu") as srv:
+        srv.infer(example[:3], timeout=60)
+        assert srv.stats()["completed"] == 1
+    assert tobs.registry().snapshot() == {
+        "counters": {}, "gauges": {}, "histograms": {}}
+    assert tobs.tracing.events() == [] and tobs.recorder.events() == []
