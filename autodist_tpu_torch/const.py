@@ -2,14 +2,19 @@
 
 Counterpart of ``autodist_tpu/const.py``: the same axis names and, for the
 knobs kept here, the same variable names, types and defaults, so one
-environment configures both packages.
+environment configures both packages. One default differs: the working
+directory is ``<tmp>/autodist_tpu_torch`` (the JAX package's is
+``/tmp/autodist_tpu``), so the two packages' artifacts (report pages and
+their ``report.html`` alias, traces, flight logs, calibration) share a
+directory only where ``AUTODIST_WORKING_DIR`` names one for both.
 """
 import enum
 import os
 import tempfile
 
 DEFAULT_WORKING_DIR = os.environ.get(
-    "AUTODIST_WORKING_DIR", os.path.join(tempfile.gettempdir(), "autodist_tpu"))
+    "AUTODIST_WORKING_DIR",
+    os.path.join(tempfile.gettempdir(), "autodist_tpu_torch"))
 DEFAULT_LOG_DIR = os.path.join(DEFAULT_WORKING_DIR, "logs")
 DEFAULT_TRACE_DIR = os.path.join(DEFAULT_WORKING_DIR, "traces")
 DEFAULT_GRAPH_DUMP_DIR = os.path.join(DEFAULT_WORKING_DIR, "graphs")

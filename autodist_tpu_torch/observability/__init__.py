@@ -42,8 +42,11 @@ On top of the pillars:
   ``/metrics`` + ``/status`` endpoint (``AUTODIST_MONITOR_PORT``) and the
   rolling anomaly detector :func:`sync_cluster` feeds.
 
-Not ported yet (ROADMAP.md, A11b (ii)): the report that renders all of
-this, and the offline timeline and trend tools.
+``autodist_tpu_torch/report.py`` renders all of this into the transform
+report, and ``python -m autodist_tpu_torch.tools.timeline <logdir>``
+merges the ranks' traces and flight logs onto the chief's clock. Not
+ported yet (ROADMAP.md): the trend tool over a benchmark's history,
+which comes with the port's benchmark (A2).
 
 Contract: **off-path cheap** (the Runner's loop records one CUDA event or
 clock read and a list append per dispatch and flushes on the StepGuard

@@ -207,6 +207,24 @@ def process_count():
     return 1
 
 
+_last_rank = None
+
+
+def _flush_host():
+    """The rank a flush stamps: this process's rank, or, once its world
+    is gone (the exit flush after ``destroy_process_group``), the rank it
+    had there: the JAX package's process index never changes."""
+    global _last_rank
+    try:
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            _last_rank = dist.get_rank()
+            return _last_rank
+    except Exception:  # noqa: BLE001 - a broken world reads as before
+        pass
+    return _last_rank if _last_rank is not None else 0
+
+
 def flush(path=None):
     """Write buffered events as one Chrome-trace JSON file.
 
@@ -220,7 +238,7 @@ def flush(path=None):
         return None
     path = path or default_trace_path()
     meta = {"epoch_anchor_us": round(epoch_anchor_us(), 1),
-            "pid": os.getpid(), "host": process_index()}
+            "pid": os.getpid(), "host": _flush_host()}
     try:
         # The skew layer's offset vs the chief, when a ping exchange ran.
         from autodist_tpu_torch.observability import skew

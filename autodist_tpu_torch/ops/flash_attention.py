@@ -13,7 +13,8 @@ f32: FMAs); built by ``ops/build.py`` and called through ctypes.
 functions in plain PyTorch, computed in f32 as the Pallas kernels compute
 them. :func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`
 launch their kernel for a CUDA tensor and run the plain version for any
-other (the CPU tests; shape-only tracing on ``meta``).
+other (the CPU tests; shape-only tracing on ``meta``, where a step being
+written as text, ``utils/step_text.py``, records each call as one line).
 :func:`flash_attention` is the ``torch.autograd.Function`` over them, the
 counterpart of the JAX package's ``custom_vjp``. Ring attention's hop
 (``parallel/ring_attention.py``) runs :func:`block_attn_fwd` /
@@ -163,6 +164,18 @@ def _launch(q, k, v, causal, q_offset, k_offset, out_dtype, with_lowp):
     return outs
 
 
+def _recording(q):
+    """The step-text recorder when ``q`` is a ``meta`` tensor of a step
+    being written as text (``utils/step_text.py``): each kernel call is
+    then one ``custom-call`` line, whichever route would run it. ``None``
+    otherwise (a ``meta`` trace without a recorder takes the plain
+    version, as ``GraphItem.op_provenance`` wants)."""
+    if q.device.type != "meta":
+        return None
+    from autodist_tpu_torch.utils import step_text
+    return step_text.active()
+
+
 def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0, out_dtype=None,
               with_lowp=False):
     """(o (b, h, sq, d) out_dtype, lse (b, h, sq, 1) f32), and with
@@ -180,6 +193,14 @@ def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0, out_dtype=None,
     if q.device.type == "cuda":
         return _launch(q, k, v, causal, q_offset, k_offset, out_dtype,
                        with_lowp)
+    rec = _recording(q)
+    if rec is not None:  # one line of the step text (utils/step_text.py)
+        lse = (q.shape[:-1] + (1,), torch.float32)
+        outs = [(q.shape, out_dtype), lse] + \
+            ([(q.shape, q.dtype)] if with_lowp else [])
+        return tuple(rec.custom_call(
+            "flash_fwd", (q, k, v), outs, causal=causal, q_offset=q_offset,
+            k_offset=k_offset))
     return flash_fwd_reference(q, k, v, causal, q_offset, k_offset, out_dtype,
                                with_lowp)
 
@@ -281,6 +302,12 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, q_offset=0,
     Launches the kernel on a CUDA tensor (or raises), else the plain
     version. ``launches`` counts kernel launches."""
     do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta, out_dtype)
+    rec = _recording(q)
+    if rec is not None:
+        return rec.custom_call(
+            "flash_bwd_dq", (q, k, v, do, lse, delta),
+            [(q.shape, out_dtype)], causal=causal, q_offset=q_offset,
+            k_offset=k_offset)[0]
     if q.device.type != "cuda":
         return _bwd_plain(q, k, v, do, lse, delta, causal, q_offset,
                           k_offset, out_dtype)[0]
@@ -297,6 +324,12 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, q_offset=0,
     tensor (or raises), else the plain version. ``launches`` counts kernel
     launches."""
     do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta, out_dtype)
+    rec = _recording(q)
+    if rec is not None:
+        return tuple(rec.custom_call(
+            "flash_bwd_dkv", (q, k, v, do, lse, delta),
+            [(k.shape, out_dtype)] * 2, causal=causal, q_offset=q_offset,
+            k_offset=k_offset))
     if q.device.type != "cuda":
         return _bwd_plain(q, k, v, do, lse, delta, causal, q_offset,
                           k_offset, out_dtype)[1:]
@@ -316,7 +349,7 @@ def flash_bwd(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0,
     """(dq, dk, dv) in ``out_dtype`` (float32 or q's dtype) from the
     forward's lse and delta = rowsum(do * o): the two backward kernels on a
     CUDA tensor, the plain version on any other."""
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and _recording(q) is None:
         do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta, out_dtype)
         return _bwd_plain(q, k, v, do, lse, delta, causal, q_offset,
                           k_offset, out_dtype)

@@ -48,6 +48,7 @@ from autodist_tpu_torch.parallel import context
 from autodist_tpu_torch.parallel.collectives import all_gather
 from autodist_tpu_torch.utils import logging
 from autodist_tpu_torch.utils.device import resolve_device
+from autodist_tpu_torch.utils.scope import einsum
 from autodist_tpu_torch.utils.tree import tree_map
 
 # Sharding rule for ModelParallel-style overlays: expert dim on `expert` axis.
@@ -274,8 +275,10 @@ def apply(params, cfg, x):
     occupied = (buf > 0).unsqueeze(-1)
     expert_in = torch.where(occupied, xc[(buf - 1).clamp(min=0)], 0) \
         .view(local_e, capacity, d)
-    h = F.gelu(torch.bmm(expert_in, up), approximate="tanh")
-    expert_out = torch.bmm(h, down).view(cells, d)
+    # The JAX package's einsum specs name the products (utils/scope.einsum),
+    # so the step text and the per-scope costs key them alike.
+    h = F.gelu(einsum("ecd,edh->ech", expert_in, up), approximate="tanh")
+    expert_out = einsum("ech,ehd->ecd", h, down).view(cells, d)
 
     # Combine: each assignment gathers its expert's output slot, weighted
     # by the (renormalized) gate; dropped assignments contribute zero.

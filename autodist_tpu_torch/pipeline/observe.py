@@ -11,8 +11,8 @@ profiler story stays closed: the Runner's cold-path finalize calls
 step p50 into a bubble share using the schedule model
 (``(S-1)/(S+M-1)``) and publishes the ``pipeline.*``
 gauges the monitor's ``/status`` pipeline section reads
-(:func:`status_section`; the report that also reads them is ROADMAP.md
-A11b (ii)).  Telemetry off
+(:func:`status_section`) and the transform report's pipeline section
+(``report._render_pipeline``).  Telemetry off
 (``AUTODIST_TELEMETRY=0``) never reaches this module — the zero-call
 contract test spies on it.
 """

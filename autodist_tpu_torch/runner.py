@@ -175,9 +175,15 @@ events at the loop's final drain) and finalizes the per-layer profile
 model's costs. The chief starts the live monitor
 (``observability/monitor.py``) when ``AUTODIST_MONITOR_PORT`` is set.
 
-Not ported yet (ROADMAP.md): the overlap scheduler (A9b), the online
-re-tuning controller (A12), ``write_report`` and ``dump_compiled`` (A11b
-(ii)).
+The chief renders the transform report (``report.py``) at each of the
+port's compiles: a Runner's first eager dispatch and each graph capture.
+``write_report`` adds the compiled step's section and ``dump_compiled``
+writes its op text: one whole step recorded on ``meta`` tensors, its
+collectives recorded and not run (``utils/step_text.py``), the
+counterpart of the JAX step's HLO.
+
+Not ported yet (ROADMAP.md): the overlap scheduler (A9b) and with it
+``dump_scheduled``, and the online re-tuning controller (A12).
 """
 import contextlib
 import math
@@ -202,7 +208,7 @@ from autodist_tpu_torch.parallel.collectives import all_gather as _all_gather
 from autodist_tpu_torch.parallel.collectives import \
     reduce_scatter as _reduce_scatter
 from autodist_tpu_torch.remapper import Remapper
-from autodist_tpu_torch.utils import cuda_graph, logging
+from autodist_tpu_torch.utils import cuda_graph, logging, step_text
 from autodist_tpu_torch.utils.device import resolve_device
 from autodist_tpu_torch.utils.tree import (flatten, flatten_with_path, leaves,
                                            path_to_name, tree_map,
@@ -256,6 +262,8 @@ class Runner:
         self._shards = weakref.WeakKeyDictionary()  # optimizer -> zero1
         self._graphs = {}  # megastep graphs by block structure and phase
         self._captures = 0  # graph captures timed as compiles (telemetry)
+        self._reported = False  # the first eager dispatch rendered a report
+        self._execution = None  # what last ran the step: eager, CUDA graph
         # The axes whose groups share a rank's batch rows: seq (each rank
         # its chunk of the sequence) and the piece axes, model, expert or
         # pipe (each rank its pieces of the tp variables), alone or
@@ -395,6 +403,14 @@ class Runner:
         is too). The captured tree is untouched."""
         resolve_device(self._remapper.device)
         params = self._remapper.place_params(self._item.params, copy=True)
+        opt = self._optimizer_over(params)
+        return TrainState(torch.zeros((), dtype=torch.int64), params, opt)
+
+    def _optimizer_over(self, params):
+        """The optimizer over ``params``' update tensors (their trainable
+        leaves, marked as requiring gradients; a ``zero1`` variable's shard
+        instead, a tensor of its own), its shards registered for the
+        step."""
         update, shards = [], {}
         for name, t in self._trainable_leaves(params):
             t.requires_grad_(True)
@@ -422,7 +438,7 @@ class Runner:
                 f"Build the strategy with gspmd_update=True (PS family, "
                 f"no model axis), or use AllReduce()")
         self._shards[opt] = shards
-        return TrainState(torch.zeros((), dtype=torch.int64), params, opt)
+        return opt
 
     def logical_params(self, state):
         """The params at their logical shapes, detached: padding cut off,
@@ -748,29 +764,37 @@ class Runner:
         the step's count (only its phase in the staleness period
         matters). No host bookkeeping."""
         item = self._item
-        with parallel_context.use(self._program.parallel_context()):
+        # step_text.phase names the parts of the step in the recorded step
+        # text (_step_text); a shared no-op otherwise.
+        with step_text.phase("forward"), \
+                parallel_context.use(self._program.parallel_context()):
             out = item.loss_fn(self._compute_view(params), batch)
         loss, aux = out if item.aux_output else (out, None)
         named = self._trainable_leaves(params)
-        grads = torch.autograd.grad(loss, [t for _, t in named],
-                                    self._backward_seed(loss),
-                                    allow_unused=True)
-        # Unused leaves get zeros (as jax.grad gives); the reduction writes
-        # in place, so expanded (stride-0) gradients become real tensors.
-        grads = {n: (torch.zeros_like(t) if g is None else g.contiguous())
-                 for (n, t), g in zip(named, grads)}
-        self._sync_gradients(grads)
+        with step_text.phase("backward"):
+            grads = torch.autograd.grad(loss, [t for _, t in named],
+                                        self._backward_seed(loss),
+                                        allow_unused=True)
+            # Unused leaves get zeros (as jax.grad gives); the reduction
+            # writes in place, so expanded (stride-0) gradients become real
+            # tensors.
+            grads = {n: (torch.zeros_like(t) if g is None else
+                         g.contiguous()) for (n, t), g in zip(named, grads)}
+        with step_text.phase("grad-sync"):
+            self._sync_gradients(grads)
         shards = self._shards.get(opt, {})
         for n, t in named:
             shards.get(n, t).grad = grads[n]
-        opt.step()
-        opt.zero_grad(set_to_none=True)
-        self._finish_update(params, shards, step)
-        loss = loss.detach().float().clone()
-        if self._grad_group is not None:
-            all_reduce_mean_(loss, self._grad_group)
-        metrics = {"loss": loss, "notfinite": torch.logical_not(
-            torch.isfinite(loss))}
+        with step_text.phase("update"):
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            self._finish_update(params, shards, step)
+        with step_text.phase("metrics"):
+            loss = loss.detach().float().clone()
+            if self._grad_group is not None:
+                all_reduce_mean_(loss, self._grad_group)
+            metrics = {"loss": loss, "notfinite": torch.logical_not(
+                torch.isfinite(loss))}
         if aux is not None:
             metrics["aux"] = tree_map(lambda t: t.detach() if isinstance(
                 t, torch.Tensor) else t, aux)
@@ -803,6 +827,9 @@ class Runner:
         "the inputs and every stage the loss"}
 
     def _step(self, state, batch):
+        if not self._reported:  # the first eager dispatch: its "compile"
+            self._reported = True
+            self._auto_report("eager")
         self._check_shared_batch(batch)
         metrics = self._core(state.params, state.opt_state, batch,
                              int(state.step))
@@ -842,6 +869,103 @@ class Runner:
             return step
         shard = self._remapper.shard_batch
         return lambda state, batch: step(state, shard(batch))
+
+    # -- the transform report ------------------------------------------------
+
+    def _auto_report(self, execution):
+        """The chief renders the transform report at each of the port's
+        compiles, a Runner's first eager dispatch and each graph capture
+        (``execution``: ``"eager"`` or ``"CUDA graph"``, the page's badge;
+        capture -> strategy -> placements; the compiled-step section
+        upgrades through :meth:`write_report`): the counterpart of
+        ``autodist_tpu/runner.py:1084``. It never traces the step and never
+        kills a run. With telemetry off (``AUTODIST_TELEMETRY=0``) it
+        renders nothing, as the loop then makes no telemetry call and
+        writes nothing; :meth:`write_report` still renders on request."""
+        self._execution = execution
+        if self._obs is None:
+            return
+        try:
+            if observability.tracing.process_index() != 0:
+                return
+            from autodist_tpu_torch import report
+            path = report.render_report(self._program, execution=execution)
+            logging.info("transform report: %s", path)
+        except Exception as e:  # noqa: BLE001 - reporting must never kill a run
+            logging.warning("transform report failed: %s", e)
+
+    def _step_text(self, batch, shard_inputs=True):
+        """One whole training step as text, one op a line
+        (:mod:`~autodist_tpu_torch.utils.step_text`): the counterpart of
+        the JAX Runner's ``_aot_executable(batch).as_text()``. The step
+        runs once on ``meta`` tensors shaped like this program's state at
+        its stored layout (zero1 shards, fsdp / tp pieces, padding) and
+        ``batch``, with a fresh optimizer over them (primed, so the text
+        holds a steady step's update), at the last phase of the staleness
+        period (where every stale average runs). Its collectives are
+        recorded, not run, so a rank may call this alone. No state changes
+        and no kernel launches (a kernel's call is one line)."""
+        if shard_inputs:
+            batch = self._remapper.shard_batch(batch)
+        meta = torch.device("meta")
+        pairs, treedef = flatten_with_path(self._item.params)
+        stored = []
+        for path, leaf in pairs:
+            t = torch.empty(tuple(leaf.shape), dtype=leaf.dtype, device=meta)
+            placement = self._placements[path_to_name(path)]
+            stored.append(self._remapper.place_params(
+                t, placements=placement._replace(device=meta)))
+        params = unflatten(treedef, stored)
+        opt = self._optimizer_over(params)
+        _prime_optimizer(opt, [t for g in opt.param_groups
+                               for t in g["params"]])
+        flat, batch_def = flatten(batch)
+        flat = [torch.empty_like(torch.as_tensor(l), device=meta)
+                if isinstance(l, (torch.Tensor, np.ndarray)) else l
+                for l in flat]
+        with step_text.record() as rec:
+            for path, t in flatten_with_path(params)[0]:
+                rec.name(t, "p." + path_to_name(path))
+            for i, t in enumerate(flat):
+                if isinstance(t, torch.Tensor):
+                    rec.name(t, f"b.{i}")
+            self._core(params, opt, unflatten(batch_def, flat),
+                       self._period - 1)
+        return rec.text()
+
+    def write_report(self, batch, shard_inputs=True):
+        """Render the full transform report, the compiled step's section
+        included (its collective table and op text from
+        :meth:`_step_text`); returns the page's path. Runs no collective:
+        the chief may call it alone."""
+        from autodist_tpu_torch import report
+        text = self._step_text(batch, shard_inputs)
+        path = report.render_report(self._program, step_text=text,
+                                    execution=self._execution)
+        logging.info("transform report (with the step text): %s", path)
+        return path
+
+    def dump_compiled(self, batch):
+        """Write the transformed step's op text (:meth:`_step_text`) to
+        ``DEFAULT_GRAPH_DUMP_DIR/3-transformed-step.txt`` (the JAX
+        package's stage numbering: ``3-transformed-hlo.txt``); returns its
+        path. A failure (e.g. a batch the program cannot take) re-raises
+        under ``AUTODIST_DUMP_GRAPHS`` (the caller asked for graph
+        artifacts, so a silent miss is a bug) and otherwise returns the
+        failure message, never ``None``."""
+        path = os.path.join(const.DEFAULT_GRAPH_DUMP_DIR,
+                            "3-transformed-step.txt")
+        try:
+            text = self._step_text(batch)
+            const.ensure_working_dirs()
+            from autodist_tpu_torch.report import write_atomic
+            write_atomic(path, text)
+            return path
+        except Exception as e:  # noqa: BLE001
+            if const.ENV.AUTODIST_DUMP_GRAPHS.val:
+                raise
+            logging.warning("step text dump failed: %s", e)
+            return f"step text dump failed: {type(e).__name__}: {e}"
 
     # -- fused multi-step dispatch ("megastep") ------------------------------
 
@@ -1597,7 +1721,8 @@ class _GraphStep:
         phase = int(state.step) % self._runner._period
         graph = self._graph(phase)
         obs = self._runner._obs
-        if obs is not None and phase not in self._built:
+        captured = phase not in self._built
+        if obs is not None and captured:
             # The capture (its warm-up step included) is the counterpart
             # of the JAX step's compile: timed in a span around it, never
             # inside it.
@@ -1605,13 +1730,15 @@ class _GraphStep:
             with obs.span("compile", path="graph", unroll=self.k or 1):
                 out = graph()
             dt_ms = (time.perf_counter() - t0) * 1e3
-            self._built.add(phase)
             self._runner._captures += 1
             obs.registry().gauge("compile.ms").set(round(dt_ms, 3))
             obs.record_event("compile", f"graph step unroll={self.k or 1} "
                              f"captured in {dt_ms:.0f}ms")
         else:
             out = graph()
+        if captured:
+            self._built.add(phase)
+            self._runner._auto_report("CUDA graph")
         metrics = tree_map(lambda t: t.clone() if isinstance(
             t, torch.Tensor) else t, out)
         return self._runner._advance(state, self.k or 1), metrics

@@ -165,8 +165,9 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    and a block-diagonal fault, the ranks' params bitwise equal, and each
    layer's launches of the hop and flash kernels counted;
 11. tensor parallelism: (a) two gloo ranks on the card (processes of this
-   script) train BERT-base at full width and depth (vocab 30522, dim 768,
-   12 heads and layers, max_len 512, bf16 compute) on the MLM batch (32 x
+   script) train BERT-base at full width and 6 of its 12 layers
+   (``GLOO_BERT_LAYERS``; vocab 30522, dim 768, 12 heads, max_len 512,
+   bf16 compute) on the MLM batch (32 x
    128, 20 masked positions, SGD 0.1, 4 eager steps) under
    ``ModelParallel(AllReduce(), model_axis=2)`` and ``ModelParallel(PS())``
    on ``{data: 1, model: 2}``, each rank running the flash kernels on its
@@ -209,14 +210,14 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    AllReduce run's ``CheckpointManager`` step restores into a one-rank
    Runner, every leaf bitwise the EP world's logical params, and that
    Runner's forward gives the EP step's loss; (e) the phase's seconds;
-13. pipeline parallelism: lm1b at full width and depth (vocab 32000, dim
-   1024, 16 heads of 64, 16 layers, bf16 compute) in the stacked layout
+13. pipeline parallelism: lm1b at full width (vocab 32000, dim 1024, 16
+   heads of 64, 8 of its 16 layers, bf16 compute) in the stacked layout
    (``scan_layers=True``), batch 8 x 1024, SGD 0.1, 3 steps: (a) one rank
    eagerly, again (the floor), through ``make_callable(aot=True)`` (losses
    bitwise the eager ones) and with the same weights unstacked; (b) two
    gloo ranks on the card (processes of this script) under
    ``Pipeline(num_stages=2, num_microbatches=4)`` on ``{data: 1, pipe:
-   2}``, each rank storing and running 8 layers, under ``shift``,
+   2}``, each rank storing and running 4 layers, under ``shift``,
    ``shift`` again, ``sequential`` and ``1f1b``: losses and the update
    held to (a) between the floor and two planted faults (the whole
    gradients not summed over the pipe group; the head counted on every
@@ -228,7 +229,8 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    twice under ``1f1b``); (d) the ``shift`` run's checkpoint restores on
    one rank, every leaf bitwise, its next step's loss the pipelined one's;
    (e) the phase's seconds;
-14. BERT's MLM under a seq axis: BERT-base at full width and depth (MLM
+14. BERT's MLM under a seq axis: BERT-base at full width and 6 of its 12
+   layers (``GLOO_BERT_LAYERS``; MLM
    32 x 128, 20 masked positions a row, SGD 0.1, 3 eager steps) on one
    rank twice (the floor), then (a) two gloo ranks on the card under
    ``SequenceParallel("ring")`` on ``{data: 1, seq: 2}`` and (b) four
@@ -246,7 +248,7 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    and the bound; (d) the phase's seconds;
 15. pipeline x sequence parallelism: phase 13's LM and batch on four
    gloo ranks under ``SequenceParallel("ring", 2, base=Pipeline(2, 4))``
-   on ``{data: 1, pipe: 2, seq: 2}`` (8 layers and a 512-row chunk a
+   on ``{data: 1, pipe: 2, seq: 2}`` (4 layers and a 512-row chunk a
    rank) under ``shift`` and ``1f1b``, and ``shift`` with the pipe hop
    sent to the next stage's rank of the other chunk (the planted fault):
    held to phase 13's one-rank steps between its floor and the fault,
@@ -258,7 +260,7 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    builder, ``TwoAxis``: no builder composes them): (a) phase 13's LM
    and batch on four gloo ranks under ``Pipeline(2, 4)`` with every
    stacked Megatron weight and the embedding split over ``model`` too
-   (``{data: 1, pipe: 2, model: 2}``: 8 layers, 8 heads and 2048 MLP
+   (``{data: 1, pipe: 2, model: 2}``: 4 layers, 8 heads and 2048 MLP
    columns a rank) under ``shift`` and ``1f1b``, held to phase 13's
    one-rank steps between its floor and two planted faults (the
    copy-to-model backward without its all-reduce; the gradients pipe
@@ -386,7 +388,29 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    its input-bound flip raised once (a flight event), ``/metrics`` and
    ``/status`` parsed, ``stop()`` freeing the port, 12 launches a step of
    each flash kernel on each rank; (e) the phase's seconds;
-22. output: one ``{"kernels": [...]}`` JSON line, then the last line
+22. the transform report, the step's op text and the merged timeline,
+   on BERT-base MLM (32 x 128, Adam 1e-4, ``Runner.run(unroll=4)``, the
+   graph capture auto-rendering the page; 12 x 4 launches of each flash
+   kernel): (a) ``write_report`` and
+   ``dump_compiled``: the page equal to its ``report.html`` alias, its
+   variable count and bytes those of ``graph_item.variables``, its
+   attribution, goodput and memory figures the ledgers' at the page's
+   rounding, the state (params, Adam state, step, the graph's static
+   buffers) bitwise unchanged and the flash ``launches`` unmoved, the
+   step text with 12 lines of each flash kernel and equal to the text of
+   the same program on the CPU; (b) in phase 21 (d)'s ranks, rank 0
+   alone writes the step text and the report while rank 1 waits at a
+   barrier: the gradient sync's all-reduces number ``bucket_plan()`` and
+   the loss's mean is the one other (a count off by one must fail the
+   check); (c) ``tools/timeline.py`` merges the two ranks' directory:
+   every span of both traces exactly once, the ranks' matched ``sync``
+   spans aligned, and again with rank 1's clock planted 25 ms ahead and
+   corrected by the ping's estimate of it (aligned within the estimate's
+   uncertainty plus 1 ms of barrier exit spread; with the offset zeroed
+   they sit ~25 ms apart and the check must fail); render, write_report,
+   dump_compiled and merge times beside the card line; (d) the phase's
+   seconds;
+23. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 On four cards, ``python3 chip_smoke.py --cards 4 [--part a|b|c|d]`` runs
@@ -425,6 +449,7 @@ import collections
 import contextlib
 import copy
 import functools
+import glob
 import itertools
 import json
 import os
@@ -652,8 +677,9 @@ EP_BUILDERS = (("allreduce", "AllReduce"), ("ps", "PS"))
 EP_FAULTS = ("no_copy", "aux_summed", "undivided")
 EP_LOSS_FAULTS = ("no_copy", "undivided")
 
-# Phase 13, pipeline parallelism: lm1b at full width and depth (vocab 32000,
-# dim 1024, 16 heads of 64, 16 layers, bf16 compute) in the stacked layout
+# Phase 13, pipeline parallelism: lm1b at full width (vocab 32000, dim 1024,
+# 16 heads of 64, PP_LAYERS of its 16 layers, bf16 compute) in the stacked
+# layout
 # (TransformerConfig(scan_layers=True)), PP_BATCH x PP_SEQ tokens, SGD
 # PP_LR, PP_STEPS eager steps. (a) One rank: eagerly, again (the floor),
 # through make_callable(aot=True) (its losses bitwise the eager ones) and
@@ -670,6 +696,10 @@ EP_LOSS_FAULTS = ("no_copy", "undivided")
 # to shift within the pipelined floor (bitwise where it reads 0).
 PP_WORLD, PP_MICRO, PP_STEPS, PP_LR = 2, 4, 3, 0.1
 PP_BATCH, PP_SEQ = 8, 1024
+# lm1b's depth in phases 13, 15, 17 and 19, cut from 16 to 8 layers when
+# the full run neared its 1200 s limit (PR 22: 1103 s); Pipeline() still
+# resolves (4, 8) for it on four ranks, as phase 19 (c) checks.
+PP_LAYERS = 8
 PP_SCHEDULES = ("shift", "sequential", "1f1b")
 PP_FAULTS = ("data_only", "head")
 PP_LOSS_RTOL, PP_UPDATE_RTOL = 1e-4, 5e-2
@@ -690,10 +720,10 @@ CP_BATCH, CP_SEQ, CP_MASKED, CP_STEPS, CP_LR = 32, 128, 20, 3, 0.1
 CP_LOSS_RTOL, CP_UPDATE_RTOL = 1e-3, 5e-2
 CP_SP_FAULTS = ("local",)
 CP_TP_FAULTS = ("local", "undivided")
-# Phase 15, pipeline x sequence parallelism: phase 13's LM (lm1b uncut,
-# stacked) and batch, under SequenceParallel("ring", 2, base=Pipeline(2,
-# PP_MICRO)) on {data: 1, pipe: 2, seq: 2}, four gloo ranks, each storing
-# and running 8 layers on its 512-row chunk, under shift and 1f1b; held to
+# Phase 15, pipeline x sequence parallelism: phase 13's LM (lm1b at
+# PP_LAYERS, stacked) and batch, under SequenceParallel("ring", 2,
+# base=Pipeline(2, PP_MICRO)) on {data: 1, pipe: 2, seq: 2}, four gloo
+# ranks, each storing and running PP_LAYERS / 2 layers on its 512-row chunk, under shift and 1f1b; held to
 # phase 13's one-rank steps at PPSP_LOSS_RTOL / PPSP_UPDATE_RTOL, each
 # between the one-rank floor and the planted fault (the pipe hop sent to
 # the next stage's rank of the other chunk); 1f1b bitwise shift.
@@ -2881,6 +2911,18 @@ def _gloo_cfg(cfg):
     small = copy.copy(cfg)
     small.num_layers = GLOO_LAYERS
     return small
+
+
+# BERT-base's depth in phases 11 and 14 (full width, gloo ranks sharing the
+# card), cut from 12 layers when the full run neared its 1200 s limit
+# (PR 22: 1093.6 s, phase 14 131.9 s on a slower host).
+GLOO_BERT_LAYERS = 6
+
+
+def _gloo_bert(bert):
+    cfg = bert.bert_base(max_len=512)
+    cfg.num_layers = GLOO_BERT_LAYERS
+    return cfg
 
 
 def gloo_train_rank(rank, world, port, spec):
@@ -5147,7 +5189,7 @@ def pp_train_rank(rank, world, port, spec):
 
 
 def pipeline_phase(torch, fa, card, device, vocab=32000, dim=1024, heads=16,
-                   layers=16, max_len=PP_SEQ, batch=PP_BATCH,
+                   layers=PP_LAYERS, max_len=PP_SEQ, batch=PP_BATCH,
                    steps=PP_STEPS, share=None):
     """Phase 13: (a) the stacked LM on one rank (eager, again, aot=True,
     unstacked); (b) ``PP_WORLD`` gloo ranks (processes of this script) on
@@ -5764,8 +5806,9 @@ def composed_bert_phase(torch, fa, card, cfg, device, batch_size=CP_BATCH,
 
 
 def composed_pipeline_phase(torch, fa, card, device, reference,
-                            vocab=32000, dim=1024, heads=16, layers=16,
-                            max_len=PP_SEQ, batch=PP_BATCH, steps=PP_STEPS):
+                            vocab=32000, dim=1024, heads=16,
+                            layers=PP_LAYERS, max_len=PP_SEQ,
+                            batch=PP_BATCH, steps=PP_STEPS):
     """Phase 15: the stacked LM under SequenceParallel("ring", 2, base=
     Pipeline(2, PP_MICRO)) on four gloo ranks, {data: 1, pipe: 2, seq: 2},
     under each schedule of ``PPSP_SCHEDULES`` and with the planted fault;
@@ -5843,11 +5886,11 @@ def composed_pipeline_phase(torch, fa, card, device, reference,
 # builders nor the JAX package's compose such a split (a builder's rules
 # replace a node's partitioner), so the phase runs it from a fixed builder,
 # :class:`TwoAxis`, as tests/test_torch_two_axis.py does. (a) Phase 13's LM
-# (lm1b uncut, stacked, bf16) and batch on four gloo ranks under
+# (lm1b at PP_LAYERS, stacked, bf16) and batch on four gloo ranks under
 # Pipeline(2, PP_MICRO) with every stacked Megatron weight also split over
 # model on its rule's dim + 1 and the embedding on its hidden dim
-# ({data: 1, pipe: 2, model: 2}: 8 layers, 8 heads and 2048 MLP columns a
-# rank), under shift and 1f1b, and shift with each fault of PPTP_FAULTS
+# ({data: 1, pipe: 2, model: 2}: PP_LAYERS / 2 layers, 8 heads and 2048
+# MLP columns a rank), under shift and 1f1b, and shift with each fault of PPTP_FAULTS
 # (the copy-to-model backward without its all-reduce; the gradients that
 # pipe does not split averaged over the pipe group instead of summed):
 # held to phase 13's one-rank steps at PPTP_LOSS_RTOL / PPTP_UPDATE_RTOL,
@@ -6126,7 +6169,7 @@ def _ta_report(card, label, runs, ref_losses, want_mesh, steps):
 
 
 def two_axis_phase(torch, fa, card, device, pp_reference, ep_reference,
-                   vocab=32000, dim=1024, heads=16, layers=16,
+                   vocab=32000, dim=1024, heads=16, layers=PP_LAYERS,
                    max_len=PP_SEQ, batch=PP_BATCH, steps=PP_STEPS,
                    ep_widths=None, ep_batch_size=EP_BATCH, ep_seq=EP_SEQ,
                    ep_steps=EP_STEPS):
@@ -6993,8 +7036,9 @@ def pp_auto_rank(rank, world, port, spec):
 
 
 def cost_phase(torch, fa, card, device, reference, bert_cfg, vocab=32000,
-               dim=1024, heads=16, layers=16, max_len=PP_SEQ, batch=PP_BATCH,
-               steps=PP_STEPS, bert_batch=32, bert_seq=128, num_masked=20):
+               dim=1024, heads=16, layers=PP_LAYERS, max_len=PP_SEQ,
+               batch=PP_BATCH, steps=PP_STEPS, bert_batch=32, bert_seq=128,
+               num_masked=20):
     """Phase 19: per-scope program costs, (a) and (b) on BERT (``bert_cfg``,
     phase 4's MLM batch) and the stacked LM (phase 13's), (c) ``Pipeline()``
     choosing its own stage count on ``COST_WORLD`` gloo ranks, held to one
@@ -7646,8 +7690,11 @@ OBS21_SKEW_STEPS = 3
 OBS21_SKEW_SHIFT_MS = 25.0
 # rank 1's data wait in the planted run: this many times its first run's
 # median step, so the wait dominates its step (the detector's flip needs
-# more than half the step, the aggregate's label a third).
-OBS21_SLEEP_FACTOR = 1.5
+# more than half the step, the aggregate's label a third). At 1.5 the rest
+# of a slept step once grew to 1.65x the first run's (PR 22: a wait of
+# 960.8 of 2017.9 ms, no flip); at 3 the wait stays above half the step
+# unless the rest triples.
+OBS21_SLEEP_FACTOR = 3.0
 OBS21_EXACT = 1e-9      # wire + skew_wait against exposed_comms
 OBS21_RECONCILE = 1e-6  # the profile's sums against the ledger / trace
 _ATTN_ROW = re.compile(r"^layer\d+/attn$")
@@ -8087,9 +8134,17 @@ def obs_skew_rank(rank, world, port, spec):
     iterator sleeping; rank 0 serves the monitor on ``spec["port"]`` and
     scrapes it. Prints {ring indices, runs' flash launches, the chief's
     skew summary, aggregate, anomalies, events, endpoints, the planted
-    clock shift's estimate}."""
+    clock shift's estimate}. Then (phase 22 (b), (c)) both ranks record
+    ``spec["syncs"]`` matched ``sync`` spans, each around a barrier, and
+    rank 0 alone writes the step text and the transform report while rank
+    1 waits at a barrier; the trace is flushed with the true clock
+    estimate (the planted shift undone). ``spec["workdir"]`` (when set)
+    is the ranks' ``AUTODIST_WORKING_DIR``."""
     import datetime
     import urllib.request
+    spec = json.loads(spec)
+    if spec.get("workdir"):
+        os.environ["AUTODIST_WORKING_DIR"] = spec["workdir"]
     import torch
     import torch.distributed as dist
     from autodist_tpu_torch import AutoDist, observability
@@ -8099,7 +8154,6 @@ def obs_skew_rank(rank, world, port, spec):
     from autodist_tpu_torch.ops import build
     from autodist_tpu_torch.ops import flash_attention as fa
     from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
-    spec = json.loads(spec)
     device = spec["device"]
     if device == "cuda":
         torch.cuda.set_device(0)
@@ -8153,9 +8207,12 @@ def obs_skew_rank(rank, world, port, spec):
     out["ring"] = [r["i"] for r in skew.ring()]
     out["offset"] = skew.local_offset()
     # The planted clock shift, on one more exchange.
+    wall = skew._wall
     if rank == 1:
         skew._wall = lambda: time.time() + spec["shift_ms"] / 1e3
     shifted = skew.maybe_sync_clocks()
+    if rank == 1:  # the true clock again, for the trace flushed below
+        skew._wall, skew._local_offset = wall, out["offset"]
     if rank == 0:
         out["shifted"] = shifted
         out["anomalies"] = monitor.detector().anomalies()
@@ -8179,10 +8236,41 @@ def obs_skew_rank(rank, world, port, spec):
                 out["port_freed"] = True
             except OSError:
                 out["port_freed"] = False
+    # Phase 22 (c): matched spans, each ending as its barrier releases both
+    # (after one bare barrier: the ranks arrive here seconds apart).
+    dist.barrier()
+    for j in range(spec.get("syncs", 0)):
+        with observability.span("sync", i=j):
+            dist.barrier()
+    # Phase 22 (b): the chief alone writes the step text and the report.
+    if rank == 0:
+        flash = _flash_counts(fa)
+        t0 = time.perf_counter()
+        text = runner._step_text(mine)
+        t1 = time.perf_counter()
+        path = runner.write_report(mine)
+        out["report"] = {
+            "text_ms": (t1 - t0) * 1e3,
+            "write_ms": (time.perf_counter() - t1) * 1e3,
+            "all_reduce": len(re.findall(r"\ball-reduce\(", text)),
+            "grad_sync_all_reduce": _grad_sync_all_reduces(text),
+            "buckets": len(runner.bucket_plan()),
+            "page": os.path.basename(path),
+            "flash_moved": _flash_counts(fa) != flash}
+    t0 = time.perf_counter()
+    dist.barrier()
+    out["report_wait_s"] = time.perf_counter() - t0
+    out["trace"] = observability.flush_trace()
+    out["pid"] = os.getpid()
     del runner, state
     dist.destroy_process_group()
     print(json.dumps(out, default=str), flush=True)
     return 0
+
+
+def _grad_sync_all_reduces(text):
+    """The gradient sync's all-reduces in a step text (phase 22)."""
+    return len(re.findall(r"\ball-reduce\([^\n]*phase=grad-sync", text))
 
 
 _PROM_LINE = re.compile(
@@ -8194,8 +8282,10 @@ OBS21_STATUS = ("time", "hosts_reporting", "run", "step", "attribution",
 
 
 def _obs21_skew(torch, fa, card, cfg, device, batch_size, seq, masked,
-                steps):
-    """Phase 21 (d): two gloo ranks, skew, the aggregate and the monitor."""
+                steps, share=None):
+    """Phase 21 (d): two gloo ranks, skew, the aggregate and the monitor;
+    their working directory and results go to ``share["obs21"]`` for
+    phase 22."""
     import socket
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -8206,8 +8296,13 @@ def _obs21_skew(torch, fa, card, cfg, device, batch_size, seq, masked,
         "dtype": str(cfg.dtype).split(".")[-1], "batch": batch_size,
         "seq": seq, "masked": masked, "steps": steps,
         "monitor_port": monitor_port, "shift_ms": OBS21_SKEW_SHIFT_MS,
-        "sleep_factor": OBS21_SLEEP_FACTOR})
+        "sleep_factor": OBS21_SLEEP_FACTOR, "syncs": OBS22_SYNCS,
+        "workdir": os.path.join(share["dir"], "obs21_ranks")
+        if share else None})
     r0, r1 = _spawn_ranks(2, "--obs-skew", spec, "phase 21 (d) rank")
+    if share is not None:
+        share["obs21"] = {"dir": os.path.join(share["dir"], "obs21_ranks"),
+                          "ranks": (r0, r1)}
     first, planted = r0["summaries"]
     agg = r0["aggregate"][1]
     agg["hosts"] = {int(h): i for h, i in agg["hosts"].items()}
@@ -8282,8 +8377,10 @@ def obs21_phase(torch, fa, card, device, serve_cfg, train_cfg, lm_cfg,
                 profiled=OBS21_PROFILED, skew_steps=OBS21_SKEW_STEPS,
                 decode_requests=OBS21_DECODE_REQUESTS,
                 decode_tokens=OBS21_DECODE_TOKENS,
-                decode_bucket=OBS21_DECODE_BUCKET):
-    """Phase 21; returns {path: flash launches}."""
+                decode_bucket=OBS21_DECODE_BUCKET, share=None):
+    """Phase 21; returns {path: flash launches}. With ``share`` (a dict
+    holding a scratch ``"dir"``) (d)'s ranks write there, and
+    ``share["obs21"]`` keeps their directory and results for phase 22."""
     t_phase = time.perf_counter()
     print(f"phase 21: the rest of the in-process observability: serving "
           f"telemetry and the bucket memory check (BERT-base at seq "
@@ -8302,7 +8399,7 @@ def obs21_phase(torch, fa, card, device, serve_cfg, train_cfg, lm_cfg,
         out.update(_obs21_profile(torch, fa, card, train_cfg, device,
                                   batch_size, seq, masked, profiled))
         out.update(_obs21_skew(torch, fa, card, train_cfg, device,
-                               batch_size, seq, masked, skew_steps))
+                               batch_size, seq, masked, skew_steps, share))
     finally:
         for k, v in saved.items():
             _set_telemetry(**{k: v})
@@ -8313,6 +8410,272 @@ def obs21_phase(torch, fa, card, device, serve_cfg, train_cfg, lm_cfg,
     print(f"  (e) phase 21 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return out
+
+
+# Phase 22: the transform report, the step's op text and the merged
+# cluster timeline, on BERT-base training.
+OBS22_STEPS = 4          # one unroll=4 block
+OBS22_UNROLL = 4
+OBS22_SYNCS = 3          # matched sync spans each phase 21 (d) rank records
+OBS22_BARRIER_MS = 1.0   # a barrier's exit spread across the two ranks
+OBS22_PHASE_S = 40.0
+
+
+def _obs22_state(runner, state):
+    """Copies of what a step updates: params, optimizer state, the step
+    count, and every graph step's static batch buffers."""
+    from autodist_tpu_torch.utils.tree import leaves
+    out = [t.detach().clone() for t in leaves(state.params)]
+    out += [v.clone() for _, t in runner._update_tensors(state)
+            for v in state.opt_state.state.get(t, {}).values()]
+    out.append(state.step.clone())
+    for graph in runner._graphs.values():
+        out += [t.clone() for t in graph._static]
+    return out
+
+
+def _page_figures(page):
+    """Phase 22 (a): the page's attribution, goodput and memory figures
+    against the ledgers' own values at the page's rounding; returns the
+    figures that are missing from the page."""
+    from autodist_tpu_torch import report
+    from autodist_tpu_torch.observability import attribution, goodput, memory
+    attr = attribution.last_summary() or {}
+    good = goodput.last_summary() or {}
+    mem = memory.last_summary() or {}
+    want = [f"<td>{report._fmt_ms(attr.get(c))}</td>"
+            for c in ("wall_ms",) + attribution.COMPONENTS[:-1]]
+    want.append(f"goodput <b>{good.get('goodput_pct') or 0:.1f}%</b>")
+    want.append(f"predicted peak <b>{mem.get('predicted_peak_gb', 0):.3f}"
+                f" GiB</b>")
+    return [w for w in want if w not in page] + \
+        (["attribution summary"] if not attr else []) + \
+        (["goodput summary"] if not good else []) + \
+        (["memory summary"] if not mem else [])
+
+
+def _obs22_report(torch, fa, card, cfg, device, batch_size, seq, masked,
+                  graphs):
+    """Phase 22 (a); returns the run's flash launches."""
+    from autodist_tpu_torch import AutoDist, const, report
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
+    const.DEFAULT_GRAPH_DUMP_DIR = graphs
+    batch = bert.synthetic_batch(cfg, batch_size, seq, masked, seed=0)
+
+    def session(dev):
+        autodist_mod._reset_default()
+        ad = AutoDist(strategy_builder=AllReduce(), device=dev)
+        return ad.create_distributed_session(ad.capture(
+            bert.make_loss_fn(cfg),
+            bert.init(cfg, torch.Generator().manual_seed(0), device=dev),
+            functools.partial(torch.optim.Adam, lr=1e-4),
+            example_batch=batch))
+    runner = session(device)
+    state = runner.create_state()
+    _flash_counts(fa, reset=True)
+    state, metrics = runner.run(state, itertools.repeat(batch), OBS22_STEPS,
+                                unroll=OBS22_UNROLL)
+    loss = float(metrics["loss"][-1])
+    launched = _flash_counts(fa)
+    auto = sorted(os.listdir(graphs))
+    t0 = time.perf_counter()
+    report.render_report(runner.program, execution="CUDA graph")
+    render_ms = (time.perf_counter() - t0) * 1e3
+    before = _obs22_state(runner, state)
+    flash = _flash_counts(fa)
+    t0 = time.perf_counter()
+    path = runner.write_report(batch)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    dump = runner.dump_compiled(batch)
+    dump_ms = (time.perf_counter() - t0) * 1e3
+    after = _obs22_state(runner, state)
+    moved = {k: v - flash[k] for k, v in _flash_counts(fa).items()}
+    unchanged = len(before) == len(after) and all(
+        torch.equal(a, b) for a, b in zip(before, after))
+    with open(path) as f:
+        page = f.read()
+    with open(os.path.join(graphs, "report.html")) as f:
+        alias = f.read()
+    with open(dump) as f:
+        text = f.read()
+    item = runner.program.graph_item
+    capture = (f"<p>{len(item.variables)} variables ·\n"
+               f"{sum(v.size_bytes for v in item.variables):,} bytes ·")
+    lines = {k: text.count(f'custom_call_target="{k}"') for k in flash}
+    missing = _page_figures(page)
+    del runner, state, before, after
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu_text = session("cpu")._step_text(batch)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    autodist_mod._reset_default()
+    print(f"  (a) BERT-base MLM {batch_size} x {seq}, {OBS22_STEPS} steps of "
+          f"unroll={OBS22_UNROLL} (loss {loss:.4f}, flash launches "
+          f"{launched}); the capture rendered "
+          f"{auto}; render {render_ms:.1f} ms, write_report {write_ms:.1f} "
+          f"ms, dump_compiled {dump_ms:.1f} ms ({card}); step text "
+          f"{len(text.splitlines())} ops, {len(text)} chars, flash lines "
+          f"{lines}, collectives {report.collective_summary(text)}; the "
+          f"same program's step text on the CPU ({cpu_ms:.0f} ms with its "
+          f"capture) equal: {cpu_text == text}; state unchanged "
+          f"{unchanged}, flash launches moved {moved}; page figures "
+          f"missing {missing}", flush=True)
+    check(device != "cuda" or launched == {
+        k: cfg.num_layers * OBS22_STEPS for k in launched},
+        f"(a) the run's flash launches {launched}")
+    check(len(auto) == 2 and "report.html" in auto,
+          f"(a) the graph capture rendered {auto}")
+    check(page == alias, "(a) the page and its report.html alias differ")
+    check(capture in page, f"(a) the page's capture line lacks {capture!r}")
+    check(unchanged, "(a) write_report / dump_compiled changed the state")
+    check(not any(moved.values()), f"(a) flash launches moved {moved}")
+    check(lines == {k: cfg.num_layers for k in flash},
+          f"(a) the step text's flash lines {lines}")
+    check(cpu_text == text, "(a) the step text differs on the CPU")
+    check(not missing, f"(a) the page lacks the ledgers' {missing}")
+    return launched
+
+
+def _counts_agree(report_counts, buckets):
+    """Phase 22 (b)'s check: the gradient sync's all-reduces are the
+    bucket plan's, and the loss's mean is the one other."""
+    return (report_counts["grad_sync_all_reduce"] == buckets and
+            report_counts["all_reduce"] == buckets + 1)
+
+
+def _sync_gaps(doc):
+    """ms between the two hosts' ends of each matched ``sync`` span of a
+    merged timeline."""
+    ends = {}
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X" and e["name"] == "sync":
+            ends.setdefault(e["args"]["i"], {})[e["pid"]] = e["ts"] + e["dur"]
+    return [abs(v[0] - v[1]) / 1e3 for _, v in sorted(ends.items())
+            if set(v) == {0, 1}]
+
+
+def _plant_shift(src, dst, rank1_pid, shift_ms, offset_ms):
+    """A copy of the two ranks' directory as if rank 1's clock ran
+    ``shift_ms`` ahead (its trace anchor and flight times moved), its
+    trace stamped with ``offset_ms`` as its clock offset."""
+    shutil.copytree(src, dst)
+    trace = os.path.join(dst, "traces", f"autodist_trace_{rank1_pid}.json")
+    with open(trace) as f:
+        doc = json.load(f)
+    doc["metadata"]["epoch_anchor_us"] += shift_ms * 1e3
+    doc["metadata"]["clock_offset_ms"] = offset_ms
+    with open(trace, "w") as f:
+        json.dump(doc, f)
+    for path in glob.glob(os.path.join(dst, "logs",
+                                       f"flight_{rank1_pid}*.jsonl")):
+        with open(path) as f:
+            events = [json.loads(line) for line in f if line.strip()]
+        with open(path, "w") as f:
+            for e in events:
+                e["t"] = e["t"] + shift_ms / 1e3
+                f.write(json.dumps(e) + "\n")
+
+
+def _obs22_merge(card, obs21):
+    """Phase 22 (b) and (c), over phase 21 (d)'s ranks."""
+    from autodist_tpu_torch.tools import timeline
+    r0, r1 = obs21["ranks"]
+    rep = r0["report"]
+    print(f"  (b) rank 0 alone: step text {rep['text_ms']:.1f} ms, "
+          f"write_report {rep['write_ms']:.1f} ms ({card}); rank 1 waited "
+          f"{r1['report_wait_s']:.3f} s at its barrier; all-reduces "
+          f"{rep['all_reduce']} ({rep['grad_sync_all_reduce']} in the "
+          f"gradient sync), bucket_plan() {rep['buckets']}; flash launches "
+          f"moved {rep['flash_moved']}", flush=True)
+    check(_counts_agree(rep, rep["buckets"]), f"(b) step text counts {rep}")
+    check(not _counts_agree(rep, rep["buckets"] + 1),
+          "(b) the planted fault (a bucket plan one longer) passed")
+    check(not rep["flash_moved"], "(b) the step text launched a kernel")
+    check(r1["report_wait_s"] >= 0.5 * (rep["text_ms"] + rep["write_ms"])
+          / 1e3, f"(b) rank 1 waited {r1['report_wait_s']} s")
+    root = obs21["dir"]
+    t0 = time.perf_counter()
+    doc = timeline.merge(root)
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    by_host = {}
+    for path in sorted(glob.glob(os.path.join(root, "traces", "*.json"))):
+        with open(path) as f:
+            src = json.load(f)
+        by_host[src["metadata"]["host"]] = sorted(
+            (e["name"], e["dur"]) for e in src["traceEvents"]
+            if e.get("ph") == "X")
+    merged = {h: sorted((e["name"], e["dur"]) for e in doc["traceEvents"]
+                        if e.get("ph") == "X" and e["pid"] == h and
+                        e.get("cat") != "skew") for h in by_host}
+    true = {int(h): v for h, v in r0["summaries"][1]["hosts"].items()}
+    est = {int(h): v for h, v in (r0.get("shifted") or {}).items()}[1]
+    gaps = _sync_gaps(doc)
+    tol_true = true[1]["uncertainty_ms"] + OBS22_BARRIER_MS
+    tol = est["uncertainty_ms"] + OBS22_BARRIER_MS
+    planted = os.path.join(root + "_planted")
+    zeroed = os.path.join(root + "_zeroed")
+    _plant_shift(root, planted, r1["pid"], OBS21_SKEW_SHIFT_MS,
+                 est["offset_ms"])
+    _plant_shift(root, zeroed, r1["pid"], OBS21_SKEW_SHIFT_MS, 0.0)
+    planted_gaps = _sync_gaps(timeline.merge(planted))
+    zeroed_gaps = _sync_gaps(timeline.merge(zeroed))
+    shutil.rmtree(planted, ignore_errors=True)
+    shutil.rmtree(zeroed, ignore_errors=True)
+    print(f"  (c) merged {len(doc['traceEvents'])} events of hosts "
+          f"{doc['metadata']['hosts']} in {merge_ms:.1f} ms ({card}); spans "
+          f"a host {[len(v) for v in by_host.values()]}; sync span gaps "
+          f"{[round(g, 4) for g in gaps]} ms (tolerance {tol_true:.4f}); "
+          f"rank 1 planted {OBS21_SKEW_SHIFT_MS} ms ahead, estimated "
+          f"{est['offset_ms']:.4f} +- {est['uncertainty_ms']:.4f} ms: gaps "
+          f"{[round(g, 4) for g in planted_gaps]} ms (tolerance {tol:.4f}); "
+          f"offset zeroed: {[round(g, 4) for g in zeroed_gaps]} ms",
+          flush=True)
+    check(set(by_host) == {0, 1} and merged == by_host,
+          f"(c) spans lost or doubled in the merge: {len(by_host)} traces")
+    check(len(gaps) == len(planted_gaps) == OBS22_SYNCS,
+          f"(c) matched sync spans {gaps} / {planted_gaps}")
+    check(max(gaps) <= tol_true, f"(c) sync spans {gaps} ms apart")
+    check(max(planted_gaps) <= tol, f"(c) with the planted shift "
+          f"corrected the sync spans sit {planted_gaps} ms apart")
+    check(not max(zeroed_gaps) <= tol, f"(c) the planted fault (offset "
+          f"zeroed) passed: {zeroed_gaps} ms")
+
+
+def obs22_phase(torch, fa, card, device, cfg, share, batch_size=32, seq=128,
+                masked=20):
+    """Phase 22: (a) on a BERT ``cfg`` Runner here, (b) and (c) over phase
+    21 (d)'s ranks (``share["obs21"]``); returns {path: flash launches}
+    of (a)'s run."""
+    t_phase = time.perf_counter()
+    print(f"phase 22: the transform report, the step's op text and the "
+          f"merged cluster timeline; BERT-base MLM {batch_size} x {seq}",
+          flush=True)
+    saved = {k: os.environ.get(f"AUTODIST_{k}")
+             for k in ("TELEMETRY", "TRACE")}
+    from autodist_tpu_torch import const
+    graphs_was = const.DEFAULT_GRAPH_DUMP_DIR
+    graphs = os.path.join(share["dir"], "obs22_graphs")
+    os.makedirs(graphs, exist_ok=True)
+    try:
+        _set_telemetry(TELEMETRY=1, TRACE=None)
+        launched = _obs22_report(torch, fa, card, cfg, device, batch_size,
+                                 seq, masked, graphs)
+        _obs22_merge(card, share["obs21"])
+    finally:
+        const.DEFAULT_GRAPH_DUMP_DIR = graphs_was
+        for k, v in saved.items():
+            _set_telemetry(**{k: v})
+        from autodist_tpu_torch import autodist as autodist_mod
+        autodist_mod._reset_default()
+    took = time.perf_counter() - t_phase
+    print(f"  (d) phase 22 took {took:.1f} s", flush=True)
+    check(took <= OBS22_PHASE_S or device != "cuda",
+          f"(d) phase 22 took {took:.1f} s, over {OBS22_PHASE_S} s")
+    return {"obs22_report": launched}
 
 
 # Phase 16 (``--cards 4``): the ported lowerings on four cards over NCCL.
@@ -9166,8 +9529,7 @@ def main():
     hops = ring_kernel_phase(torch, fa)
     zoo.update(sp_phase(torch, fa, card, "cuda"))
     tp_kernels = tp_kernel_phase(torch, fa)
-    zoo.update(tp_phase(torch, fa, card, bert.bert_base(max_len=512),
-                        "cuda"))
+    zoo.update(tp_phase(torch, fa, card, _gloo_bert(bert), "cuda"))
     import tempfile
     share = {"dir": tempfile.mkdtemp(dir=build.BUILD_DIR)}
     try:
@@ -9180,8 +9542,8 @@ def main():
             torch, fa, shape=CP_ULYSSES_SHAPE, key="ulysses_tp",
             label="phase 14 (c)", who="Ulysses under TP: a rank's 3 heads "
             "over the whole sequence")
-        zoo.update(composed_bert_phase(torch, fa, card,
-                                       bert.bert_base(max_len=512), "cuda"))
+        zoo.update(composed_bert_phase(torch, fa, card, _gloo_bert(bert),
+                                       "cuda"))
         zoo.update(composed_pipeline_phase(torch, fa, card, "cuda",
                                            share["reference"]))
         two_axis, pptp_kernels = two_axis_phase(
@@ -9196,7 +9558,10 @@ def main():
                                  "cuda", share["dir"]))
         zoo.update(obs21_phase(torch, fa, card, "cuda",
                                bert.bert_base(max_len=512),
-                               bert.bert_base(max_len=128), lm.lm1b()))
+                               bert.bert_base(max_len=128), lm.lm1b(),
+                               share=share))
+        zoo.update(obs22_phase(torch, fa, card, "cuda",
+                               bert.bert_base(max_len=128), share))
     finally:
         shutil.rmtree(share["dir"], ignore_errors=True)
     fwd["launches"] = served + trained["flash_fwd"]

@@ -196,6 +196,39 @@ def test_gradients_match_jax(fn, cf, top_k):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_expert_products_as_named_einsums_are_bitwise_the_bmms(dtype,
+                                                               monkeypatch):
+    """``apply``'s two expert products run through ``utils/scope.einsum``
+    with the JAX package's specs (``"ecd,edh->ech"``, ``"ech,ehd->ecd"``),
+    so the step text and the per-scope costs name them as the JAX op
+    metadata does. Output, aux and every gradient are bitwise those of the
+    bare ``torch.bmm`` calls the einsums replaced (tolerance 0)."""
+    jcfg, cfg = _configs(dtype=dtype)
+    _, p = _params(jcfg)
+    rng = np.random.RandomState(3)
+    x = torch.tensor(rng.randn(24, 16).astype(np.float32))
+    c = torch.tensor(rng.randn(24, 16).astype(np.float32))
+
+    def run():
+        params = {path_to_name(k): t.detach().clone().requires_grad_()
+                  for k, t in flatten_with_path(p)[0]}
+        tree = {"gate": {"kernel": params["gate/kernel"]},
+                "up": {"kernel": params["up/kernel"]},
+                "down": {"kernel": params["down/kernel"]}}
+        xt = x.clone().requires_grad_()
+        out, aux = moe.apply(tree, cfg, xt)
+        loss = torch.sum(out.float() * c) + aux
+        return [out, aux] + list(torch.autograd.grad(
+            loss, list(params.values()) + [xt]))
+    got = run()
+    monkeypatch.setattr(moe, "einsum", lambda spec, a, b: torch.bmm(a, b))
+    want = run()
+    assert len(got) == len(want) == 6
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_ties_route_to_the_lower_expert_as_lax_top_k():
     """A zero gate kernel gives every expert the same probability: both
     packages route each token to experts 0..k-1 in that order, so the
