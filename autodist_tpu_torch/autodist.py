@@ -24,8 +24,11 @@ The optimizer is a factory ``trainable_tensors -> torch.optim.Optimizer``
 (optax, which the JAX package takes, has no PyTorch twin). The builder is
 the one given, else the one ``AUTODIST_STRATEGY`` names, else ``PS()``, as
 in the JAX package. ``build`` starts the ``torch.distributed`` world
-(``Cluster.start``: torchrun's environment, else a one-rank world) on
-``device`` (default ``"cuda"``, which raises without CUDA). On a world of
+(``Cluster.start``: torchrun's environment, the AutoDist launch contract,
+else a one-rank world) on ``device`` (default ``"cuda"``, which raises
+without CUDA). A ``launch: local|ssh`` spec of several processes starts it
+at construction instead: the chief first launches the workers
+(``Coordinator.launch_clients``), which re-run the same script. On a world of
 several ranks the chief (rank 0) builds the strategy once and ships it to
 the workers through the process group's c10d store
 (:meth:`AutoDist._ship_or_fetch_strategy`), so every rank runs the chief's
@@ -41,6 +44,7 @@ import torch.distributed as dist
 
 from autodist_tpu_torch import const, observability
 from autodist_tpu_torch.cluster import Cluster
+from autodist_tpu_torch.coordinator import Coordinator
 from autodist_tpu_torch.graph_item import GraphItem
 from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
 from autodist_tpu_torch.resource_spec import ResourceSpec
@@ -98,8 +102,21 @@ class AutoDist:
         self._mesh_axes = mesh_axes
         self._device = device
         self._cluster = Cluster(self._resource_spec)
+        self._coordinator = None
         self._runner = None
         self._fn_state = None
+        # Multi-process launch (a "launch: local|ssh" spec): the chief
+        # spawns the workers, which re-run this script, and every process
+        # joins the world now (the JAX package joins before any user code
+        # touches JAX). The strategy does not exist yet; once built, the
+        # chief ships it over the world's store.
+        spec = self._resource_spec
+        if (spec.local_launch or spec.remote_launch) and \
+                spec.num_processes > 1:
+            if self.is_chief:
+                self._coordinator = Coordinator(None, self._cluster)
+                self._coordinator.launch_clients()
+            self._cluster.start(resolve_device(device))
 
     @staticmethod
     def _resolve_builder(builder):
@@ -126,6 +143,18 @@ class AutoDist:
     @property
     def cluster(self):
         return self._cluster
+
+    @property
+    def coordinator(self):
+        """The chief's Coordinator (None on workers / before setup). Pass
+        it to ``CheckpointManager.run(..., coordinator=...)`` so the step
+        loop observes worker deaths (checkpoint-and-exit) and elastic
+        re-form requests."""
+        return self._coordinator
+
+    @property
+    def is_chief(self):
+        return not const.ENV.AUTODIST_WORKER.val
 
     @contextlib.contextmanager
     def scope(self):
@@ -263,11 +292,18 @@ class AutoDist:
         logging.info("fetched strategy %s (%s)", strategy.id, key)
         return strategy
 
+    def _setup(self, strategy):
+        """Create the chief's coordinator (one launched at construction
+        stays)."""
+        if self.is_chief and self._coordinator is None:
+            self._coordinator = Coordinator(strategy, self._cluster)
+
     def build(self, graph_item):
         """World -> strategy -> compile -> transform -> Runner."""
         device = self._cluster.start(resolve_device(self._device))
         with observability.span("strategy-build"):
             strategy = self._build_or_load_strategy(graph_item)
+        self._setup(strategy)
         logging.info("strategy %s on %s", strategy.id, device)
         mesh_axes = self._mesh_axes
         if mesh_axes is None and strategy.graph_config.mesh_axes:

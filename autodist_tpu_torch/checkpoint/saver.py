@@ -40,6 +40,7 @@ import os
 import shutil
 import threading
 import time
+import weakref
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -225,6 +226,62 @@ def _barrier():
         dist.barrier()
 
 
+# Managers whose writer thread may be running: an elastic re-exec
+# (``Coordinator.reform_now``) joins them first, so the exec never tears a
+# save.
+_MANAGERS = weakref.WeakSet()
+
+
+def join_writers():
+    """Wait for every manager's pending checkpoint write to be durable (no
+    barrier: a peer may be dead). A write that failed stays for that
+    manager's next wait to raise."""
+    for mgr in list(_MANAGERS):
+        writer = mgr._writer
+        if writer is not None:
+            writer.join()
+
+
+class _HandOff(Exception):
+    """Unwinds ``CheckpointManager.run``'s step loop to its drain (an
+    elastic re-form) or its emergency exit (checkpoint-and-exit), which
+    then run outside the loop's span."""
+
+    def __init__(self, elastic, step, state, torn=False, cause=None):
+        super().__init__(f"hand-off at step {step}")
+        self.elastic, self.step, self.state = elastic, step, state
+        self.torn, self.cause = torn, cause
+
+
+# How long a failed step or save waits for the supervision thread to note
+# the worker death that caused it (the watcher's waitpid returns as the
+# dead peer's sockets close, so it is usually at once).
+_DEATH_WAIT_S = 30.0
+
+
+def _death_noted(coordinator):
+    """Whether the coordinator notes a worker death (or a re-form) within
+    ``_DEATH_WAIT_S``; at once when it launched no worker."""
+    if not coordinator._procs:
+        return coordinator.failed or coordinator.reform_requested
+    deadline = time.monotonic() + _DEATH_WAIT_S
+    while True:
+        if coordinator.failed or coordinator.reform_requested:
+            return True
+        if time.monotonic() >= deadline:
+            return False
+        time.sleep(0.01)
+
+
+def _whole_on_every_rank(runner):
+    """True when every rank holds the whole state (no ``zero1`` shard,
+    ``fsdp`` or piece of another rank to gather): converting it to the
+    checkpoint form calls no collective, so one rank can write it alone."""
+    return not any(kind in ("zero1", "fsdp")
+                   for kind, _ in runner._kinds.values()) and \
+        not any(runner._piece_dims.values())
+
+
 def _logical_tree(runner, state):
     """(tree to write, logical state or None): a TrainState's checkpoint
     form through ``runner``, or a bare tree as it is."""
@@ -408,6 +465,7 @@ class CheckpointManager:
         self._writer = None      # the pending save's thread
         self._error = None       # what the pending save raised
         self._unsynced = False   # a save since the last barrier
+        _MANAGERS.add(self)
 
     @property
     def directory(self):
@@ -466,6 +524,18 @@ class CheckpointManager:
                 round((time.perf_counter() - t0) * 1e3, 3))
             observability.record_event("checkpoint-save", f"step {step}")
         return True
+
+    def _save_alone(self, step, state):
+        """Save ``state`` as ``step`` and wait until it is durable, without
+        a barrier (the pending write's one dropped too), for a world with a
+        dead peer. The caller checks the state is whole on this rank
+        (:func:`_whole_on_every_rank`): its checkpoint form then calls no
+        collective."""
+        self._unsynced = False
+        saved = self.save(step, state, force=True)
+        self._unsynced = False
+        self.wait_until_finished()
+        return saved
 
     def _write(self, step, staged, manifest, pruned):
         """The writer thread: the step made durable, then its manifest,
@@ -591,7 +661,7 @@ class CheckpointManager:
                                          into=into)
 
     def run(self, state, data_iter, num_steps, step_guard=None,
-            preemption=None, unroll=None):
+            preemption=None, unroll=None, coordinator=None):
         """Step loop with periodic checkpointing, from ``state.step`` to
         ``num_steps``; call again with :meth:`restore_or_init`'s state to
         resume after a preemption.
@@ -613,9 +683,24 @@ class CheckpointManager:
         K-aligned single-steps up to the next boundary first. With
         telemetry on, the loop records ``step.latency_ms`` and
         ``step.count`` in a ``step-loop`` span and finalizes the goodput
-        ledger, as the JAX package's does. Its coordinator, elastic drain
-        and re-tuning hooks are not ported (ROADMAP.md)."""
-        from autodist_tpu_torch.resilience import PreemptionHandler
+        ledger, as the JAX package's does.
+
+        ``coordinator`` (the chief's ``AutoDist.coordinator``) lets the loop
+        act on worker deaths: ``AUTODIST_CHAOS``'s ``kill_at`` /
+        ``kill_worker`` / ``slow_host`` fire after each dispatch; a pending
+        elastic re-form drains (:meth:`_elastic_drain`: an emergency save
+        when one process is left, the goodput segment, then
+        ``Coordinator.reform_now``, which re-execs the job, and
+        :class:`~autodist_tpu_torch.resilience.ElasticReform` under a
+        stubbed exec); a noted death under checkpoint-and-exit makes an
+        emergency save (alone, without a barrier, where a peer is dead and
+        the state is whole on this rank; else skipped and recorded) and
+        raises. A step or save that fails while the coordinator notes a
+        death (a collective with the dead peer) hands off the same way,
+        without saving the state the failed step may have torn. The
+        re-tuning hooks wait for A12 (ROADMAP.md)."""
+        from autodist_tpu_torch.resilience import (DivergenceAbort,
+                                                   PreemptionHandler)
         runner = self._runner
         metrics = None
         if unroll is None:
@@ -641,6 +726,14 @@ class CheckpointManager:
         # on it.
         span = (obs.span("step-loop", steps=num_steps, unroll=unroll)
                 if obs is not None else observability.tracing.NULL_SPAN)
+
+        def flush():  # the billed steps so far, before a hand-off
+            if clock is not None:
+                clock.flush(obs.registry(), final=True)
+
+        if coordinator is not None:
+            coordinator.attach_loop()
+        handoff = None
         try:
             with span:
                 i = int(state.step)
@@ -655,16 +748,25 @@ class CheckpointManager:
                         batch = next(data_iter)
                     if chaos is not None:
                         batch = chaos.maybe_poison_batch(i + 1, batch)
-                    if k > 1:
-                        state, metrics = runner.megastep(state, batch)
-                    else:
-                        state, metrics = runner.step(state, batch)
+                    try:
+                        if k > 1:
+                            state, metrics = runner.megastep(state, batch)
+                        else:
+                            state, metrics = runner.step(state, batch)
+                    except DivergenceAbort:
+                        raise
+                    except Exception as e:  # noqa: BLE001 - a dead peer?
+                        self._on_fault(e, i, state, coordinator, flush,
+                                       torn=True)
                     i += k
                     if clock is not None:
                         clock.mark(k, 0.0)
                         if i % cadence == 0 or i >= num_steps:
                             clock.flush(obs.registry(),
                                         final=i >= num_steps)
+                    if chaos is not None:
+                        chaos.maybe_kill(i)
+                        chaos.maybe_slow_host(i)
                     # The flag is read before any save, the emergency one
                     # included: a diverged state is rolled back, never
                     # saved.
@@ -682,8 +784,14 @@ class CheckpointManager:
                         step_guard.progressed()
                     if handler:
                         handler.check(self, i, state)  # raises Preempted
+                    if coordinator is not None:
+                        self._poll_coordinator(coordinator, i, state, flush)
                     if not diverged:
-                        self.save(i, state)
+                        try:
+                            self.save(i, state)
+                        except Exception as e:  # noqa: BLE001 - a dead peer?
+                            self._on_fault(e, i, state, coordinator, flush,
+                                           torn=False)
                 if clock is not None:
                     clock.flush(obs.registry(), final=True)
                 # The writer's last wait: never a step, a save's own time
@@ -692,9 +800,22 @@ class CheckpointManager:
                       and self._writer is not None
                       else observability.tracing.NULL_SPAN):
                     self.wait_until_finished()
+        except _HandOff as h:
+            handoff = h
         finally:
             if installed:
                 handler.uninstall()
+            if coordinator is not None:
+                coordinator.attach_loop(False)
+        if handoff is not None:
+            # Outside the step-loop span: the ledger then takes the loop's
+            # in-loop captures and saves off its steps, as at a loop's end.
+            if handoff.elastic:
+                self._elastic_drain(handoff.step, handoff.state, coordinator,
+                                    torn=handoff.torn, cause=handoff.cause,
+                                    unroll=unroll)
+            self._emergency_exit(handoff.step, handoff.state,
+                                 torn=handoff.torn, cause=handoff.cause)
         if obs is not None:
             try:
                 # The run-level goodput/MFU ledger: the same cold-path
@@ -704,6 +825,105 @@ class CheckpointManager:
             except Exception as e:  # noqa: BLE001
                 logging.debug("goodput not recorded: %s", e)
         return state, metrics
+
+    # -- worker deaths (``run(coordinator=...)``) ----------------------------
+
+    def _poll_coordinator(self, coordinator, step, state, flush):
+        """Between steps: a re-form requested (pending, or its exec under
+        way on the supervision thread) hands off to the drain; a death
+        noted under checkpoint-and-exit to the emergency exit."""
+        if coordinator.reform_requested or coordinator.failed:
+            flush()  # the segment this generation persists carries them
+            raise _HandOff(coordinator.reform_requested, step, state)
+
+    def _on_fault(self, error, step, state, coordinator, flush, torn):
+        """A step (``torn``: its state may be half-updated) or a save
+        raised. Where the coordinator notes a worker death within
+        ``_DEATH_WAIT_S`` (a collective with the dead peer failed first),
+        hand off as between steps, never saving a torn state; else
+        re-raise."""
+        if coordinator is None or not _death_noted(coordinator):
+            raise error
+        logging.warning("step loop: %s after a worker death; handing off",
+                        error)
+        flush()
+        raise _HandOff(coordinator.reform_requested, step, state, torn=torn,
+                       cause=error)
+
+    def _emergency_exit(self, step, state, torn=False, cause=None):
+        """checkpoint-and-exit: an emergency checkpoint at ``step``, then
+        raise. With one process a plain save; with a dead peer the chief
+        writes alone where the state is whole on it, else (a piece-split
+        state, or one a failed step may have torn) the save is skipped and
+        recorded: the last periodic checkpoint stands."""
+        from autodist_tpu_torch import resilience
+        with observability.span("emergency-save", step=step,
+                                why="worker-death"):
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                if torn or not _whole_on_every_rank(self._runner):
+                    resilience.record_event(
+                        "emergency-save",
+                        f"skipped at step {step}: "
+                        + ("the failed step may have torn the state" if torn
+                           else "the state is split across ranks and a "
+                                "peer is dead")
+                        + "; the last retained checkpoint stands")
+                else:
+                    self._save_alone(step, state)
+                    resilience.record_event(
+                        "emergency-save", f"worker death: checkpoint at "
+                                          f"step {step} written alone")
+            else:
+                self.save(step, state, force=True)
+                self.wait_until_finished()
+                resilience.record_event(
+                    "emergency-save", f"worker death: checkpoint at step "
+                                      f"{step}")
+        raise RuntimeError(
+            f"autodist_tpu_torch: a worker died (checkpoint-and-exit "
+            f"supervision); emergency checkpoint at step {step} "
+            f"(latest retained: {self.latest_step()})") from cause
+
+    def _elastic_drain(self, step, state, coordinator, torn=False,
+                       cause=None, unroll=1):
+        """Elastic re-form observed by the chief's step loop: emergency-save
+        when one process is left (and the state is not torn), else record
+        the skipped save (after a participant died, a world of several
+        processes cannot convert or barrier-save a state; the relaunch
+        resumes from the last retained periodic checkpoint); then close
+        this generation's goodput ledger (its segment is persisted once,
+        by ``reform_now``) and hand control to ``Coordinator.reform_now``,
+        which re-execs the job at the new world size. A stubbed exec
+        returns, and :class:`~autodist_tpu_torch.resilience.ElasticReform`
+        unwinds the caller."""
+        from autodist_tpu_torch import resilience
+        from autodist_tpu_torch.resilience import ElasticReform
+        processes = dist.get_world_size() if dist.is_initialized() else 1
+        if processes == 1 and not torn:
+            with observability.span("emergency-save", step=step,
+                                    why="elastic-re-form"):
+                self.save(step, state, force=True)
+                self.wait_until_finished()
+            resilience.record_event(
+                "emergency-save", f"elastic re-form: checkpoint at step "
+                                  f"{step} before shrinking")
+        else:
+            why = ("multi-process state is not chief-recoverable after a "
+                   "participant death" if processes > 1 else
+                   f"the failed step after {step} may have torn the state")
+            resilience.record_event(
+                "emergency-save", f"skipped: {why}; re-forming from the "
+                                  f"last retained checkpoint")
+        if self._runner._obs is not None:
+            try:
+                from autodist_tpu_torch.observability import goodput
+                goodput.finalize(self._runner, self._runner._obs.registry(),
+                                 unroll=unroll, persist=False)
+            except Exception as e:  # noqa: BLE001
+                logging.debug("goodput not recorded before re-form: %s", e)
+        coordinator.reform_now()
+        raise ElasticReform(new_world=coordinator.world_size,
+                            step=step) from cause
 
     def close(self):
         self.wait_until_finished()

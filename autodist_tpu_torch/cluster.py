@@ -13,11 +13,26 @@ Counterpart of ``autodist_tpu/cluster.py``. Two kinds of mesh:
   the devices of this one process, as in slice 1; a replica places on one
   of them.
 
-With ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT`` in the
-environment (the ``torchrun`` contract) ``start`` joins that world; without
-them it starts a one-rank world on an in-process ``HashStore`` (no port to
-race for). A world the caller initialized first is joined, not replaced,
-and :meth:`Cluster.terminate` leaves it alone.
+``start`` joins a world from one of two launch contracts:
+
+* ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT`` in the
+  environment (``torchrun``'s);
+* the AutoDist contract, where the resource spec has several processes
+  (``launch: local|ssh``, whose chief starts the workers, or a platform
+  that sets the env): rank ``AUTODIST_PROCESS_ID`` of the spec's
+  ``num_processes``, over a ``tcp://`` init at ``AUTODIST_COORDINATOR``
+  (else the spec's ``coordinator:``), where the chief hosts the c10d TCP
+  store. The join retries transient faults (``resilience.retry``), as the
+  JAX package retries its ``jax.distributed.initialize``. A CUDA device
+  with no index is the spec's card for this process. The backend is NCCL
+  where every process has a card of its own, gloo where the spec puts two
+  processes of one host on one card (NCCL cannot run two ranks on one
+  device) or the device is the CPU.
+
+Without either, it starts a one-rank world on an in-process ``HashStore``
+(no port to race for: a re-exec'd chief at world size 1 cannot collide with
+its predecessor's port). A world the caller initialized first is joined,
+not replaced, and :meth:`Cluster.terminate` leaves it alone.
 """
 import math
 import os
@@ -210,42 +225,115 @@ class Cluster:
     def started(self):
         return self._device is not None
 
+    def _contract(self):
+        """``(rank, world size)`` of the AutoDist launch contract when the
+        spec has several processes and torchrun's env is absent, else
+        None."""
+        spec = self._resource_spec
+        if spec.num_processes <= 1 or \
+                all(k in os.environ for k in _TORCHRUN_ENV):
+            return None
+        return const.ENV.AUTODIST_PROCESS_ID.val, spec.num_processes
+
+    def _backend(self, device, contract):
+        """(backend, why): gloo for the CPU and where the spec puts two
+        processes of one host on one card, else NCCL."""
+        if device.type != "cuda":
+            return "gloo", "cpu"
+        if contract is None:
+            return "nccl", "one card a process"
+        spec = self._resource_spec
+        seen = {}
+        for d in spec.accelerator_devices:
+            host = "local" if spec.local_launch else d.host_address
+            key = (host, d.device_index)
+            if seen.setdefault(key, d.process_index) != d.process_index:
+                return "gloo", (f"processes {seen[key]} and "
+                                f"{d.process_index} share card "
+                                f"{d.device_index} of {host}")
+        return "nccl", "one card a process"
+
     def start(self, device):
         """Join (or start) the ``torch.distributed`` world for this rank's
         ``device`` and return the device.
 
         A CUDA device without an index becomes ``cuda:LOCAL_RANK`` under
-        torchrun, else the current device, and is made current. The resource
-        spec then describes the world: one device per rank.
+        torchrun, the spec's card of this process under the AutoDist
+        contract, else the current device, and is made current. The
+        resource spec then describes the world, one device per rank, and
+        keeps the parsed spec's launch fields. A ``tpu:`` spec is refused.
         """
         if self.started:
             return self._device
+        spec = self._resource_spec
+        if spec._source == "tpu":
+            raise ValueError(
+                "a tpu: resource spec describes TPU hosts, and no job starts "
+                "from one on a CUDA card: describe the cluster with a nodes: "
+                "list whose nodes name their cards with gpus: (one node per "
+                "card under launch: local|ssh)")
+        contract = self._contract()
         device = torch.device(device)
         if device.type == "cuda":
             if device.index is None:
-                device = torch.device("cuda", int(os.environ.get(
-                    "LOCAL_RANK", torch.cuda.current_device())))
+                mine = [d for d in spec.devices
+                        if d.device_type == DeviceType.GPU and
+                        d.process_index == contract[0]] \
+                    if contract is not None else []
+                index = mine[0].device_index if mine else int(
+                    os.environ.get("LOCAL_RANK",
+                                   torch.cuda.current_device()))
+                device = torch.device("cuda", index)
             torch.cuda.set_device(device)
         if not dist.is_initialized():
-            backend = "nccl" if device.type == "cuda" else "gloo"
-            with observability.span("distributed-init", backend=backend):
+            backend, why = self._backend(device, contract)
+            with observability.span("distributed-init", backend=backend,
+                                    why=why):
                 if all(k in os.environ for k in _TORCHRUN_ENV):
                     dist.init_process_group(
                         backend, init_method="env://",
                         rank=int(os.environ["RANK"]),
                         world_size=int(os.environ["WORLD_SIZE"]))
+                elif contract is not None:
+                    self._join_contract(backend, *contract)
                 else:
                     dist.init_process_group(backend,
                                             store=dist.HashStore(), rank=0,
                                             world_size=1)
             self._owns_group = True
-            logging.info("started a %s world: rank %d of %d on %s", backend,
-                         dist.get_rank(), dist.get_world_size(), device)
+            logging.info("started a %s world (%s): rank %d of %d on %s",
+                         backend, why, dist.get_rank(),
+                         dist.get_world_size(), device)
         self._device = device
         self._resource_spec = ResourceSpec.world(
             device, dist.get_rank(), dist.get_world_size(),
-            self._resource_spec.mesh_hints)
+            spec.mesh_hints, parsed=spec)
         return device
+
+    def _join_contract(self, backend, rank, world_size):
+        """``init_process_group`` over ``tcp://`` at the contract's
+        coordinator. The join races the chief's start (a worker dialing a
+        store that is not up yet): transient faults retry with backoff."""
+        from autodist_tpu_torch.resilience.retry import (
+            retry_call, transient_runtime_error)
+        spec = self._resource_spec
+        coordinator = (const.ENV.AUTODIST_COORDINATOR.val or spec.coordinator
+                       or f"{spec.chief_address}:"
+                          f"{const.DEFAULT_COORDINATOR_PORT}")
+        logging.info("joining the world at tcp://%s as rank %d of %d",
+                     coordinator, rank, world_size)
+        retry_call(dist.init_process_group, backend,
+                   init_method=f"tcp://{coordinator}", rank=rank,
+                   world_size=world_size,
+                   is_retryable=transient_runtime_error,
+                   describe="torch.distributed.init_process_group")
+
+    def is_chief(self):
+        """Rank 0 of the world once started, else the launch contract's
+        process 0."""
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_rank() == 0
+        return const.ENV.AUTODIST_PROCESS_ID.val == 0
 
     def build_mesh(self, axis_sizes=None):
         """Build a named mesh: over the world's ranks once :meth:`start`

@@ -21,6 +21,10 @@ DEFAULT_GRAPH_DUMP_DIR = os.path.join(DEFAULT_WORKING_DIR, "graphs")
 DEFAULT_SERIALIZATION_DIR = os.path.join(DEFAULT_WORKING_DIR, "strategies")
 DEFAULT_CHECKPOINT_DIR = os.path.join(DEFAULT_WORKING_DIR, "checkpoints")
 
+# The chief's port when a launched spec names no ``coordinator:`` (the JAX
+# package's default): the world's c10d TCP store listens there.
+DEFAULT_COORDINATOR_PORT = 15500
+
 # How long a worker waits for the chief to publish the serialized strategy
 # on the process group's store (the chief's capture and build can trail the
 # worker's arrival); AUTODIST_STRATEGY_SHIP_TIMEOUT_MS overrides it.
@@ -39,6 +43,15 @@ ALL_MESH_AXES = (MESH_AXIS_DATA, MESH_AXIS_MODEL, MESH_AXIS_SEQ,
 class ENV(enum.Enum):
     """Typed environment variables (``name``, type, default)."""
 
+    # -- the chief->worker launch contract (coordinator.py, cluster.py) ------
+    AUTODIST_WORKER = ("AUTODIST_WORKER", str, "")           # non-empty => this process is a worker, value = its node's address
+    AUTODIST_PROCESS_ID = ("AUTODIST_PROCESS_ID", int, 0)    # this process's rank, assigned by the launcher
+    AUTODIST_NUM_PROCESSES = ("AUTODIST_NUM_PROCESSES", int, 1)
+    AUTODIST_COORDINATOR = ("AUTODIST_COORDINATOR", str, "") # "host:port" of the chief's c10d TCP store
+    AUTODIST_IS_TESTING = ("AUTODIST_IS_TESTING", bool, False)
+    AUTODIST_SSH_BIN = ("AUTODIST_SSH_BIN", str, "ssh")      # ssh client override (tests: loopback shim)
+    AUTODIST_SCP_BIN = ("AUTODIST_SCP_BIN", str, "scp")      # scp client override
+    AUTODIST_DEBUG_REMOTE = ("AUTODIST_DEBUG_REMOTE", bool, False)  # log the ssh argv instead of running it
     AUTODIST_MIN_LOG_LEVEL = ("AUTODIST_MIN_LOG_LEVEL", str, "INFO")
     AUTODIST_DUMP_GRAPHS = ("AUTODIST_DUMP_GRAPHS", bool, False)  # dump the strategy at each compile stage
     AUTODIST_STRATEGY = ("AUTODIST_STRATEGY", str, "")  # strategy builder by name ("ps", "parallax", "allreduce", ...; "" => PS() in AutoDist, AllReduce when serving)
@@ -49,6 +62,10 @@ class ENV(enum.Enum):
     AUTODIST_GUARD_CHECK_EVERY = ("AUTODIST_GUARD_CHECK_EVERY", int, 10)   # StepGuard host-check cadence (steps)
     AUTODIST_GUARD_MAX_STRIKES = ("AUTODIST_GUARD_MAX_STRIKES", int, 3)    # consecutive rollbacks before abort
     AUTODIST_RETRY_MAX_ATTEMPTS = ("AUTODIST_RETRY_MAX_ATTEMPTS", int, 4)  # transient-I/O retry budget (resilience/retry.py)
+    AUTODIST_SUPERVISION = ("AUTODIST_SUPERVISION", str, "abort")          # abort | restart-worker | checkpoint-and-exit | elastic
+    AUTODIST_MAX_WORKER_RESTARTS = ("AUTODIST_MAX_WORKER_RESTARTS", int, 2)  # per-worker respawn budget (restart-worker)
+    AUTODIST_ELASTIC_MIN_WORLD = ("AUTODIST_ELASTIC_MIN_WORLD", int, 1)  # elastic supervision never shrinks below this world size (escalates to abort)
+    AUTODIST_ELASTIC_WORLD = ("AUTODIST_ELASTIC_WORLD", int, 0)  # re-formed world-size override applied to the resource spec (set by Coordinator.reform_now; 0 => spec as written)
     AUTODIST_UNROLL = ("AUTODIST_UNROLL", int, 1)  # fused steps per dispatch (megastep: one CUDA graph of K steps; 1 => one step per dispatch)
     AUTODIST_PREFETCH_DEPTH = ("AUTODIST_PREFETCH_DEPTH", int, 2)  # DevicePrefetcher in-flight transfers (0 => passthrough)
     AUTODIST_LOADER_RING = ("AUTODIST_LOADER_RING", int, 2)        # native async assembly ring depth (0 => synchronous)

@@ -42,8 +42,7 @@ for the *run*: what fraction of total wall-clock was productive training
   reads as a single priced bar instead of smearing across
   ``emergency_save_ms``/``reexec_gap_ms``;
 * ``reexec_gap_ms`` — dead time between elastic re-exec generations
-  (priced only by the JAX package's cross-generation stitcher, which
-  comes to the port with elastic re-exec: 0 in one segment);
+  (priced only by the cross-generation stitcher, below);
 * ``data_wait_ms`` — host time blocked on the input pipeline;
 * ``other_ms`` — the remainder (imports, idle, python overhead),
   **surfaced, never absorbed**: the classes sum to the measured process
@@ -59,14 +58,16 @@ productive step time only (what the hardware achieves while actually
 stepping).  ``note_mfu`` feeds the tuner calibration as a sanity input
 (an MFU > 1 means the peak table or the flops estimate is wrong).
 
-**Segments** (docs/goodput.md): every chief process persists a goodput
-*segment* next to its flight-recorder log
-(``logs/goodput_<run>_g<generation>.json``), keyed by the run id
+**Cross-generation stitching** (docs/goodput.md): every chief process
+persists a goodput *segment* next to its flight-recorder log
+(``logs/goodput_<run>_g<generation>.json``). The run id
 (``AUTODIST_RUN_ID``, minted by the chief) and the generation index
-(``AUTODIST_RUN_GENERATION``). The JAX package's ``stitch_run`` /
-``priced_downtime`` / ``reexec_env``, which read them across elastic
-re-exec generations, come with their callers (ROADMAP.md, A5 + A9 and
-A12).
+(``AUTODIST_RUN_GENERATION``) are carried through
+``Coordinator.reform_now``'s re-exec env (:func:`reexec_env`), so after an
+elastic shrink the surviving chief can :func:`stitch_run` the full
+timeline, the dead time between generations priced as the
+``reexec_gap_ms`` class, and :func:`priced_downtime` gives the mean price
+of a re-exec episode and of an in-place switch.
 
 Cost discipline: everything here runs on the cold finalize path (once
 per ``Runner.run`` / ``CheckpointManager.run``); with
@@ -197,6 +198,15 @@ def generation():
     """This process's generation index within the run (0 = the original
     incarnation; ``Coordinator.reform_now`` bumps it per re-exec)."""
     return max(0, int(const.ENV.AUTODIST_RUN_GENERATION.val))
+
+
+def reexec_env():
+    """Env-contract entries for the NEXT generation: same run id, next
+    generation index (consumed by ``Coordinator.reform_now``)."""
+    return {
+        const.ENV.AUTODIST_RUN_ID.var_name: run_id(),
+        const.ENV.AUTODIST_RUN_GENERATION.var_name: str(generation() + 1),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -530,10 +540,112 @@ def segments_for(run=None, log_dir=None):
     return out
 
 
+def stitch_run(run=None, log_dir=None):
+    """Reconstruct the full run timeline across elastic re-exec
+    generations: per-class totals summed over every persisted segment,
+    plus the dead time between consecutive generations priced as the
+    ``reexec_gap_ms`` class. Returns ``None`` with no segments.
+
+    The stitched MFU weighs each segment's wall by ITS capacity (a shrink
+    changes the denominator mid-run); gap time is priced at the previous
+    generation's capacity, the fleet paid for while the job re-formed.
+
+    A generation that ended because the self-healing controller evicted a
+    degraded host (``end_reason == "selfheal"``) is one *episode*: its
+    drain (``emergency_save_ms``) and the re-exec gap after it both move
+    to ``selfheal_ms``, so the classes still sum to the stitched wall."""
+    segs = segments_for(run, log_dir)
+    if not segs:
+        return None
+    classes = {k: 0.0 for k in BADPUT_CLASSES}
+    goodput_ms = 0.0
+    model_flops = 0.0
+    peak_time = 0.0  # integral of peak capacity over wall time (flops)
+    gaps = []
+    selfheal_episodes = []
+    for i, seg in enumerate(segs):
+        selfheal = seg.get("end_reason") == "selfheal"
+        goodput_ms += seg.get("goodput_ms", 0.0)
+        for k, v in (seg.get("classes") or {}).items():
+            if selfheal and k == "emergency_save_ms":
+                k = "selfheal_ms"
+            classes[k] = classes.get(k, 0.0) + float(v or 0.0)
+        peak_time += (seg.get("wall_ms", 0.0) / 1e3
+                      * (seg.get("peak_flops_total") or 0.0))
+        if seg.get("model_flops"):
+            model_flops += seg["model_flops"]
+        if i + 1 < len(segs):
+            gap_ms = max(0.0, (segs[i + 1].get("start", 0.0)
+                               - seg.get("end", 0.0)) * 1e3)
+            gaps.append(round(gap_ms, 3))
+            if selfheal:
+                classes["selfheal_ms"] += gap_ms
+                drain_ms = float((seg.get("classes") or {}).get(
+                    "emergency_save_ms") or 0.0)
+                selfheal_episodes.append({
+                    "generation": seg.get("generation"),
+                    "drain_ms": round(drain_ms, 3),
+                    "gap_ms": round(gap_ms, 3),
+                    "total_ms": round(drain_ms + gap_ms, 3),
+                })
+            else:
+                classes["reexec_gap_ms"] += gap_ms
+            peak_time += gap_ms / 1e3 * (seg.get("peak_flops_total") or 0.0)
+    wall_ms = max(0.0, (segs[-1].get("end", 0.0)
+                        - segs[0].get("start", 0.0)) * 1e3)
+    classes = {k: round(v, 3) for k, v in classes.items()}
+    mfu = (model_flops / peak_time
+           if model_flops and peak_time > 0 else None)
+    return {
+        "run_id": segs[0].get("run_id"),
+        "generations": [s.get("generation") for s in segs],
+        "wall_ms": round(wall_ms, 3),
+        "goodput_ms": round(goodput_ms, 3),
+        "goodput_pct": (round(100.0 * goodput_ms / wall_ms, 2)
+                        if wall_ms > 0 else None),
+        "classes": classes,
+        "reexec_gaps_ms": gaps,
+        "selfheal_episodes": selfheal_episodes,
+        "steps": sum(int(s.get("steps") or 0) for s in segs),
+        "model_flops": model_flops or None,
+        "mfu": mfu,
+        "segments": segs,
+    }
+
+
+def priced_downtime(run=None, log_dir=None):
+    """Measured downtime prices from this run's own ledger history: the
+    mean in-place switch downtime (``retune_switch_ms`` per switch) and
+    the mean re-exec episode cost (drain + gap per generation boundary
+    for self-heal episodes, the gap alone for plain elastic ones). A key
+    is ``None`` when the run has no history of that kind yet."""
+    out = {"retune_switch_ms": None, "reexec_ms": None}
+    try:
+        st = stitch_run(run, log_dir)
+    except Exception as e:  # noqa: BLE001 - pricing degrades, never raises
+        logging.debug("goodput: priced_downtime unavailable: %s", e)
+        return out
+    if st is None:
+        return out
+    classes = st.get("classes") or {}
+    switches = 0
+    for seg in st.get("segments") or ():
+        switches += int(seg.get("retune_switches") or 0)
+    if switches > 0 and classes.get("retune_switch_ms"):
+        out["retune_switch_ms"] = classes["retune_switch_ms"] / switches
+    gaps = st.get("reexec_gaps_ms") or ()
+    heal = st.get("selfheal_episodes") or ()
+    if gaps:
+        total = (sum(float(ep.get("total_ms") or 0.0) for ep in heal)
+                 + float(classes.get("reexec_gap_ms") or 0.0))
+        out["reexec_ms"] = total / len(gaps)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # finalize (the one cold-path entry the step loops call)
 
-def finalize(runner=None, registry=None, unroll=1):
+def finalize(runner=None, registry=None, unroll=1, persist=True):
     """End-of-loop bookkeeping: build the segment, publish the
     ``goodput.*`` / ``mfu`` gauges, persist the segment file (chief),
     write the ``goodput.json`` sidecar under ``AUTODIST_DUMP_GRAPHS``,
@@ -541,7 +653,9 @@ def finalize(runner=None, registry=None, unroll=1):
     runner's program at ``unroll``, :func:`~autodist_tpu_torch.tuner.
     calibration.path_for`), and drop a
     flight-recorder event.  Callers gate on telemetry — with
-    ``AUTODIST_TELEMETRY=0`` this is never reached (test-pinned)."""
+    ``AUTODIST_TELEMETRY=0`` this is never reached (test-pinned). The
+    elastic drain passes ``persist=False``: ``Coordinator.reform_now``
+    persists the generation's segment once, just before its re-exec."""
     summary = collect(runner)
     set_last_summary(summary)
     if registry is not None:
@@ -556,7 +670,8 @@ def finalize(runner=None, registry=None, unroll=1):
         if summary["hfu"] is not None:
             registry.gauge("goodput.hfu").set(round(summary["hfu"], 6))
         registry.gauge("run.generation").set(summary["generation"])
-    persist_segment(summary)
+    if persist:
+        persist_segment(summary)
     if const.ENV.AUTODIST_DUMP_GRAPHS.val:
         try:
             const.ensure_working_dirs()

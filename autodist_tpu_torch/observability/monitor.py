@@ -15,9 +15,10 @@ threaded HTTP server exposing
   per-layer profile, the pipeline bubble, the skew split, the memory and
   goodput ledgers, per-rank heartbeat age + latency percentiles, serve
   queue depth / p99 / SLO-burn, decode throughput, and the active
-  anomaly list. The JAX page's ``retune`` section (the online re-tuning
-  controller and self-healing, ROADMAP.md A12) is not ported, nor the
-  stitched goodput across elastic re-exec generations (A5 + A9).
+  anomaly list, and the run's identity with its goodput stitched across
+  elastic re-exec generations. The JAX page's ``retune`` section (the
+  online re-tuning controller and self-healing, ROADMAP.md A12) is not
+  ported.
 
 Everything is read-only over state other layers already maintain (the
 metrics registry, ``cluster.gathered()``, ``attribution.last_summary()``)
@@ -506,6 +507,13 @@ def status():
                 "mfu": g.get("mfu"),
                 "hfu": g.get("hfu"),
             }
+            if len(segs) > 1:
+                stitched = goodput_mod.stitch_run()
+                if stitched:
+                    goodput_sec["stitched"] = {
+                        k: stitched[k] for k in
+                        ("generations", "wall_ms", "goodput_pct",
+                         "classes", "mfu", "reexec_gaps_ms")}
     except Exception as e:  # noqa: BLE001 - a scrape must never fail here
         logging.debug("monitor: goodput section unavailable: %s", e)
 

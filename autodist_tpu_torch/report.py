@@ -378,15 +378,22 @@ _GOODPUT_LABELS = {
 
 def _render_goodput():
     """"Run goodput": the run-level wall-clock classification
-    (observability/goodput.py) as one stacked bar plus the class-total
-    table, with the MFU headline: the JAX renderer over the port's ledger,
-    whose summaries carry the same keys. The JAX page stitches the
-    segments of an elastic run's re-exec generations; the port renders
-    the last loop's segment (no stitcher yet, ROADMAP A5 + A9): the same
-    summary gives the JAX page's fragment for an unstitched run. Returns
-    "" before the first finalized loop; fail-open like every section."""
+    (observability/goodput.py) as one stacked bar per generation plus the
+    class-total table, with the MFU headline: the JAX renderer over the
+    port's ledger, whose summaries carry the same keys. When segments from
+    more than one elastic re-exec generation exist, the STITCHED run
+    renders: the re-exec gap shows up as a priced badput bar, not as a
+    fresh run. Returns "" before the first finalized loop; fail-open like
+    every section."""
     from autodist_tpu_torch.observability import goodput
-    summ = goodput.last_summary()
+    stitched = None
+    try:
+        segs = goodput.segments_for()
+        if len(segs) > 1:
+            stitched = goodput.stitch_run()
+    except Exception as e:  # noqa: BLE001 - stitching is best-effort
+        logging.debug("report: goodput stitch unavailable: %s", e)
+    summ = stitched or goodput.last_summary()
     if not summ or not summ.get("wall_ms"):
         return ""
     order = ("goodput_ms",) + goodput.BADPUT_CLASSES
@@ -409,6 +416,13 @@ def _render_goodput():
                 f"<div class=wf>{''.join(spans)}</div>")
 
     bars = [bar(values, f"run &middot; {wall:.0f} ms wall")]
+    if stitched:
+        for seg in stitched["segments"]:
+            sv = dict(seg.get("classes") or {})
+            sv["goodput_ms"] = seg.get("goodput_ms", 0.0)
+            bars.append(bar(sv, f"generation {seg.get('generation')} "
+                                f"&middot; {seg.get('wall_ms', 0):.0f} ms "
+                                f"&middot; {seg.get('steps', 0)} steps"))
     legend = " ".join(
         f"<span class=badge style=\"background:{_GOODPUT_COLORS[c]}\">"
         f"{_GOODPUT_LABELS[c]}</span>" for c in order)
@@ -418,7 +432,7 @@ def _render_goodput():
         f"<td>{100.0 * (values.get(c) or 0.0) / wall:.1f}%</td></tr>"
         for c in order)
     mfu = summ.get("mfu")
-    hfu = summ.get("hfu")
+    hfu = summ.get("hfu") if not stitched else None
     headline_bits = [
         f"goodput <b>{summ.get('goodput_pct') or 0:.1f}%</b> of "
         f"{wall:.0f} ms wall",
@@ -428,6 +442,16 @@ def _render_goodput():
         headline_bits.append(f"MFU <b>{100.0 * mfu:.3f}%</b>")
     if hfu is not None:
         headline_bits.append(f"HFU {100.0 * hfu:.3f}%")
+    if stitched:
+        headline_bits.append(
+            f"stitched across generations {stitched['generations']} "
+            f"(re-exec gaps {stitched['reexec_gaps_ms']} ms)")
+        if stitched.get("selfheal_episodes"):
+            eps = stitched["selfheal_episodes"]
+            headline_bits.append(
+                f"{len(eps)} self-heal episode{'s' if len(eps) > 1 else ''} "
+                f"({sum(e['total_ms'] for e in eps):.0f} ms "
+                f"drain + re-exec, billed as self-heal)")
     return ("<h2>9 &middot; Run goodput</h2>"
             f"<p class=meta>{' · '.join(headline_bits)}</p>"
             f"<p class=meta>{legend}</p>" + "".join(bars)

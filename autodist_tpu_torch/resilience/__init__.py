@@ -9,13 +9,14 @@ Counterpart of ``autodist_tpu/resilience/``:
   emergency checkpoint before exit;
 * :mod:`~autodist_tpu_torch.resilience.retry`: jittered exponential
   backoff for strategy shipping and checkpoint I/O;
+* :mod:`~autodist_tpu_torch.resilience.supervision`: worker-death
+  policies for the Coordinator (abort | restart-worker |
+  checkpoint-and-exit | elastic);
 * :mod:`~autodist_tpu_torch.resilience.chaos`: deterministic fault
   injection (``AUTODIST_CHAOS``), so every recovery path can be driven.
 
 Every recovery action is recorded with :func:`record_event` (and on the
-flight recorder, ``observability.recorder``). The JAX
-package's ``supervision`` (worker-death policies) waits for
-``coordinator.py`` (ROADMAP.md).
+flight recorder, ``observability.recorder``).
 """
 import threading
 import time
@@ -59,10 +60,16 @@ from autodist_tpu_torch.resilience.guard import (  # noqa: E402
     DivergenceAbort, StepGuard)
 from autodist_tpu_torch.resilience.preemption import (  # noqa: E402
     Preempted, PreemptionHandler)
+from autodist_tpu_torch.resilience.supervision import (  # noqa: E402
+    AbortPolicy, CheckpointAndExitPolicy, ElasticPolicy, ElasticReform,
+    RestartPolicy, supervision_policy)
 
 __all__ = [
     "record_event", "events", "clear_events",
     "RetryPolicy", "retry_call", "retryable",
     "StepGuard", "DivergenceAbort",
     "PreemptionHandler", "Preempted",
+    "AbortPolicy", "RestartPolicy", "CheckpointAndExitPolicy",
+    "ElasticPolicy", "ElasticReform",
+    "supervision_policy",
 ]

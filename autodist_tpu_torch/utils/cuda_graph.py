@@ -11,8 +11,12 @@ the same output tensors on every replay, overwritten.
   created state exist before capture) and hands back *that* run's outputs;
   then it captures ``fn`` on the same stream. Capture errors are
   thread-local: other threads (serving replicas, decode lanes) may run
-  kernels while one captures. A capture that fails raises; nothing falls
-  back to the eager function.
+  kernels while one captures. No automatic Python GC pass runs inside the
+  capture (:func:`_no_collection`): one would run, on the capturing thread,
+  the finalizers of whatever it frees, and a finalizer that calls CUDA
+  there (an event query, a pinned free) invalidates the capture
+  ("operation not permitted when stream is capturing"). A capture that
+  fails raises; nothing falls back to the eager function.
 * **Ownership.** A graph's memory pool lives as long as the graph. An
   object that owns a graph of its own method passes the method through
   :func:`weak_call`, so the two form no reference cycle and dropping the
@@ -31,6 +35,7 @@ the same output tensors on every replay, overwritten.
   directly, on the same static buffers.
 """
 import contextlib
+import gc
 import threading
 import weakref
 
@@ -49,6 +54,20 @@ def _stream_capturing():
         return torch.cuda.is_current_stream_capturing()
     except RuntimeError:
         return False
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """The cyclic collector off for the block (``torch.cuda.graph``
+    collects once on entry; the allocations of a captured step then start
+    dozens of automatic passes), and back as it was after."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def count_launch(counter, n=1):
@@ -160,7 +179,8 @@ class Graph:
             with torch.cuda.stream(side):
                 warm = self.fn()
             graph = torch.cuda.CUDAGraph()
-            with recording_launches(side.cuda_stream) as counts:
+            with recording_launches(side.cuda_stream) as counts, \
+                    _no_collection():
                 with torch.cuda.graph(graph, stream=side,
                                       capture_error_mode="thread_local"):
                     outputs = self.fn()

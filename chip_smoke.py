@@ -15,6 +15,9 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    ``cuobjdump -sass`` that every TMA / wgmma instantiation (the forward at
    d = 64 and 128; the backward's dq at d = 64 and 128 and dk/dv at d = 64,
    each with f32 and bf16 outputs) holds HGMMA and UTMALDG instructions;
+   meanwhile one child process fills ``build/pycache`` with the bytecode
+   of what every later child imports (``PYTHONPYCACHEPREFIX``, also where
+   the environment sets ``PYTHONDONTWRITEBYTECODE``);
 2. kernels: each kernel against its plain PyTorch version on the card
    (the flash-attention forward, and the backward pair ``flash_bwd_dq`` /
    ``flash_bwd_dkv``), at the serving and training paths' shapes and at
@@ -165,7 +168,7 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    and a block-diagonal fault, the ranks' params bitwise equal, and each
    layer's launches of the hop and flash kernels counted;
 11. tensor parallelism: (a) two gloo ranks on the card (processes of this
-   script) train BERT-base at full width and 6 of its 12 layers
+   script) train BERT-base at full width and 3 of its 12 layers
    (``GLOO_BERT_LAYERS``; vocab 30522, dim 768, 12 heads, max_len 512,
    bf16 compute) on the MLM batch (32 x
    128, 20 masked positions, SGD 0.1, 4 eager steps) under
@@ -211,13 +214,13 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    Runner, every leaf bitwise the EP world's logical params, and that
    Runner's forward gives the EP step's loss; (e) the phase's seconds;
 13. pipeline parallelism: lm1b at full width (vocab 32000, dim 1024, 16
-   heads of 64, 8 of its 16 layers, bf16 compute) in the stacked layout
+   heads of 64, 4 of its 16 layers, bf16 compute) in the stacked layout
    (``scan_layers=True``), batch 8 x 1024, SGD 0.1, 3 steps: (a) one rank
    eagerly, again (the floor), through ``make_callable(aot=True)`` (losses
    bitwise the eager ones) and with the same weights unstacked; (b) two
    gloo ranks on the card (processes of this script) under
    ``Pipeline(num_stages=2, num_microbatches=4)`` on ``{data: 1, pipe:
-   2}``, each rank storing and running 4 layers, under ``shift``,
+   2}``, each rank storing and running 2 layers, under ``shift``,
    ``shift`` again, ``sequential`` and ``1f1b``: losses and the update
    held to (a) between the floor and two planted faults (the whole
    gradients not summed over the pipe group; the head counted on every
@@ -229,7 +232,7 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    twice under ``1f1b``); (d) the ``shift`` run's checkpoint restores on
    one rank, every leaf bitwise, its next step's loss the pipelined one's;
    (e) the phase's seconds;
-14. BERT's MLM under a seq axis: BERT-base at full width and 6 of its 12
+14. BERT's MLM under a seq axis: BERT-base at full width and 3 of its 12
    layers (``GLOO_BERT_LAYERS``; MLM
    32 x 128, 20 masked positions a row, SGD 0.1, 3 eager steps) on one
    rank twice (the floor), then (a) two gloo ranks on the card under
@@ -248,7 +251,7 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    and the bound; (d) the phase's seconds;
 15. pipeline x sequence parallelism: phase 13's LM and batch on four
    gloo ranks under ``SequenceParallel("ring", 2, base=Pipeline(2, 4))``
-   on ``{data: 1, pipe: 2, seq: 2}`` (4 layers and a 512-row chunk a
+   on ``{data: 1, pipe: 2, seq: 2}`` (2 layers and a 512-row chunk a
    rank) under ``shift`` and ``1f1b``, and ``shift`` with the pipe hop
    sent to the next stage's rank of the other chunk (the planted fault):
    held to phase 13's one-rank steps between its floor and the fault,
@@ -260,13 +263,13 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    builder, ``TwoAxis``: no builder composes them): (a) phase 13's LM
    and batch on four gloo ranks under ``Pipeline(2, 4)`` with every
    stacked Megatron weight and the embedding split over ``model`` too
-   (``{data: 1, pipe: 2, model: 2}``: 4 layers, 8 heads and 2048 MLP
+   (``{data: 1, pipe: 2, model: 2}``: 2 layers, 8 heads and 2048 MLP
    columns a rank) under ``shift`` and ``1f1b``, held to phase 13's
    one-rank steps between its floor and two planted faults (the
    copy-to-model backward without its all-reduce; the gradients pipe
    does not split averaged over pipe instead of summed), ``1f1b``
-   bitwise ``shift``, 32 flash launches of each kernel a rank and step
-   (64 forwards under ``1f1b``); (b) phase 12's MoE layer with ``up`` /
+   bitwise ``shift``, 8 flash launches of each kernel a rank and step
+   (16 forwards under ``1f1b``); (b) phase 12's MoE layer with ``up`` /
    ``down`` split over ``expert`` and ``model`` (4 experts x 1536 columns
    a rank), held to phase 12's one-rank steps between its floor and the
    fault (the partial output summed over the expert group alone), the
@@ -410,8 +413,38 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    they sit ~25 ms apart and the check must fail); render, write_report,
    dump_compiled and merge times beside the card line; (d) the phase's
    seconds;
-23. output: one ``{"kernels": [...]}`` JSON line, then the last line
-   ``{"ok": true, "device": {...}}``.
+23. the multi-process runtime: (a) a ``launch: local`` spec (coordinator
+   on a free localhost port, nodes ``proc0`` (chief) and ``proc1``, both
+   ``gpus: [0]``, so gloo: two ranks share the card) starts a two-process
+   BERT-base MLM job (full width and depth, 32 x 128, 16 rows a rank,
+   bf16 compute, Adam 1e-4, ``AllReduce()``, deterministic algorithms)
+   under ``AUTODIST_SUPERVISION=elastic`` and ``AUTODIST_CHAOS=
+   kill_at=3:1``: this script, run as ``--elastic-train``, is the user
+   script the Coordinator re-runs. Generation 0 trains steps 1-3 through
+   ``CheckpointManager(save_interval_steps=2).run(coordinator=...)``; the
+   worker hard-exits (code 9) after step 3; the chief's ElasticPolicy
+   re-execs the script at world size 1; generation 1 reshard-restores step
+   2 (2 -> 1 processes) onto a one-rank NCCL world and runs to step 12
+   with ``unroll=4`` (single steps 2 -> 4, the megastep 4 -> 8 that
+   captures the CUDA graph, and 8 -> 12 replaying it) with no save. The
+   event trail (the flight files) holds worker-death, re-form-request,
+   re-form, spec-shrink, reshard and the (skipped) emergency-save; (b) a
+   clean one-process resume from the same checkpoints (its own one-node
+   spec, started beside (a), reading the checkpoints once generation 0
+   has re-exec'd) over the same steps: its params bitwise equal (a); (c) the
+   stitched goodput ledger: generations [0, 1], a re-exec gap and a
+   reshard above 0, 3 + 10 steps (step 3 ran in both generations),
+   goodput and the classes within 5% / 1 ms of the wall, 0 < MFU <= 1,
+   the chief's report page "stitched across generations" with the re-exec
+   gap bar, and a segment directory without generation 1 not stitched;
+   prints each generation's wall, the gap, the restore and reshard ms, the
+   classes, each kernel's launches a generation and rank (12 a step) and
+   the phase's seconds;
+24. output: one ``{"kernels": [...]}`` JSON line, then the last line
+   ``{"ok": true, "device": {...}}``. No process the script starts
+   outlives it: its children stay in its process group, it adopts their
+   orphans, a SIGTERM takes them along, and a process still there after
+   the last phase fails the run.
 
 On four cards, ``python3 chip_smoke.py --cards 4 [--part a|b|c|d]`` runs
 the four-card phase alone instead (it refuses to run on fewer cards): the
@@ -696,10 +729,11 @@ EP_LOSS_FAULTS = ("no_copy", "undivided")
 # to shift within the pipelined floor (bitwise where it reads 0).
 PP_WORLD, PP_MICRO, PP_STEPS, PP_LR = 2, 4, 3, 0.1
 PP_BATCH, PP_SEQ = 8, 1024
-# lm1b's depth in phases 13, 15, 17 and 19, cut from 16 to 8 layers when
-# the full run neared its 1200 s limit (PR 22: 1103 s); Pipeline() still
-# resolves (4, 8) for it on four ranks, as phase 19 (c) checks.
-PP_LAYERS = 8
+# lm1b's depth in phases 13, 15, 17 and 19, cut from 16 to 4 layers to keep
+# the full run well inside its 1200 s limit (the gloo phases run up to a
+# third slower on some hosts); Pipeline() still resolves (4, 8) for it on
+# four ranks, as phase 19 (c) checks.
+PP_LAYERS = 4
 PP_SCHEDULES = ("shift", "sequential", "1f1b")
 PP_FAULTS = ("data_only", "head")
 PP_LOSS_RTOL, PP_UPDATE_RTOL = 1e-4, 5e-2
@@ -743,6 +777,97 @@ CP_ULYSSES_SHAPE = (32, 3, 128, 128, 64)
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def adopt_orphans():
+    """Make this process the reaper of its descendants (Linux
+    ``PR_SET_CHILD_SUBREAPER``, on this process only): a process whose
+    parent dies first (phase 23's worker, if its chief goes) becomes this
+    process's child, where :func:`stop_descendants` finds it."""
+    import ctypes
+    ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+
+
+# What a rank or a phase-23 job imports before its first step.
+CHILD_IMPORTS = ("torch._dynamo", "torch.distributed", "autodist_tpu_torch",
+                 "autodist_tpu_torch.autodist",
+                 "autodist_tpu_torch.checkpoint",
+                 "autodist_tpu_torch.coordinator",
+                 "autodist_tpu_torch.models.bert",
+                 "autodist_tpu_torch.models.lm",
+                 "autodist_tpu_torch.parallel.moe",
+                 "autodist_tpu_torch.strategy", "chip_smoke")
+
+
+def child_bytecode_cache(build_dir):
+    """Let every process this script starts keep the bytecode it compiles
+    under ``build_dir/pycache`` (``PYTHONPYCACHEPREFIX``), also where the
+    environment forbids writing it beside the sources
+    (``PYTHONDONTWRITEBYTECODE``): there each child would compile torch's
+    Python sources anew, ~20 s a process on a slow host. Starts, and
+    returns, one child that fills the cache with ``CHILD_IMPORTS`` while
+    phase 1 builds the kernels."""
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = os.path.join(build_dir, "pycache")
+    return subprocess.Popen(
+        [sys.executable, "-c", "import " + ", ".join(CHILD_IMPORTS)],
+        cwd=ROOT)
+
+
+def _children():
+    """{parent pid: [child pids]} of every process /proc lists now."""
+    out = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+            ppid = int(stat[stat.rindex(")") + 2:].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        out.setdefault(ppid, []).append(int(name))
+    return out
+
+
+def _cmdline(pid):
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace")
+    except OSError:
+        return "?"
+
+
+def stop_descendants(root=None, spare=()):
+    """SIGKILL every process below ``root`` (default: this process) but
+    those in ``spare`` and below them, and reap those that are this
+    process's children; returns a line for each process that was found."""
+    me = os.getpid()
+    root = root or me
+    found = []
+    for _ in range(10):  # a process may fork while its parent dies
+        tree, todo, pids = _children(), [root], []
+        while todo:
+            for child in tree.get(todo.pop(), []):
+                if child not in spare:
+                    pids.append(child)
+                    todo.append(child)
+        if not pids:
+            break
+        for pid in pids:
+            found.append(f"pid {pid}: {_cmdline(pid)[:200]}")
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        for pid in tree.get(me, []):
+            if pid in pids:
+                try:
+                    os.waitpid(pid, 0)
+                except ChildProcessError:
+                    pass
+        time.sleep(0.1)
+    return found
 
 
 def card_line():
@@ -2914,9 +3039,9 @@ def _gloo_cfg(cfg):
 
 
 # BERT-base's depth in phases 11 and 14 (full width, gloo ranks sharing the
-# card), cut from 12 layers when the full run neared its 1200 s limit
-# (PR 22: 1093.6 s, phase 14 131.9 s on a slower host).
-GLOO_BERT_LAYERS = 6
+# card), cut from 12 layers to keep the full run well inside its 1200 s
+# limit (phase 14 took 81.5 s at 6 layers on a slower host).
+GLOO_BERT_LAYERS = 3
 
 
 def _gloo_bert(bert):
@@ -7219,10 +7344,13 @@ def _set_telemetry(**knobs):
     observability.refresh()
 
 
-def _graph_step_ms(torch, runner, state, block, n=OBS_TIMED):
+def _graph_step_ms(torch, runner, state, block, n=OBS_TIMED, warmup=3):
     """ms per step of the runner's captured K-step graph on a placed block:
     the median interval between CUDA events recorded after each of ``n``
-    replays (the state keeps training)."""
+    replays, after ``warmup`` replays (what ran before, such as a loader's
+    threads filling its ring, settles first); the state keeps training."""
+    for _ in range(warmup):
+        state, _ = runner.megastep(state, block, shard_inputs=False)
     torch.cuda.synchronize()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
     events[0].record()
@@ -8678,6 +8806,520 @@ def obs22_phase(torch, fa, card, device, cfg, share, batch_size=32, seq=128,
     return {"obs22_report": launched}
 
 
+# Phase 23: the multi-process runtime. ``--elastic-train`` is the user
+# script the Coordinator re-runs: generation 0's chief and worker, the
+# re-exec'd generation 1, and the control arm are each this script.
+ELASTIC_TOTAL = 12      # steps: generation 1 replays its graph once
+ELASTIC_CRASH = 3       # kill_at=3:1: the worker dies after step 3
+ELASTIC_SAVE_EVERY = 2  # generation 0's checkpoints: steps 1 and 2
+ELASTIC_UNROLL = 4
+ELASTIC_KINDS = ("worker-death", "re-form-request", "re-form", "spec-shrink",
+                 "reshard", "emergency-save")
+ELASTIC_RECONCILE = 0.05  # goodput + classes vs the stitched wall
+ELASTIC_PHASE_S = 180     # a hung generation fails the phase
+ELASTIC_CHILD_S = 300
+
+
+def _elastic_spec(path, nodes, port=None):
+    lines = ([f"launch: local", f'coordinator: "127.0.0.1:{port}"']
+             if port is not None else []) + ["nodes:"]
+    for i, node in enumerate(nodes):
+        lines += [f"  - address: {node}"] + (["    chief: true"] if i == 0
+                                             else []) + ["    gpus: [0]"]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def _elastic_dump(path, record):
+    with open(path + ".tmp", "w") as f:
+        json.dump(record, f)
+    os.replace(path + ".tmp", path)
+
+
+def elastic_train_child(spec_path, directory, out_dir, knobs):
+    """Phase 23's user script. Generation 0 (a ``launch: local`` spec, no
+    ``AUTODIST_ELASTIC_WORLD``): the chief's ``AutoDist`` launches the
+    worker (this script again), both train their 16 rows a step through
+    ``CheckpointManager.run(coordinator=...)``; the worker records its
+    flash launches as chaos kills it, the chief as its coordinator
+    re-execs it (the ``_exec`` hook). Generation 1 (the re-exec) and the
+    control arm: one process resumes the newest checkpoint and runs to
+    ``total`` on the whole batch, then writes its params, launches,
+    restore times and report page."""
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch import AutoDist, observability, report
+    from autodist_tpu_torch.checkpoint import CheckpointManager
+    from autodist_tpu_torch.checkpoint.manifest import state_tree
+    from autodist_tpu_torch.checkpoint.saver import write_tree
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.ops import build
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.resilience import chaos
+    from autodist_tpu_torch.strategy import AllReduce
+    t_start = time.perf_counter()
+    knobs = json.loads(knobs)
+    device = knobs["device"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build.load_all()  # built by the parent: the same sources and flags
+    cfg = T.TransformerConfig(**dict(knobs["config"], dtype=getattr(
+        torch, knobs["dtype"])))
+    (batch,) = weighted_batches(cfg, [0], knobs["batch"], knobs["seq"],
+                                knobs["masked"])
+    gen = int(os.environ.get("AUTODIST_RUN_GENERATION", "0") or 0)
+    resumed = bool(int(os.environ.get("AUTODIST_ELASTIC_WORLD", "0") or 0))
+    arm = knobs.get("arm", "elastic")
+    ad = AutoDist(resource_spec_file=spec_path, strategy_builder=AllReduce(),
+                  device=device)
+    runner = ad.create_distributed_session(ad.capture(
+        weighted_mlm_loss(cfg), bert_init(torch, cfg, device),
+        functools.partial(torch.optim.Adam, lr=1e-4), example_batch=batch))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    backend = dist.get_backend()
+    _flash_counts(fa, reset=True)  # the main path of this generation
+    if resumed or arm != "elastic":
+        check(world == 1, f"phase 23: the continuation has {world} ranks")
+        if knobs.get("after"):  # the control arm starts with (a)'s job
+            deadline = time.monotonic() + ELASTIC_CHILD_S
+            while not os.path.exists(knobs["after"]):
+                check(time.monotonic() < deadline, "phase 23 (b): generation "
+                      "0 never re-exec'd")
+                time.sleep(0.1)
+        mgr = CheckpointManager(runner, directory, save_interval_steps=10 ** 9)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        state = mgr.restore_or_init()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t) * 1e3
+        start = int(state.step)
+        dbatch = runner.remapper.shard_batch(batch)
+        state, metrics = mgr.run(state, iter(lambda: dbatch, None),
+                                 knobs["total"], unroll=knobs["unroll"])
+        launches = _flash_counts(fa)
+        graph = next(iter(runner._graphs.values())).graph \
+            if runner._graphs else None
+        params = state_tree(runner.to_logical(state))["params"]
+        name = f"{arm}-g{gen}"
+        write_tree(os.path.join(out_dir, f"{name}-params"),
+                   {k: t.detach().cpu() for k, t in
+                    flatten_params(params).items()})
+        snap = observability.registry().snapshot() \
+            if observability.enabled() else {}
+        page = report.render_report(
+            runner.program, out_path=os.path.join(out_dir, f"{name}.html"))
+        _elastic_dump(os.path.join(out_dir, f"{name}.json"), {
+            "rank": rank, "world": world, "backend": backend,
+            "generation": gen, "start": start, "step": int(state.step),
+            "loss": [float(x) for x in
+                     torch.as_tensor(metrics["loss"]).reshape(-1)],
+            "launches": launches, "restore_ms": restore_ms,
+            "reshard_ms": (snap.get("gauges") or {}).get(
+                "checkpoint.reshard_ms"),
+            "replays": graph.replays if graph is not None else None,
+            "captured": bool(graph is not None and graph.captured),
+            "page": page, "seconds": time.perf_counter() - t_start})
+        mgr.close()
+        return 0
+
+    # Generation 0: each rank's rows; the launches each rank made by its
+    # last step that returned are kept where it leaves the run.
+    per = knobs["batch"] // world
+    mine = tuple(torch.as_tensor(a[rank * per:(rank + 1) * per]).to(device)
+                 for a in batch)
+    completed = {"steps": 0, "launches": _flash_counts(fa)}
+    step = runner.step
+
+    def counted(*args, **kwargs):
+        out = step(*args, **kwargs)
+        completed["steps"] += 1
+        completed["launches"] = _flash_counts(fa)
+        return out
+    runner.step = counted
+
+    def dump(why):
+        _elastic_dump(os.path.join(out_dir, f"elastic-g0-r{rank}.json"), {
+            "rank": rank, "world": world, "backend": backend,
+            "generation": gen, "why": why,
+            "completed_steps": completed["steps"],
+            "launches": completed["launches"], "dispatched": _flash_counts(fa),
+            "seconds": time.perf_counter() - t_start})
+
+    record = chaos._record
+
+    def killed(kind, detail):  # the worker's last word before os._exit(9)
+        record(kind, detail)
+        if kind == "chaos:kill":
+            dump("chaos:kill")
+    chaos._record = killed
+    coordinator = ad.coordinator
+    if coordinator is not None:
+        execve = coordinator._exec
+
+        def reexec(path, argv, env):  # the chief's last word before exec
+            dump("re-exec")
+            execve(path, argv, env)
+        coordinator._exec = reexec
+    mgr = CheckpointManager(runner, directory,
+                            save_interval_steps=ELASTIC_SAVE_EVERY)
+    state = mgr.restore_or_init()
+    check(int(state.step) == 0, "phase 23: generation 0 must start fresh")
+    mgr.run(state, iter(lambda: mine, None), knobs["total"],
+            coordinator=coordinator)
+    print(f"phase 23: generation 0 rank {rank} ran to its end", flush=True)
+    return 3  # neither rank gets here: a death or a re-exec ends them
+
+
+def bert_init(torch, cfg, device):
+    from autodist_tpu_torch.models import bert
+    return bert.init(cfg, torch.Generator().manual_seed(0), device=device)
+
+
+def _elastic_start(label, argv, env, directory):
+    """Start one phase-23 job (this script, ``--elastic-train``), its
+    output to ``<label>.log``. The job stays in this process's group, so a
+    signal that ends this script's group ends it too, and this process
+    adopts what the job leaves behind (:func:`adopt_orphans`)."""
+    adopt_orphans()
+    with open(os.path.join(directory, f"{label}.log"), "w") as f:
+        proc = subprocess.Popen(argv, env=env, stdout=f,
+                                stderr=subprocess.STDOUT)
+    proc.label, proc.log, proc.t0 = label, f.name, time.perf_counter()
+    return proc
+
+
+def _elastic_finish(proc, timeout=ELASTIC_CHILD_S, spare=()):
+    """Wait for a job of :func:`_elastic_start`; returns (seconds,
+    output). Fails the phase if it fails, outlives ``timeout``, or leaves
+    a process running after its chief exits (each is killed first; the
+    jobs in ``spare`` run on)."""
+    try:
+        code = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        code = None
+    finally:
+        if proc.poll() is None:
+            stop_descendants(proc.pid)
+            proc.kill()
+        proc.wait()
+        left = stop_descendants(spare=[p.pid for p in spare])
+    with open(proc.log) as f:
+        text = f.read()
+    check(code == 0, f"phase 23 ({proc.label}) exited with {code}: "
+          f"{text[-4000:]}")
+    check(not left, f"phase 23 ({proc.label}) left processes running after "
+          f"its chief exited (killed): {left}")
+    return time.perf_counter() - proc.t0, text
+
+
+def _elastic_events(log_dir):
+    """(kind, detail) of every flight-file event under ``log_dir``."""
+    out = []
+    for path in sorted(glob.glob(os.path.join(log_dir, "flight_*.jsonl"))):
+        with open(path) as f:
+            for line in f:
+                try:
+                    e = json.loads(line)
+                except ValueError:
+                    continue
+                out.append((e.get("kind"), e.get("detail", "")))
+    return out
+
+
+def elastic_phase(torch, fa, card, cfg, device, directory, batch_size=32,
+                  seq=128, masked=20, total=ELASTIC_TOTAL,
+                  crash=ELASTIC_CRASH, unroll=ELASTIC_UNROLL):
+    """Phase 23; returns {path: flash launches}."""
+    import socket
+    from autodist_tpu_torch import report
+    from autodist_tpu_torch.checkpoint.saver import read_tree
+    from autodist_tpu_torch.observability import goodput
+    t_phase = time.perf_counter()
+    print(f"phase 23: the multi-process runtime; BERT-base MLM {batch_size} "
+          f"x {seq}, {cfg.num_layers} layers, two gloo ranks on the card "
+          f"lose one at step {crash}, the chief re-execs at world size 1",
+          flush=True)
+    os.makedirs(directory, exist_ok=True)
+    ckpt = os.path.join(directory, "ckpt")
+    fields = {k: v for k, v in vars(cfg).items() if k != "dtype"}
+    knobs = {"device": device, "config": fields,
+             "dtype": str(cfg.dtype).split(".")[-1], "batch": batch_size,
+             "seq": seq, "masked": masked, "total": total, "unroll": unroll}
+    run_id = f"phase23-{os.getpid()}-{time.time_ns()}"
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("AUTODIST_", "RANK", "WORLD_SIZE",
+                                 "MASTER_", "LOCAL_RANK"))}
+    base.update(PYTHONPATH=ROOT, AUTODIST_TELEMETRY="1",
+                CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    me = os.path.abspath(__file__)
+
+    # (b) the control arm, one process that resumes the same checkpoints,
+    # starts with (a): it sets up while generation 0 trains, and reads the
+    # checkpoints once the chief's last word before its re-exec is on disk
+    # (the re-exec joins every checkpoint write first).
+    after = os.path.join(directory, "elastic-g0-r0.json")
+    if os.path.exists(after):
+        os.remove(after)
+    spec1 = _elastic_spec(os.path.join(directory, "control.yml"), ["proc0"])
+    control = _elastic_start(
+        "control", [sys.executable, me, "--elastic-train", spec1, ckpt,
+                    directory, json.dumps(dict(knobs, arm="control",
+                                               after=after))],
+        dict(base, AUTODIST_WORKING_DIR=os.path.join(directory,
+                                                     "wd-control")),
+        directory)
+    try:
+        # (a) the elastic arm: a free port, one retry where it was taken
+        # first.
+        for attempt in range(2):
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            spec = _elastic_spec(os.path.join(directory, "elastic.yml"),
+                                 ["proc0", "proc1"], port)
+            wd = os.path.join(directory, f"wd-elastic{attempt}")
+            env = dict(base, AUTODIST_SUPERVISION="elastic",
+                       AUTODIST_CHAOS=f"kill_at={crash}:1",
+                       AUTODIST_RUN_ID=run_id, AUTODIST_WORKING_DIR=wd)
+            try:
+                elastic_s, out = _elastic_finish(_elastic_start(
+                    "elastic", [sys.executable, me, "--elastic-train", spec,
+                                ckpt, directory, json.dumps(knobs)], env,
+                    directory), spare=[control])
+                break
+            except RuntimeError as e:
+                if attempt or "ddress already in use" not in str(e):
+                    raise
+                shutil.rmtree(ckpt, ignore_errors=True)
+        g0 = [json.load(open(os.path.join(directory,
+                                          f"elastic-g0-r{r}.json")))
+              for r in range(2)]
+        g1 = json.load(open(os.path.join(directory, "elastic-g1.json")))
+        check([g["why"] for g in g0] == ["re-exec", "chaos:kill"] and
+              all(g["world"] == 2 and g["backend"] == "gloo" for g in g0),
+              f"(a) generation 0: {g0}")
+        check(g1["world"] == 1 and g1["start"] == crash - 1 and
+              g1["step"] == total and g1["backend"] == ("nccl" if device ==
+                                                        "cuda" else "gloo"),
+              f"(a) generation 1 resumed at {g1['start']} to {g1['step']} on "
+              f"{g1['world']} {g1['backend']} rank(s)")
+        for g in g0:
+            check(g["completed_steps"] == crash,
+                  f"(a) rank {g['rank']} completed {g['completed_steps']} "
+                  f"steps")
+        layers = cfg.num_layers
+        if device == "cuda":
+            for g in g0:
+                for name, n in g["launches"].items():
+                    check(n == layers * crash,
+                          f"(a) rank {g['rank']} launched {name} {n} times "
+                          f"in {crash} steps, not {layers} a step")
+            for name, n in g1["launches"].items():
+                check(n == layers * (total - crash + 1),
+                      f"(a) generation 1 launched {name} {n} times, not "
+                      f"{layers} x {total - crash + 1}")
+            check(g1["captured"] and g1["replays"] == 1,
+                  f"(a) generation 1's graph: captured {g1['captured']}, "
+                  f"replays {g1['replays']}")
+        kinds = {k for k, _ in _elastic_events(os.path.join(wd, "logs"))}
+        missing = [k for k in ELASTIC_KINDS if k not in kinds]
+        check(not missing, f"(a) the event trail lacks {missing}: "
+              f"{sorted(kinds)}")
+        skipped = [d for k, d in _elastic_events(os.path.join(wd, "logs"))
+                   if k == "emergency-save"]
+        traces = sorted(os.listdir(os.path.join(wd, "traces")))
+        check(any(t.endswith("_g0.json") for t in traces),
+              f"(a) generation 0's trace was not flushed before the exec: "
+              f"{traces}")
+
+        control_s, _ = _elastic_finish(control)
+    finally:
+        if control.poll() is None:
+            stop_descendants(control.pid)
+            control.kill()
+            control.wait()
+    ctl = json.load(open(os.path.join(directory, "control-g0.json")))
+    check(ctl["start"] == crash - 1 and ctl["step"] == total,
+          f"(b) the control arm resumed at {ctl['start']} to {ctl['step']}")
+    got = flatten_params(read_tree(os.path.join(directory,
+                                                "elastic-g1-params")))
+    want = flatten_params(read_tree(os.path.join(directory,
+                                                 "control-g0-params")))
+    differ = _same(torch, got, want)
+    worst = max((float((got[n].float() - want[n].float()).abs().max())
+                 for n in want if n in got), default=0.0)
+    check(not differ, f"(b) {len(differ)} params of the elastic arm differ "
+          f"from the control arm's (max abs {worst:.3e}): {differ[:5]}")
+    check(g1["loss"] == ctl["loss"],
+          f"(b) losses {g1['loss']} vs {ctl['loss']}")
+
+    # (c) the stitched ledger.
+    log_dir = os.path.join(wd, "logs")
+    st = goodput.stitch_run(run_id, log_dir)
+    check(st is not None and st["generations"] == [0, 1],
+          f"(c) stitched generations {st and st['generations']}")
+    classes = st["classes"]
+    steps_each = [s["steps"] for s in st["segments"]]
+    check(steps_each == [crash, total - crash + 1] and
+          st["steps"] == total + 1,
+          f"(c) stitched steps {steps_each} = {st['steps']}")
+    check(st["reexec_gaps_ms"][0] > 0 and classes["reexec_gap_ms"] > 0 and
+          classes["reshard_ms"] > 0, f"(c) gap {st['reexec_gaps_ms']}, "
+          f"reshard {classes['reshard_ms']}")
+    whole = st["goodput_ms"] + sum(classes.values())
+    check(abs(whole - st["wall_ms"]) <= max(1.0, ELASTIC_RECONCILE *
+                                            st["wall_ms"]),
+          f"(c) goodput + classes {whole:.3f} ms vs wall {st['wall_ms']} ms")
+    check(st["mfu"] is not None and 0 < st["mfu"] <= 1,
+          f"(c) stitched MFU {st['mfu']}")
+    with open(g1["page"]) as f:
+        page = f.read()
+    check("stitched across generations" in page and
+          'title="re-exec gap' in page,
+          "(c) the chief's report page lacks the stitched goodput and its "
+          "re-exec gap bar")
+    # The planted fault: a directory without generation 1 is no stitch.
+    lone = os.path.join(directory, "lone-logs")
+    os.makedirs(lone, exist_ok=True)
+    for path in glob.glob(os.path.join(log_dir, f"goodput_*_g0.json")):
+        shutil.copy(path, lone)
+    fault = goodput.stitch_run(run_id, lone)
+    check(fault["generations"] == [0] and not fault["reexec_gaps_ms"],
+          f"(c) the planted fault (no generation 1) reads as stitched: "
+          f"{fault['generations']}")
+    saved_dir = goodput.const.DEFAULT_LOG_DIR
+    try:
+        goodput.const.DEFAULT_LOG_DIR = lone
+        os.environ["AUTODIST_RUN_ID"] = run_id
+        goodput.set_last_summary(fault["segments"][0])
+        check("stitched across generations" not in report._render_goodput(),
+              "(c) the planted fault's report reads as stitched")
+    finally:
+        goodput.const.DEFAULT_LOG_DIR = saved_dir
+        os.environ.pop("AUTODIST_RUN_ID", None)
+        goodput.set_last_summary(None)
+
+    seg0, seg1 = st["segments"]
+    print(f"  (a) generation 0: two gloo ranks, {crash} steps each, wall "
+          f"{seg0['wall_ms'] / 1e3:.3f} s (segment), rank 0 "
+          f"{g0[0]['seconds']:.3f} s / rank 1 {g0[1]['seconds']:.3f} s of "
+          f"process; the worker killed at step {crash}; re-exec gap "
+          f"{st['reexec_gaps_ms'][0]:.3f} ms; generation 1: one NCCL rank, "
+          f"steps {g1['start']} -> {g1['step']} (unroll {unroll}: graph "
+          f"captured, {g1['replays']} replay), wall "
+          f"{seg1['wall_ms'] / 1e3:.3f} s (segment), restore "
+          f"{g1['restore_ms']:.3f} ms of which reshard "
+          f"{g1['reshard_ms']} ms; job {elastic_s:.3f} s; events "
+          f"{sorted(k for k in kinds if k in ELASTIC_KINDS)}; "
+          f"emergency-save: {skipped}", flush=True)
+    for g in g0:
+        print(f"  (a) generation 0 rank {g['rank']} flash launches in its "
+              f"{g['completed_steps']} completed steps {g['launches']} "
+              f"(dispatched {g['dispatched']})", flush=True)
+    print(f"  (a) generation 1 flash launches {g1['launches']} in "
+          f"{total - crash + 1} steps; loss {g1['loss']}", flush=True)
+    print(f"  (b) control arm ({control_s:.3f} s from its start with (a)): "
+          f"params bitwise equal "
+          f"({len(want)} tensors), losses {ctl['loss']}", flush=True)
+    print(f"  (c) stitched: wall {st['wall_ms']:.3f} ms, goodput "
+          f"{st['goodput_ms']:.3f} ms ({st['goodput_pct']}%), steps "
+          f"{steps_each}, MFU {st['mfu']:.6f}; classes "
+          f"{json.dumps({k: v for k, v in classes.items() if v})}; on "
+          f"{card}", flush=True)
+    took = time.perf_counter() - t_phase
+    print(f"  phase 23 took {took:.1f} s", flush=True)
+    check(took <= ELASTIC_PHASE_S or device != "cuda",
+          f"phase 23 took {took:.1f} s, over {ELASTIC_PHASE_S} s")
+    return {"elastic_g0": {k: g0[0]["launches"][k] + g0[1]["launches"][k]
+                           for k in g1["launches"]},
+            "elastic_g1": g1["launches"],
+            "elastic_control": ctl["launches"]}
+
+
+# ``--capture-loop N [--blocking M]``: phase 20 alone, N times, each in a
+# process and a working directory of its own (the first M with
+# CUDA_LAUNCH_BLOCKING=1), counting
+# the runs that fail and the Python GC passes that start while the calling
+# thread's stream captures a CUDA graph (a finalizer run there may call
+# CUDA inside the capture).
+def capture_once_main(torch):
+    import gc
+    import tempfile
+    import traceback
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.ops import build
+    from autodist_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.load_all()
+    counts = {"gc_in_capture": {}, "gc_total": 0}
+
+    def watch(phase, info):
+        if phase != "start":
+            return
+        counts["gc_total"] += 1
+        if torch.cuda.is_current_stream_capturing():
+            gen = str(info.get("generation"))
+            counts["gc_in_capture"][gen] = \
+                counts["gc_in_capture"].get(gen, 0) + 1
+    gc.callbacks.append(watch)
+    error = None
+    directory = tempfile.mkdtemp(dir=build.BUILD_DIR)
+    try:
+        observe_phase(torch, fa, card_line(), bert.bert_base(max_len=128),
+                      "cuda", directory)
+    except Exception as e:  # noqa: BLE001 - the probe counts failures
+        error = "".join(traceback.format_exception(e))[-3000:]
+    finally:
+        gc.callbacks.remove(watch)
+        shutil.rmtree(directory, ignore_errors=True)
+    print(json.dumps(dict(counts, ok=error is None, error=error,
+                          seconds=time.perf_counter() - t0)), flush=True)
+    return 0
+
+
+def capture_loop_main(argv):
+    n = int(argv[argv.index("--capture-loop") + 1])
+    blocking = int(argv[argv.index("--blocking") + 1]) \
+        if "--blocking" in argv else 0
+    import tempfile
+    from autodist_tpu_torch.ops import build
+    print(card_line(), flush=True)
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    runs = []
+    for i in range(n):
+        # Each run's own working directory: phase 20 checks the calibration
+        # files it feeds, as in a full run's one pass.
+        work = tempfile.mkdtemp(dir=build.BUILD_DIR)
+        env = dict(os.environ, AUTODIST_WORKING_DIR=work)
+        if i < blocking:
+            env["CUDA_LAUNCH_BLOCKING"] = "1"
+        try:
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--capture-once"],
+                env=env, capture_output=True, text=True, timeout=900)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        try:
+            result = json.loads(proc.stdout.strip().splitlines()[-1])
+        except (ValueError, IndexError):
+            result = {"ok": False, "error": proc.stderr[-3000:]}
+        result.update(run=i, blocking=i < blocking, code=proc.returncode)
+        runs.append(result)
+        print(json.dumps(result), flush=True)
+    failed = [r["run"] for r in runs if not r["ok"]]
+    print(f"capture loop: {n} runs of phase 20 ({blocking} with "
+          f"CUDA_LAUNCH_BLOCKING=1), {len(failed)} failed {failed}; GC "
+          f"passes begun during a capture: "
+          f"{[r.get('gc_in_capture') for r in runs]}", flush=True)
+    return 0
+
+
 # Phase 16 (``--cards 4``): the ported lowerings on four cards over NCCL.
 #
 # One process per card, started with torchrun's environment (RANK,
@@ -9470,6 +10112,12 @@ def main():
         return pp_auto_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--obs-skew":
         return obs_skew_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--capture-once":
+        return capture_once_main(torch)
+    if "--capture-loop" in sys.argv:
+        return capture_loop_main(sys.argv)
+    if len(sys.argv) > 1 and sys.argv[1] == "--elastic-train":
+        return elastic_train_child(*sys.argv[2:6])
     if len(sys.argv) > 1 and sys.argv[1] == "--cards-rank":
         return cards_rank(sys.argv[2])
     if "--cards" in sys.argv:
@@ -9481,6 +10129,16 @@ def main():
     from autodist_tpu_torch.ops import build
     from autodist_tpu_torch.ops import flash_attention as fa
 
+    # No process this script starts outlives it: orphans come back here,
+    # a SIGTERM (a time limit) takes every descendant along, and the run
+    # fails if one is still there at the end.
+    adopt_orphans()
+
+    def ended(signum, frame):
+        stop_descendants()
+        os._exit(128 + signum)
+    signal.signal(signal.SIGTERM, ended)
+
     start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
@@ -9491,10 +10149,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
+    warm = child_bytecode_cache(build.BUILD_DIR)
     build.load_all()
+    check(warm.wait() == 0, "the child processes' imports failed")
     print(f"phase 1: built {', '.join(build.KERNELS)} in "
           f"{time.perf_counter() - t0:.1f}s "
-          f"(nvcc: {json.dumps(build.build_seconds)})", flush=True)
+          f"(nvcc: {json.dumps(build.build_seconds)}; the children's "
+          f"bytecode cached under {os.environ['PYTHONPYCACHEPREFIX']})",
+          flush=True)
     for name, log in build.build_logs.items():
         for kernel, regs, spill in build.register_report(log):
             print(f"  {name}: {short_kernel(kernel)} {regs} registers, "
@@ -9562,8 +10224,13 @@ def main():
                                share=share))
         zoo.update(obs22_phase(torch, fa, card, "cuda",
                                bert.bert_base(max_len=128), share))
+        zoo.update(elastic_phase(torch, fa, card, bert.bert_base(max_len=128),
+                                 "cuda", os.path.join(share["dir"],
+                                                      "elastic")))
     finally:
+        left = stop_descendants()
         shutil.rmtree(share["dir"], ignore_errors=True)
+    check(not left, f"processes outlived their phases (killed): {left}")
     fwd["launches"] = served + trained["flash_fwd"]
     fwd["launches_by_path"] = {"serve": served,
                                "train": trained["flash_fwd"],
