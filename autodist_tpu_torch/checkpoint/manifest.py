@@ -28,7 +28,8 @@ import torch
 import torch.distributed as dist
 
 from autodist_tpu_torch.utils import logging
-from autodist_tpu_torch.utils.tree import flatten_with_path, path_to_name
+from autodist_tpu_torch.utils.tree import (flatten_with_path, leaves,
+                                           path_to_name)
 
 MANIFEST_VERSION = 1
 
@@ -80,9 +81,18 @@ def leaves_by_path(tree):
 
 def state_tree(logical):
     """The tree a logical TrainState is saved as: ``{"step", "params",
-    "opt_state"}`` (the JAX TrainState's field names as paths)."""
-    return {"step": logical.step, "params": logical.params,
+    "opt_state"}`` and, where it holds any, ``"sync_state"`` (the JAX
+    TrainState's field names as paths; ``sync_state/<var>/<leaf>``, each
+    leaf stacked over the ranks). Leafless sync state is not written (the
+    JAX package's ``_prune_sync_state``): a checkpoint of a program with no
+    compressor state restores under one with it, and the reverse."""
+    tree = {"step": logical.step, "params": logical.params,
             "opt_state": logical.opt_state}
+    sync = {k: v for k, v in (getattr(logical, "sync_state", None)
+                              or {}).items() if leaves(v)}
+    if sync:
+        tree["sync_state"] = sync
+    return tree
 
 
 def live_world(runner):

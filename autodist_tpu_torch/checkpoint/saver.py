@@ -277,9 +277,11 @@ def _whole_on_every_rank(runner):
     """True when every rank holds the whole state (no ``zero1`` shard,
     ``fsdp`` or piece of another rank to gather): converting it to the
     checkpoint form calls no collective, so one rank can write it alone."""
+    multi = dist.is_initialized() and dist.get_world_size() > 1
     return not any(kind in ("zero1", "fsdp")
                    for kind, _ in runner._kinds.values()) and \
-        not any(runner._piece_dims.values())
+        not any(runner._piece_dims.values()) and \
+        not (multi and runner.has_sync_state)
 
 
 def _logical_tree(runner, state):
@@ -297,8 +299,11 @@ def _logical_tree(runner, state):
 
 
 def _as_logical(raw):
-    """A raw read of a training checkpoint as a logical TrainState."""
-    return TrainState(raw["step"], raw["params"], raw.get("opt_state", {}))
+    """A raw read of a training checkpoint as a logical TrainState (its
+    ``sync_state`` ``{}`` when it wrote none: the live entries are then
+    reinitialized, ``Runner.from_logical``)."""
+    return TrainState(raw["step"], raw["params"], raw.get("opt_state", {}),
+                      raw.get("sync_state", {}))
 
 
 def reshard_state(runner, raw, into=None):

@@ -147,6 +147,31 @@ class Mesh:
                         self._groups[axes] = group
         return self._groups[axes]
 
+    def hier_groups(self, d, axis=const.MESH_AXIS_DATA):
+        """This rank's (ici, dcn) process groups of the hierarchical legs
+        over its ``axis`` group split ``d`` ranks a host
+        (``hierarchical.leg_groups``): every rank makes every data group's
+        leg groups, in one order, on the first call, which every rank
+        makes; later calls (and later sessions over this world's mesh)
+        reuse them. None, None on a local mesh."""
+        if self.device_mesh is None:
+            return None, None
+        key = ("hier", axis, int(d))
+        if key not in self._groups:
+            from autodist_tpu_torch.kernel.synchronization.hierarchical \
+                import leg_groups
+            dim = self.axis_names.index(axis)
+            rows = np.moveaxis(self.devices, dim, -1).reshape(
+                -1, self.shape[axis])
+            me = dist.get_rank()
+            mine = (None, None)
+            for ranks in rows:
+                got = leg_groups([int(r) for r in ranks], int(d), me=me)
+                if me in ranks:
+                    mine = got
+            self._groups[key] = mine
+        return self._groups[key]
+
     def __repr__(self):
         return f"Mesh({self.shape})"
 
@@ -367,6 +392,54 @@ class Cluster:
             observability.registry().gauge("cluster.world_size").set(
                 self._mesh.process_count)
         return self._mesh
+
+    def ranks_per_host(self):
+        """Ranks (devices) a host holds, for the hierarchical legs: the
+        spec's ``devices_per_host`` where its nodes name hosts; in a world
+        whose spec names none (each rank its own ``process-<r>``, as
+        ``ResourceSpec.world`` makes for torchrun's contract), torchrun's
+        ``LOCAL_WORLD_SIZE``, or the whole world on one host when unset (as
+        ``Topology.for_mesh`` assumes)."""
+        spec = self._resource_spec
+        if self.started and dist.is_initialized() and all(
+                str(d.host_address).startswith("process-")
+                for d in spec.accelerator_devices):
+            return int(os.environ.get("LOCAL_WORLD_SIZE") or
+                       dist.get_world_size())
+        return spec.devices_per_host
+
+    def build_hierarchical_mesh(self, devices_per_host=None):
+        """A nested ``(dcn, ici)`` mesh over the world's ranks (over this
+        host's devices before :meth:`start`): the outer ``dcn`` axis spans
+        hosts (the slow leg), the inner ``ici`` axis the ranks of a host
+        (the fast leg), host-major, so row h holds host h's ranks and
+        ``group("ici")`` / ``group("dcn")`` are the legs'
+        (``hierarchical.hier_mean_nested``). ``devices_per_host`` defaults
+        to the spec's (``AUTODIST_HIER_ICI`` still overrides, as the
+        execution-side leg split does); a split that does not divide the
+        rank count degenerates to ``dcn = 1``, the flat topology as a
+        1 x N mesh."""
+        from autodist_tpu_torch.kernel.synchronization.hierarchical import \
+            resolve_legs
+        if devices_per_host is None:
+            devices_per_host = self.ranks_per_host()
+        if self.started:
+            n = dist.get_world_size()
+            d, h = resolve_legs(n, devices_per_host)
+            mesh = _rank_mesh(self._device,
+                              (const.MESH_AXIS_DCN, const.MESH_AXIS_ICI),
+                              (h, d))
+        else:
+            devices = local_devices(self._resource_spec)
+            n = len(devices)
+            d, h = resolve_legs(n, devices_per_host)
+            grid = np.empty(n, dtype=object)
+            grid[:] = devices
+            mesh = Mesh(grid.reshape(h, d),
+                        (const.MESH_AXIS_DCN, const.MESH_AXIS_ICI))
+        logging.info("Built hierarchical mesh {%s: %d, %s: %d}",
+                     const.MESH_AXIS_DCN, h, const.MESH_AXIS_ICI, d)
+        return mesh
 
     @property
     def mesh(self):

@@ -38,6 +38,11 @@ MESH_AXIS_EXPERT = "expert"    # expert parallel axis (MoE)
 MESH_AXIS_PIPELINE = "pipe"    # pipeline stage axis
 ALL_MESH_AXES = (MESH_AXIS_DATA, MESH_AXIS_MODEL, MESH_AXIS_SEQ,
                  MESH_AXIS_EXPERT, MESH_AXIS_PIPELINE)
+# Nested sub-axes of the data axis for hierarchical collectives
+# (Cluster.build_hierarchical_mesh / kernel/synchronization/hierarchical.py):
+# dcn spans hosts (slow leg), ici spans devices within a host (fast leg).
+MESH_AXIS_DCN = "dcn"
+MESH_AXIS_ICI = "ici"
 
 
 class ENV(enum.Enum):
@@ -66,6 +71,12 @@ class ENV(enum.Enum):
     AUTODIST_MAX_WORKER_RESTARTS = ("AUTODIST_MAX_WORKER_RESTARTS", int, 2)  # per-worker respawn budget (restart-worker)
     AUTODIST_ELASTIC_MIN_WORLD = ("AUTODIST_ELASTIC_MIN_WORLD", int, 1)  # elastic supervision never shrinks below this world size (escalates to abort)
     AUTODIST_ELASTIC_WORLD = ("AUTODIST_ELASTIC_WORLD", int, 0)  # re-formed world-size override applied to the resource spec (set by Coordinator.reform_now; 0 => spec as written)
+    # -- overlap scheduler (kernel/overlap.py, runner.py) ---------------------
+    AUTODIST_OVERLAP = ("AUTODIST_OVERLAP", bool, False)  # issue each grad-sync bucket asynchronously as its last gradient is produced in the backward, waited on before the update; under a megastep also the zero1 weight all-gather reorder
+    AUTODIST_ZERO1_AG_SCOPE = ("AUTODIST_ZERO1_AG_SCOPE", str, "step")  # weight-AG reorder granularity under AUTODIST_OVERLAP and unroll > 1: step (every zero1 param gathered at the start of the next step's forward) | use (each param gathered at its first forward use)
+    AUTODIST_AR_BUCKET_MB = ("AUTODIST_AR_BUCKET_MB", int, 0)  # fusion-bucket size cap in MiB (0 => one bucket per strategy group/compressor/codec/dtype)
+    # -- hierarchical collectives (kernel/synchronization/hierarchical.py) ----
+    AUTODIST_HIER_ICI = ("AUTODIST_HIER_ICI", int, 0)  # ICI-leg size (devices per host) override for the execution-side leg split (0 => ResourceSpec.devices_per_host; testing/bench knob)
     AUTODIST_UNROLL = ("AUTODIST_UNROLL", int, 1)  # fused steps per dispatch (megastep: one CUDA graph of K steps; 1 => one step per dispatch)
     AUTODIST_PREFETCH_DEPTH = ("AUTODIST_PREFETCH_DEPTH", int, 2)  # DevicePrefetcher in-flight transfers (0 => passthrough)
     AUTODIST_LOADER_RING = ("AUTODIST_LOADER_RING", int, 2)        # native async assembly ring depth (0 => synchronous)

@@ -40,3 +40,26 @@ def params_to_numpy(tree):
             return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
         return t.numpy().copy()
     return tree_map(to_np, tree)
+
+
+def sync_state_from_jax(tree, rank, device="cuda"):
+    """A JAX ``TrainState.sync_state`` brought to the host (``{var_name:
+    state}``, each leaf stacked over the data axis's devices, ``(n,) +
+    shape``) -> rank ``rank``'s entries as the port's per-rank tensors on
+    ``device``. Leafless entries (``()``, a stateless wire) are dropped, as
+    the port keeps none. Copied into a live state with
+    ``Runner._restore_sync_state``'s ``_assign_``, or compared leaf for
+    leaf; the two packages can then start from the same PowerSGD ``q`` and
+    the same residuals (the port's own ``q`` is a ``torch.Generator`` draw
+    from the JAX seed, not the ``jax.random`` values)."""
+    device = resolve_device(device)
+
+    def row(leaf):
+        return _to_tensor(np.asarray(leaf)[rank], device)
+    out = {}
+    for name, state in tree.items():
+        if isinstance(state, (tuple, list)) and not state:
+            continue
+        out[name] = tree_map(row, state) if isinstance(state, dict) \
+            else row(state)
+    return out

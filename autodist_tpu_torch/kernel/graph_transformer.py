@@ -300,12 +300,17 @@ class GraphTransformer:
         mesh = self.cluster.mesh
         nodes = {n.var_name: n for n in self.strategy.node_config}
         synchronizers = {}
+        # The leg split of hierarchical (spec: DCN) collectives; a caller
+        # with no cluster of its own (serving) gets None: the flat path.
+        dph = self.cluster.ranks_per_host() if hasattr(
+            self.cluster, "ranks_per_host") else None
         for var in self.graph_item.trainable_variables:
             node = nodes.get(var.name)
             if node is None:
                 node = strategy_pb2.NodeConfig(var_name=var.name)
                 node.all_reduce_synchronizer.SetInParent()
-            synchronizers[var.name] = Synchronizer.create(var, node, mesh)
+            synchronizers[var.name] = Synchronizer.create(
+                var, node, mesh, devices_per_host=dph)
         for sync in synchronizers.values():
             sync.param_spec()  # a partition over a missing axis raises here
         big = {a for a, n in mesh.shape.items() if n > 1}

@@ -32,7 +32,7 @@ class Synchronizer(ABC):
         self.pconfig = PartitionerConfig.from_string(node.partitioner)
 
     @classmethod
-    def create(cls, var, node, mesh):
+    def create(cls, var, node, mesh, devices_per_host=None):
         from autodist_tpu_torch.kernel.synchronization.\
             all_reduce_synchronizer import AllReduceSynchronizer
         from autodist_tpu_torch.kernel.synchronization.ps_synchronizer \
@@ -41,7 +41,8 @@ class Synchronizer(ABC):
         if which == "ps_synchronizer":
             return PSSynchronizer(var, node, mesh)
         if which == "all_reduce_synchronizer" or which is None:
-            return AllReduceSynchronizer(var, node, mesh)
+            return AllReduceSynchronizer(var, node, mesh,
+                                         devices_per_host=devices_per_host)
         raise ValueError(f"unknown synchronizer for {var.name}")
 
     def _partition_mesh_axis(self):
@@ -120,11 +121,12 @@ class Synchronizer(ABC):
     def staleness(self):
         return 0
 
-    def init_sync_state(self):
-        """Per-variable auxiliary state (compressor residuals etc.): none,
-        since no stateful compressor is ported yet."""
+    def init_sync_state(self, shape=None, device=None):
+        """Per-variable auxiliary state (compressor residuals etc.) for a
+        gradient of ``shape``: none by default."""
         return ()
 
-    def sync_gradient(self, grad, group):
-        """Mean of ``grad`` over ``group``, in place; returns ``grad``."""
-        return all_reduce_mean_(grad, group)
+    def sync_gradient(self, grad, sync_state, group, groups=None):
+        """(mean of ``grad`` over ``group``, in place, and the sync state
+        unchanged)."""
+        return all_reduce_mean_(grad, group), sync_state

@@ -25,8 +25,10 @@ decomposes measured wall step time into named causes::
 * ``device_compute`` — the cost model's FLOPs + optimizer-HBM roofline
   for this program (``tuner/cost_model``, seeded with the H100's
   datasheet figures), scaled by the per-term compute calibration;
-* ``exposed_comms`` — the cost model's sync estimate (the JAX package's
-  scheduled-HLO measurement has no source in the port yet);
+* ``exposed_comms`` — this rank's measured exposed collective time where
+  the loop was profiled (``torch-profiler``: ``kernel/overlap.py``'s
+  windows over the trace, where the JAX package prices its scheduled
+  HLO), else the cost model's sync estimate;
 * ``residual`` — whatever is left, **surfaced, never absorbed**: the
   components plus the residual sum to the measured wall time exactly
   (a tier-1 invariant test pins it).  A large positive residual means
@@ -35,8 +37,8 @@ decomposes measured wall step time into named causes::
 The residual closes the calibration loop *per term*
 (:meth:`~autodist_tpu_torch.tuner.calibration.Calibration.observe_term`):
 measured-compute (wall minus the measured/overhead terms) refines the
-compute scale, and a measured exposed-comms term (none in the port yet)
-would refine the comms scale — so the tuner learns *which* cost-model term is wrong, not
+compute scale, and a measured exposed-comms term refines the comms
+scale — so the tuner learns *which* cost-model term is wrong, not
 just a single global fudge factor.
 
 Everything here rides the cold path (the runner feeds the ledger on the
@@ -137,10 +139,13 @@ def terms_for_runner(runner, unroll=1):
     cannot be priced degrades to 0 with the failure noted in ``sources``
     (the residual then absorbs that component, visibly).
 
-    ``exposed_comms`` comes from the cost model: the JAX package's
-    measured alternative, the scheduled-HLO gauge
-    ``comms.exposed_ms_per_step``, has no source in the port until
-    ``kernel/overlap.py`` is (ROADMAP.md, A9b), and ``sources`` says so."""
+    ``exposed_comms`` is this rank's measured ``comms.exposed_ms_per_step``
+    where the step loop was profiled (``Runner._record_exposed_comms``:
+    the collective kernels' time no compute covered, off the
+    ``torch.profiler`` trace; ``sources["exposed_comms"] =
+    "torch-profiler"``), so each rank has its own; else the cost model's
+    estimate (with the Runner's overlap schedule and bucket cap), the same
+    on every rank (``"cost-model"``)."""
     sources = {}
     unroll = max(1, int(unroll))
     cal = None
@@ -162,8 +167,11 @@ def terms_for_runner(runner, unroll=1):
     try:
         prog = runner.program
         topo = cm.Topology.for_mesh(prog.mesh)
+        from autodist_tpu_torch.kernel import overlap as overlap_mod
         bd = cm.CostModel(topo).strategy_cost(
-            prog.strategy, prog.graph_item, unroll=unroll)
+            prog.strategy, prog.graph_item, unroll=unroll,
+            overlap=bool(getattr(runner, "_overlap", False)),
+            bucket_bytes=overlap_mod.bucket_bytes_cap())
         raw_compute = bd["compute_ms"] + bd["update_ms"]
         raw_comms = bd["exposed_sync_ms"] + bd["overlay_ms"]
         compute = raw_compute * (cal.compute_scale if cal is not None else 1.0)
@@ -179,16 +187,18 @@ def terms_for_runner(runner, unroll=1):
         exposed = gauges.get("comms.exposed_ms_per_step")
         if exposed is not None:
             comms = float(exposed)
-            sources["exposed_comms"] = "scheduled-hlo"
-        else:
-            sources["scheduled_hlo"] = ("no source: kernel/overlap.py is "
-                                        "not ported")
+            sources["exposed_comms"] = "torch-profiler"
     except Exception:  # noqa: BLE001
         pass
     return ModelTerms(host_dispatch_ms=host_dispatch,
                       device_compute_ms=compute, exposed_comms_ms=comms,
                       raw_compute_ms=raw_compute, raw_comms_ms=raw_comms,
                       sources=sources)
+
+
+# The exposed-comms sources that are measurements (the JAX package's
+# scheduled HLO, the port's profiler windows), which refine the comms scale.
+MEASURED_COMMS = ("scheduled-hlo", "torch-profiler")
 
 
 def feed_calibration(summary, calibration=None, path=None):
@@ -199,8 +209,9 @@ def feed_calibration(summary, calibration=None, path=None):
     * compute: everything the ledger measured or charged elsewhere is
       subtracted from wall — what remains is the *measured* device
       compute, folded against the raw model roofline;
-    * comms: only when the exposed-comms term came from the scheduled
-      HLO (a measurement) does it refine the comms scale against the raw
+    * comms: only when the exposed-comms term was measured (the
+      profiler's collective windows) does it refine the comms scale
+      against the raw
       model sync estimate — a model-vs-itself comparison would teach
       nothing.  The measured side is **skew-corrected**: the barrier
       wait the skew decomposition attributed to a straggler rank
@@ -227,7 +238,7 @@ def feed_calibration(summary, calibration=None, path=None):
         feed_comms = (summary.get("raw_comms_ms", 0) > 0
                       and measured_comms > 0
                       and (summary.get("sources") or {}).get(
-                          "exposed_comms") == "scheduled-hlo")
+                          "exposed_comms") in MEASURED_COMMS)
         with contextlib.ExitStack() as stack:
             if calibration is None:
                 from autodist_tpu_torch.tuner.calibration import Calibration

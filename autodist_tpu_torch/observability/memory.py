@@ -169,8 +169,10 @@ def predicted_for_runner(runner, unroll=1):
         from autodist_tpu_torch.tuner import cost_model as cm
         prog = runner.program
         topo = cm.Topology.for_mesh(prog.mesh)
+        from autodist_tpu_torch.kernel import overlap as overlap_mod
         return cm.CostModel(topo).strategy_memory(
-            prog.strategy, prog.graph_item, unroll=max(1, int(unroll)))
+            prog.strategy, prog.graph_item, unroll=max(1, int(unroll)),
+            bucket_bytes=overlap_mod.bucket_bytes_cap())
     except Exception as e:  # noqa: BLE001 - the ledger must never kill a run
         logging.debug("memory: predicted breakdown unavailable: %s", e)
         return None

@@ -150,7 +150,14 @@ def model_scope_costs(runner, unroll=1, topology=None):
         rs, ag, oth, elems, wire = model._var_sync_cost(
             var, node, n_data, deferred)
         comms_s = rs + ag + oth
-        for flat_b in deferred.values():
+        hosts = topo._hosts_spanned(n_data)
+        for wire_b, raw_b, codec, sparse_b in deferred.values():
+            if codec and hosts > 1:
+                comms_s += topo.hierarchical_ar_cost(
+                    raw_b, n_data, cm.hier_dcn_factor(codec, hosts))
+                flat_b = sparse_b  # sparse rides its own flat ring
+            else:
+                flat_b = wire_b + sparse_b
             if flat_b:
                 comms_s += topo.all_reduce_cost(flat_b, n_data)
         key = scope_of(var.name, known) or UNATTRIBUTED

@@ -41,11 +41,13 @@ cross-rank half of the story:
    remainder ``wire = exposed - skew_wait`` is wire time. The split is
    exact by construction (``wire_ms + skew_wait_ms == exposed_comms_ms``
    per step), and the straggler's *cause* is named from its own
-   attribution terms (data_wait vs device_compute vs host_dispatch). In
-   the port ``exposed_comms`` is the cost model's estimate, the same on
-   every rank (``attribution.terms_for_runner``: no measured source
-   before ``kernel/overlap.py``, ROADMAP.md A9b), so the split can never
-   exceed it; the decomposition's ``sources`` say where it came from.
+   attribution terms (data_wait vs device_compute vs host_dispatch). Where
+   a rank's loop was profiled its ``exposed_comms`` is its own measured
+   exposed collective time (``torch-profiler``:
+   ``attribution.terms_for_runner``), so the wire-versus-wait split can
+   differ by rank; otherwise it is the cost model's estimate, the same on
+   every rank, and the split can never exceed it. The decomposition's
+   ``sources`` say where each came from.
 
 3. **Calibration correction** — ``attribution.feed_calibration``
    subtracts :func:`local_skew_wait_ms` from the measured exposed-comms
@@ -429,8 +431,8 @@ def decompose(snapshots, window_limit=64):
         "max_skew_wait_ms": round(worst_wait, 6),
         "max_abs_offset_ms": round(
             max(abs(info["offset_ms"]) for info in hosts.values()), 6),
-        # Where each rank's exposed_comms came from: the port's is the
-        # cost model's estimate until a measured source exists (A9b).
+        # Where each rank's exposed_comms came from: measured off its
+        # profiler trace ("torch-profiler") or the cost model's estimate.
         "sources": {"exposed_comms": sorted({
             str((info["attr"].get("sources") or {}).get("exposed_comms"))
             for info in hosts.values()})},

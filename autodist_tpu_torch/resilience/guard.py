@@ -20,8 +20,10 @@ guard closes both holes:
 A step updates its state's tensors in place, and a CUDA graph step is
 bound to them, so a rollback copies the good values back into those same
 tensors (``copy_``, outside any capture) instead of handing back new ones.
-The snapshot is a second resident copy of the params and the optimizer
-state (for BERT-base with Adam about 1.3 GB on the device).
+The snapshot is a second resident copy of the params, the sync state
+(so a rollback restores the compressors' residuals too: a poisoned one
+would re-inject the NaN at the next reduce) and the optimizer state (for
+BERT-base with Adam about 1.3 GB on the device).
 """
 import torch
 
@@ -36,10 +38,11 @@ class DivergenceAbort(RuntimeError):
 
 def _written(state):
     """(tensors, {update tensor: its optimizer state dict or None}): every
-    tensor a step writes in place, the params and the optimizer's own
-    tensors (``zero1`` shards) first, then their optimizer state."""
+    tensor a step writes in place, the params, the sync state (error-
+    feedback residuals, PowerSGD factors) and the optimizer's own tensors
+    (``zero1`` shards) first, then their optimizer state."""
     opt = state.opt_state
-    tensors = list(leaves(state.params))
+    tensors = list(leaves(state.params)) + list(leaves(state.sync_state))
     seen = {id(t) for t in tensors}
     update = [p for g in opt.param_groups for p in g["params"]]
     tensors += [p for p in update if id(p) not in seen]
@@ -54,6 +57,7 @@ class _Snapshot:
         self.step = step
         self.count = int(state.step)
         self.params, self.opt = state.params, state.opt_state
+        self.sync = state.sync_state
         tensors, states = _written(state)
         self.tensors = [(t, t.detach().clone()) for t in tensors]
         self.states = [(p, None if st is None else
@@ -107,7 +111,7 @@ class _Snapshot:
         if replaced:
             _bump_generation(opt)
         return TrainState(torch.tensor(self.count, dtype=torch.int64),
-                          self.params, opt)
+                          self.params, opt, self.sync)
 
 
 class StepGuard:

@@ -12,10 +12,15 @@ One step, on every rank:
    ``autodist_tpu/runner.py:700-1040``) over the data axis's process
    group:
 
-   * ``ar``: same-group fusable gradients as one flat bucket per (group,
-     dtype) through ``torch.distributed.all_reduce``, divided by the
-     group's size (the strategy's groups decide the buckets, not
-     ``DistributedDataParallel``);
+   * ``ar``: the buckets of :meth:`Runner.bucket_plan`, in the order the
+     backward completes them (``kernel/overlap.py``): same-group gradients
+     of one stateless wire format (no compressor, the bf16 or int8 wire,
+     or a hierarchical f32 / bf16 / int8 codec) and dtype as one flat
+     bucket, split at ``AUTODIST_AR_BUCKET_MB`` (an int8 bucket pads each
+     variable's segment to whole quantization blocks); a stateful wire
+     (error feedback, PowerSGD, the hierarchical int8 + EF) variable by
+     variable, its state in ``TrainState.sync_state`` (the strategy's
+     groups decide the buckets, not ``DistributedDataParallel``);
    * ``zero1`` (a PS variable, its optimizer state split): the gradient
      ``reduce_scatter_tensor``-ed onto this rank's state shard, divided by
      the group's size; the optimizer holds the shard tensors;
@@ -182,8 +187,23 @@ writes its op text: one whole step recorded on ``meta`` tensors, its
 collectives recorded and not run (``utils/step_text.py``), the
 counterpart of the JAX step's HLO.
 
-Not ported yet (ROADMAP.md): the overlap scheduler (A9b) and with it
-``dump_scheduled``, and the online re-tuning controller (A12).
+The overlap scheduler (``AUTODIST_OVERLAP=1``, the counterpart of
+``autodist_tpu/runner.py:300-337`` and the XLA scheduler flags): each
+bucket's reduction is issued (``async_op`` where its wire is one
+collective) from a hook on its last member's gradient as soon as the
+backward produces it, the buckets in plan order, and waited on before the
+update; with the scheduler off the buckets are issued after the backward,
+in the same order, and give the same values. Under a megastep (K > 1)
+with ``zero1`` variables the weight all-gather of step t moves into step
+t + 1 (``AUTODIST_ZERO1_AG_SCOPE``): ``step`` gathers every shard at the
+start of the next step, ``use`` gathers each parameter where the forward
+first uses it (``_GatherShards`` over the optimizer's shard, whose backward
+is the reduce-scatter), so earlier layers' compute can hide the later
+layers' gathers; the block's last step gathers as before. ``run`` with a
+profiler trace measures each rank's exposed comms off its kernels
+(``comms.exposed_ms_per_step``, :meth:`dump_scheduled`).
+
+Not ported yet (ROADMAP.md): the online re-tuning controller (A12).
 """
 import contextlib
 import math
@@ -197,11 +217,13 @@ import torch
 import torch.distributed as dist
 
 from autodist_tpu_torch import const, observability
-from autodist_tpu_torch.kernel.synchronization.all_reduce_synchronizer import \
-    reduce_bucket
+from autodist_tpu_torch.kernel import overlap as overlap_mod
+from autodist_tpu_torch.kernel.synchronization import compressor as _comp
+from autodist_tpu_torch.kernel.synchronization import hierarchical
 from autodist_tpu_torch.kernel.synchronization.compressor import \
     all_reduce_mean_
 from autodist_tpu_torch.parallel import context as parallel_context
+from autodist_tpu_torch.proto import strategy_pb2
 from autodist_tpu_torch.parallel.collectives import GatherShards as \
     _GatherShards
 from autodist_tpu_torch.parallel.collectives import all_gather as _all_gather
@@ -215,6 +237,9 @@ from autodist_tpu_torch.utils.tree import (flatten, flatten_with_path, leaves,
                                            tree_map_with_path, unflatten)
 
 
+_C = strategy_pb2.AllReduceSynchronizer.Compressor
+
+
 class TrainState(NamedTuple):
     """Distributed training state; each step updates it in place and hands
     back a new handle. The checkpoint form (:meth:`Runner.to_logical`)
@@ -223,6 +248,10 @@ class TrainState(NamedTuple):
     step: Any        # 0-dim int64 tensor on the host
     params: Any      # nested dict of tensors at their stored layout
     opt_state: Any   # the torch.optim.Optimizer over the update tensors
+    # {var_name: this rank's compressor state} (EF residuals, PowerSGD's
+    # q and residual, the hierarchical int8 + EF shard residual), updated
+    # in place; the checkpoint form stacks every rank's ((world,) + shape).
+    sync_state: Any = {}
 
 
 # Optimizers whose step treats every element of a parameter on its own
@@ -295,7 +324,16 @@ class Runner:
         both = (const.MESH_AXIS_EXPERT, const.MESH_AXIS_MODEL)
         self._moe_group = self._mesh.group_over(both) if set(both) <= set(
             program.piece_axes) else None
+        # The hierarchical legs' groups (spec: DCN), made here too.
+        self._hier_groups = self._make_hier_groups(program)
+        self._overlap = bool(const.ENV.AUTODIST_OVERLAP.val)
+        self._order = overlap_mod.grad_production_order(self._item)
         self._buckets = self.bucket_plan()
+        self._sync_now = {}       # the step's sync state (_core)
+        self._sharded_now = ()    # zero1 gradients born as shards (_core)
+        self._inflight = {}       # buckets the backward issued (overlap)
+        self._windows = None      # the last measured collective windows
+        self._pending_finalize = None
         # Telemetry handle resolved ONCE at construction: the step loop
         # gates on one attribute, so AUTODIST_TELEMETRY=0 means zero
         # telemetry calls on the hot path.
@@ -317,6 +355,26 @@ class Runner:
                     pad_bytes += int(v.size_bytes * (padded - logical)
                                      / logical)
             self._obs.registry().gauge("padding.bytes").set(pad_bytes)
+
+    def _make_hier_groups(self, program):
+        """This rank's (ici, dcn) groups for the hierarchical legs, made
+        where the Runner makes its other groups (every rank makes every
+        group); (None, None) without a hierarchical synchronizer, on one
+        host, or on a local mesh."""
+        hier = [s for s in program.synchronizers.values()
+                if getattr(s, "hierarchical", False)]
+        if not hier or self._mesh.group() is None:
+            return None, None
+        if self._shared_axes:
+            raise NotImplementedError(
+                f"autodist_tpu_torch: a hierarchical all-reduce (spec: DCN) "
+                f"on a mesh with {', '.join(self._shared_axes)} axes is not "
+                f"ported: its legs split the data group alone (use spec "
+                f"AUTO there)")
+        d, h = hier[0]._legs()
+        if h == 1:
+            return None, None
+        return self._mesh.hier_groups(d)
 
     def _split_axes(self, name):
         """The piece axes that split variable ``name`` (none: whole)."""
@@ -362,26 +420,38 @@ class Runner:
         return self._kinds
 
     def bucket_plan(self):
-        """The all-reduces of one step's ``ar`` and ``tp`` gradients (a
-        ``tp`` gradient is its piece's), in order: lists of variable names.
-        Fusable synchronizers of one fusion group, dtype, kind and reduce
-        group share a bucket (one collective); the others reduce alone.
-        ``zero1`` / ``fsdp`` / ``stale`` variables take no all-reduce."""
-        buckets, keyed = [], {}
+        """The reductions of one step's ``ar`` and ``tp`` gradients (a
+        ``tp`` gradient is its piece's) as ``overlap.Bucket``s, in the
+        order the backward completes them (``overlap.bucket_plan`` over
+        :func:`overlap.grad_production_order`). Fusable synchronizers of
+        one fusion key (strategy group, compressor, DCN codec, dtype; for
+        ``tp`` also the reduce group) share a bucket (one collective),
+        split at ``AUTODIST_AR_BUCKET_MB``; the others (error feedback,
+        PowerSGD) reduce alone. ``zero1`` / ``fsdp`` / ``stale`` variables
+        take no all-reduce."""
+        members = []
         for name, sync in self._program.synchronizers.items():
             kind = self._kinds[name][0]
             if kind not in ("ar", "tp"):
                 continue
-            if getattr(sync, "fusable", False):
-                key = (sync.group, sync.var.dtype, kind,
-                       self._reduce_axes(name))
-                if key not in keyed:
-                    keyed[key] = []
-                    buckets.append(keyed[key])
-                keyed[key].append(name)
-            else:
-                buckets.append([name])
-        return buckets
+            key = (int(getattr(sync, "group", -1)),
+                   int(getattr(sync, "compressor_kind", 0)),
+                   getattr(sync, "hier_codec", None) or "",
+                   str(sync.var.dtype))
+            if kind == "tp":
+                key += ("tp",) + self._reduce_axes(name)
+            if not getattr(sync, "fusable", False):
+                key += ("var", name)
+            pieces = math.prod(self._mesh.shape[a]
+                               for a in self._split_axes(name))
+            members.append((name, key, sync.var.size_bytes / pieces))
+        return overlap_mod.bucket_plan(members, order=self._order,
+                                       cap_bytes=overlap_mod.bucket_bytes_cap())
+
+    def grad_production_order(self):
+        """{var_name: the aten position producing its gradient}
+        (:func:`overlap.grad_production_order`; ``{}`` without a signal)."""
+        return dict(self._order)
 
     def _trainable_leaves(self, params):
         pairs, _ = flatten_with_path(params)
@@ -404,7 +474,48 @@ class Runner:
         resolve_device(self._remapper.device)
         params = self._remapper.place_params(self._item.params, copy=True)
         opt = self._optimizer_over(params)
-        return TrainState(torch.zeros((), dtype=torch.int64), params, opt)
+        return TrainState(torch.zeros((), dtype=torch.int64), params, opt,
+                          self._init_sync_state(params))
+
+    def _init_sync_state(self, params):
+        """{name: this rank's fresh sync state} of the ``ar`` / ``tp``
+        variables whose synchronizer keeps one, shaped like the stored
+        leaf (a ``tp`` variable's piece), on its device."""
+        stored = dict(self._trainable_leaves(params))
+        out = {}
+        for name, sync in self._program.synchronizers.items():
+            if name not in stored or self._kind(name)[0] not in ("ar", "tp"):
+                continue
+            st = sync.init_sync_state(tuple(stored[name].shape),
+                                      stored[name].device)
+            if leaves(st):
+                out[name] = st
+        return out
+
+    def fresh_sync_state(self, name):
+        """Freshly initialized sync state of variable ``name`` on this rank
+        (a checkpoint restore across sync paths or world shapes)."""
+        sync = self._program.synchronizers[name]
+        shape = self._stored_shape(name)
+        return sync.init_sync_state(shape, self._remapper.device)
+
+    def _stored_shape(self, name):
+        """Variable ``name``'s stored shape on this rank (padded; an
+        ``fsdp`` or ``tp`` piece)."""
+        t = torch.empty(self._item.var_by_name(name).shape,
+                        dtype=torch.float32, device="meta")
+        placement = self._placements[name]
+        return tuple(self._remapper.place_params(
+            t, placements=placement._replace(device=torch.device("meta"))
+        ).shape)
+
+    @property
+    def has_sync_state(self):
+        """Whether a state of this runner carries sync state."""
+        return any(leaves(self._program.synchronizers[n].init_sync_state(
+            self._stored_shape(n), "meta"))
+            for n in self._program.synchronizers
+            if n in self._trainable and self._kind(n)[0] in ("ar", "tp"))
 
     def _optimizer_over(self, params):
         """The optimizer over ``params``' update tensors (their trainable
@@ -509,14 +620,31 @@ class Runner:
             lambda path, _: per_var.get(path_to_name(path), {}),
             state.params)
         return TrainState(state.step.clone(), self.logical_params(state),
-                          opt_state)
+                          opt_state, self._sync_logical(state.sync_state))
+
+    def _sync_logical(self, sync_state):
+        """The checkpoint form of the sync state: {name: its state with each
+        tensor stacked over the world's ranks, ``(world,) + shape`` in rank
+        order} (an all-gather every rank calls; a one-process world stacks
+        its own). A residual is a rank's own, so the form holds all of
+        them, as the JAX package's per-device stack does."""
+        world = dist.get_world_size() if dist.is_initialized() else 1
+
+        def stack(t):
+            t = t.detach().unsqueeze(0)
+            if world > 1:
+                return _all_gather(t, 0, dist.group.WORLD)
+            return t
+        return {name: tree_map(stack, st)
+                for name, st in sorted((sync_state or {}).items())}
 
     def initial_logical(self):
         """The checkpoint form of a fresh state: the captured params, step
-        0, no optimizer state."""
+        0, no optimizer state, the sync state freshly initialized
+        (``sync_state=None``)."""
         return TrainState(torch.zeros((), dtype=torch.int64),
                           self._item.params,
-                          tree_map(lambda _: {}, self._item.params))
+                          tree_map(lambda _: {}, self._item.params), None)
 
     def from_logical(self, logical, into=None):
         """A state from its checkpoint form (host or device tensors): each
@@ -581,10 +709,45 @@ class Runner:
                     target[key].copy_(v)
         if dropped:
             _bump_generation(opt)
+        self._restore_sync_state(getattr(logical, "sync_state", None),
+                                 state.sync_state)
         if into is not None:
             into.step._autodist_stale = True
         return TrainState(torch.tensor(int(logical.step), dtype=torch.int64),
-                          state.params, opt)
+                          state.params, opt, state.sync_state)
+
+    def _restore_sync_state(self, saved, live):
+        """Copy this rank's row of each saved sync-state entry into the
+        ``live`` state's tensors (in place: a graph bound to them stays
+        bound). ``saved`` None (a fresh state) reinitializes every entry.
+        An entry the checkpoint lacks, or whose structure or shapes do not
+        match (saved at another world size, or another leg split of the
+        hierarchical wire), is reinitialized and recorded (a
+        ``checkpoint-restore`` resilience event saying so): a rank's residual means
+        nothing on another set of ranks, and the compressor re-accumulates
+        it within a few steps."""
+        from autodist_tpu_torch import resilience
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        with torch.no_grad():
+            for name, st in (live or {}).items():
+                entry = None if saved is None else _sync_entry(saved, name)
+                mine = None
+                if entry is not None:
+                    mine = _row_if_congruent(entry, st, world, rank)
+                if mine is None:
+                    if saved is not None:
+                        why = ("the checkpoint has no sync state for it"
+                               if entry is None else
+                               "it was saved at another world size or leg "
+                               "split")
+                        logging.warning("sync state of %s reinitialized: %s",
+                                        name, why)
+                        resilience.record_event(
+                            "checkpoint-restore",
+                            f"sync state of {name} reinitialized: {why}")
+                    mine = self.fresh_sync_state(name)
+                _assign_(st, mine)
 
     def _stored(self, name, value, shard=True):
         """A tensor at variable ``name``'s logical shape at its stored
@@ -615,21 +778,26 @@ class Runner:
 
     # -- the step ------------------------------------------------------------
 
-    def _compute_view(self, params):
+    def _compute_view(self, params, at_use=None):
         """The params the loss sees: ``fsdp`` pieces all-gathered over the
         data group (through :class:`_GatherShards`, so their gradients
-        reduce-scatter); a ``tp`` piece as it is over each piece axis on
-        which the parallel context says it reaches a Megatron layer, an MoE
-        layer or a pipeline stage as its piece, and all-gathered over the
-        group of any other axis that splits it, its gradient
-        reduce-scattered and divided by the group's size; padding cut
-        off."""
+        reduce-scatter), and so are the ``zero1`` shards of ``at_use``
+        ({name: the optimizer's shard}: the gather at first use under
+        ``AUTODIST_ZERO1_AG_SCOPE=use``); a ``tp`` piece as it is over each
+        piece axis on which the parallel context says it reaches a
+        Megatron layer, an MoE layer or a pipeline stage as its piece, and
+        all-gathered over the group of any other axis that splits it, its
+        gradient reduce-scattered and divided by the group's size; padding
+        cut off."""
         group = self._mesh.group()
         ctx = self._program.parallel_context()
+        at_use = at_use or {}
 
         def view(path, t):
             name = path_to_name(path)
             kind, dim = self._kind(name)
+            if name in at_use:
+                t = _GatherShards.apply(at_use[name], dim, group)
             if kind == "fsdp":
                 t = _GatherShards.apply(t, dim, group)
             for axis, d in self._piece_dims.get(name, ()):
@@ -660,20 +828,20 @@ class Runner:
         group = self._mesh.group()
         if group is None:
             return
-        syncs = self._program.synchronizers
-        for bucket in self._buckets:
-            first = bucket[0]
-            over = self._grad_group if self._kinds[first][0] == "ar" else \
-                self._piece_groups[self._reduce_axes(first)]
-            if len(bucket) > 1:
-                reduce_bucket([grads[n] for n in bucket], over)
+        # In plan order: with the overlap scheduler, the buckets the
+        # backward did not issue are issued too before any is finished;
+        # without it, each is reduced and written back in turn.
+        started, self._inflight = self._inflight, {}
+        pending = []
+        for i, bucket in enumerate(self._buckets):
+            finish = started.get(i) or self._start_bucket(
+                bucket, grads, async_op=self._overlap)
+            if self._overlap:
+                pending.append(finish)
             else:
-                syncs[first].sync_gradient(grads[first], over)
-            if self._pipe_sum(first) > 1:
-                # The mean over data x pipe (x the other shared axes),
-                # times S: the pipe group's sum.
-                for name in bucket:
-                    grads[name].mul_(self._stages)
+                finish(grads)
+        for finish in pending:
+            finish(grads)
         n = self._program.data_axis_size
         for name, (kind, dim) in self._kinds.items():
             if kind not in ("ar", "tp") and self._share_group is not None:
@@ -685,10 +853,118 @@ class Runner:
                         grads[name].div_(rest)
                 else:
                     all_reduce_mean_(grads[name], self._share_group)
-            if kind == "zero1":
+            if kind == "zero1" and name in self._sharded_now:
+                grads[name].div_(n)  # born reduce-scattered (the sum)
+            elif kind == "zero1":
                 grads[name] = _reduce_scatter(grads[name], dim, group).div_(n)
             elif kind == "fsdp":  # born reduce-scattered (the sum)
                 grads[name].div_(n)
+
+    def _start_bucket(self, bucket, grads, async_op=False):
+        """Issue one bucket's reduction over its reduce group (``async_op``
+        where its wire is one collective a tensor); returns ``finish(grads)``,
+        which waits, writes the means into ``grads`` (and a stateful wire's
+        new state into the step's sync state) and, under a pipe axis of S
+        ranks, multiplies them by S (the pipe group's sum)."""
+        names = bucket.names
+        first = names[0]
+        sync = self._program.synchronizers[first]
+        over = self._grad_group if self._kinds[first][0] == "ar" else \
+            self._piece_groups[self._reduce_axes(first)]
+        scale = self._pipe_sum(first)
+
+        def finish_with(results):
+            def finish(grads):
+                for nm, red in results():
+                    g = grads[nm]
+                    if red.data_ptr() != g.data_ptr():
+                        g.copy_(red.view_as(g))
+                    if scale > 1:
+                        g.mul_(scale)
+            return finish
+
+        if not getattr(sync, "fusable", False):
+            st = self._sync_now.get(first, ())
+            red, new = sync.sync_gradient(grads[first], st, over,
+                                          groups=self._hier_groups)
+            _assign_(st, new)
+            return finish_with(lambda: [(first, red)])
+        ckind = int(getattr(sync, "compressor_kind", _C.NoneCompressor))
+        codec = getattr(sync, "hier_codec", None)
+        tensors = [grads[nm] for nm in names]
+        sizes = [t.numel() for t in tensors]
+        block = _comp._INT8_BLOCK if (ckind == _C.Int8Compressor or
+                                      codec == "int8") else 1
+        if len(tensors) == 1 and block == 1:
+            flat, segs = tensors[0].reshape(-1), sizes
+        else:
+            # An int8 bucket pads each variable's segment to whole
+            # quantization blocks: a block straddling two variables would
+            # let a large neighbour quantize a small one's elements to ~0.
+            parts, segs = [], []
+            for t in tensors:
+                v = t.reshape(-1)
+                pad = (-v.numel()) % block
+                if pad:
+                    v = torch.cat([v, v.new_zeros(pad)])
+                parts.append(v)
+                segs.append(v.numel())
+            flat = torch.cat(parts)
+        if codec:
+            red, _ = hierarchical.hier_mean(
+                flat, over, codec=codec,
+                devices_per_host=sync.devices_per_host,
+                groups=self._hier_groups)
+            pending = _comp.Pending([], lambda: red.to(flat.dtype))
+        else:
+            pending = _comp.start_mean(flat, over, ckind, async_op=async_op)
+
+        def results():
+            red = pending.wait()
+            out, offset = [], 0
+            for nm, size, seg in zip(names, sizes, segs):
+                out.append((nm, red[offset:offset + size]))
+                offset += seg
+            return out
+        return finish_with(results)
+
+    def _overlap_hooks(self, leaves_):
+        """The overlap scheduler's issue points: a hook on each trainable
+        leaf's gradient that, once the backward has produced every member
+        of the next bucket in plan order, issues it (and any ready buckets
+        after it) into ``self._inflight``. Returns the hooks' handles."""
+        index = {nm for b in self._buckets for nm in b.names}
+        arrived, nxt = {}, [0]
+
+        def hook(g, name):
+            g = g.contiguous()
+            arrived[name] = g
+            while nxt[0] < len(self._buckets) and all(
+                    nm in arrived for nm in self._buckets[nxt[0]].names):
+                i = nxt[0]
+                self._inflight[i] = self._start_bucket(
+                    self._buckets[i], arrived, async_op=True)
+                nxt[0] += 1
+            return g
+        return [t.register_hook(lambda g, name=name: hook(g, name))
+                for name, t in leaves_ if name in index]
+
+    def _zero1_scope(self, block):
+        """Where a megastep's zero1 weight all-gather goes
+        (``AUTODIST_ZERO1_AG_SCOPE`` under ``AUTODIST_OVERLAP`` and K > 1):
+        ``"step"`` (every shard at the next step's start), ``"use"`` (each
+        at its first forward use; ``"step"`` under seq or piece axes, whose
+        shared-group means precede the reduce-scatter), or None (after
+        each update, as in the eager step)."""
+        if block is None or block[1] <= 1 or not self._overlap or \
+                self._mesh.group() is None or \
+                not any(k == "zero1" for k, _ in self._kinds.values()):
+            return None
+        scope = (const.ENV.AUTODIST_ZERO1_AG_SCOPE.val or
+                 "step").strip().lower()
+        if scope == "use" and self._shared_axes:
+            return "step"
+        return scope if scope in ("step", "use") else "step"
 
     def _check_shared_batch(self, batch):
         """Raise unless every rank that shares this rank's batch (its group
@@ -741,54 +1017,84 @@ class Runner:
                 f"different batches; every rank of a {name} group takes the "
                 f"same batch ({why})")
 
-    def _finish_update(self, params, shards, step):
+    def _finish_update(self, params, shards, step, gather=True):
         """After the optimizer: each ``zero1`` shard all-gathered into its
-        whole parameter, and the stale parameters whose period ends at
-        ``step`` averaged over the group."""
+        whole parameter (unless ``gather`` is off: the overlap scheduler
+        moved it into the next step), and the stale parameters whose period
+        ends at ``step`` averaged over the group."""
         group = self._mesh.group()
         if group is None:
+            return
+        if gather:
+            self._gather_zero1(params, shards)
+        named = dict(self._trainable_leaves(params))
+        with torch.no_grad():
+            for name, period in self._periods.items():
+                if step % period == period - 1:
+                    all_reduce_mean_(named[name], group)
+
+    def _gather_zero1(self, params, shards):
+        """Each ``zero1`` shard all-gathered into its whole parameter."""
+        group = self._mesh.group()
+        if group is None or not shards:
             return
         named = dict(self._trainable_leaves(params))
         with torch.no_grad():
             for name, shard in shards.items():
                 dim = self._kinds[name][1]
                 named[name].copy_(_all_gather(shard, dim, group))
-            for name, period in self._periods.items():
-                if step % period == period - 1:
-                    all_reduce_mean_(named[name], group)
 
-    def _core(self, params, opt, batch, step=0):
+    def _core(self, params, opt, batch, step=0, sync_state=None,
+              block=None):
         """The part of a step a CUDA graph can capture: the loss, the
-        gradients, their reduction, the optimizer's in-place update, the
-        gathers and stale averages, and the metrics tensors. ``step`` is
-        the step's count (only its phase in the staleness period
-        matters). No host bookkeeping."""
+        gradients, their reduction (advancing ``sync_state`` in place), the
+        optimizer's in-place update, the gathers and stale averages, and
+        the metrics tensors. ``step`` is the step's count (only its phase
+        in the staleness period matters); ``block`` ``(i, K)`` places it in
+        a megastep (the zero1 gather's scope, :meth:`_zero1_scope`). No
+        host bookkeeping."""
         item = self._item
+        shards = self._shards.get(opt, {})
+        scope = self._zero1_scope(block)
+        if scope == "step" and block[0] > 0:
+            self._gather_zero1(params, shards)  # the moved gather
+        at_use = dict(shards) if scope == "use" else {}
         # step_text.phase names the parts of the step in the recorded step
         # text (_step_text); a shared no-op otherwise.
         with step_text.phase("forward"), \
                 parallel_context.use(self._program.parallel_context()):
-            out = item.loss_fn(self._compute_view(params), batch)
+            for t in at_use.values():
+                t.requires_grad_(True)
+            out = item.loss_fn(self._compute_view(params, at_use), batch)
         loss, aux = out if item.aux_output else (out, None)
         named = self._trainable_leaves(params)
-        with step_text.phase("backward"):
-            grads = torch.autograd.grad(loss, [t for _, t in named],
-                                        self._backward_seed(loss),
-                                        allow_unused=True)
-            # Unused leaves get zeros (as jax.grad gives); the reduction
-            # writes in place, so expanded (stride-0) gradients become real
-            # tensors.
-            grads = {n: (torch.zeros_like(t) if g is None else
-                         g.contiguous()) for (n, t), g in zip(named, grads)}
+        wrt = [(n, at_use.get(n, t)) for n, t in named]
+        # Read by _sync_gradients(grads), whose one-argument form faults
+        # and tests wrap.
+        self._sync_now, self._sharded_now = sync_state or {}, set(at_use)
+        hooks = self._overlap_hooks(wrt) if self._overlap and \
+            self._mesh.group() is not None else []
+        try:
+            with step_text.phase("backward"):
+                grads = torch.autograd.grad(loss, [t for _, t in wrt],
+                                            self._backward_seed(loss),
+                                            allow_unused=True)
+        finally:
+            for h in hooks:
+                h.remove()
+        # Unused leaves get zeros (as jax.grad gives); the reduction writes
+        # in place, so expanded (stride-0) gradients become real tensors.
+        grads = {n: (torch.zeros_like(t) if g is None else
+                     g.contiguous()) for (n, t), g in zip(wrt, grads)}
         with step_text.phase("grad-sync"):
             self._sync_gradients(grads)
-        shards = self._shards.get(opt, {})
         for n, t in named:
             shards.get(n, t).grad = grads[n]
         with step_text.phase("update"):
             opt.step()
             opt.zero_grad(set_to_none=True)
-            self._finish_update(params, shards, step)
+            self._finish_update(params, shards, step, gather=(
+                scope is None or block[0] == block[1] - 1))
         with step_text.phase("metrics"):
             loss = loss.detach().float().clone()
             if self._grad_group is not None:
@@ -813,7 +1119,8 @@ class Runner:
         """The host side of ``k`` steps: the step counter, and the stale
         mark on the consumed state."""
         state.step._autodist_stale = True
-        return TrainState(state.step + k, state.params, state.opt_state)
+        return TrainState(state.step + k, state.params, state.opt_state,
+                          state.sync_state)
 
     # What the ranks of a group over each shared axis compute.
     _SHARED_WHY = {
@@ -832,7 +1139,7 @@ class Runner:
             self._auto_report("eager")
         self._check_shared_batch(batch)
         metrics = self._core(state.params, state.opt_state, batch,
-                             int(state.step))
+                             int(state.step), state.sync_state)
         return self._advance(state, 1), metrics
 
     def step(self, state, batch, shard_inputs=True):
@@ -930,7 +1237,7 @@ class Runner:
                 if isinstance(t, torch.Tensor):
                     rec.name(t, f"b.{i}")
             self._core(params, opt, unflatten(batch_def, flat),
-                       self._period - 1)
+                       self._period - 1, self._init_sync_state(params))
         return rec.text()
 
     def write_report(self, batch, shard_inputs=True):
@@ -941,7 +1248,8 @@ class Runner:
         from autodist_tpu_torch import report
         text = self._step_text(batch, shard_inputs)
         path = report.render_report(self._program, step_text=text,
-                                    execution=self._execution)
+                                    execution=self._execution,
+                                    windows=self._windows)
         logging.info("transform report (with the step text): %s", path)
         return path
 
@@ -1087,8 +1395,9 @@ class Runner:
                 activities.append(ProfilerActivity.CUDA)
             profiler = profile(activities=activities)
         with profiler as prof:
-            # The per-layer profile reads the trace, which exists only once
-            # the profiler stops: the loop's finalize leaves it to us.
+            # The exposed comms and the per-layer profile read the trace,
+            # which exists only once the profiler stops: the loop leaves
+            # its telemetry's finalize to us then.
             state, metrics = self._run_loop(state, data_iter, num_steps,
                                             step_guard, chaos, unroll,
                                             yields_blocks,
@@ -1099,9 +1408,97 @@ class Runner:
             path = os.path.join(trace_dir, f"trace-rank{rank}.json")
             prof.export_chrome_trace(path)
             logging.info("profiler trace: %s", path)
+            self._record_exposed_comms(path, num_steps)
+            pending, self._pending_finalize = self._pending_finalize, None
+            if pending is not None:
+                self._finalize_telemetry(*pending, profiled=True)
             if obs is not None:
                 self._finalize_profile(unroll, trace=path, steps=num_steps)
         return state, metrics
+
+    def _record_exposed_comms(self, trace, steps):
+        """This rank's measured exposed comms from its profiler ``trace`` of
+        ``steps`` steps (``overlap.collective_windows``: each collective's
+        time not covered by compute on another stream): the
+        ``comms.exposed_ms_per_step`` gauge, which the attribution ledger
+        then takes as its ``exposed_comms`` (source ``torch-profiler``),
+        and ``step.overlap``. Kept for
+        :meth:`dump_scheduled`. Fail-open; returns the ms or None."""
+        try:
+            coll, comp = overlap_mod.trace_events(trace)
+            windows = overlap_mod.collective_windows(coll, comp)
+            ms = overlap_mod.exposed_collective_ms(windows, steps)
+            self._windows = (windows, max(1, int(steps)))
+            if self._obs is not None:
+                reg = self._obs.registry()
+                reg.gauge("comms.exposed_ms_per_step").set(round(ms, 4))
+                reg.gauge("step.overlap").set(1 if self._overlap else 0)
+            return ms
+        except Exception as e:  # noqa: BLE001 - accounting must not kill runs
+            logging.debug("exposed-comms accounting skipped: %s", e)
+            return None
+
+    def _record_wire_split(self):
+        """The predicted per-rank wire bytes a step carries on each leg of
+        this program's gradient reductions (``comms.wire_ici_bytes`` /
+        ``comms.wire_dcn_bytes``, ``hierarchical.program_wire_split``).
+        Fail-open."""
+        if self._obs is None:
+            return
+        try:
+            sizes = {v.name: v.size_bytes for v in self._item.variables}
+            world = int(self._mesh.shape.get(const.MESH_AXIS_DATA, 1))
+            split = hierarchical.program_wire_split(
+                self._program.synchronizers, sizes, world)
+            reg = self._obs.registry()
+            reg.gauge("comms.wire_ici_bytes").set(round(split["ici"], 1))
+            reg.gauge("comms.wire_dcn_bytes").set(round(split["dcn"], 1))
+        except Exception as e:  # noqa: BLE001 - accounting must not kill runs
+            logging.debug("wire-split accounting skipped: %s", e)
+
+    def dump_scheduled(self, batch, state=None):
+        """Profile one step on ``state`` (advanced by it; default a fresh
+        state, dropped after) and write its measured collective windows and
+        exposed ms (:meth:`_record_exposed_comms`) as JSON,
+        ``DEFAULT_GRAPH_DUMP_DIR/4-scheduled-step.windows.json`` beside
+        :meth:`dump_compiled`'s op text: ``{"windows": [...],
+        "exposed_ms_per_step": ..., "overlap": ..., "source":
+        "torch-profiler"}``. A collective: every rank calls it. Returns the
+        path; a failure re-raises under ``AUTODIST_DUMP_GRAPHS`` and is
+        returned as a message otherwise (as :meth:`dump_compiled`)."""
+        import json
+        path = os.path.join(const.DEFAULT_GRAPH_DUMP_DIR,
+                            "4-scheduled-step.windows.json")
+        try:
+            from torch.profiler import ProfilerActivity, profile
+            state = self.create_state() if state is None else state
+            activities = [ProfilerActivity.CPU]
+            if self._remapper.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            with profile(activities=activities) as prof:
+                self.step(state, batch)
+                if self._remapper.device.type == "cuda":
+                    torch.cuda.synchronize(self._remapper.device)
+            const.ensure_working_dirs()
+            trace = os.path.join(const.DEFAULT_GRAPH_DUMP_DIR,
+                                 f"4-scheduled-step.trace-{os.getpid()}.json")
+            prof.export_chrome_trace(trace)
+            coll, comp = overlap_mod.trace_events(trace)
+            os.remove(trace)
+            windows = overlap_mod.collective_windows(coll, comp)
+            from autodist_tpu_torch.report import write_atomic
+            write_atomic(path, json.dumps({
+                "windows": windows,
+                "exposed_ms_per_step":
+                    overlap_mod.exposed_collective_ms(windows),
+                "overlap": self._overlap, "source": "torch-profiler"},
+                indent=1))
+            return path
+        except Exception as e:  # noqa: BLE001
+            if const.ENV.AUTODIST_DUMP_GRAPHS.val:
+                raise
+            logging.warning("scheduled-step dump failed: %s", e)
+            return f"scheduled-step dump failed: {type(e).__name__}: {e}"
 
     def _held_tensors(self, state, data_iter=None, step_guard=None):
         """The tensors the loop holds, for the memory ledger's samples off
@@ -1232,6 +1629,10 @@ class Runner:
             if obs is not None and k > 1:
                 # Unroll badge: step.latency_ms is per-dispatch/K.
                 reg.gauge("step.unroll").set(k)
+            if obs is not None and self._overlap:
+                # Overlap badge: the report pairs it with the measured
+                # comms.exposed_ms_per_step.
+                reg.gauge("step.overlap").set(1)
             if step_guard is not None:
                 step_guard.mark_good(0, state)
             if clock is not None:
@@ -1287,7 +1688,10 @@ class Runner:
             if obs is not None:
                 flush(final=True)
         if obs is not None:
-            self._finalize_telemetry(reg, ledger, mem_ledger, k, profiled)
+            if profiled:  # run() finalizes once the trace is read
+                self._pending_finalize = (reg, ledger, mem_ledger, k)
+            else:
+                self._finalize_telemetry(reg, ledger, mem_ledger, k)
         return state, metrics
 
     def _finalize_telemetry(self, reg, ledger, mem_ledger, unroll,
@@ -1298,6 +1702,7 @@ class Runner:
         then the ranks' snapshots gathered on the chief and the trace
         flushed."""
         obs = self._obs
+        self._record_wire_split()
         from autodist_tpu_torch.observability import attribution
         from autodist_tpu_torch.observability import goodput as goodput_mod
         from autodist_tpu_torch.observability import memory as memory_mod
@@ -1602,6 +2007,56 @@ def _state_dicts(opt_tree, names):
     return out
 
 
+def _assign_(old, new):
+    """Copy the state ``new`` into the tensors of ``old`` (a tensor, a dict
+    of them, or ``()``), in place."""
+    if isinstance(old, torch.Tensor):
+        if new is not old:
+            with torch.no_grad():
+                old.copy_(new)
+    elif isinstance(old, dict):
+        for key, value in old.items():
+            _assign_(value, new[key])
+
+
+def _sync_entry(tree, name):
+    """Variable ``name``'s entry of a checkpoint-form sync state: keyed by
+    the name (``to_logical``) or nested by its '/'-joined parts (a raw
+    read); None where it holds none."""
+    if not isinstance(tree, dict):
+        return None
+    if name in tree:
+        return tree[name]
+    node = tree
+    for part in name.split("/"):
+        if not isinstance(node, dict) or part not in node:
+            return None
+        node = node[part]
+    return node
+
+
+def _row_if_congruent(entry, live, world, rank):
+    """Row ``rank`` of each stacked tensor of ``entry`` where ``entry``
+    has ``live``'s structure and each of its tensors is ``(world,) +`` the
+    live one's shape; else None."""
+    if isinstance(live, torch.Tensor):
+        t = torch.as_tensor(entry) if entry is not None else None
+        if t is None or tuple(t.shape) != (world,) + tuple(live.shape):
+            return None
+        return t[rank].to(live.device, live.dtype)
+    if isinstance(live, dict):
+        if not isinstance(entry, dict) or set(entry) != set(live):
+            return None
+        out = {}
+        for key, value in live.items():
+            row = _row_if_congruent(entry[key], value, world, rank)
+            if row is None:
+                return None
+            out[key] = row
+        return out
+    return None
+
+
 def _stack_metrics(steps):
     """Per-step metrics stacked ``(K,)``; ``notfinite`` aggregated over the
     steps with ``any``, on the device."""
@@ -1640,7 +2095,7 @@ class _GraphStep:
         self._specs = [_leaf_spec(l) for l in flat]
         self._static = [torch.empty(shape, dtype=dtype, device=self._device)
                         for shape, dtype in self._specs]
-        self._params = self._opt = self._leaves = None
+        self._params = self._opt = self._leaves = self._sync = None
         self._checked = False  # the first call's batch checked
         self.graphs = {}  # phase -> Graph
         self._built = set()  # phases whose capture ran (telemetry)
@@ -1661,22 +2116,26 @@ class _GraphStep:
     def bound_to(self, state):
         return self._opt is None or (
             state.opt_state is self._opt and
-            all(a is b for a, b in zip(leaves(state.params), self._leaves)))
+            all(a is b for a, b in zip(
+                leaves(state.params) + leaves(state.sync_state),
+                self._leaves)))
 
     def _bind(self, state):
         _make_capturable(state.opt_state, self._device)
         self._params, self._opt = state.params, state.opt_state
-        self._leaves = leaves(state.params)
+        self._sync = state.sync_state
+        self._leaves = leaves(state.params) + leaves(state.sync_state)
         self._generation = optimizer_generation(state.opt_state)
 
     def _compute(self, phase):
         batch = unflatten(self._treedef, self._static)
         core = self._runner._core
         if self.k is None:
-            return core(self._params, self._opt, batch, phase)
+            return core(self._params, self._opt, batch, phase, self._sync)
         return _stack_metrics([
             core(self._params, self._opt, tree_map(lambda t: t[i], batch),
-                 phase + i) for i in range(self.k)])
+                 phase + i, self._sync, block=(i, self.k))
+            for i in range(self.k)])
 
     def _copy_in(self, batch):
         flat, treedef = flatten(batch)

@@ -4,9 +4,11 @@ time and per-device memory.
 Counterpart of the part of ``autodist_tpu/tuner/cost_model.py`` the
 ledgers price with (``observability/attribution.py``, ``memory.py``):
 :class:`Topology` with its collective costs and HBM capacity,
-:meth:`CostModel.strategy_cost`, :meth:`CostModel.strategy_memory` and
-the stage-cut imbalance. The strategy search, ``serve_cost`` and the
-Automap plan pricing come with the tuner's search (ROADMAP.md, A12).
+:meth:`CostModel.strategy_cost` (with the overlap schedule, the bucket cap
+and the hierarchical ``hier=`` codec), :meth:`CostModel.strategy_memory`
+and the stage-cut imbalance. The strategy search, ``serve_cost``, the
+pipeline ``microbatches=`` knob and the Automap plan pricing come with the
+tuner's search (ROADMAP.md, A12).
 
 One training step of a candidate strategy is priced as
 
@@ -191,8 +193,35 @@ class Topology:
     def all_gather_cost(self, nbytes, group_size):
         return self._hierarchical(nbytes, group_size, phases=1)
 
+    def hierarchical_ar_cost(self, nbytes, group_size, dcn_factor=1.0):
+        """Two-level all-reduce (``kernel/synchronization/hierarchical.py``):
+        full-precision reduce-scatter + all-gather on the intra-host leg,
+        codec-compressed all-reduce of the 1/d shard on the DCN leg.
+        ``dcn_factor`` is the codec's wire fraction (:func:`hier_dcn_factor`).
+        At one host, or at factor 1, this equals :meth:`all_reduce_cost`
+        term for term; otherwise it is strictly decreasing in
+        ``dcn_factor`` and increasing in ``nbytes`` and the hosts
+        spanned."""
+        g = max(1, int(group_size))
+        if g == 1:
+            return 0.0
+        h = self._hosts_spanned(g)
+        intra_tier = (Connectivity.ICI
+                      if Connectivity.ICI in self.links else Connectivity.LOCAL)
+        if h == 1:
+            return 2.0 * self._ring_leg(nbytes, g - 1, g, intra_tier)
+        d = max(1, g // h)
+        cost = 0.0
+        if d > 1:
+            cost += 2.0 * self._ring_leg(nbytes, d - 1, d, intra_tier)
+        cost += self._ring_leg(float(nbytes) * float(dcn_factor) / d,
+                               2 * (h - 1), h, Connectivity.DCN)
+        return cost
+
     # -- per-leg wire accounting --------------------------------------------
-    # "Wire bytes" here means bytes RECEIVED per device per step on a leg.
+    # "Wire bytes" here means bytes RECEIVED per device per step on a leg;
+    # these formulas are mirrored byte for byte by the execution-side wire
+    # tally (``hierarchical._tally_hier`` / ``_tally_flat``).
 
     def flat_wire_split(self, total_wire_bytes, group_size):
         """Split one FLAT collective's wire bytes (phase- and compression-
@@ -209,11 +238,59 @@ class Topology:
         d = max(1, g // h)
         return {"ici": w * (d - 1) / d, "dcn": (w / d) * (h - 1) / h}
 
+    def hier_wire_split(self, nbytes, group_size, codec):
+        """Per-leg wire bytes of ONE hierarchical all-reduce of an
+        ``nbytes`` f32 payload: full-precision RS + AG on ICI, the codec's
+        compressed shard on DCN (int8 at small host counts takes the
+        gather transport, (h-1) quantized shards received; past the
+        crossover the codec switches to the bf16 wire, as execution
+        does)."""
+        g = max(1, int(group_size))
+        nbytes = float(nbytes)
+        if g == 1:
+            return {"ici": 0.0, "dcn": 0.0}
+        h = self._hosts_spanned(g)
+        f = HIER_CODEC_FACTORS.get(codec, 1.0)
+        if h == 1:  # degenerate: the flat codec path
+            return self.flat_wire_split(2.0 * nbytes * f, g)
+        d = max(1, g // h)
+        shard = nbytes / d
+        if codec.startswith("int8") and h <= _INT8_MAX_AXIS:
+            dcn = (h - 1) * shard * f
+        else:
+            dcn = 2.0 * shard * hier_dcn_factor(codec, h) * (h - 1) / h
+        return {"ici": 2.0 * nbytes * (d - 1) / d, "dcn": dcn}
+
 
 # Blockwise-int8 wire overhead: 1 byte/element + one f32 scale per block
 # (kernel/synchronization/compressor.py ``_INT8_BLOCK``).
 _INT8_BLOCK = 256
 _INT8_FACTOR = (1.0 + 4.0 / _INT8_BLOCK) / 4.0
+
+# DCN-leg codec wire fractions + the int8 gather-transport crossover of the
+# hierarchical collectives; kept equal to
+# kernel/synchronization/{hierarchical,compressor}.py's.
+HIER_CODEC_FACTORS = {"f32": 1.0, "bf16": 0.5,
+                      "int8": _INT8_FACTOR, "int8ef": _INT8_FACTOR}
+_INT8_MAX_AXIS = 8
+
+
+def hier_dcn_factor(codec, hosts):
+    """Effective DCN wire fraction of a hierarchical codec on a leg of
+    ``hosts``: int8 past the gather-transport crossover switches to the
+    bf16 wire (``hierarchical._dcn_leg``), so its factor does too."""
+    if codec.startswith("int8") and int(hosts) > _INT8_MAX_AXIS:
+        return HIER_CODEC_FACTORS["bf16"]
+    return HIER_CODEC_FACTORS.get(codec, 1.0)
+
+
+def _hier_codec_for(node):
+    """The DCN codec an all-reduce node with ``spec: DCN`` selects (its
+    compressor names it; all_reduce_synchronizer._HIER_CODECS), else
+    None."""
+    from autodist_tpu_torch.kernel.synchronization.all_reduce_synchronizer \
+        import hier_codec
+    return hier_codec(node)
 
 # Wire-format factor per compressor enum value (fraction of f32 bytes on
 # the wire); EF variants pay the same wire plus a small local epsilon that
@@ -320,13 +397,16 @@ class CostModel:
 
     # -- per-variable sync cost ---------------------------------------------
 
-    def _var_sync_cost(self, var, node, n_data, ar_buckets):
-        """Per-variable collective time split by class, OR defer fused
-        all-reduce wire bytes into ``ar_buckets`` (per fusion group: one
-        flat ring each, as ``Runner.bucket_plan`` fuses them).  Returns
-        ``(rs_s, ag_s, other_s, elements_updated_per_device, wire_bytes)``:
-        reduce-scatter, all-gather and ``other`` (stale-period averages)
-        time."""
+    def _var_sync_cost(self, var, node, n_data, ar_buckets, hier=None):
+        """Per-variable collective time split by overlap class, OR defer
+        fused all-reduce bytes into ``ar_buckets`` (per fusion group:
+        ``[wire_bytes, raw_bytes, dcn_codec, sparse_wire_bytes]``; the
+        codec is the ``hier`` override, else the node's own ``spec: DCN``
+        selection, else None = flat; sparse-access bytes ride the last
+        slot, exempt from the codec).  Returns ``(rs_s, ag_s, other_s,
+        elements_updated_per_device, wire_bytes)``: reduce-scatter-class
+        time overlaps the backward, all-gather-class time the NEXT forward
+        (inside a megastep), ``other`` never (stale-period averages)."""
         topo = self.topology
         size = float(var.size_bytes)
         if node is None:  # replicated, no sync recorded
@@ -351,9 +431,22 @@ class CostModel:
                 return (topo.reduce_scatter_cost(size, n_data),
                         topo.all_gather_cost(size, n_data),
                         0.0, var.num_elements / max(1, n_data), size * 2)
-            # Dense all-reduce: fusion groups share one collective —
-            # accumulate bytes, pay latency once per bucket.
-            ar_buckets[ar.group] = ar_buckets.get(ar.group, 0.0) + wire
+            # Dense all-reduce: fusion groups share one collective:
+            # accumulate bytes, pay latency once per bucket. Sparse-access
+            # variables (embeddings) never take the hier codec discount
+            # (their outlier rows defeat blockwise int8 scales): their
+            # bytes ride the entry's sparse slot, fused into the group's
+            # flat ring, or their own flat collective beside a two-level
+            # bucket.
+            entry = ar_buckets.setdefault(ar.group, [0.0, 0.0, None, 0.0])
+            if getattr(var, "sparse_access", False):
+                entry[3] += wire
+            else:
+                codec = hier or _hier_codec_for(node)
+                entry[0] += wire
+                entry[1] += size
+                if codec:
+                    entry[2] = codec
             return (0.0, 0.0, 0.0,
                     var.num_elements / max(1, shard_axis_n), wire * 2)
         if which == "ps_synchronizer":
@@ -373,17 +466,28 @@ class CostModel:
 
     # -- whole-candidate cost -----------------------------------------------
 
-    def strategy_cost(self, strategy, graph_item, unroll=1):
-        """Predicted per-step cost of ``strategy`` on this topology, every
-        collective in line with the compute (the port runs no overlap
-        schedule yet: ROADMAP.md, A9b) and one all-reduce bucket per
-        fusion group.
+    def strategy_cost(self, strategy, graph_item, unroll=1, overlap=False,
+                      bucket_bytes=0, hier=None):
+        """Predicted per-step cost of ``strategy`` on this topology.
 
         ``unroll=K`` amortizes the per-dispatch host overhead over K
         fused steps (``dispatch_ms = DISPATCH_MS / K`` in the breakdown)
         — call with several K values to rank unroll factors for a
         given strategy/model.  A pipe axis prices the artifact's GPipe
         microbatches.
+
+        ``hier="bf16"|"int8"|"int8ef"`` prices the dense all-reduce buckets
+        as two-level collectives with that DCN-leg codec; without it, nodes
+        that carry ``spec: DCN`` are priced hierarchically anyway.
+
+        ``overlap=True`` prices the overlap scheduler
+        (``AUTODIST_OVERLAP``): grad-sync buckets and reduce-scatters are
+        issued as gradients become available, so only ``exposed = max(0,
+        bucket_comms - overlappable_backward_compute)`` accumulated per
+        bucket hits the step; ZeRO weight all-gathers overlap the NEXT
+        step's forward inside a megastep (``unroll > 1``). With
+        ``bucket_bytes`` each fusion group splits into ceil(bytes/cap)
+        buckets, each paying its own collective latency.
         """
         topo = self.topology
         unroll = max(1, int(unroll))
@@ -396,22 +500,51 @@ class CostModel:
         for var in graph_item.trainable_variables:
             node = strategy.node_by_name(var.name)
             rs, ag, oth, elems, wire = self._var_sync_cost(
-                var, node, n_data, ar_buckets)
+                var, node, n_data, ar_buckets, hier=hier)
             rs_s += rs
             ag_s += ag
             other_s += oth
             update_elems += elems
             wire_bytes += wire
         bucket_costs = []
+        cap = max(0, int(bucket_bytes or 0))
+        hosts = topo._hosts_spanned(n_data)
+        hier_applied = None
         leg_ici = leg_dcn = 0.0
         for group in sorted(ar_buckets):  # deterministic issue order
-            total = ar_buckets[group]
-            bucket_costs.append(topo.all_reduce_cost(total, n_data))
-            split = topo.flat_wire_split(2.0 * total, n_data)
-            leg_ici += split["ici"]
-            leg_dcn += split["dcn"]
+            nbytes, raw_bytes, codec, sparse_wire = ar_buckets[group]
+            if codec and hosts > 1:
+                # Two-level bucket: raw bytes on the ICI legs, the codec's
+                # shard on DCN; sparse-access bytes pay their own flat
+                # ring beside it.
+                n_buckets = (max(1, -(-int(nbytes) // cap)) if cap else 1)
+                for _ in range(n_buckets):
+                    bucket_costs.append(topo.hierarchical_ar_cost(
+                        raw_bytes / n_buckets, n_data,
+                        hier_dcn_factor(codec, hosts)))
+                hier_applied = codec
+                if sparse_wire:
+                    bucket_costs.append(
+                        topo.all_reduce_cost(sparse_wire, n_data))
+                split = topo.hier_wire_split(raw_bytes, n_data, codec)
+                flat = topo.flat_wire_split(2.0 * sparse_wire, n_data)
+                leg_ici += split["ici"] + flat["ici"]
+                leg_dcn += split["dcn"] + flat["dcn"]
+            else:
+                # Flat (or degenerate one-host hierarchical, which runs as
+                # the flat codec): the compressed-wire ring, the sparse
+                # bytes fused into the same bucket.
+                total = nbytes + sparse_wire
+                n_buckets = (max(1, -(-int(total) // cap)) if cap else 1)
+                for _ in range(n_buckets):
+                    bucket_costs.append(
+                        topo.all_reduce_cost(total / n_buckets, n_data))
+                split = topo.flat_wire_split(2.0 * total, n_data)
+                leg_ici += split["ici"]
+                leg_dcn += split["dcn"]
         # Non-bucket wire (RS/AG pairs, stale averages) rides flat rings.
-        other_wire = max(0.0, wire_bytes - 2.0 * sum(ar_buckets.values()))
+        other_wire = max(0.0, wire_bytes - 2.0 * sum(
+            entry[0] + entry[3] for entry in ar_buckets.values()))
         split = topo.flat_wire_split(other_wire, n_data)
         leg_ici += split["ici"]
         leg_dcn += split["dcn"]
@@ -439,8 +572,25 @@ class CostModel:
             compute_s = busy_s * (mb + n_pipe - 1) / mb
             bubble_ms = (compute_s - busy_s) * 1e3
 
-        # Serialized comms: everything in line.
-        sync_s = sum(bucket_costs) + rs_s + ag_s + other_s
+        # Serialized comms (the schedule without overlap): all in line.
+        serial_sync_s = sum(bucket_costs) + rs_s + ag_s + other_s
+        sync_s = serial_sync_s
+        if overlap:
+            # The backward hides grad-sync buckets and reduce-scatters,
+            # consumed in issue order; the next step's forward hides the
+            # ZeRO weight all-gather, but only when a megastep holds both
+            # steps (unroll > 1).
+            backward_s = compute_s * 2.0 / 3.0
+            exposed = 0.0
+            budget = backward_s
+            for c in bucket_costs + [rs_s]:
+                exposed += max(0.0, c - budget)
+                budget = max(0.0, budget - c)
+            if unroll > 1:
+                exposed += max(0.0, ag_s - compute_s / 3.0)
+            else:
+                exposed += ag_s
+            sync_s = exposed + other_s
 
         # Non-data overlay axes (model/seq/expert) move activations every
         # step: a coarse per-axis term on the captured batch footprint.
@@ -464,13 +614,15 @@ class CostModel:
         total_ms = ((sync_s + overlay_s) * 1e3 * mscale +
                     (update_s + compute_s) * 1e3 * cscale + dispatch_ms)
         extra = {}
+        if hier_applied:
+            extra["hier_codec"] = hier_applied
         if n_pipe > 1:
             extra.update(bubble_ms=bubble_ms * cscale,
                          pipeline_imbalance=imbalance,
                          microbatches=mb, pipeline_stages=n_pipe)
         return CostBreakdown(
             total_ms=total_ms,
-            sync_ms=sync_s * 1e3,
+            sync_ms=serial_sync_s * 1e3,
             exposed_sync_ms=sync_s * 1e3,
             update_ms=update_s * 1e3,
             compute_ms=compute_s * 1e3,
@@ -478,6 +630,8 @@ class CostModel:
             **extra,
             dispatch_ms=dispatch_ms,
             unroll=unroll,
+            overlap=bool(overlap),
+            bucket_mb=(cap / (1 << 20) if cap else 0),
             n_buckets=len(bucket_costs),
             wire_mb=wire_bytes / 1e6,
             wire_ici_mb=leg_ici / 1e6,
@@ -490,7 +644,7 @@ class CostModel:
 
     # -- whole-candidate memory ----------------------------------------------
 
-    def strategy_memory(self, strategy, graph_item, unroll=1,
+    def strategy_memory(self, strategy, graph_item, unroll=1, bucket_bytes=0,
                         batch_rows=None, kv_cache_bytes=0):
         """Predicted peak per-device HBM of ``strategy`` — the companion
         to :meth:`strategy_cost` the memory ledger
@@ -514,7 +668,8 @@ class CostModel:
           1/S slice of each stays resident — visible as ``hold_depth``);
         * ``staging_bytes``   — host->device input staging (``unroll=K``
           stacks K batches per dispatch, prefetch holds more) plus the
-          largest in-flight all-reduce fusion bucket;
+          largest in-flight all-reduce fusion bucket (capped at
+          ``bucket_bytes`` when the bucket-size knob is set);
         * ``kv_cache_bytes``  — the decode engine's preallocated KV cache
           (``kv_cache_bytes``: the total bytes of one (slots, cache_len)
           lane, sharded over the data axis like any batch operand, so
@@ -578,8 +733,15 @@ class CostModel:
                 if ar.compressor in (C.HorovodCompressorEF,
                                      C.Int8CompressorEF):
                     # Error-feedback residual: one f32 gradient-shaped
-                    # buffer per variable.
-                    sync_state += size
+                    # buffer per variable, except the hierarchical family
+                    # (spec: DCN), whose residual lives on the DCN-leg
+                    # shard: 1/d of the gradient per device.
+                    if _hier_codec_for(node) and \
+                            self.topology.devices_per_host > 1 and \
+                            self.topology.num_hosts > 1:
+                        sync_state += size / self.topology.devices_per_host
+                    else:
+                        sync_state += size
                 elif ar.compressor == C.PowerSGDCompressor:
                     # P/Q low-rank factors persist across steps.
                     sync_state += wire
@@ -633,9 +795,12 @@ class CostModel:
         batch_dev = _batch_bytes(graph_item) * row_scale / n_data
         prefetch = max(0, int(const.ENV.AUTODIST_PREFETCH_DEPTH.val))
         staging = batch_dev * unroll * (1 + prefetch)
-        # Largest in-flight collective staging buffer: one fusion bucket.
+        # Largest in-flight collective staging buffer: one fusion bucket
+        # (capped by the bucket-size knob when set).
+        cap = max(0, int(bucket_bytes or 0))
         if ar_buckets:
-            staging += max(ar_buckets.values())
+            largest = max(ar_buckets.values())
+            staging += min(largest, cap) if cap else largest
 
         return MemoryBreakdown(
             params_bytes=params,

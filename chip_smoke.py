@@ -440,13 +440,29 @@ Phases (any failure raises: non-zero exit, no final ``ok`` line):
    prints each generation's wall, the gap, the restore and reshard ms, the
    classes, each kernel's launches a generation and rank (12 a step) and
    the phase's seconds;
-24. output: one ``{"kernels": [...]}`` JSON line, then the last line
+24. the other gradient-sync kinds: (a) the wire functions on the card
+   against their CPU results (the int8 quantization's q and scales
+   bitwise, its EF residual, PowerSGD's orthogonalization and rank-2
+   approximation at 1e-5); (b) four gloo ranks of this script
+   (``--gs-train``) on the card train BERT-base at full width and 3 of
+   its 12 layers (32 x 128 a rank, SGD 0.1, 2 eager steps) under every
+   compressor, the two-leg int8 + EF wire split 2 hosts x 2
+   (``AUTODIST_HIER_ICI=2``) and ``AllReduce()`` with the overlap
+   scheduler on and off (16 MiB buckets, deterministic algorithms), each
+   held to its one-rank reference (the same wire on one rank, the whole
+   batch) between the floor and the planted fault, the ranks' params
+   equal, 3 launches of each flash kernel a rank and step, the wire bytes
+   a rank and step per leg equal to ``hier_wire_split``'s prediction and
+   the overlap on / off params bitwise equal; (c) one profiled
+   ``Runner.run`` a rank: its measured exposed comms beside the cost
+   model's estimate and the attribution's sources; the phase's seconds;
+25. output: one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``. No process the script starts
    outlives it: its children stay in its process group, it adopts their
    orphans, a SIGTERM takes them along, and a process still there after
    the last phase fails the run.
 
-On four cards, ``python3 chip_smoke.py --cards 4 [--part a|b|c|d]`` runs
+On four cards, ``python3 chip_smoke.py --cards 4 [--part a|b|c|d|e]`` runs
 the four-card phase alone instead (it refuses to run on fewer cards): the
 kernels built once; each run's one-rank reference, its floor (the
 reference again) and its planted fault (twice the learning rate: a
@@ -469,7 +485,13 @@ graph steps; (b) lm1b width on ``{seq: 4}`` (ring and Ulysses, 2 x
 ``ModelParallel(SequenceParallel("ring", 2), 2)`` and lm1b under
 ``SequenceParallel("ring", 2, base=Pipeline(2, 4))``; (d) phase 17's
 two runs, lm1b on ``{pipe: 2, model: 2}`` and the MoE layer on
-``{expert: 2, model: 2}``. Each run: losses
+``{expert: 2, model: 2}``; (e) BERT-base as (a) under int8 + EF,
+PowerSGD (each held to the same wire on one card) and the DCN spec
+(``AUTODIST_HIER_ICI=2``), ``AllReduce()`` with the overlap scheduler off
+and on (16 MiB buckets; the 1 -> 4 scaling of its graph step) and
+``PS()`` with ``AUTODIST_ZERO1_AG_SCOPE=use`` under ``run(unroll=4)``,
+each rank's exposed comms measured from a profiled ``run(unroll=4)``.
+Each run: losses
 and the whole update held to its reference, the graph step to the eager
 one, the ranks' losses and replicated params bitwise equal, one strategy
 shipped to all, the launches a rank and step as counted from the code
@@ -9240,12 +9262,385 @@ def elastic_phase(torch, fa, card, cfg, device, directory, batch_size=32,
             "elastic_control": ctl["launches"]}
 
 
+# Phase 24: the other gradient-sync kinds (the wire compressors with their
+# error-feedback state, the hierarchical two-leg all-reduce, the overlap
+# scheduler and its measured exposed comms).
+
+GS_WORLD, GS_STEPS, GS_LR = 4, 2, 0.1
+GS_KNOBS = ("AUTODIST_OVERLAP", "AUTODIST_AR_BUCKET_MB", "AUTODIST_HIER_ICI",
+            "AUTODIST_ZERO1_AG_SCOPE", "AUTODIST_TELEMETRY", "AUTODIST_TRACE")
+# (key, builder expression, knobs, its one-rank reference). A run is held
+# to the one-rank run of its reference on the whole batch (the same rows):
+# the plain mean for the uncompressed wire and the overlap scheduler, the
+# same wire on one rank for a compressor (PowerSGD's factors are linear in
+# the gradient, so the ranks' mean factor is the mean gradient's; the bf16
+# and int8 wires round each rank's gradient where one rank rounds the
+# mean).
+GS_RUNS = (
+    ("horovod", "AllReduce(compressor='HorovodCompressor')", {}, "horovod"),
+    ("horovod_ef", "AllReduce(compressor='HorovodCompressorEF')", {},
+     "horovod_ef"),
+    ("int8", "AllReduce(compressor='Int8Compressor')", {}, "int8"),
+    ("int8_ef", "AllReduce(compressor='Int8CompressorEF')", {}, "int8_ef"),
+    ("powersgd", "AllReduce(compressor='PowerSGDCompressor')", {},
+     "powersgd"),
+    ("dcn_int8_ef", "AllReduce(all_reduce_spec='DCN', "
+     "compressor='Int8CompressorEF')", {"AUTODIST_HIER_ICI": "2"}, "int8_ef"),
+    ("overlap_off", "AllReduce()", {"AUTODIST_AR_BUCKET_MB": "16"}, "f32"),
+    ("overlap_on", "AllReduce()", {"AUTODIST_OVERLAP": "1",
+                                   "AUTODIST_AR_BUCKET_MB": "16"}, "f32"),
+)
+GS_REFS = {"f32": "AllReduce()",
+           "horovod": "AllReduce(compressor='HorovodCompressor')",
+           "horovod_ef": "AllReduce(compressor='HorovodCompressorEF')",
+           "int8": "AllReduce(compressor='Int8Compressor')",
+           "int8_ef": "AllReduce(compressor='Int8CompressorEF')",
+           "powersgd": "AllReduce(compressor='PowerSGDCompressor')"}
+# Loss (max relative) and whole-update (relative L2) tolerances: the plain
+# wire's are phase 8's; a lossy wire's take its rounding of each rank's
+# gradient. Each must lie above the floor (the f32 reference again) and
+# the update's below the planted fault (the reference at twice the lr).
+GS_TOLS = {"f32": (1e-3, 5e-2), "lossy": (1e-2, 2.5e-1)}
+# (a)'s tolerances: the int8 wire's q and scales bitwise (one IEEE
+# division, one rounding), the EF residual at 1e-6 of its magnitude; the
+# orthogonalization and approximation at 1e-5 (reductions in another
+# order on the card).
+GS_WIRE_RTOL = 1e-5
+GS_PHASE_S = 90.0
+
+
+def _gs_builder(expr):
+    from autodist_tpu_torch import strategy as S
+    return eval(expr, vars(S))  # noqa: S307 - our table
+
+
+def _gs_env(knobs):
+    for k in GS_KNOBS:
+        os.environ.pop(k, None)
+    os.environ.update(knobs)
+
+
+def gs_wire_phase(torch, device):
+    """(a): the wire functions on ``device``'s tensors against their plain
+    CPU results at BERT-base's shapes: the int8 quantization of a word
+    embedding gradient (q and scales equal), its error-feedback residual,
+    and PowerSGD's orthogonalization and rank-2 approximation of a 768 x
+    3072 gradient. Returns {check: max abs error}."""
+    from autodist_tpu_torch.kernel.synchronization import compressor as comp
+    gen = torch.Generator().manual_seed(24)
+    grad = torch.randn(30522 * 768, generator=gen) * 1e-3
+    grad[:4096] = 0.0  # all-zero blocks: scale 0
+    state = torch.randn(grad.shape, generator=gen) * 1e-5
+    out = {}
+
+    def ef(g, s):
+        corrected = g + s
+        q, scale, pad = comp._int8_quantize(corrected)
+        deq = (q.float() * scale).reshape(-1)
+        return q, scale, corrected - (deq[:-pad] if pad else deq)
+    q0, s0, r0 = ef(grad, state)
+    q1, s1, r1 = ef(grad.to(device), state.to(device))
+    check(torch.equal(q1.cpu(), q0) and torch.equal(s1.cpu(), s0),
+          f"(a) the int8 wire's q / scales differ on the card: "
+          f"{int((q1.cpu() != q0).sum())} q, {int((s1.cpu() != s0).sum())} "
+          f"scales of {s0.numel()}")
+    out["int8_q"] = int((q1.cpu().int() - q0.int()).abs().max())
+    out["ef_residual"] = float((r1.cpu() - r0).abs().max())
+    check(out["ef_residual"] <= 1e-6 * float(r0.abs().max()),
+          f"(a) the EF residual differs by {out['ef_residual']}")
+    m = torch.randn(768, 3072, generator=gen)
+    q = torch.randn(3072, 2, generator=gen)
+    ps = comp.PowerSGDCompressor
+    p_hat = ps._orthogonalize(m @ q)
+    approx = p_hat @ (m.t() @ p_hat).t()
+    p_hat_d = ps._orthogonalize(m.to(device) @ q.to(device))
+    approx_d = p_hat_d @ (m.to(device).t() @ p_hat_d).t()
+    out["orthogonalize"] = float((p_hat_d.cpu() - p_hat).abs().max())
+    out["approximation"] = float((approx_d.cpu() - approx).abs().max() /
+                                 approx.abs().max())
+    check(out["orthogonalize"] <= GS_WIRE_RTOL and
+          out["approximation"] <= GS_WIRE_RTOL,
+          f"(a) PowerSGD's factors differ on the card: {out}")
+    return out
+
+
+def gs_train_rank(rank, world, port, spec):
+    """One rank of phase 24 (b) / (c): a gloo world over ``localhost`` on
+    the card; every run of ``GS_RUNS`` (``GS_STEPS`` eager SGD steps of
+    BERT on this rank's rows, from the seeded init), then one profiled
+    ``Runner.run`` with telemetry on. Prints {run: losses, launches, the
+    update's error against its reference, a digest of the params, the
+    wire tally per step and its prediction} and the profiled run's
+    measured exposed comms, estimate and sources."""
+    import datetime
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch import observability
+    from autodist_tpu_torch.kernel.synchronization import hierarchical
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.models import transformer as T
+    from autodist_tpu_torch.observability import attribution
+    from autodist_tpu_torch.ops import build
+    from autodist_tpu_torch.ops import flash_attention as fa
+    spec = json.loads(spec)
+    device = spec["device"]
+    os.environ["AUTODIST_WORKING_DIR"] = os.path.join(spec["dir"],
+                                                      f"wd{rank}")
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build.load_all()  # built by the parent: the same sources and flags
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    fields = dict(spec["config"], dtype=getattr(torch, spec["dtype"]))
+    cfg = T.TransformerConfig(**fields)
+    batch = bert.synthetic_batch(cfg, spec["batch"], spec["seq"],
+                                 spec["masked"], seed=0)
+    refs = torch.load(spec["refs"], map_location=device)
+    local = spec["batch"] // world
+    mine = tuple(a[rank * local:(rank + 1) * local] for a in batch)
+    out = {"rank": rank}
+    for key, expr, knobs, ref in GS_RUNS:
+        _gs_env(dict(knobs, AUTODIST_TELEMETRY="0"))
+        observability.refresh()
+        # Bitwise overlap on / off: the embedding gradient's scatter
+        # without atomics.
+        torch.use_deterministic_algorithms(key.startswith("overlap"),
+                                           warn_only=True)
+        hierarchical.reset_wire_tally()
+        run = strategy_run(torch, fa, cfg, device, f"rank {rank} {key}",
+                           _gs_builder(expr), mine, spec["steps"],
+                           backend="gloo", optimizer="SGD", lr=GS_LR)
+        tally = hierarchical.wire_tally()
+        runner = run.runner
+        sizes = {v.name: v.size_bytes for v in runner.program.graph_item
+                 .variables}
+        predicted = hierarchical.program_wire_split(
+            runner.program.synchronizers, sizes,
+            runner.program.data_axis_size)
+        out[key] = {
+            "losses": run.losses, "launches": run.launches,
+            "mesh": dict(runner.program.mesh.shape),
+            "update_error": update_error(torch, run.params,
+                                         refs[ref]["params"], run.init),
+            "loss_rel": _rel(run.losses, refs[ref]["losses"]),
+            "digest": _digest(torch, [t for _, t in
+                                      sorted(run.params.items())]),
+            "sync_state": sorted(run.state.sync_state),
+            "overlap": runner._overlap,
+            "buckets": len(runner.bucket_plan()),
+            "legs": [getattr(s, "_legs", lambda: None)() for s in
+                     list(runner.program.synchronizers.values())[:1]],
+            "tally": {k: v / spec["steps"] for k, v in tally.items()},
+            "predicted": predicted}
+        del run, runner
+    torch.use_deterministic_algorithms(False)
+    # (c) one profiled run a rank, the scheduler on: the measured exposed
+    # comms beside the cost model's estimate.
+    _gs_env({"AUTODIST_OVERLAP": "1", "AUTODIST_AR_BUCKET_MB": "16"})
+    observability.refresh()
+    observability.reset()
+    autodist_mod._reset_default()
+    from autodist_tpu_torch import AutoDist
+    params = bert.init(cfg, torch.Generator().manual_seed(0), device=device)
+    ad = AutoDist(strategy_builder=_gs_builder("AllReduce()"), device=device)
+    runner = ad.create_distributed_session(ad.capture(
+        bert.make_loss_fn(cfg), params,
+        functools.partial(torch.optim.SGD, lr=GS_LR), example_batch=mine))
+    state = runner.create_state()
+    trace_dir = tempfile.mkdtemp(dir=spec["dir"])
+    state, _ = runner.run(state, iter([mine] * spec["steps"]),
+                          spec["steps"], trace_dir=trace_dir)
+    gauges = observability.registry().snapshot().get("gauges") or {}
+    summ = attribution.last_summary() or {}
+    windows, steps = runner._windows or ([], 1)
+    from autodist_tpu_torch.kernel.overlap import overlap_share
+    out["profiled"] = {
+        "exposed_ms": gauges.get("comms.exposed_ms_per_step"),
+        "hidden_share": round(overlap_share(windows), 4),
+        "estimate_ms": summ.get("raw_comms_ms"),
+        "attr_exposed_ms": summ.get("exposed_comms_ms"),
+        "sources": summ.get("sources"), "windows": len(windows),
+        "steps": steps, "wire_ici": gauges.get("comms.wire_ici_bytes")}
+    del state, runner, params
+    _gs_env({})
+    autodist_mod._reset_default()
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def gradsync_phase(torch, fa, card, cfg, device, batch_size=32 * GS_WORLD,
+                   seq=128, num_masked=20, steps=GS_STEPS):
+    """Phase 24: (a) :func:`gs_wire_phase`; (b) ``GS_WORLD`` gloo ranks of
+    this script (``--gs-train``) on the one card train ``cfg`` at full
+    width (``batch_size / GS_WORLD`` rows a rank) under each of
+    ``GS_RUNS``: every compressor, the hierarchical int8 + EF wire split 2
+    hosts x 2 (``AUTODIST_HIER_ICI=2``) and ``AllReduce()`` with the
+    overlap scheduler on and off (16 MiB buckets), each held to its
+    one-rank reference between the floor and the planted fault, the ranks'
+    params equal, the flash kernels launched once a layer and step, the
+    wire tally per leg equal to ``hier_wire_split``'s prediction and the
+    overlap on / off params bitwise equal; (c) each rank's measured
+    exposed comms of one profiled run beside the cost model's estimate,
+    with the attribution's sources. Returns {path: flash launches, summed
+    over the ranks}."""
+    import tempfile
+    from autodist_tpu_torch import autodist as autodist_mod
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.ops import build
+    t_phase = time.perf_counter()
+    wire = gs_wire_phase(torch, device)
+    print(f"phase 24 (a): the wire functions on {device} tensors against "
+          f"their CPU results: int8 q / scales of a 30522 x 768 gradient "
+          f"bitwise (max |dq| {wire['int8_q']}), EF residual max abs "
+          f"{wire['ef_residual']:.3e}, PowerSGD orthogonalization "
+          f"{wire['orthogonalize']:.3e} and rank-2 approximation "
+          f"{wire['approximation']:.3e} relative (tol {GS_WIRE_RTOL})",
+          flush=True)
+    print(f"phase 24 (b), {GS_WORLD} gloo ranks on one device: a "
+          f"{cfg.num_layers}-layer, width {cfg.dim} BERT (batch "
+          f"{batch_size} x {seq}, {batch_size // GS_WORLD} rows a rank, SGD "
+          f"{GS_LR}, {steps} eager steps) under " +
+          ", ".join(k for k, _, _, _ in GS_RUNS), flush=True)
+    batch = bert.synthetic_batch(cfg, batch_size, seq, num_masked, seed=0)
+    refs = {}
+    try:
+        for ref, expr in GS_REFS.items():
+            run = strategy_run(torch, fa, cfg, device, f"one rank {ref}",
+                               _gs_builder(expr), batch, steps,
+                               optimizer="SGD", lr=GS_LR)
+            refs[ref] = {"losses": run.losses,
+                         "params": {n: t.detach().cpu()
+                                    for n, t in run.params.items()}}
+            init = run.init
+            del run
+        again = strategy_run(torch, fa, cfg, device, "one rank f32 again",
+                             _gs_builder(GS_REFS["f32"]), batch, steps,
+                             optimizer="SGD", lr=GS_LR)
+        fault = strategy_run(torch, fa, cfg, device,
+                             "one rank f32 at twice the lr",
+                             _gs_builder(GS_REFS["f32"]), batch, steps,
+                             optimizer="SGD", lr=2 * GS_LR)
+    finally:
+        autodist_mod._reset_default()
+    cpu = {n: t.cpu() for n, t in init.items()}
+    want = refs["f32"]
+    floor = (_rel(again.losses, want["losses"]),
+             update_error(torch, {n: t.cpu() for n, t in again.params.items()},
+                          want["params"], cpu))
+    faulty = (_rel(fault.losses, want["losses"]),
+              update_error(torch, {n: t.cpu() for n, t in fault.params.items()},
+                           want["params"], cpu))
+    del again, fault, init
+    print(f"  one-rank references (SGD {GS_LR}, the whole batch): " +
+          "; ".join(f"{k} {', '.join(f'{x:.6f}' for x in r['losses'])}"
+                    for k, r in refs.items()) +
+          f"; floor (f32 again): loss {floor[0]:.3e}, update {floor[1]:.3e};"
+          f" planted fault (lr x 2): loss {faulty[0]:.3e}, update "
+          f"{faulty[1]:.3e}; tolerances {GS_TOLS} (on {card})", flush=True)
+    for name, (lt, ut) in GS_TOLS.items():
+        check(floor[0] <= lt and floor[1] < ut < faulty[1],
+              f"phase 24 {name} tolerances {lt}, {ut} do not lie between "
+              f"the floor {floor} and the fault {faulty}")
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
+    refs_path = os.path.join(tmp.name, "refs.pt")
+    torch.save(refs, refs_path)
+    fields = {k: v for k, v in vars(cfg).items() if k != "dtype"}
+    spec = json.dumps({"device": device, "config": fields,
+                       "dtype": str(cfg.dtype).split(".")[-1], "seq": seq,
+                       "batch": batch_size, "masked": num_masked,
+                       "steps": steps, "refs": refs_path, "dir": tmp.name})
+    t0 = time.perf_counter()
+    try:
+        ranks = _spawn_ranks(GS_WORLD, "--gs-train", spec,
+                             "a gradient-sync rank", timeout=600)
+    finally:
+        tmp.cleanup()
+    world_s = time.perf_counter() - t0
+    paths = {}
+    for key, expr, knobs, ref in GS_RUNS:
+        got = [r[key] for r in ranks]
+        g = got[0]
+        tol = GS_TOLS["f32" if ref == "f32" else "lossy"]
+        rel = max(x["loss_rel"] for x in got)
+        err = max(x["update_error"] for x in got)
+        tally, pred = g["tally"], g["predicted"]
+        measured = (f"ici {tally['ici']:.1f} / dcn {tally['dcn']:.1f} "
+                    f"measured (the hierarchical reduces' tally), "
+                    if key.startswith("dcn") else "")
+        print(f"  {key}: {expr}{' ' + json.dumps(knobs) if knobs else ''} "
+              f"(mesh {g['mesh']}, legs {g['legs'][0]}, {g['buckets']} "
+              f"bucket(s), sync state on {len(g['sync_state'])} variables): "
+              f"losses {', '.join(f'{x:.6f}' for x in g['losses'])}; vs the "
+              f"one-rank {ref}: loss {rel:.3e} (tol {tol[0]}), update "
+              f"{err:.3e} (tol {tol[1]}); wire bytes a rank and step per "
+              f"leg: {measured}ici {pred['ici']:.1f} / dcn "
+              f"{pred['dcn']:.1f} predicted; params "
+              f"equal on every rank: {len({x['digest'] for x in got}) == 1}"
+              f"; flash launches per rank and step "
+              f"{json.dumps({k: v / steps for k, v in g['launches'].items()})}",
+              flush=True)
+        check(all(x["losses"] == g["losses"] for x in got),
+              f"phase 24 {key}: the ranks' losses differ")
+        check(len({x["digest"] for x in got}) == 1,
+              f"phase 24 {key}: the ranks' params differ")
+        check(rel <= tol[0] and err <= tol[1], f"phase 24 {key}: loss "
+              f"{rel:.3e} / update {err:.3e} off its reference (tol {tol})")
+        check(all(x["mesh"] == {"data": GS_WORLD} for x in got),
+              f"phase 24 {key}: mesh {g['mesh']}")
+        stateful = "_ef" in key or key == "powersgd"
+        check(bool(g["sync_state"]) == stateful,
+              f"phase 24 {key}: sync state on {g['sync_state']}")
+        if key.startswith("dcn"):
+            check(g["legs"][0] == [2, 2], f"phase 24 {key}: legs "
+                  f"{g['legs'][0]}")
+            check(tally["dcn"] > 0 and all(
+                abs(tally[k] - pred[k]) <= 1e-9 * pred[k]
+                for k in ("ici", "dcn")), f"phase 24 {key}: the wire tally "
+                f"{tally} is not the prediction {pred}")
+        check(g["overlap"] == (key == "overlap_on"),
+              f"phase 24 {key}: the scheduler is {g['overlap']}")
+        paths[f"gradsync_gloo{GS_WORLD}_{key}"] = {
+            k: sum(x["launches"][k] for x in got) for k in g["launches"]}
+    on = [r["overlap_on"]["digest"] for r in ranks]
+    off = [r["overlap_off"]["digest"] for r in ranks]
+    print(f"  overlap on vs off: params bitwise equal on every rank: "
+          f"{on == off}", flush=True)
+    check(on == off, "phase 24 (b): overlap on and off give other params")
+    for r in ranks:
+        p = r["profiled"]
+        print(f"phase 24 (c) rank {r['rank']}: measured exposed comms "
+              f"{p['exposed_ms']} ms/step ({p['windows']} collective "
+              f"windows over {p['steps']} steps, hidden share "
+              f"{p['hidden_share']}), the attribution's {p['attr_exposed_ms']}"
+              f" ms; the cost model's estimate {p['estimate_ms']} ms; sources "
+              f"{json.dumps(p['sources'], sort_keys=True)}", flush=True)
+        check(p["exposed_ms"] is not None and p["exposed_ms"] > 0 and
+              p["windows"] > 0, f"phase 24 (c) rank {r['rank']}: no "
+              f"measured exposed comms {p}")
+        check((p["sources"] or {}).get("exposed_comms") == "torch-profiler",
+              f"phase 24 (c) rank {r['rank']}: sources {p['sources']}")
+    took = time.perf_counter() - t_phase
+    print(f"  phase 24 took {took:.1f} s (the {GS_WORLD}-rank world "
+          f"{world_s:.1f} s), on {card}", flush=True)
+    if device == "cuda":
+        check(took <= GS_PHASE_S, f"phase 24 took {took:.1f} s (limit "
+              f"{GS_PHASE_S} s)")
+    return paths
+
+
 # ``--capture-loop N [--blocking M]``: phase 20 alone, N times, each in a
 # process and a working directory of its own (the first M with
 # CUDA_LAUNCH_BLOCKING=1), counting
 # the runs that fail and the Python GC passes that start while the calling
 # thread's stream captures a CUDA graph (a finalizer run there may call
-# CUDA inside the capture).
+# CUDA inside the capture), with (b)'s two timings of the graph step and
+# the card's clocks, power and throttle reasons sampled while each ran.
 def capture_once_main(torch):
     import gc
     import tempfile
@@ -9268,6 +9663,32 @@ def capture_once_main(torch):
             counts["gc_in_capture"][gen] = \
                 counts["gc_in_capture"].get(gen, 0) + 1
     gc.callbacks.append(watch)
+    global _graph_step_ms
+    timed, inner = [], _graph_step_ms
+
+    def sampled(torch, runner, state, block, **kw):
+        """(b)'s timing, with the card's clocks, power and throttle
+        reasons sampled every 0.2 s while it runs."""
+        clocks, stop = [], threading.Event()
+
+        def poll():
+            while not stop.is_set():
+                clocks.append(subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,"
+                     "power.draw,clocks_throttle_reasons.active",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True).stdout.strip())
+                stop.wait(0.2)
+        thread = threading.Thread(target=poll)
+        thread.start()
+        try:
+            state, ms = inner(torch, runner, state, block, **kw)
+        finally:
+            stop.set()
+            thread.join()
+        timed.append({"ms": ms, "clocks": sorted(set(clocks))})
+        return state, ms
+    _graph_step_ms = sampled
     error = None
     directory = tempfile.mkdtemp(dir=build.BUILD_DIR)
     try:
@@ -9276,9 +9697,11 @@ def capture_once_main(torch):
     except Exception as e:  # noqa: BLE001 - the probe counts failures
         error = "".join(traceback.format_exception(e))[-3000:]
     finally:
+        _graph_step_ms = inner
         gc.callbacks.remove(watch)
         shutil.rmtree(directory, ignore_errors=True)
     print(json.dumps(dict(counts, ok=error is None, error=error,
+                          timings=timed,
                           seconds=time.perf_counter() - t0)), flush=True)
     return 0
 
@@ -9371,7 +9794,30 @@ CARD_RUNS = (
      "bert_dp_stale"),
     ("dp_resnet", "a", "resnet", "AllReduce(chunk_size=128)", {"data": 4},
      None),
+    # (e) the other gradient-sync kinds over NCCL (phase 24's on four
+    # cards), each with its knobs (CARD_KNOBS).
+    ("e_int8_ef", "e", "bert_dp", "AllReduce(compressor='Int8CompressorEF')",
+     {"data": 4}, "bert_dp_int8_ef"),
+    ("e_powersgd", "e", "bert_dp",
+     "AllReduce(compressor='PowerSGDCompressor')", {"data": 4},
+     "bert_dp_powersgd"),
+    ("e_dcn", "e", "bert_dp", "AllReduce(all_reduce_spec='DCN', "
+     "compressor='Int8CompressorEF')", {"data": 4}, "bert_dp_int8_ef"),
+    ("e_ar_off", "e", "bert_dp", "AllReduce()", {"data": 4}, "bert_dp"),
+    ("e_ar_on", "e", "bert_dp", "AllReduce()", {"data": 4}, "bert_dp"),
+    ("e_ps_use", "e", "bert_dp", "PS()", {"data": 4}, "bert_dp"),
 )
+# The environment knobs of a run (set before its session, cleared after).
+CARD_KNOBS = {
+    "e_dcn": {"AUTODIST_HIER_ICI": "2"},
+    "e_ar_off": {"AUTODIST_AR_BUCKET_MB": "16"},
+    "e_ar_on": {"AUTODIST_OVERLAP": "1", "AUTODIST_AR_BUCKET_MB": "16"},
+    "e_ps_use": {"AUTODIST_OVERLAP": "1", "AUTODIST_ZERO1_AG_SCOPE": "use"}}
+# A compressed run's reference: the same wire on one card (phase 24's
+# reasoning), with the lossy wires' tolerances.
+CARD_REF_BUILDERS = {
+    "bert_dp_int8_ef": "AllReduce(compressor='Int8CompressorEF')",
+    "bert_dp_powersgd": "AllReduce(compressor='PowerSGDCompressor')"}
 # Loss (max relative) and whole-update (relative L2) tolerances by model:
 # phases 8, 10, 12 and 13's. Each must lie above the model's floor (its
 # one-rank run again) and the update's below the planted fault (the
@@ -9380,8 +9826,17 @@ CARD_TOLS = {"bert_dp": (1e-3, 5e-2), "bert_tp": (1e-3, 5e-2),
              "bert_cp": (1e-3, 5e-2), "lm_sp": (2e-4, 5e-2),
              "lm_pp": (1e-4, 5e-2), "ep": (2e-5, 2e-3),
              "lm_pptp": (PPTP_LOSS_RTOL, PPTP_UPDATE_RTOL),
-             "ep_tp": (EPTP_LOSS_RTOL, EPTP_UPDATE_RTOL)}
-CARD_PARTS = ("a", "b", "c", "d")
+             "ep_tp": (EPTP_LOSS_RTOL, EPTP_UPDATE_RTOL),
+             "bert_dp_lossy": GS_TOLS["lossy"]}
+CARD_PARTS = ("a", "b", "c", "d", "e")
+
+
+def _card_tol(name, ref):
+    """A run's (loss, update) tolerances: its reference's lossy wire's, or
+    its model's."""
+    if ref in CARD_REF_BUILDERS:
+        return CARD_TOLS["bert_dp_lossy"]
+    return CARD_TOLS.get(name.replace("_shard", ""))
 
 
 def _card_launches(key, layers):
@@ -9390,7 +9845,7 @@ def _card_launches(key, layers):
     a step; a ring hop one flash kernel each way)."""
     if key.startswith("dp_resnet") or key.startswith("ep_"):
         return _hop_launches(0, 1, 1, ring=False)
-    if key.startswith(("dp_", "tp_ar", "tp_ps")):
+    if key.startswith(("dp_", "tp_ar", "tp_ps", "e_")):
         return _hop_launches(layers, 1, 1, ring=False)
     if key == "sp_ring":
         return _hop_launches(layers, 1, 4)
@@ -9532,7 +9987,8 @@ def card_run(torch, fa, spec, run, model, ref):
     out = {"mesh": dict(mesh.shape), "strategy": runner.program.strategy.id,
            "kinds": sorted({k for k, _ in runner.var_kinds.values()}),
            "layers": model[3]}
-    paths = ["eager", "graph"] + (["unroll4"] if key == "dp_ar" else [])
+    paths = ["eager", "graph"] + (["unroll4"] if key in ("dp_ar", "e_ps_use")
+                                  else [])
     if key == "dp_resnet":
         paths = ["graph"]
     finals = {}
@@ -9626,6 +10082,30 @@ def card_run(torch, fa, spec, run, model, ref):
                 torch, finals[path], finals["eager"], init)
             out[path]["vs_eager_loss"] = _rel(out[path]["losses"],
                                               out["eager"]["losses"])
+    if run[1] == "e":
+        # This rank's measured exposed comms: a profiled run(unroll=4) of
+        # two blocks (the graph's NCCL kernels against the compute beside
+        # them), after an unprofiled block that captures the graph (the
+        # ranks' captures finish apart, and a collective waits for the
+        # last).
+        import tempfile
+        from autodist_tpu_torch.kernel import overlap as overlap_mod
+        state = runner.create_state()
+        state, _ = runner.run(state, iter([mine] * CARD_DP_STEPS),
+                              CARD_DP_STEPS, unroll=CARD_DP_STEPS)
+        with tempfile.TemporaryDirectory(
+                dir=os.path.dirname(spec["refs"])) as trace_dir:
+            state, _ = runner.run(state, iter([mine] * 2 * CARD_DP_STEPS),
+                                  2 * CARD_DP_STEPS, unroll=CARD_DP_STEPS,
+                                  trace_dir=trace_dir)
+        windows, profiled = runner._windows or ([], 1)
+        out["exposed"] = {
+            "ms": overlap_mod.exposed_collective_ms(windows, profiled),
+            "hidden_share": overlap_mod.overlap_share(windows),
+            "collective_ms": sum(w["dur_ms"] for w in windows) / profiled,
+            "windows": len(windows), "steps": profiled,
+            "sync_state": len(state.sync_state)}
+        del state
     del finals, runner, init
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -9662,8 +10142,10 @@ def cards_rank(spec_path):
             models[run[2]] = card_model(torch, run[2], device, spec["tiny"])
         t0 = time.perf_counter()
         print(f"run {run[0]}: {run[3]} on {run[4]}", flush=True)
+        _gs_env(CARD_KNOBS.get(run[0], {}))
         out["runs"][run[0]] = card_run(torch, fa, spec, run, models[run[2]],
                                        refs.get(run[5]))
+        _gs_env({})
         out["runs"][run[0]]["seconds"] = time.perf_counter() - t0
         print(f"run {run[0]}: {out['runs'][run[0]]['seconds']:.1f} s",
               flush=True)
@@ -9680,13 +10162,13 @@ def cards_rank(spec_path):
     return 0
 
 
-def _card_reference(torch, fa, device, model, steps, lr, rows=None):
-    """One rank's AllReduce() steps of ``model`` on its global batch (or
+def _card_reference(torch, fa, device, model, steps, lr, rows=None,
+                    builder="AllReduce()"):
+    """One rank's ``builder`` steps of ``model`` on its global batch (or
     ``rows`` of it): (losses, final logical params on the host)."""
-    from autodist_tpu_torch import strategy as S
     batch = model[2] if rows is None else rows
-    runner, _ = _card_session(torch, S.AllReduce(), model, device, batch,
-                              lr=lr)
+    runner, _ = _card_session(torch, _gs_builder(builder), model, device,
+                              batch, lr=lr)
     batch = runner.remapper.shard_batch(batch)
     call = runner.make_callable(batch)
     state, losses, _, _ = _card_steps(torch, fa, device, call,
@@ -9709,10 +10191,13 @@ def cards_references(torch, fa, card, device, parts, tiny):
         if run[1] in parts and run[5] is not None and run[5] not in names:
             names.append(run[5])
     for ref in names:
-        model_name = {"bert_dp_stale": "bert_dp", "ep_shard": "ep_shard"} \
-            .get(ref, ref)
+        model_name = {"bert_dp_stale": "bert_dp", "ep_shard": "ep_shard",
+                      "bert_dp_int8_ef": "bert_dp",
+                      "bert_dp_powersgd": "bert_dp"}.get(ref, ref)
+        builder = CARD_REF_BUILDERS.get(ref, "AllReduce()")
         model = card_model(torch, model_name, device, tiny)
-        steps = CARD_DP_STEPS if ref == "bert_dp" else CARD_STEPS
+        steps = CARD_DP_STEPS if model_name == "bert_dp" and \
+            ref != "bert_dp_stale" else CARD_STEPS
         t0 = time.perf_counter()
         if ref == "bert_dp_stale":
             # PS(staleness=2) over CARD_STEPS steps: each data replica
@@ -9732,18 +10217,20 @@ def cards_references(torch, fa, card, device, parts, tiny):
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
             continue
         ref_losses, ref_params = _card_reference(torch, fa, device, model,
-                                                 steps, CARD_LR)
-        again = _card_reference(torch, fa, device, model, steps, CARD_LR)
+                                                 steps, CARD_LR,
+                                                 builder=builder)
+        again = _card_reference(torch, fa, device, model, steps, CARD_LR,
+                                builder=builder)
         fault = _card_reference(torch, fa, device, model, steps,
-                                2 * CARD_LR)
+                                2 * CARD_LR, builder=builder)
         init = {n: t.detach().cpu() for n, t in
                 flatten_params(model[1]).items()}
         floor = (_rel(again[0], ref_losses),
                  update_error(torch, again[1], ref_params, init))
         faulty = (_rel(fault[0], ref_losses),
                   update_error(torch, fault[1], ref_params, init))
-        tol = CARD_TOLS[model_name.replace("_shard", "")]
-        print(f"  reference {ref}: one rank AllReduce(), losses "
+        tol = _card_tol(model_name, ref)
+        print(f"  reference {ref}: one rank {builder}, losses "
               f"{', '.join(f'{x:.6f}' for x in ref_losses)}; floor (again): "
               f"loss {floor[0]:.3e}, update {floor[1]:.3e}; planted fault "
               f"(lr x 2): loss {faulty[0]:.3e}, update {faulty[1]:.3e}; "
@@ -9881,6 +10368,12 @@ def cards_phase(torch, fa, card, device, parts=CARD_PARTS, tiny=False,
               f"step at 32 x 128 {one['bert_ms']:.2f} ms, ResNet-50 at 64 x "
               f"224^2 {one['resnet_ms']:.2f} ms (median host ms over "
               f"{CARD_TIMED} replays, on {card})", flush=True)
+    elif "e" in parts:
+        one["bert_ms"] = _card_one_rate(torch, fa, device, "bert_dp", tiny,
+                                        8 // 4 if tiny else 32)
+        print(f"  one card (the scaling baseline): BERT-base graph step at "
+              f"32 x 128 {one['bert_ms']:.2f} ms (median host ms over "
+              f"{CARD_TIMED} replays, on {card})", flush=True)
     autodist_mod._reset_default()
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -9935,7 +10428,7 @@ def cards_report(torch, card, device, parts, tiny, ranks, one):
     for key, part, name, expr, axes, ref in selected:
         runs = [r["runs"][key] for r in ranks]
         r0 = runs[0]
-        tol = CARD_TOLS.get(name.replace("_shard", ""))
+        tol = _card_tol(name, ref)
         paths_here = [p for p in ("eager", "graph", "unroll4") if p in r0]
         g = r0.get("graph", {})
         prof = g.get("profile", {})
@@ -9981,7 +10474,29 @@ def cards_report(torch, card, device, parts, tiny, ranks, one):
                       f"; the stage's busy share against the bubble: "
                       f"{busy:.3f} vs 1 - 3/11 = {8 / 11:.3f}"
                       if key == "pp" else ""), flush=True)
+        if "exposed" in r0:
+            print(f"    measured exposed comms a step (a profiled "
+                  f"run(unroll={CARD_DP_STEPS}) of 2 blocks, after the "
+                  f"capture's), by rank: " + ", ".join(
+                      f"{r['exposed']['ms']:.3f} ms of "
+                      f"{r['exposed']['collective_ms']:.3f} ms of collective "
+                      f"kernels ({r['exposed']['hidden_share']:.3f} hidden)"
+                      for r in runs) + f"; on {card}", flush=True)
         paths[f"cards{CARDS}_{key}"] = g.get("launches", {})
+    if "e" in parts:
+        r0 = ranks[0]["runs"]
+        rows_bert = 2 if tiny else 32
+        for key in ("e_ar_off", "e_ar_on"):
+            ms4 = float(np.median(r0[key]["graph"]["timed_ms"]))
+            print(f"  (e) scaling BERT-base, {key}: 1 card "
+                  f"{rows_bert / one['bert_ms'] * 1e3:.1f} samples/s, "
+                  f"{CARDS} cards {rows_bert / ms4 * 1e3:.1f} samples/s per "
+                  f"card: efficiency {one['bert_ms'] / ms4:.3f} (part (a)'s "
+                  f"AllReduce(): 0.865; on {card})", flush=True)
+        same = [r["runs"]["e_ar_on"]["graph"]["whole"] ==
+                r["runs"]["e_ar_off"]["graph"]["whole"] for r in ranks]
+        print(f"  (e) overlap on vs off, the graph step's params bitwise "
+              f"equal by rank: {same}", flush=True)
     if "a" in parts:
         r0 = ranks[0]["runs"]
         bert4 = float(np.median(r0["dp_ar"]["graph"]["timed_ms"]))
@@ -10003,7 +10518,7 @@ def cards_report(torch, card, device, parts, tiny, ranks, one):
     for key, part, name, expr, axes, ref in selected:
         runs = [r["runs"][key] for r in ranks]
         r0 = runs[0]
-        tol = CARD_TOLS.get(name.replace("_shard", ""))
+        tol = _card_tol(name, ref)
         paths_here = [p for p in ("eager", "graph", "unroll4") if p in r0]
         g = r0.get("graph", {})
         check(all(r["mesh"] == axes for r in runs), f"({part}) {key}: mesh "
@@ -10041,6 +10556,10 @@ def cards_report(torch, card, device, parts, tiny, ranks, one):
                 check(all(g["launches"] == want for g in got),
                       f"({part}) {key} {path}: launches per rank and step "
                       f"{got[0]['launches']}, expected {want}")
+        if "exposed" in r0:
+            check(all(r["exposed"]["windows"] > 0 and
+                      r["exposed"]["ms"] >= 0 for r in runs),
+                  f"({part}) {key}: no measured collective windows")
         if device == "cuda" and "captures" in g:
             calls = len(g["losses"]) + CARD_TIMED  # counted before the profile
             check(g["replays"] == calls - g["captures"],
@@ -10050,7 +10569,7 @@ def cards_report(torch, card, device, parts, tiny, ranks, one):
 
 
 def cards_main(torch, argv):
-    """``--cards 4 [--part a|b|c|d]``: phase 16 alone, on four cards."""
+    """``--cards 4 [--part a|b|c|d|e]``: phase 16 alone, on four cards."""
     parts = CARD_PARTS
     if "--part" in argv:
         parts = tuple(argv[argv.index("--part") + 1].split(","))
@@ -10112,6 +10631,8 @@ def main():
         return pp_auto_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--obs-skew":
         return obs_skew_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--gs-train":
+        return gs_train_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--capture-once":
         return capture_once_main(torch)
     if "--capture-loop" in sys.argv:
@@ -10227,6 +10748,7 @@ def main():
         zoo.update(elastic_phase(torch, fa, card, bert.bert_base(max_len=128),
                                  "cuda", os.path.join(share["dir"],
                                                       "elastic")))
+        zoo.update(gradsync_phase(torch, fa, card, _gloo_bert(bert), "cuda"))
     finally:
         left = stop_descendants()
         shutil.rmtree(share["dir"], ignore_errors=True)

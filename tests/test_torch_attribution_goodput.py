@@ -294,7 +294,12 @@ def test_terms_for_runner_sources_and_host_dispatch(tmp_path, monkeypatch):
     assert terms.sources["host_dispatch"] == "bench-calibrated"
     assert terms.sources["device_compute"] == "cost-model-roofline"
     assert terms.sources["exposed_comms"] == "cost-model"
-    assert "not ported" in terms.sources["scheduled_hlo"]
+    assert "scheduled_hlo" not in terms.sources
+    # A measured exposed-comms gauge (a profiled loop's) takes its place.
+    observability.registry().gauge("comms.exposed_ms_per_step").set(0.125)
+    measured = attribution.terms_for_runner(runner, unroll=2)
+    assert measured.sources["exposed_comms"] == "torch-profiler"
+    assert measured.exposed_comms_ms == pytest.approx(0.125)
     assert terms.raw_compute_ms > 0
 
 

@@ -96,7 +96,7 @@ for i in range(5):
     losses.append(float(metrics["loss"]))
 print(json.dumps({"rank": rank, "losses": losses,
                   "mesh": dict(runner.program.mesh.shape),
-                  "buckets": runner.bucket_plan(),
+                  "buckets": [list(b.names) for b in runner.bucket_plan()],
                   "w": state.params["w"].tolist(),
                   "b": state.params["b"].tolist()}))
 '''
@@ -301,8 +301,9 @@ def test_second_autodist_raises():
 
 def test_no_builder_and_other_compressors_are_not_ported(monkeypatch):
     """No builder builds ``PS()``, the JAX package's default (a one-rank
-    world lowers it to the replicated update); the other compressors are
-    still refused."""
+    world lowers it to the replicated update). ``AllReduce(compressor=
+    "HorovodCompressor")`` builds: its synchronizers hold the compressor,
+    the explicit path runs, and its stateless wire keeps no sync state."""
     from autodist_tpu_torch.strategy.ps_strategy import PS
     monkeypatch.delenv("AUTODIST_STRATEGY", raising=False)
     ad = AutoDist(device="cpu")
@@ -327,8 +328,13 @@ def test_no_builder_and_other_compressors_are_not_ported(monkeypatch):
                       functools.partial(torch.optim.SGD, lr=0.1),
                       example_batch=(np.zeros(8, np.float32),
                                      np.zeros(8, np.float32)))
-    with pytest.raises(NotImplementedError, match="HorovodCompressor"):
-        ad.create_distributed_session(item)
+    runner = ad.create_distributed_session(item)
+    from autodist_tpu_torch.kernel.synchronization.compressor import \
+        HorovodCompressor
+    assert all(isinstance(s.compressor, HorovodCompressor)
+               for s in runner.program.synchronizers.values())
+    assert runner.program.use_explicit_path
+    assert runner.create_state().sync_state == {}
 
 
 def test_stale_train_state_raises():
